@@ -1,0 +1,92 @@
+"""Command line: ``python -m acco_tpu_torch [--device cpu] <overrides>``.
+
+Counterpart of ``main.py``: the same Hydra-style overrides over the
+shared ``config/`` tree, e.g.
+
+    python -m acco_tpu_torch train=acco model=llama-125M data=synthetic
+    python -m acco_tpu_torch --device cpu train=dpu model=tiny128 \\
+        data=synthetic train.max_length=128 train.batch_size=2
+
+The run goes to ``cuda:0`` unless ``--device cpu`` is given, and raises
+when no card is visible. It writes nothing to disk; the summary dict is
+returned (and printed as the last line of output as JSON).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _split_device(argv: list[str]) -> tuple[str | None, list[str]]:
+    device, rest, it = None, [], iter(argv)
+    for arg in it:
+        if arg == "--device":
+            device = next(it, None)
+            if device is None:
+                raise ValueError("--device needs a value (cpu or cuda)")
+        elif arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+        else:
+            rest.append(arg)
+    return device, rest
+
+
+def build_trainer(argv: list[str]):
+    """Everything before the first round: device, config, model, data."""
+    import torch
+
+    from acco_tpu_torch.configuration import check_supported, compose_config
+    from acco_tpu_torch.data.datasets import load_text_dataset
+    from acco_tpu_torch.data.tokenizer import load_tokenizer
+    from acco_tpu_torch.models.registry import build_model
+    from acco_tpu_torch.ops.losses import resolve_fused_loss
+    from acco_tpu_torch.trainer import Trainer
+    from acco_tpu_torch.utils.platform import resolve_device
+
+    device_arg, overrides = _split_device(argv)
+    device = resolve_device(device_arg)
+    cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
+    check_supported(cfg.train)
+
+    logging.basicConfig(
+        level=logging.INFO,
+        format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
+    )
+    log = logging.getLogger("acco_tpu_torch")
+    use_mp = bool(cfg.train.get("use_mixed_precision", True))
+    model = build_model(
+        cfg.model,
+        repo_root=REPO_ROOT,
+        dtype=torch.bfloat16 if use_mp else torch.float32,
+        attention=cfg.train.get("use_pallas_attention", "auto"),
+        device=device,
+    )
+    resolve_fused_loss(cfg.train.get("fused_loss", False), model.config.vocab_size)
+    tokenizer = load_tokenizer(cfg.model.get("tokenizer"), log)
+    train_texts, eval_texts = load_text_dataset(cfg.data)
+    log.info(
+        "device=%s model=%s train_docs=%d eval_docs=%d method=%s",
+        device, cfg.model.config_path, len(train_texts), len(eval_texts),
+        cfg.train.method_name,
+    )
+    return Trainer(
+        model, tokenizer, train_texts, cfg.train, log,
+        seed=int(cfg.select("seed", 12345)), device=device,
+    )
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Train as the command line asks; returns the summary dict."""
+    trainer = build_trainer(sys.argv[1:] if argv is None else argv)
+    summary = trainer.train()
+    trainer.log.info("done: %s", {k: v for k, v in summary.items() if k != "round_log"})
+    return summary
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))

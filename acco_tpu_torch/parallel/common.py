@@ -1,0 +1,125 @@
+"""Shared pieces of the training modes: the microbatch block, the health
+counters, the flat loss and gradient accumulation.
+
+Counterpart of ``acco_tpu/parallel/common.py``. A microbatch whose
+``valid`` entry is 0 still runs but contributes no gradient and no count
+(heterogeneous workers). Nothing here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from acco_tpu_torch.ops.losses import causal_lm_loss
+
+
+class MicrobatchBlock(NamedTuple):
+    """One round's microbatches: [n_acc, batch, seq] leaves + valid [n_acc]."""
+
+    input_ids: torch.Tensor
+    attention_mask: torch.Tensor
+    labels: torch.Tensor
+    valid: torch.Tensor  # float32; 0.0 drops a microbatch's gradient and count
+
+
+class HealthState(NamedTuple):
+    """The in-program guard's counters (see the JAX HealthState)."""
+
+    skipped_rounds: torch.Tensor  # int32 scalar
+    consec_skipped: torch.Tensor  # int32 scalar
+    pending_ok: torch.Tensor  # float32 0/1: verdict on the staged grads
+
+
+def init_health(device) -> HealthState:
+    return HealthState(
+        skipped_rounds=torch.zeros((), dtype=torch.int32, device=device),
+        consec_skipped=torch.zeros((), dtype=torch.int32, device=device),
+        pending_ok=torch.ones((), dtype=torch.float32, device=device),
+    )
+
+
+def block_from_numpy(block: dict, device) -> MicrobatchBlock:
+    """A host block (numpy, from data.loader.stack_microbatches) on ``device``."""
+
+    def put(key, dtype):
+        return torch.as_tensor(block[key]).to(device=device, dtype=dtype)
+
+    return MicrobatchBlock(
+        input_ids=put("input_ids", torch.long),
+        attention_mask=put("attention_mask", torch.int32),
+        labels=put("labels", torch.long),
+        valid=put("valid", torch.float32),
+    )
+
+
+def make_flat_loss_fn(
+    model, label_smoothing: float = 0.0, const_len: bool = False
+) -> Callable:
+    """``value_and_grad(flat_params, batch) -> (loss, grads)``: the model
+    computes with the parameters held in ``flat_params`` (views, no copy)
+    and ``grads`` are its per-parameter gradients in flat order.
+
+    Const-len packed data carries all-ones masks by contract, so with
+    ``const_len`` the mask is dropped statically, as in the JAX flat loss
+    (the fused kernel then runs without its pad operand)."""
+    params = [p for p, _, _ in model.flat_slices()]
+
+    def value_and_grad(flat_params: torch.Tensor, batch: dict):
+        model.load_flat(flat_params)
+        am = None if const_len else batch["attention_mask"]
+        with torch.enable_grad():
+            logits = model.apply(batch["input_ids"], am)
+            loss = causal_lm_loss(logits, batch["labels"], label_smoothing)
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach(), grads
+
+    return value_and_grad
+
+
+def accumulate_grads(
+    value_and_grad: Callable,
+    model,
+    flat_params: torch.Tensor,
+    block: MicrobatchBlock,
+    grad_init: Optional[torch.Tensor] = None,
+    count_init: Optional[torch.Tensor] = None,
+):
+    """Run the block's microbatches; return (grad_sum float32 [Pp], count,
+    loss_weighted_sum). Each microbatch's gradient is widened to float32
+    and weighted by its ``valid`` entry before it joins the sum."""
+    grad_sum = (
+        grad_init.clone()
+        if grad_init is not None
+        else torch.zeros(flat_params.shape, dtype=torch.float32, device=flat_params.device)
+    )
+    zero = torch.zeros((), dtype=torch.float32, device=flat_params.device)
+    count = count_init.clone() if count_init is not None else zero.clone()
+    loss_wsum = zero.clone()
+    slices = model.flat_slices()
+    for a in range(block.valid.shape[0]):
+        batch = {
+            "input_ids": block.input_ids[a],
+            "attention_mask": block.attention_mask[a],
+            "labels": block.labels[a],
+        }
+        loss, grads = value_and_grad(flat_params, batch)
+        valid = block.valid[a]
+        for (_, offset, numel), g in zip(slices, grads):
+            grad_sum[offset : offset + numel] += g.reshape(-1).float() * valid
+        count = count + valid
+        loss_wsum = loss_wsum + loss * valid
+    return grad_sum, count, loss_wsum
+
+
+def mean_loss(loss_weighted_sum: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Valid-count-weighted mean loss (one rank: no reduction)."""
+    return loss_weighted_sum / valid.sum().clamp(min=1.0)
+
+
+def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor) -> torch.Tensor:
+    """float32 0/1 verdict on the grads a round stages: finite loss and a
+    finite grad sum (``g * 0`` is NaN exactly where g is not finite)."""
+    probe = (grad_sum * 0.0).sum()
+    return (torch.isfinite(loss) & torch.isfinite(probe)).float()

@@ -1,0 +1,145 @@
+"""The training loop: the seed round, then ACCO or DPU rounds to the target.
+
+Counterpart of ``DecoupledTrainer._train`` in ``acco_tpu/trainer.py``,
+slimmed to one rank: const-len packing (or per-document truncation), a
+shuffled batch iterator, the seed round, then rounds until
+``nb_steps_tot`` gradients are committed. Each round logs its loss, LR
+and ``is_real_update``; reading them back is the loop's one sync per
+round, so a round's wall time includes its device work.
+
+Not here yet: the ``ddp`` method (ROADMAP.md queue 1, item 4), ACCO's
+DPU warmup rounds, eval, checkpoints, TensorBoard and ``results.csv``
+(queue 1, item 6).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from acco_tpu_torch.data.loader import BatchIterator, infinite_batches, stack_microbatches
+from acco_tpu_torch.data.tokenize import pack_texts
+from acco_tpu_torch.ops.schedules import get_schedule
+from acco_tpu_torch.parallel.acco import AccoTrainStep
+from acco_tpu_torch.parallel.common import block_from_numpy
+
+
+class Trainer:
+    def __init__(self, model, tokenizer, train_texts, args, log=None, seed: int = 0,
+                 device="cpu"):
+        self.log = log or logging.getLogger("acco_tpu_torch")
+        self.model = model
+        self.device = torch.device(device)
+        self.seed = seed
+        self.method = str(args.get("method_name", "acco"))
+        if self.method == "ddp":
+            raise NotImplementedError(
+                "method_name='ddp' is not ported yet: ROADMAP.md queue 1, item 4"
+            )
+        if self.method not in ("acco", "dpu"):
+            raise ValueError(f"method_name must be one of acco/ddp/dpu, got {self.method!r}")
+        baseline_flag = args.get("run_baseline_ddp")
+        if baseline_flag is not None and bool(baseline_flag):
+            raise ValueError(
+                f"run_baseline_ddp=True contradicts method_name={self.method!r}"
+            )
+        if self.method == "acco" and int(args.get("n_warmup_steps", 0)) > 0:
+            raise NotImplementedError(
+                "ACCO's DPU warmup rounds (n_warmup_steps > 0) are not ported "
+                "yet: ROADMAP.md queue 1, item 6"
+            )
+        self.batch_size = int(args.get("batch_size", 8))
+        self.n_acc = int(args.get("n_grad_accumulation", 1))
+        self.max_length = int(args.get("max_length", 1024))
+        self.nb_grad_tot = int(args.get("nb_steps_tot", 1000))
+        self.const_len_batch = bool(args.get("const_len_batch", True))
+        schedule = get_schedule(
+            str(args.get("scheduler_name", "cosine")),
+            float(args.get("learning_rate", 6e-4)),
+            int(args.get("warmup", 0)),
+            self.nb_grad_tot,
+        )
+        self.nan_guard = bool(args.get("nan_guard", True))
+        self.step = AccoTrainStep(
+            model, schedule,
+            weight_decay=float(args.get("weight_decay", 0.0)),
+            beta1=float(args.get("adam_beta1", 0.9)),
+            beta2=float(args.get("adam_beta2", 0.999)),
+            label_smoothing=float(args.get("label_smoothing_factor", 0.0)),
+            mode=self.method,
+            const_len_batch=self.const_len_batch,
+            nan_guard=self.nan_guard,
+            guard_max_grad_norm=float(args.get("guard_max_grad_norm", 0.0) or 0.0),
+        )
+        if self.const_len_batch:
+            rows = pack_texts(train_texts, tokenizer, self.max_length)
+        else:
+            rows = tokenizer(list(train_texts), truncation=True,
+                             max_length=self.max_length)["input_ids"]
+        self.loader = BatchIterator(
+            rows, self.batch_size, self.max_length,
+            pad_token_id=int(getattr(tokenizer, "pad_token_id", 0) or 0),
+            seed=seed,
+        )
+        self.final_state = None
+
+    def train(self) -> dict:
+        t_beg = time.time()
+        batches = infinite_batches(self.loader)
+
+        def next_block():
+            return block_from_numpy(stack_microbatches(batches, self.n_acc), self.device)
+
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        state = self.step.init_state(self.model.init_flat(gen))
+        state, seed_loss = self.step.seed(state, next_block())
+        seed_loss = float(seed_loss)
+        self.log.info("seed round: loss %.4f", seed_loss)
+
+        grads_per_round = float(self.n_acc)  # one rank, every microbatch valid
+        count_grad_tot = 0.0
+        round_idx = 0  # host mirror of state.round_idx: the parity
+        round_log = []
+        while True:
+            if count_grad_tot >= self.nb_grad_tot:
+                if not self.nan_guard:
+                    break
+                # guard-skipped rounds commit nothing: trust the device count
+                count_grad_tot = float(state.zero1.grads_committed)
+                if count_grad_tot >= self.nb_grad_tot:
+                    break
+            t0 = time.perf_counter()
+            state, m = self.step.round(state, next_block(), parity=round_idx % 2 == 0)
+            row = {
+                "round": round_idx,
+                "loss": float(m.loss),
+                "lr": float(m.lr),
+                "is_real_update": bool(m.is_real_update),
+            }
+            row["ms"] = (time.perf_counter() - t0) * 1e3
+            round_log.append(row)
+            self.log.info(
+                "round %d: loss %.4f lr %.3e real_update %s (%.1f ms)",
+                round_idx, row["loss"], row["lr"], row["is_real_update"], row["ms"],
+            )
+            if self.method == "dpu":
+                count_grad_tot += grads_per_round
+            elif round_idx % 2 == 1:  # acco: real updates land on odd rounds
+                count_grad_tot += 2 * grads_per_round
+            round_idx += 1
+
+        self.final_state = state
+        return {
+            "final_loss": round_log[-1]["loss"] if round_log else seed_loss,
+            "count_grad_tot": int(float(state.zero1.grads_committed)),
+            "rounds": len(round_log),
+            "total_time_s": time.time() - t_beg,
+            "method": self.method,
+            "skipped_rounds": int(state.health.skipped_rounds),
+            "n_params": self.model.n_params,
+            "seed_loss": seed_loss,
+            "round_log": round_log,
+            "device": str(self.device),
+        }

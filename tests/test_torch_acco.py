@@ -1,0 +1,143 @@
+"""The port's ACCO and DPU rounds against the JAX AccoTrainStep.
+
+Both run one rank (the JAX side on a one-device CPU mesh) from the same
+initial params over the same microbatch blocks (numpy, seeded): the seed
+round and 6 rounds. Compared after every round: the working
+``flat_params``, the ZeRO-1 master params and Adam moments, the loss, the
+LR and ``is_real_update``. Everything is float32.
+
+Tolerance: rtol 2e-4 / atol 2e-6, the bar of tests/test_acco.py's
+simulator trajectory check; the moments get the same bar. The loss is
+compared at rtol 1e-5. The guard case is bit-exact: a skipped round must
+leave params and optimizer state unchanged to the bit.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acco_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from acco_tpu.models.llama import LlamaModel as JaxLlamaModel
+from acco_tpu.ops.schedules import get_schedule as jax_get_schedule
+from acco_tpu.parallel.acco import AccoTrainStep as JaxAccoTrainStep
+from acco_tpu.parallel.mesh import make_mesh
+from acco_tpu_torch.models.convert import params_from_jax
+from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from acco_tpu_torch.ops.schedules import get_schedule
+from acco_tpu_torch.parallel.acco import AccoTrainStep
+from acco_tpu_torch.parallel.common import block_from_numpy
+
+ARCH = dict(
+    vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
+    num_heads=2, num_kv_heads=1, max_position_embeddings=16,
+)
+N_ACC, BATCH, SEQ, ROUNDS = 2, 2, 16, 6
+OPT = dict(weight_decay=0.1, beta1=0.9, beta2=0.95)
+SCHED = ("cosine", 3e-3, 2, 20)
+TOL = dict(rtol=2e-4, atol=2e-6)
+
+
+def _blocks(n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, ARCH["vocab_size"], (N_ACC, BATCH, SEQ)).astype(np.int32)
+        out.append({
+            "input_ids": ids,
+            "attention_mask": np.ones_like(ids),
+            "labels": ids,
+            "valid": np.ones((N_ACC,), np.float32),
+        })
+    return out
+
+
+def _jax_block(block):
+    b = {k: jnp.asarray(v) for k, v in block.items()}
+    b["valid"] = b["valid"][:, None]  # [n_acc, world_size]
+    return b
+
+
+def _setup(mode):
+    jcfg = JaxLlamaConfig(**ARCH)
+    jmodel = JaxLlamaModel(jcfg, param_dtype=jnp.float32)
+    params = jmodel.init(jax.random.PRNGKey(0))
+    jstep = JaxAccoTrainStep(
+        jmodel, make_mesh(devices=jax.devices()[:1]), jax_get_schedule(*SCHED),
+        param_dtype=jnp.float32, mode=mode, **OPT,
+    )
+    jstate = jstep.init_state(params)
+    cfg = LlamaConfig(**ARCH)
+    model = LlamaModel(cfg, dtype=torch.float32, device="cpu")
+    step = AccoTrainStep(model, get_schedule(*SCHED), mode=mode, **OPT)
+    state = step.init_state(params_from_jax(jax.tree.map(np.asarray, params), cfg))
+    return jstep, jstate, step, state
+
+
+def _assert_states_close(jstate, state, what):
+    pairs = {
+        "flat_params": (jstate.flat_params, state.flat_params),
+        "opt.params": (jstate.zero1.opt.params, state.zero1.opt.params),
+        "opt.mu": (jstate.zero1.opt.mu, state.zero1.opt.mu),
+        "opt.nu": (jstate.zero1.opt.nu, state.zero1.opt.nu),
+    }
+    for name, (a, b) in pairs.items():
+        np.testing.assert_allclose(
+            b.numpy(), np.asarray(a), err_msg=f"{what}: {name}", **TOL
+        )
+    assert int(state.zero1.opt.count) == int(jstate.zero1.opt.count), what
+
+
+@pytest.mark.parametrize("mode", ["acco", "dpu"])
+def test_rounds_match_jax(mode):
+    jstep, jstate, step, state = _setup(mode)
+    blocks = _blocks(ROUNDS + 1)
+    jstate, jloss = jstep.seed_fn()(jstate, _jax_block(blocks[0]))
+    state, loss = step.seed(state, block_from_numpy(blocks[0], "cpu"))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(
+        state.pending_grads.numpy(), np.asarray(jstate.pending_grads), **TOL
+    )
+    for r in range(ROUNDS):
+        parity = r % 2 == 0
+        jstate, jm = jstep.round_fn(parity=parity)(jstate, _jax_block(blocks[r + 1]))
+        state, m = step.round(state, block_from_numpy(blocks[r + 1], "cpu"), parity)
+        what = f"{mode} round {r}"
+        np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=1e-5, err_msg=what)
+        np.testing.assert_allclose(float(m.lr), float(jm.lr), rtol=1e-6, err_msg=what)
+        assert bool(m.is_real_update) == bool(jm.is_real_update), what
+        assert bool(m.is_real_update) == (r % 2 == 1 if mode == "acco" else True), what
+        _assert_states_close(jstate, state, what)
+    assert int(state.zero1.opt.count) == (3 if mode == "acco" else 6)
+    assert float(state.zero1.grads_committed) == float(jstate.zero1.grads_committed)
+
+
+def test_poisoned_batch_is_a_bit_exact_skip():
+    """A NaN microbatch weight in round 2 poisons the grads that round
+    stages; round 3's update consumes them and the guard refuses it: the
+    working params and the optimizer state stay bit-exact, the skip is
+    counted, round 4 drops the poisoned carry-in, and the JAX step makes
+    the same calls."""
+    jstep, jstate, step, state = _setup("acco")
+    blocks = _blocks(6, seed=3)
+    blocks[3]["valid"] = np.array([np.nan, 1.0], np.float32)  # round 2's block
+    jstate, _ = jstep.seed_fn()(jstate, _jax_block(blocks[0]))
+    state, _ = step.seed(state, block_from_numpy(blocks[0], "cpu"))
+    real = []
+    for r in range(5):
+        before = state
+        parity = r % 2 == 0
+        jstate, jm = jstep.round_fn(parity=parity)(jstate, _jax_block(blocks[r + 1]))
+        state, m = step.round(state, block_from_numpy(blocks[r + 1], "cpu"), parity)
+        real.append(bool(m.is_real_update))
+        assert bool(m.skipped) == bool(jm.skipped) == (r == 3)
+        assert bool(m.is_real_update) == bool(jm.is_real_update)
+        if r == 3:
+            assert torch.equal(state.flat_params, before.flat_params)
+            for new, old in zip(state.zero1.opt, before.zero1.opt):
+                assert torch.equal(new, old)
+            assert float(state.zero1.grads_committed) == float(before.zero1.grads_committed)
+        _assert_states_close(jstate, state, f"guard round {r}")
+    assert real == [False, True, False, False, False]
+    assert int(state.health.skipped_rounds) == int(jstate.health.skipped_rounds) == 1

@@ -1,0 +1,44 @@
+"""The port's import boundary: no file of acco_tpu_torch/, and not
+chip_smoke.py, imports jax or anything of the acco_tpu package (whose
+``__init__`` imports jax). An AST scan, so imports inside functions
+count too."""
+
+import ast
+import glob
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FILES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "acco_tpu_torch", "**", "*.py"), recursive=True)
+) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "acco_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("relpath", FILES)
+def test_no_jax_or_acco_tpu_import(relpath):
+    with open(os.path.join(REPO, relpath)) as f:
+        tree = ast.parse(f.read(), relpath)
+    bad = [
+        m for m in _imported_modules(tree)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{relpath} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    assert len(FILES) > 15
+    assert "acco_tpu_torch/ops/fused_attention.py" in FILES

@@ -1,0 +1,61 @@
+"""``python -m acco_tpu_torch``: a few CPU rounds end to end, the device
+rule, and the keys this slice refuses by name."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from acco_tpu_torch.__main__ import main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["model=tiny128", "data=synthetic", "train.max_length=128", "train.batch_size=2"]
+
+
+@pytest.mark.parametrize(
+    "method, extra",
+    [("acco", []), ("dpu", ["train.const_len_batch=false"])],  # packed / padded rows
+)
+def test_cli_runs_rounds_on_cpu(method, extra):
+    out = subprocess.run(
+        [sys.executable, "-m", "acco_tpu_torch", "--device", "cpu",
+         f"train={method}", *TINY, "train.nb_steps_tot=4", *extra],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "OMP_NUM_THREADS": "2"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["method"] == method and summary["device"] == "cpu"
+    assert summary["count_grad_tot"] == 4 and summary["skipped_rounds"] == 0
+    real = [r["is_real_update"] for r in summary["round_log"]]
+    assert real == ([False, True, False, True] if method == "acco" else [True] * 4)
+    losses = [summary["seed_loss"]] + [r["loss"] for r in summary["round_log"]]
+    assert all(map(lambda x: abs(x) < 100, losses))
+
+
+def test_without_device_flag_needs_a_card(monkeypatch):
+    """No ``--device cpu``: the run goes to CUDA, and without a card it
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train=acco", *TINY, "train.nb_steps_tot=2"])
+
+
+@pytest.mark.parametrize(
+    "override, item",
+    [
+        ("train=ddp", "item 4"),
+        ("model=tiny_neo", "item 7"),
+        ("train.remat=true", "remat"),
+        ("train.eval=true", "item 6"),
+        ("train.mesh_shape={dp: 2}", "multi-rank"),
+        ("train.fused_loss=pallas", "K3"),
+        ("train.use_pallas_attention=flash", "row 9"),
+    ],
+)
+def test_unported_keys_raise_by_name(override, item):
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])

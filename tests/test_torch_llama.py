@@ -1,0 +1,100 @@
+"""The port's Llama against the JAX LlamaModel, and the weight carry-over.
+
+Model: config/model/tiny128.json (head_dim 64, inside the fused kernel's
+envelope), float32 on both sides, attention='fused': the JAX side runs
+its Pallas kernel in interpret mode (ACCO_FUSED_ATTN_INTERPRET=1, as
+tests/test_fused_attention.py does), the port its plain version. The
+weights are the JAX init carried across by models/convert.py.
+
+Tolerances: logits at 1e-4 and flat gradients at 1e-4 (atol and rtol) —
+the JAX suite's own bar for the fused-vs-einsum model comparison
+(tests/test_fused_attention.py), since both stacks sum float32 products
+in their own order through two layers, RMSNorm and the CE. The weight
+round trip is exact.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from acco_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from acco_tpu.models.llama import LlamaModel as JaxLlamaModel
+from acco_tpu.ops.losses import causal_lm_loss as jax_causal_lm_loss
+from acco_tpu_torch.models.convert import params_from_jax, params_to_jax
+from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel, param_layout
+from acco_tpu_torch.parallel.common import make_flat_loss_fn
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY128 = os.path.join(REPO, "config", "model", "tiny128.json")
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def jax_setup():
+    cfg = JaxLlamaConfig.from_json(TINY128)
+    model = JaxLlamaModel(cfg, param_dtype=jnp.float32, attention="fused")
+    params = model.init(jax.random.PRNGKey(1))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    return model, params, ids
+
+
+def _port_model(jax_params, cfg):
+    model = LlamaModel(cfg, dtype=torch.float32, attention="fused", device="cpu")
+    flat = params_from_jax(jax.tree.map(np.asarray, jax_params), cfg)
+    model.load_flat(flat)
+    return model, flat
+
+
+def test_flat_order_equals_ravel_pytree(jax_setup):
+    _, params, _ = jax_setup
+    cfg = LlamaConfig.from_json(TINY128)
+    flat_j, _ = ravel_pytree(params)
+    flat_t = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    np.testing.assert_array_equal(flat_t.numpy(), np.asarray(flat_j))
+    assert [p for p, _, _ in param_layout(cfg)] == [
+        "/".join(k.key for k in path)
+        for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]
+    ]
+
+
+def test_params_round_trip_exactly(jax_setup):
+    _, params, _ = jax_setup
+    cfg = LlamaConfig.from_json(TINY128)
+    back = params_to_jax(params_from_jax(jax.tree.map(np.asarray, params), cfg), cfg)
+    jax.tree.map(np.testing.assert_array_equal, back, jax.tree.map(np.asarray, params))
+
+
+def test_logits_match_jax(jax_setup, monkeypatch):
+    model_j, params, ids = jax_setup
+    monkeypatch.setenv("ACCO_FUSED_ATTN_INTERPRET", "1")
+    logits_j = np.asarray(model_j.apply(params, jnp.asarray(ids)))
+    model_t, _ = _port_model(params, LlamaConfig.from_json(TINY128))
+    with torch.no_grad():
+        logits_t = model_t.apply(torch.tensor(ids, dtype=torch.long))
+    np.testing.assert_allclose(logits_t.numpy(), logits_j, **TOL)
+
+
+def test_flat_gradients_match_jax(jax_setup, monkeypatch):
+    model_j, params, ids = jax_setup
+    monkeypatch.setenv("ACCO_FUSED_ATTN_INTERPRET", "1")
+
+    def loss_j(p):
+        return jax_causal_lm_loss(model_j.apply(p, jnp.asarray(ids)), jnp.asarray(ids))
+
+    value_j, grads_j = jax.value_and_grad(loss_j)(params)
+    flat_grad_j, _ = ravel_pytree(grads_j)
+
+    cfg = LlamaConfig.from_json(TINY128)
+    model_t, flat = _port_model(params, cfg)
+    ids_t = torch.tensor(ids, dtype=torch.long)
+    loss_t, grads_t = make_flat_loss_fn(model_t, const_len=True)(
+        flat, {"input_ids": ids_t, "attention_mask": torch.ones_like(ids_t), "labels": ids_t}
+    )
+    flat_grad_t = model_t.gather_grads(grads_t, torch.zeros(model_t.n_params))
+    np.testing.assert_allclose(float(loss_t), float(value_j), rtol=1e-5)
+    np.testing.assert_allclose(flat_grad_t.numpy(), np.asarray(flat_grad_j), **TOL)
