@@ -45,61 +45,12 @@
 // dtype code: 0 = float32, 1 = bfloat16. Only head_dim 64 is built; the
 // Python wrapper refuses anything else before launching.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// The helpers and the float32 backward kernels live in attention_common.cuh,
+// which banded_attention.cu shares.
+
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr float kMasked = -1e9f;  // the JAX kernel's mask value
-constexpr int kBQ = 64;           // query rows per block (two threads each)
-constexpr int kBK = 32;           // keys per shared-memory tile (fwd, dQ)
-constexpr int kBKV = 64;          // keys per dK/dV block (two threads each)
-constexpr int kBQT = 16;          // query rows per shared tile in dK/dV
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ bool in_band(int i, int j, int window) {
-  return j <= i && (window == 0 || i - j < window);
-}
-
-// Dot product of a row held in registers with a row in shared memory.
-template <int D>
-__device__ __forceinline__ float dot_reg(const float (&r)[D], const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 y = *reinterpret_cast<const float4*>(b + d);
-    acc = fmaf(r[d], y.x, acc);
-    acc = fmaf(r[d + 1], y.y, acc);
-    acc = fmaf(r[d + 2], y.z, acc);
-    acc = fmaf(r[d + 3], y.w, acc);
-  }
-  return acc;
-}
-
-// First key of the KV band that rows [q0, q0 + kBQ) can see, tile-aligned.
-__device__ __forceinline__ int kv_band_begin(int q0, int window, int tile) {
-  if (window <= 0) return 0;
-  const int lo = q0 - window + 1;
-  return lo <= 0 ? 0 : (lo / tile) * tile;
-}
-
-// Copy `rows` rows of D elements to shared memory as float, each row split
-// in two halves of D/2 with kHalfPad floats between them: a warp whose
-// threads read the same row, half by half, then hits distinct banks.
-constexpr int kHalfPad = 4;
-
-template <int D>
-__device__ __forceinline__ void load_halves(float (*dst)[2][D / 2 + kHalfPad], const float* src,
-                                            int rows, int nthreads) {
-  for (int e = threadIdx.x; e < rows * D; e += nthreads) {
-    const int r = e / D, c = e % D;
-    dst[r][c / (D / 2)][c % (D / 2)] = src[e];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // float32, CUDA cores: forward
@@ -204,292 +155,6 @@ __global__ void attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restri
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
-}
-
-// ---------------------------------------------------------------------------
-// float32, CUDA cores: dK, dV (summed over the n_rep q heads of each KV head)
-// ---------------------------------------------------------------------------
-// Two threads per key row, each owning half of the head dim: its halves of
-// the K and V rows and of the dK and dV accumulators stay in registers
-// (4 * D/2 floats), and the two halves of each dot product are joined with
-// one shuffle. One thread per row would need 4 * D registers and spills.
-template <int D>
-__global__ void __launch_bounds__(2 * kBKV)
-    attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const int* __restrict__ pad,
-                         const float* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dk,
-                         float* __restrict__ dv, int H, int n_rep, int L, int window,
-                         float scale) {
-  constexpr int DH = D / 2;
-  constexpr int kThreads = 2 * kBKV;
-  __shared__ __align__(16) float qs[kBQT][2][DH + kHalfPad];
-  __shared__ __align__(16) float dos[kBQT][2][DH + kHalfPad];
-  __shared__ float lse_s[kBQT];
-  __shared__ float delta_s[kBQT];
-
-  const int Hkv = H / n_rep;
-  const int bkv = blockIdx.y;
-  const int b = bkv / Hkv;
-  const int hk = bkv % Hkv;
-  const int k0 = blockIdx.x * kBKV;
-  const int half = threadIdx.x & 1;
-  const int j = k0 + (threadIdx.x >> 1);
-  const size_t row = (size_t)bkv * L + j;
-
-  float kr[DH], vr[DH], dk_acc[DH], dv_acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    kr[d] = k[row * D + half * DH + d];
-    vr[d] = v[row * D + half * DH + d];
-    dk_acc[d] = 0.f;
-    dv_acc[d] = 0.f;
-  }
-  const bool key_ok = pad == nullptr || pad[(size_t)b * L + j] != 0;
-
-  // Query rows that can see keys [k0, k0 + kBKV): causal from k0 on, and
-  // with a window only up to (last key) + window - 1.
-  const int q_begin = (k0 / kBQT) * kBQT;
-  int q_end = L;
-  if (window > 0) {
-    const int hi = k0 + kBKV - 1 + window;  // exclusive
-    q_end = hi < L ? ((hi + kBQT - 1) / kBQT) * kBQT : L;
-  }
-
-  for (int r = 0; r < n_rep; ++r) {
-    const size_t bh = (size_t)b * H + (size_t)hk * n_rep + r;
-    for (int q0 = q_begin; q0 < q_end; q0 += kBQT) {
-      __syncthreads();
-      load_halves<D>(qs, q + (bh * L + q0) * D, kBQT, kThreads);
-      load_halves<D>(dos, dout + (bh * L + q0) * D, kBQT, kThreads);
-      if (threadIdx.x < kBQT) {
-        lse_s[threadIdx.x] = lse[bh * L + q0 + threadIdx.x];
-        delta_s[threadIdx.x] = delta[bh * L + q0 + threadIdx.x];
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int ii = 0; ii < kBQT; ++ii) {
-        const int i = q0 + ii;
-        const float* qh = qs[ii][half];
-        const float* dh = dos[ii][half];
-        float dot = dot_reg<DH>(kr, qh);
-        float dp = dot_reg<DH>(vr, dh);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-        const float s = (key_ok && in_band(i, j, window)) ? dot * scale : kMasked;
-        const float p = expf(s - lse_s[ii]);
-        const float ds = p * (dp - delta_s[ii]);
-#pragma unroll
-        for (int d = 0; d < DH; d += 4) {
-          const float4 g = *reinterpret_cast<const float4*>(dh + d);
-          const float4 x = *reinterpret_cast<const float4*>(qh + d);
-          dv_acc[d] = fmaf(p, g.x, dv_acc[d]);
-          dv_acc[d + 1] = fmaf(p, g.y, dv_acc[d + 1]);
-          dv_acc[d + 2] = fmaf(p, g.z, dv_acc[d + 2]);
-          dv_acc[d + 3] = fmaf(p, g.w, dv_acc[d + 3]);
-          dk_acc[d] = fmaf(ds, x.x, dk_acc[d]);
-          dk_acc[d + 1] = fmaf(ds, x.y, dk_acc[d + 1]);
-          dk_acc[d + 2] = fmaf(ds, x.z, dk_acc[d + 2]);
-          dk_acc[d + 3] = fmaf(ds, x.w, dk_acc[d + 3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    dk[row * D + half * DH + d] = dk_acc[d] * scale;
-    dv[row * D + half * DH + d] = dv_acc[d];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32, CUDA cores: dQ (two threads per query row, as in the forward)
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(2 * kBQ)
-    attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const int* __restrict__ pad,
-                       const float* __restrict__ dout, const float* __restrict__ lse,
-                       const float* __restrict__ delta, float* __restrict__ dq, int H,
-                       int n_rep, int L, int window, float scale) {
-  constexpr int DH = D / 2;
-  __shared__ __align__(16) float ks[kBK][2][DH + kHalfPad];
-  __shared__ __align__(16) float vs[kBK][2][DH + kHalfPad];
-  __shared__ int kok[kBK];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const size_t kv_head = (size_t)b * (H / n_rep) + h / n_rep;
-  const int q0 = blockIdx.x * kBQ;
-  const int half = threadIdx.x & 1;
-  const int i = q0 + (threadIdx.x >> 1);
-  const size_t row = (size_t)bh * L + i;
-  const float* kb = k + kv_head * L * D;
-  const float* vb = v + kv_head * L * D;
-  const int* pad_row = pad ? pad + (size_t)b * L : nullptr;
-
-  float qr[DH], dor[DH], acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = q[row * D + half * DH + d];
-    dor[d] = dout[row * D + half * DH + d];
-    acc[d] = 0.f;
-  }
-  const float lse_i = lse[row];
-  const float delta_i = delta[row];
-
-  const int kv_end = q0 + kBQ;
-  for (int k0 = kv_band_begin(q0, window, kBK); k0 < kv_end; k0 += kBK) {
-    __syncthreads();
-    load_halves<D>(ks, kb + (size_t)k0 * D, kBK, 2 * kBQ);
-    load_halves<D>(vs, vb + (size_t)k0 * D, kBK, 2 * kBQ);
-    if (threadIdx.x < kBK) kok[threadIdx.x] = pad_row ? pad_row[k0 + threadIdx.x] : 1;
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 0; j < kBK; ++j) {
-      const float* krow = ks[j][half];
-      float dot = dot_reg<DH>(qr, krow);
-      float dp = dot_reg<DH>(dor, vs[j][half]);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      const float s = (kok[j] != 0 && in_band(i, k0 + j, window)) ? dot * scale : kMasked;
-      const float p = expf(s - lse_i);
-      const float ds = p * (dp - delta_i);
-#pragma unroll
-      for (int d = 0; d < DH; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(krow + d);
-        acc[d] = fmaf(ds, kk.x, acc[d]);
-        acc[d + 1] = fmaf(ds, kk.y, acc[d + 1]);
-        acc[d + 2] = fmaf(ds, kk.z, acc[d + 2]);
-        acc[d + 3] = fmaf(ds, kk.w, acc[d + 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dq[row * D + half * DH + d] = acc[d] * scale;
-}
-
-constexpr int kHeadDim = 64;
-
-// ---------------------------------------------------------------------------
-// bfloat16: the same three kernels on the tensor cores (mma.sync)
-// ---------------------------------------------------------------------------
-// One warp owns 16 rows (query rows in the forward and dQ, key rows in
-// dK/dV) and computes its products with mma.sync.m16n8k16 (bf16 in, f32
-// accumulate). Operands reach registers through ldmatrix from shared
-// tiles whose rows are padded by 8 elements, so the 8 row addresses of
-// each 8x8 matrix fall in distinct banks. Accumulator layout (PTX ISA,
-// m16n8 f32 C fragment): lane = 4 * g + t holds rows g and g + 8, columns
-// 2t and 2t + 1 of each 8-column tile; the four lanes of a quad share a
-// row, so row reductions are two shuffles.
-constexpr int kTile = 64;             // rows per block, keys / queries per tile
-constexpr int kRow = kHeadDim + 8;    // padded shared row, in bf16 elements
-constexpr int kWarps = kTile / 16;
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a [kTile, 64] bf16 tile (rows contiguous in global memory) into a
-// padded shared tile, 16 bytes per thread per step.
-__device__ __forceinline__ void copy_tile(bf16 (*dst)[kRow], const bf16* src, int nthreads) {
-  for (int e = threadIdx.x; e < kTile * kHeadDim / 8; e += nthreads) {
-    const int r = e / (kHeadDim / 8), c = (e % (kHeadDim / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c]) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * kHeadDim + c);
-  }
-}
-
-// A fragments (16 rows x 64 columns, four k-steps of 16) of a row-major
-// shared tile, rows [row0, row0 + 16).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], bf16 (*s)[kRow], int row0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], &s[row0 + lane % 16][ks * 16 + (lane / 16) * 8]);
-}
-
-// acc[j] += A . B for the 8 column tiles j of a [16, 64] product whose B
-// operand is B(k, n) = s[n][k]: the shared tile's rows are the product's
-// columns (Q K^T with s = K).
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         bf16 (*s)[kRow]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &s[np * 16 + (lane % 8) + (lane / 16) * 8][ks * 16 + ((lane / 8) % 2) * 8]);
-      mma_16816(acc[2 * np], a[ks], b[0], b[1]);
-      mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc[j] += A . B for a [16, 64] product whose B operand is B(k, n) =
-// s[k][n]: the shared tile's rows are the contraction (P V with s = V).
-// ``a`` holds the A fragments of the four k-steps (k = the tile's rows).
-__device__ __forceinline__ void mma_cols(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         bf16 (*s)[kRow]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &s[kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8][dp * 16 + (lane / 16) * 8]);
-      mma_16816(acc[2 * dp], a[kk], b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// The A fragments of a [16, 64] accumulator rounded to bf16, for use as
-// the left operand of the next product (k = the accumulator's columns).
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-    a[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-    a[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -762,7 +427,6 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-
 bool shape_ok(int B, int H, int Hkv, int L, int D) {
   return D == kHeadDim && B > 0 && Hkv > 0 && H % Hkv == 0 && L > 0 && L % kBKV == 0;
 }
@@ -820,21 +484,15 @@ int acco_attn_bwd_dkdv(int dtype, const void* q, const void* k, const void* v,
                        const void* delta, void* dk, void* dv, int B, int H, int Hkv, int L,
                        int D, int window, float scale, void* stream) {
   if (!shape_ok(B, H, Hkv, L, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(L / kBKV, B * Hkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pad);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (dtype == 1) {
     attn_bwd_dkdv_bf16_kernel<<<dim3(L / kTile, B * Hkv), 32 * kWarps, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        p, static_cast<const bf16*>(dout), ls, dl, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, H / Hkv, L, window, scale);
+        static_cast<const int*>(pad), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, H / Hkv, L, window, scale);
   } else if (dtype == 0) {
-    attn_bwd_dkdv_f32_kernel<kHeadDim><<<grid, 2 * kBKV, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), p, static_cast<const float*>(dout), ls, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), H, H / Hkv, L, window, scale);
+    launch_bwd_dkdv_f32(q, k, v, pad, dout, lse, delta, dk, dv, B, H, Hkv, L, window, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -845,21 +503,15 @@ int acco_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v, con
                      const void* dout, const void* lse, const void* delta, void* dq, int B,
                      int H, int Hkv, int L, int D, int window, float scale, void* stream) {
   if (!shape_ok(B, H, Hkv, L, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(L / kBQ, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pad);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (dtype == 1) {
     attn_bwd_dq_bf16_kernel<<<dim3(L / kTile, B * H), 32 * kWarps, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        p, static_cast<const bf16*>(dout), ls, dl, static_cast<bf16*>(dq), H, H / Hkv, L,
-        window, scale);
+        static_cast<const int*>(pad), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dq), H, H / Hkv, L, window, scale);
   } else if (dtype == 0) {
-    attn_bwd_dq_f32_kernel<kHeadDim><<<grid, 2 * kBQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), p, static_cast<const float*>(dout), ls, dl,
-        static_cast<float*>(dq), H, H / Hkv, L, window, scale);
+    launch_bwd_dq_f32(q, k, v, pad, dout, lse, delta, dq, B, H, Hkv, L, window, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,10 @@
-"""Carry Llama weights between the JAX package and the port.
+"""Carry model weights between the JAX package and the port.
 
-``params_from_jax`` takes the JAX ``LlamaModel``'s params pytree (nested
-dict of numpy arrays) and returns the port's flat vector, in the same
-order and layout as JAX's ``ravel_pytree``. :func:`params_to_jax` is its
-inverse. Neither imports JAX: the pytree arrives as numpy.
+``params_from_jax`` takes a JAX ``LlamaModel``'s or ``GPTNeoModel``'s
+params pytree (nested dict of numpy arrays) and returns the port's flat
+vector, in the same order and layout as JAX's ``ravel_pytree``; the
+config's type picks the family. :func:`params_to_jax` is its inverse.
+Neither imports JAX: the pytree arrives as numpy.
 """
 
 from __future__ import annotations
@@ -11,7 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from acco_tpu_torch.models.llama import LlamaConfig, param_layout
+from acco_tpu_torch.models import gpt_neo, llama
+
+
+def _layout(config):
+    if isinstance(config, llama.LlamaConfig):
+        return llama.param_layout(config)
+    if isinstance(config, gpt_neo.GPTNeoConfig):
+        return gpt_neo.param_layout(config)
+    raise TypeError(f"no parameter layout for {type(config).__name__}")
 
 
 def _leaf(tree: dict, path: str):
@@ -21,11 +30,11 @@ def _leaf(tree: dict, path: str):
     return node
 
 
-def params_from_jax(tree: dict, config: LlamaConfig) -> torch.Tensor:
-    """Flat [n_params] float32 tensor from a JAX Llama params pytree;
-    ``LlamaModel.load_flat`` then makes it the module's parameters."""
+def params_from_jax(tree: dict, config) -> torch.Tensor:
+    """Flat [n_params] float32 tensor from a JAX params pytree; the
+    model's ``load_flat`` then makes it the module's parameters."""
     parts = []
-    for path, shape, _ in param_layout(config):
+    for path, shape, _ in _layout(config):
         arr = np.asarray(_leaf(tree, path), dtype=np.float32)
         if arr.shape != tuple(shape):
             raise ValueError(f"{path}: shape {arr.shape}, expected {tuple(shape)}")
@@ -33,11 +42,11 @@ def params_from_jax(tree: dict, config: LlamaConfig) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts))
 
 
-def params_to_jax(flat: torch.Tensor, config: LlamaConfig) -> dict:
+def params_to_jax(flat: torch.Tensor, config) -> dict:
     """Nested dict of float32 numpy arrays, the JAX params pytree's shape."""
     flat = flat.detach().float().cpu().numpy()
     tree: dict = {}
-    for path, shape, offset in param_layout(config):
+    for path, shape, offset in _layout(config):
         n = int(np.prod(shape))
         node = tree
         keys = path.split("/")

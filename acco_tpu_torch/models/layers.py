@@ -1,13 +1,15 @@
 """Shared transformer building blocks, as plain functions on tensors.
 
 Counterpart of ``acco_tpu/models/layers.py``: norm statistics in float32,
-the half-rotation (HF/NeoX) RoPE, head split/merge in the JAX package's
-[B, H, L, D] layout.
+GPT-Neo's ``gelu_new``, the half-rotation (HF/NeoX) RoPE, head split/merge
+in the JAX package's [B, H, L, D] layout, and the tied head's float32
+logits (:func:`lm_logits`) that both model families share.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 
 def normal_init(
@@ -23,6 +25,61 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """Mean and variance in float32; the normalised value is cast to the
+    activation dtype before ``* scale + bias`` in that dtype, as the JAX
+    ``layer_norm`` does (``F.layer_norm`` would apply the affine in
+    float32 before rounding)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """GPT-Neo's 'gelu_new' (the tanh approximation)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ [K, N] -> float32, summed in float32 with no rounding of
+    the product to the operands' dtype. On the card, a bf16 GEMM with
+    float32 output (cuBLAS, through ``torch.mm``'s ``out_dtype``);
+    elsewhere the widened operands' float32 product, which is the same
+    function (a bf16 x bf16 product is exact in float32)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _LmLogits(torch.autograd.Function):
+    """float32 logits h @ w; the backward rounds the float32 cotangent to
+    the activation dtype and runs the two GEMMs in it."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32_out(h.reshape(-1, h.shape[-1]), w).view(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype).reshape(-1, g.shape[-1])
+        dh = (g @ w.t()).view(h.shape)
+        dw = h.reshape(-1, h.shape[-1]).t() @ g
+        return dh, dw
+
+
+def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[..., D] x [D, V] -> [..., V] float32 logits accumulated from the
+    activation-dtype operands with no rounding to that dtype, as JAX's
+    ``einsum(..., preferred_element_type=jnp.float32)`` head does. The
+    gradients come back in the activation dtype."""
+    return _LmLogits.apply(h, w)
 
 
 def rope_angles(

@@ -1,14 +1,8 @@
 """Llama-family causal LM (RMSNorm, RoPE, SwiGLU, GQA, tied head).
 
 Counterpart of ``acco_tpu/models/llama.py`` for the training path. The
-parameters are ``nn.Parameter`` views into one flat vector whose order
-and per-leaf layout equal JAX's ``ravel_pytree`` over
-``LlamaModel.init``: dict keys sorted at every level, and every layer
-leaf stacked as ``[num_layers, ...]`` (so ``flat_params``, gradients and
-optimizer state compare elementwise with the JAX train state). Each layer
-owns its slice of a stacked leaf as a separate parameter, so autograd
-hands back per-layer gradients that :meth:`LlamaModel.gather_grads`
-copies into a flat gradient without any [num_layers, ...] scatter.
+parameters are ``nn.Parameter`` views into one flat vector in the order
+of JAX's ``ravel_pytree`` over ``LlamaModel.init`` (``models/flat.py``).
 
 The batch is const-len in pretraining, so callers pass no attention mask
 and the mask is dropped statically, as the JAX flat loss does.
@@ -21,13 +15,13 @@ import json
 from typing import Optional
 
 import torch
-from torch import nn
 from torch.nn import functional as F
 
+from acco_tpu_torch.models.flat import FlatParamModel, sorted_layout
 from acco_tpu_torch.models.layers import (
     apply_rope,
+    lm_logits,
     merge_heads,
-    normal_init,
     rms_norm,
     rope_angles,
     split_heads,
@@ -38,11 +32,6 @@ from acco_tpu_torch.ops.attention import (
     resolve_attention_impl,
 )
 from acco_tpu_torch.ops.fused_attention import fused_dot_product_attention
-
-LAYER_LEAVES = (
-    "attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk", "wo", "wq", "wv",
-)  # sorted, as ravel_pytree orders them
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -85,32 +74,10 @@ def param_layout(cfg: LlamaConfig) -> list[tuple[str, tuple, int]]:
     tree = {"wte": (cfg.vocab_size, D), "final_norm": (D,), "layers": layer}
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = (D, cfg.vocab_size)
-    out, offset = [], 0
-    for key in sorted(tree):
-        sub = tree[key]
-        items = (
-            [(f"{key}/{k}", sub[k]) for k in sorted(sub)]
-            if isinstance(sub, dict)
-            else [(key, sub)]
-        )
-        for path, shape in items:
-            out.append((path, shape, offset))
-            offset += int(torch.Size(shape).numel())
-    return out
+    return sorted_layout(tree)
 
 
-class LlamaBlock(nn.Module):
-    """One transformer block's parameters (a slice of each stacked leaf)."""
-
-    def __init__(self, shapes: dict, dtype, device):
-        super().__init__()
-        for name in LAYER_LEAVES:
-            setattr(self, name, nn.Parameter(
-                torch.empty(shapes[name], dtype=dtype, device=device)
-            ))
-
-
-class LlamaModel(nn.Module):
+class LlamaModel(FlatParamModel):
     def __init__(
         self,
         config: LlamaConfig,
@@ -118,69 +85,18 @@ class LlamaModel(nn.Module):
         attention: str = "auto",
         device="cpu",
     ):
-        super().__init__()
+        super().__init__(param_layout(config), config.num_layers, dtype, device)
         self.config = config
-        self.dtype = dtype
         self.attention = attention
-        self.layout = param_layout(config)
-        self.n_params = sum(int(torch.Size(s).numel()) for _, s, _ in self.layout)
-        shapes = {path: shape for path, shape, _ in self.layout}
-        empty = lambda shape: nn.Parameter(  # noqa: E731
-            torch.empty(shape, dtype=dtype, device=device)
-        )
-        self.wte = empty(shapes["wte"])
-        self.final_norm = empty(shapes["final_norm"])
-        if not config.tie_word_embeddings:
-            self.lm_head_weight = empty(shapes["lm_head"])
-        layer_shapes = {n: shapes[f"layers/{n}"][1:] for n in LAYER_LEAVES}
-        self.layers = nn.ModuleList(
-            LlamaBlock(layer_shapes, dtype, device) for _ in range(config.num_layers)
-        )
 
-    # -- the flat view ----------------------------------------------------
+    @staticmethod
+    def attr_name(path: str) -> str:
+        return "lm_head_weight" if path == "lm_head" else path  # lm_head is a method
 
-    def flat_slices(self) -> list[tuple[nn.Parameter, int, int]]:
-        """``(parameter, offset, numel)`` for every parameter, in flat order."""
-        out = []
-        for path, shape, offset in self.layout:
-            if path.startswith("layers/"):
-                name = path.split("/", 1)[1]
-                per = int(torch.Size(shape[1:]).numel())
-                for i, block in enumerate(self.layers):
-                    out.append((getattr(block, name), offset + i * per, per))
-            else:
-                param = self.lm_head_weight if path == "lm_head" else getattr(self, path)
-                out.append((param, offset, param.numel()))
-        return out
-
-    def load_flat(self, flat: torch.Tensor) -> None:
-        """Point every parameter at its slice of ``flat`` (no copy): the
-        model then computes with whatever ``flat`` holds."""
-        for param, offset, numel in self.flat_slices():
-            param.data = flat[offset : offset + numel].view(param.shape)
-
-    def gather_grads(self, grads, out: torch.Tensor) -> torch.Tensor:
-        """Copy per-parameter ``grads`` (flat_slices order) into ``out``."""
-        for (param, offset, numel), g in zip(self.flat_slices(), grads):
-            out[offset : offset + numel].copy_(g.reshape(-1))
-        return out
-
-    def init_flat(self, generator: torch.Generator) -> torch.Tensor:
-        """A fresh flat parameter vector: normal(0, initializer_range) for
-        matrices and embeddings, ones for norm scales (the JAX init's
-        distributions; the random draws differ)."""
-        cfg = self.config
-        device = self.wte.device
-        flat = torch.empty(self.n_params, dtype=self.dtype, device=device)
-        for path, shape, offset in self.layout:
-            n = int(torch.Size(shape).numel())
-            if path.endswith("norm"):
-                flat[offset : offset + n] = 1
-            else:
-                flat[offset : offset + n] = normal_init(
-                    (n,), cfg.initializer_range, self.dtype, generator, device
-                )
-        return flat
+    @staticmethod
+    def init_fill(path: str):
+        """Ones for the norm scales; every other leaf is drawn."""
+        return 1.0 if path.endswith("norm") else None
 
     # -- forward ------------------------------------------------------------
 
@@ -193,10 +109,10 @@ class LlamaModel(nn.Module):
     def apply(
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """[B, L, V] float32 logits. The head's product runs in the
-        activation dtype and is then widened (the JAX version asks XLA
-        for float32 output directly)."""
-        return torch.matmul(self.hidden(input_ids, attention_mask), self.lm_head()).float()
+        """[B, L, V] float32 logits, accumulated in float32 from the
+        activation-dtype head product (``layers.lm_logits``), as the JAX
+        version's ``preferred_element_type=jnp.float32`` einsum."""
+        return lm_logits(self.hidden(input_ids, attention_mask), self.lm_head())
 
     def hidden(
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None

@@ -1,7 +1,9 @@
 """Model construction from the ``model=`` config group.
 
-Counterpart of ``acco_tpu/models/registry.py``. Only the Llama family is
-in this slice of the port; GPT-Neo comes with ROADMAP.md queue 1, item 7.
+Counterpart of ``acco_tpu/models/registry.py`` for architecture files:
+``model_type`` ``llama`` or ``gpt_neo`` (the default, as in the JAX
+registry). Hub presets and pretrained checkpoints come with ROADMAP.md
+queue 1, item 7 (``models/hf_loader.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,10 @@ import os
 
 import torch
 
+from acco_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
 from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+_MODEL_TYPES = {"llama": (LlamaConfig, LlamaModel), "gpt_neo": (GPTNeoConfig, GPTNeoModel)}
 
 
 def build_model(
@@ -20,7 +25,7 @@ def build_model(
     dtype=torch.bfloat16,
     attention: str = "auto",
     device="cpu",
-) -> LlamaModel:
+):
     """A model from a ``config/model/*.yaml`` node whose ``config_path``
     names a repo-relative ``/config/model/*.json`` architecture file."""
     config_path = model_cfg["config_path"]
@@ -34,11 +39,7 @@ def build_model(
         path = os.path.join(repo_root, config_path.lstrip("/"))
     with open(path) as f:
         model_type = json.load(f).get("model_type", "gpt_neo")
-    if model_type != "llama":
-        raise NotImplementedError(
-            f"model_type {model_type!r} ({path}): only Llama is ported; "
-            "GPT-Neo comes with ROADMAP.md queue 1, item 7"
-        )
-    return LlamaModel(
-        LlamaConfig.from_json(path), dtype=dtype, attention=attention, device=device
-    )
+    if model_type not in _MODEL_TYPES:
+        raise ValueError(f"Unknown model_type {model_type!r} in {path}")
+    cfg_cls, model_cls = _MODEL_TYPES[model_type]
+    return model_cls(cfg_cls.from_json(path), dtype=dtype, attention=attention, device=device)

@@ -88,6 +88,8 @@ def _check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel needs CUDA")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:  # the kernels copy tiles 16 bytes at a time
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
     for arg in ("q", "k", "v", "o", "dout"):
         t = tensors.get(arg)
         if t is not None and t.dtype != dtype:

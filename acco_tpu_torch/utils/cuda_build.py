@@ -3,10 +3,11 @@
 Each kernel source under ``acco_tpu_torch/csrc/`` exposes a plain C
 interface. It is compiled with ``nvcc`` for Hopper (``sm_90a``) at first
 use into ``build/`` at the root of the checkout and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and never confused with an old
-build. Nothing here runs at import time: the CPU tests import every
-module on a machine without ``nvcc``.
+``ctypes``. The library's file name carries a hash of the source, the
+shared headers of ``csrc/`` and the flags, so an edited source is
+rebuilt and never confused with an old build. Nothing here runs at
+import time: the CPU tests import every module on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -49,10 +50,12 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    of the headers beside it) exists."""
     source = PACKAGE_DIR / "csrc" / f"{name}.cu"
+    headers = sorted(source.parent.glob("*.cuh"))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in [source, *headers]) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():

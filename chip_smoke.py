@@ -8,24 +8,31 @@ and prints no result line):
 
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
-2. build: compiles csrc/fused_attention.cu for sm_90a from the checkout
-   (into build/) and prints nvcc/ptxas's report;
-3. parity: each of the four attention kernels against its plain PyTorch
-   version on the same inputs on the card, bf16, at the flagship shape
-   (B 8, H = Hkv 12, L 1024, D 64, window 0, no pad) and at a small GQA
-   shape with window 256 and a key pad mask;
+2. build: compiles csrc/fused_attention.cu (K1) and
+   csrc/banded_attention.cu (K2) for sm_90a from the checkout (into
+   build/), one nvcc each, started together, and prints ptxas's report;
+3. parity: each attention kernel against its plain PyTorch version on
+   the same inputs on the card, bf16. K1 at the Llama flagship shape
+   (B 8, H = Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA
+   shape with window 256 and a key pad mask, and at GPT-Neo's global
+   shape (scale 1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a
+   small odd window (W 129) and the widest band of its envelope (W 897);
+   and the head's float32 logits against the widened product;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
-   same function, that call (F.scaled_dot_product_attention);
-5. main path: ``python -m acco_tpu_torch train=acco model=llama-125M
-   data=synthetic`` in-process at full width (12 layers, d 768, seq 1024,
-   batch 8, n_acc 1): the seed round and 6 rounds, with the kernels'
-   launch counts read from this run alone;
+   same function, that call (F.scaled_dot_product_attention); K2 also
+   beside K1 at the same window;
+5. main paths: ``python -m acco_tpu_torch train=acco model=llama-125M
+   data=synthetic`` and ``... model=gptneo ...`` in-process at full
+   width (12 layers, d 768, seq 1024, batch 8, n_acc 1): the seed round
+   and 6 rounds each, with the kernels' launch counts set to 0 just
+   before each run and read just after;
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
-   gradients;
-7. profile: the main path again under torch.profiler, for the device
-   time per kernel and the device's idle share.
+   gradients (tiny128, then gpt-neo-125M at L 512);
+7. profile: each main path again under torch.profiler, for the device
+   time per kernel, K1's and K2's device time per microbatch and the
+   device's idle share.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,14 +56,32 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False)
 SMALL = dict(B=2, H=4, Hkv=2, L=512, D=64, window=256, pad=True)
-# main path: Llama-125M (config/model/llama-125M.json) at full width
+# GPT-Neo scores are unscaled (scale 1.0): q and k are drawn with std
+# D^-1/4 so that the scores still have unit variance
+NEO_QK_STD = 64 ** -0.25
+NEO_GLOBAL = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False,
+                  scale=1.0, qk_std=NEO_QK_STD)
+# K2 (MHA, no pad): GPT-Neo-125M's local layer, an odd window, the widest
+# band of the envelope (nprev(897) + 1 = 8 blocks of 128 keys)
+NEO_LOCAL = dict(B=8, H=12, L=1024, D=64, window=256)
+BANDED_SHAPES = (
+    ("gpt-neo local", NEO_LOCAL),
+    ("odd window", dict(B=2, H=4, L=512, D=64, window=129)),
+    ("widest band", dict(B=2, H=4, L=1024, D=64, window=897)),
+)
+# main paths at full width: Llama-125M (config/model/llama-125M.json) and
+# GPT-Neo-125M (config/model/gpt-neo-125M.json, 6 global + 6 local layers)
 MAIN_ROUNDS = 6  # after the seed round
 LAYERS, D_MODEL, SEQ, BATCH = 12, 768, 1024, 8
-MAIN_ARGS = [
-    "train=acco", "model=llama-125M", "data=synthetic",
-    f"train.batch_size={BATCH}", f"train.max_length={SEQ}",
-    "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}",
-]
+NEO_WINDOW = 256
+
+
+def main_args(model: str) -> list[str]:
+    return [
+        "train=acco", f"model={model}", "data=synthetic",
+        f"train.batch_size={BATCH}", f"train.max_length={SEQ}",
+        "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}",
+    ]
 
 # Tolerances on the card, bf16 (kernel vs its plain version, same inputs):
 # outputs are rounded to bf16 (relative step 2^-8) and summed in another
@@ -64,6 +90,13 @@ MAIN_ARGS = [
 # |kernel - plain| <= atol + rtol * |plain|.
 TOL = {
     "o": (1e-2, 2e-2),
+    # K2 rounds the normalised P, as its plain version does: O differs only
+    # where another summation order flips a bf16 rounding of P or of O
+    # (one bf16 step of O, 2^-7 relative)
+    "o_band": (4e-3, 8e-3),
+    # float32 sums of exact bf16 products in another order; a logit rounded
+    # to bf16 would be off by up to 2^-9 of itself (1e-3 at |logit| 0.5)
+    "logits": (1e-5, 1e-5),
     "lse": (1e-3, 1e-4),  # float32 in both; only the summation order differs
     "delta": (1e-3, 1e-4),  # float32 dot products of identical bf16 inputs
     "dq": (1e-2, 2e-2),
@@ -107,15 +140,17 @@ def make_inputs(shape: dict, seed: int):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, Hkv, L, D = (shape[k] for k in ("B", "H", "Hkv", "L", "D"))
+    B, H, L, D = (shape[k] for k in ("B", "H", "L", "D"))
+    Hkv = shape.get("Hkv", H)
+    qk_std = shape.get("qk_std", 1.0)
 
-    def randn(*s):
-        return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+    def randn(*s, std=1.0):
+        return (torch.randn(*s, generator=g, device="cuda") * std).to(torch.bfloat16)
 
-    q, k, v = randn(B, H, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
-    dout = randn(B, H, L, D)
+    q, k = randn(B, H, L, D, std=qk_std), randn(B, Hkv, L, D, std=qk_std)
+    v, dout = randn(B, Hkv, L, D), randn(B, H, L, D)
     pad = None
-    if shape["pad"]:
+    if shape.get("pad"):
         # right padding, as the loader pads: no query row is left without
         # an allowed key, so every row is compared
         pad = torch.ones(B, L, dtype=torch.int32, device="cuda")
@@ -130,7 +165,7 @@ def parity(shape: dict, seed: int) -> dict:
     from acco_tpu_torch.ops import fused_attention as fa
 
     q, k, v, dout, pad = make_inputs(shape, seed)
-    window, scale = shape["window"], shape["D"] ** -0.5
+    window, scale = shape["window"], shape.get("scale", shape["D"] ** -0.5)
     errs = {}
     o, lse = fa.attn_fwd(q, k, v, pad, window, scale)
     o_ref, lse_ref = fa.attention_reference(q, k, v, pad, window, scale)
@@ -154,8 +189,58 @@ def parity(shape: dict, seed: int) -> dict:
     return errs
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call: CUDA events around ``iters`` calls after warm-up."""
+def banded_parity(shape: dict, seed: int) -> dict:
+    """Every K2 kernel against its plain version at scale 1.0 (GPT-Neo's
+    unscaled scores); returns max errors."""
+    import torch
+
+    from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, dout, _ = make_inputs({**shape, "qk_std": NEO_QK_STD}, seed)
+    window, scale = shape["window"], 1.0
+    errs = {}
+    o, lse = bd.banded_fwd(q, k, v, window, scale)
+    o_ref, lse_ref = bd.banded_reference(q, k, v, window, scale)
+    torch.cuda.synchronize()
+    errs["banded_fwd"] = max(check("o_band", o, o_ref), check("lse", lse, lse_ref))
+    delta = fa.attn_bwd_delta(o, dout)
+    args = (q, k, v, dout, lse, delta, window, scale)
+    dq = bd.banded_bwd_dq(*args)
+    torch.cuda.synchronize()
+    errs["banded_bwd_dq"] = check("dq", dq, bd.banded_bwd_dq_reference(*args))
+    dk, dv = bd.banded_bwd_dkdv(*args)
+    dk_ref, dv_ref = bd.banded_bwd_dkdv_reference(*args)
+    torch.cuda.synchronize()
+    errs["banded_bwd_dkdv"] = max(check("dk", dk, dk_ref), check("dv", dv, dv_ref))
+    return errs
+
+
+def head_parity() -> None:
+    """The head's float32 logits (``lm_logits``: a bf16 GEMM with float32
+    output) against the float32 product of the widened bf16 operands, at
+    the main paths' shape: no rounding of the logits to bf16."""
+    import torch
+
+    from acco_tpu_torch.models.layers import lm_logits
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn(BATCH, SEQ, D_MODEL, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(50257, D_MODEL, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = lm_logits(h, w.t())
+    want = torch.matmul(h.float(), w.float().t())
+    log(f"  torch.mm out_dtype: {hasattr(torch.ops.aten.mm, 'dtype')}; logits {got.dtype}")
+    check("logits", got, want)
+    if got.dtype != torch.float32:
+        raise AssertionError(f"lm_logits returned {got.dtype}")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 5) -> float:
+    """ms per call: the median over ``windows`` windows of the mean of
+    ``iters`` calls between two CUDA events, after warm-up. One window of
+    a 0.1 ms kernel lasts 2 ms, and a single slow window read up to 2x a
+    kernel's time in the main path's profile."""
     import torch
 
     for _ in range(warmup):
@@ -163,12 +248,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
 
 
 def device_ms(fn, iters: int = 10) -> float:
@@ -278,19 +366,139 @@ def timing(shape: dict) -> tuple[dict, dict]:
     return out, backward
 
 
-def main_path() -> tuple[dict, float]:
-    """The port's entry point, in-process, at Llama-125M's full width;
-    returns each kernel's launch count in this run and the median round
-    ms."""
+def band_pairs(B: int, H: int, L: int, window: int) -> int:
+    """(query, key) pairs a causal window attends: sum of min(i + 1, W)."""
+    return B * H * sum(min(i + 1, window or L) for i in range(L))
+
+
+def banded_timing(shape: dict) -> tuple[dict, dict]:
+    """Each K2 kernel's ms, plain ms and bound at ``shape`` (scale 1.0),
+    beside two yardsticks on the same inputs: the library call
+    (F.scaled_dot_product_attention with a bool band mask; its backward
+    as device time, as above) and the port's K1 at the same window; and
+    the same for the backward (delta + dQ + dK/dV) together."""
+    import torch
+    import torch.nn.functional as F
+
+    from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, dout, _ = make_inputs({**shape, "qk_std": NEO_QK_STD}, 8)
+    window, scale = shape["window"], 1.0
+    B, H, L, D = (shape[x] for x in ("B", "H", "L", "D"))
+    o, lse = bd.banded_fwd(q, k, v, window, scale)
+    delta = fa.attn_bwd_delta(o, dout)
+    args = (q, k, v, dout, lse, delta, window, scale)
+    k1_args = (q, k, v, None, dout, lse, delta, window, scale)
+
+    # Work this run's inputs need: the band's pairs, not L(L+1)/2.
+    pairs = band_pairs(B, H, L, window)
+    act = B * H * L * D * 2  # one bf16 [B, H, L, D] tensor
+    row = B * H * L * 4  # one float32 [B, H, L] tensor
+    work = {
+        "banded_fwd": (4 * act + row, 4 * D * pairs),
+        "banded_bwd_dq": (5 * act + 2 * row, 6 * D * pairs),
+        "banded_bwd_dkdv": (6 * act + 2 * row, 8 * D * pairs),
+    }
+    runs = {
+        "banded_fwd": (
+            lambda: bd.banded_fwd(q, k, v, window, scale),
+            lambda: bd.banded_reference(q, k, v, window, scale),
+            lambda: fa.attn_fwd(q, k, v, None, window, scale),
+        ),
+        "banded_bwd_dq": (
+            lambda: bd.banded_bwd_dq(*args),
+            lambda: bd.banded_bwd_dq_reference(*args),
+            lambda: fa.attn_bwd_dq(*k1_args),
+        ),
+        "banded_bwd_dkdv": (
+            lambda: bd.banded_bwd_dkdv(*args),
+            lambda: bd.banded_bwd_dkdv_reference(*args),
+            lambda: fa.attn_bwd_dkdv(*k1_args),
+        ),
+    }
+    out = {}
+    for name, (kernel, plain, k1) in runs.items():
+        ms, k1_ms, plain_ms = time_ms(kernel), time_ms(k1), time_ms(plain, iters=5)
+        b_ms, b_by = bound_ms(*work[name])
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "k1_ms": k1_ms}
+    i = torch.arange(L, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    out["banded_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, scale=scale)
+    )
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    y = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band, scale=scale)
+    sdpa_bwd_ms = device_ms(
+        lambda: torch.autograd.grad(y, (qg, kg, vg), dout, retain_graph=True)
+    )
+    delta_ms = time_ms(lambda: fa.attn_bwd_delta(o, dout))
+    bwd = ("banded_bwd_dq", "banded_bwd_dkdv")
+    backward = {
+        "ms": delta_ms + sum(out[n]["ms"] for n in bwd),
+        "k1_ms": delta_ms + sum(out[n]["k1_ms"] for n in bwd),
+        "plain_ms": sum(out[n]["plain_ms"] for n in bwd),
+        "library_ms": sdpa_bwd_ms,
+        "bound_ms": bound_ms(8 * act + row, 10 * D * pairs)[0],
+    }
+    log(f"  band pairs {pairs}")
+    for name, r in out.items():
+        log(f"  {name:15s} kernel {r['ms']:.4f} ms  K1 at window {window} {r['k1_ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  backward total  kernel {backward['ms']:.4f} ms  K1 {backward['k1_ms']:.4f} ms  "
+        f"plain {backward['plain_ms']:.4f} ms  SDPA backward {sdpa_bwd_ms:.4f} ms  "
+        f"bound {backward['bound_ms']:.4f} ms")
+    return out, backward
+
+
+def reset_launch_counts() -> None:
+    from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    fa.reset_launch_counts()
+    bd.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    return {**fa.LAUNCHES, **bd.LAUNCHES}
+
+
+# Each main path: its model, its layers' windows (0 = global), and the
+# launches per microbatch of every kernel (K2 reuses K1's delta kernel).
+MAIN_PATHS = {
+    "llama-125M": dict(
+        windows=[0] * LAYERS,
+        per_microbatch={"attn_fwd": 12, "attn_bwd_delta": 12, "attn_bwd_dkdv": 12,
+                        "attn_bwd_dq": 12, "banded_fwd": 0, "banded_bwd_dq": 0,
+                        "banded_bwd_dkdv": 0},
+    ),
+    "gptneo": dict(
+        windows=[0, NEO_WINDOW] * (LAYERS // 2),
+        per_microbatch={"attn_fwd": 6, "attn_bwd_delta": 12, "attn_bwd_dkdv": 6,
+                        "attn_bwd_dq": 6, "banded_fwd": 6, "banded_bwd_dq": 6,
+                        "banded_bwd_dkdv": 6},
+    ),
+}
+
+
+def main_path(model: str) -> tuple[dict, float]:
+    """The port's entry point, in-process, at the model's full width, with
+    every launch count set to 0 just before the run and read just after;
+    returns the counts and the median round ms."""
     import torch
 
     from acco_tpu_torch.__main__ import main as entry
-    from acco_tpu_torch.ops import fused_attention as fa
 
+    spec = MAIN_PATHS[model]
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    summary = entry(MAIN_ARGS)
-    launches = dict(fa.LAUNCHES)
+    reset_launch_counts()
+    summary = entry(main_args(model))
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     rounds = summary["round_log"]
     if len(rounds) != MAIN_ROUNDS:
@@ -302,11 +510,11 @@ def main_path() -> tuple[dict, float]:
     if real != [r % 2 == 1 for r in range(MAIN_ROUNDS)]:
         raise AssertionError(f"is_real_update does not alternate: {real}")
     microbatches = (MAIN_ROUNDS + 1) * 1  # seed + rounds, n_acc 1
-    for name, n in launches.items():
-        if n != LAYERS * microbatches:
+    for name, per_mb in spec["per_microbatch"].items():
+        if launches[name] != per_mb * microbatches:
             raise AssertionError(
-                f"{name}: {n} launches, expected {LAYERS} per microbatch "
-                f"x {microbatches} microbatches"
+                f"{model}: {name} launched {launches[name]} times, expected {per_mb} "
+                f"per microbatch x {microbatches} microbatches"
             )
     round_ms = [r["ms"] for r in rounds]
     med = statistics.median(round_ms)
@@ -316,8 +524,13 @@ def main_path() -> tuple[dict, float]:
     log(f"  round ms {['%.1f' % x for x in round_ms]}  median {med:.2f}")
     tok_s = tokens / (med / 1e3)
     # model FLOPs per token: 6 N for the matmuls (the tied head counted
-    # once) + 6 layers L D for causal attention, forward and backward
-    flops_per_token = 6 * summary["n_params"] + 6 * LAYERS * SEQ * D_MODEL
+    # once) plus, per layer, 12 D times the mean keys a row attends
+    # (forward and backward of QK^T and PV)
+    mean_keys = [band_pairs(1, 1, SEQ, w) / SEQ for w in spec["windows"]]
+    flops_per_token = 6 * summary["n_params"] + sum(12 * D_MODEL * m for m in mean_keys)
+    log(f"  MFU formula: (6 x {summary['n_params']} + sum over layers of 12 x {D_MODEL} x "
+        f"mean keys {sorted(set(round(m, 3) for m in mean_keys))}) x tokens/s / "
+        f"{PEAK_BF16_FLOPS:.3g}")
     log(f"  tokens/s {tok_s:.1f}  MFU {flops_per_token * tok_s / PEAK_BF16_FLOPS:.4f} "
         f"(vs {PEAK_BF16_FLOPS:.3g} FLOP/s bf16)")
     log(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
@@ -325,28 +538,27 @@ def main_path() -> tuple[dict, float]:
     return launches, med
 
 
-def small_input_agreement() -> None:
-    """The entry point twice on a small input (tiny128, float32, 4 ACCO
-    rounds), once through the kernels and once through the plain
-    attention: the losses and the last staged gradients must agree."""
+def small_input_agreement(args: list[str], kernels: tuple[str, ...]) -> None:
+    """The entry point twice on a small float32 input (4 ACCO rounds),
+    once through the kernels and once through the plain attention: every
+    kernel in ``kernels`` launched in the first run and none in the
+    second, and the losses and the last staged gradients agree."""
     import torch
 
     from acco_tpu_torch.__main__ import build_trainer
-    from acco_tpu_torch.ops import fused_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     runs = {}
     for attention in ("fused", "xla"):
-        fa.reset_launch_counts()
+        reset_launch_counts()
         trainer = build_trainer([
-            "train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-            "train.batch_size=4", "train.nb_steps_tot=4",
-            "train.use_mixed_precision=false", f"train.use_pallas_attention={attention}",
+            *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false",
+            f"train.use_pallas_attention={attention}",
         ])
         summary = trainer.train()
-        runs[attention] = (summary, trainer.final_state, dict(fa.LAUNCHES))
+        runs[attention] = (summary, trainer.final_state, launch_counts())
     (s_k, st_k, n_k), (s_p, st_p, n_p) = runs["fused"], runs["xla"]
-    if n_k["attn_fwd"] == 0 or n_p["attn_fwd"] != 0:
+    if any(n_k[k] == 0 for k in kernels) or any(n_p.values()):
         raise AssertionError(f"kernel launches: fused run {n_k}, plain run {n_p}")
     losses_k = [s_k["seed_loss"]] + [r["loss"] for r in s_k["round_log"]]
     losses_p = [s_p["seed_loss"]] + [r["loss"] for r in s_p["round_log"]]
@@ -354,6 +566,7 @@ def small_input_agreement() -> None:
     err = float((g_k - g_p).abs().max())
     # float32 on both sides; only the summation order differs
     tol = 1e-4 * float(g_p.abs().max())
+    log(f"  launches (kernel run) { {k: n_k[k] for k in kernels} }")
     log(f"  losses kernel {['%.6f' % x for x in losses_k]}")
     log(f"  losses plain  {['%.6f' % x for x in losses_p]}")
     log(f"  staged grads max abs diff {err:.3e} (tol {tol:.3e} = 1e-4 * max|g|)")
@@ -361,8 +574,8 @@ def small_input_agreement() -> None:
         raise AssertionError("kernel and plain training runs disagree")
 
 
-def profile_main_path(round_ms: float, top: int = 12) -> None:
-    """Where the device time of the main path goes: the same run again,
+def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
+    """Where the device time of a main path goes: the same run again,
     under torch.profiler (after the measured run, so the profiler's own
     cost touches no reported time). Prints device ms per microbatch for
     the top kernels, and the device's idle share of a round: 1 - device
@@ -374,7 +587,7 @@ def profile_main_path(round_ms: float, top: int = 12) -> None:
 
     from acco_tpu_torch.__main__ import build_trainer
 
-    trainer = build_trainer(MAIN_ARGS)
+    trainer = build_trainer(main_args(model))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train()
@@ -387,12 +600,49 @@ def profile_main_path(round_ms: float, top: int = 12) -> None:
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     per_mb = busy_ms / microbatches
-    log(f"  device busy {per_mb:.2f} ms per microbatch (init + seed + {MAIN_ROUNDS} rounds: "
-        f"{busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall time); idle share of a "
-        f"{round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
+    log(f"  {model}: device busy {per_mb:.2f} ms per microbatch (init + seed + "
+        f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
+        f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
+    for family, tag in (("K1", "attn_"), ("K2", "banded_")):
+        rows = [e for e in kernels if tag in e.key]
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
+        log(f"  {family} kernels: {ms:.3f} ms/microbatch "
+            f"({', '.join(sorted({re.search(r'\w+_kernel', e.key).group(0) for e in rows}))})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3 / microbatches:9.3f} ms/microbatch "
             f"x{e.count // microbatches:<4d} {e.key[:90]}")
+
+
+def build_all() -> None:
+    """Both kernel libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from acco_tpu_torch.utils import cuda_build
+
+    names = ("fused_attention", "banded_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        for future in [pool.submit(cuda_build.build, n) for n in names]:
+            future.result()
+    log(f"  built in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        info = cuda_build.BUILD_INFO[name]
+        log(f"  {name}: nvcc {info['seconds']:.1f} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("    " + line.strip())
+
+
+# The TPU kernel each Hopper kernel replaces (file:line of its pallas_call).
+REPLACES = {
+    "attn_fwd": "acco_tpu/ops/fused_attention.py:197",
+    "attn_bwd_delta": "acco_tpu/ops/fused_attention.py:243",
+    "attn_bwd_dkdv": "acco_tpu/ops/fused_attention.py:243",
+    "attn_bwd_dq": "acco_tpu/ops/fused_attention.py:243",
+    "banded_fwd": "acco_tpu/ops/banded_attention.py:240",
+    "banded_bwd_dq": "acco_tpu/ops/banded_attention.py:279",
+    "banded_bwd_dkdv": "acco_tpu/ops/banded_attention.py:314",
+}
 
 
 def main() -> int:
@@ -408,7 +658,6 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not in this checkout ({exc})", file=sys.stderr)
         return 2
-    from acco_tpu_torch.utils import cuda_build
 
     log("== 1 device")
     name = torch.cuda.get_device_name(0)
@@ -418,50 +667,71 @@ def main() -> int:
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}")
 
     log("== 2 build")
-    t0 = time.perf_counter()
-    cuda_build.build("fused_attention")
-    info = cuda_build.BUILD_INFO["fused_attention"]
-    log(f"  fused_attention built in {time.perf_counter() - t0:.1f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  " + line.strip())
+    build_all()
 
     log("== 3 parity (bf16, kernel vs plain on the same inputs)")
     errs = {}
-    for label, shape, seed in (("flagship", FLAGSHIP, 0), ("small gqa+window+pad", SMALL, 1)):
-        log(f" {label}: {shape}")
+    k1_shapes = (("flagship", FLAGSHIP, 0), ("small gqa+window+pad", SMALL, 1),
+                 ("gpt-neo global, scale 1.0", NEO_GLOBAL, 2))
+    for label, shape, seed in k1_shapes:
+        log(f" K1 {label}: {shape}")
         for kname, e in parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
+    for seed, (label, shape) in enumerate(BANDED_SHAPES, start=3):
+        log(f" K2 {label}: {shape}")
+        for kname, e in banded_parity(shape, seed).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    log(" head: float32 logits from bf16 operands")
+    head_parity()
 
-    log("== 4 timing (flagship shape, CUDA events)")
+    log("== 4 timing (CUDA events)")
+    log(f" K1 at the Llama flagship shape {FLAGSHIP}")
     times, backward = timing(FLAGSHIP)
+    log(f" K2 at the GPT-Neo local shape {NEO_LOCAL}, scale 1.0")
+    banded_times, banded_backward = banded_timing(NEO_LOCAL)
+    times.update(banded_times)
 
-    log("== 5 main path: train=acco model=llama-125M data=synthetic")
-    launches, round_ms = main_path()
+    launches, round_ms = {}, {}
+    for step, model in enumerate(MAIN_PATHS, start=1):
+        log(f"== 5.{step} main path: train=acco model={model} data=synthetic")
+        launches[model], round_ms[model] = main_path(model)
     log("== 6 small input: the kernel path agrees with the plain path (float32)")
-    small_input_agreement()
-    log("== 7 where the device time goes (profiled rerun of the main path)")
-    profile_main_path(round_ms)
+    log(" tiny128 (K1), L 128")
+    small_input_agreement(
+        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+         "train.batch_size=4"],
+        ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq"),
+    )
+    log(" gpt-neo-125M (K1 and K2), L 512")
+    small_input_agreement(
+        ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+         "train.batch_size=2"],
+        ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
+         "banded_bwd_dkdv"),
+    )
+    log("== 7 where the device time goes (profiled reruns of the main paths)")
+    for model in MAIN_PATHS:
+        profile_main_path(model, round_ms[model])
 
-    sources = {
-        "attn_fwd": "acco_tpu/ops/fused_attention.py:197",
-        "attn_bwd_delta": "acco_tpu/ops/fused_attention.py:243",
-        "attn_bwd_dkdv": "acco_tpu/ops/fused_attention.py:243",
-        "attn_bwd_dq": "acco_tpu/ops/fused_attention.py:243",
-    }
+    # launches: each kernel's count on its own slice's main path (K1: the
+    # Llama path, K2: the GPT-Neo path), and on every path
+    own_path = {k: ("gptneo" if k.startswith("banded") else "llama-125M") for k in times}
     kernels = [
         {
             "name": kname,
             "route": "cuda",
-            "source": "acco_tpu_torch/csrc/fused_attention.cu",
-            "replaces": sources[kname],
-            "launches": launches[kname],
+            "source": "acco_tpu_torch/csrc/"
+            + ("banded_attention.cu" if kname.startswith("banded") else "fused_attention.cu"),
+            "replaces": REPLACES[kname],
+            "launches": launches[own_path[kname]][kname],
+            "launches_by_path": {m: launches[m][kname] for m in MAIN_PATHS},
             "max_abs_err": errs[kname],
             **times[kname],
         }
         for kname in times
     ]
-    log(f"backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
+    log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
+    log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

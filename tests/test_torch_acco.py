@@ -2,7 +2,9 @@
 
 Both run one rank (the JAX side on a one-device CPU mesh) from the same
 initial params over the same microbatch blocks (numpy, seeded): the seed
-round and 6 rounds. Compared after every round: the working
+round and 6 rounds, for a tiny Llama (GQA) and a tiny GPT-Neo (one global
+and one local layer, window 4; its zero biases and LayerNorms in the flat
+layout). Compared after every round: the working
 ``flat_params``, the ZeRO-1 master params and Adam moments, the loss, the
 LR and ``is_real_update``. Everything is float32.
 
@@ -18,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from acco_tpu.models.gpt_neo import GPTNeoConfig as JaxGPTNeoConfig
+from acco_tpu.models.gpt_neo import GPTNeoModel as JaxGPTNeoModel
 from acco_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from acco_tpu.models.llama import LlamaModel as JaxLlamaModel
 from acco_tpu.ops.schedules import get_schedule as jax_get_schedule
 from acco_tpu.parallel.acco import AccoTrainStep as JaxAccoTrainStep
 from acco_tpu.parallel.mesh import make_mesh
 from acco_tpu_torch.models.convert import params_from_jax
+from acco_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
 from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
@@ -33,6 +38,19 @@ ARCH = dict(
     vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
     num_heads=2, num_kv_heads=1, max_position_embeddings=16,
 )
+NEO_ARCH = dict(
+    vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+    max_position_embeddings=16, window_size=4,
+)
+NEO_LAYERS = ("global", "local")
+# family -> (JAX config, JAX model, port config, port model)
+FAMILIES = {
+    "llama": lambda: (JaxLlamaConfig(**ARCH), JaxLlamaModel, LlamaConfig(**ARCH), LlamaModel),
+    "gpt_neo": lambda: (
+        JaxGPTNeoConfig(**NEO_ARCH, attention_layers=list(NEO_LAYERS)), JaxGPTNeoModel,
+        GPTNeoConfig(**NEO_ARCH, attention_layers=NEO_LAYERS), GPTNeoModel,
+    ),
+}
 N_ACC, BATCH, SEQ, ROUNDS = 2, 2, 16, 6
 OPT = dict(weight_decay=0.1, beta1=0.9, beta2=0.95)
 SCHED = ("cosine", 3e-3, 2, 20)
@@ -59,17 +77,16 @@ def _jax_block(block):
     return b
 
 
-def _setup(mode):
-    jcfg = JaxLlamaConfig(**ARCH)
-    jmodel = JaxLlamaModel(jcfg, param_dtype=jnp.float32)
+def _setup(mode, family="llama"):
+    jcfg, jmodel_cls, cfg, model_cls = FAMILIES[family]()
+    jmodel = jmodel_cls(jcfg, param_dtype=jnp.float32)
     params = jmodel.init(jax.random.PRNGKey(0))
     jstep = JaxAccoTrainStep(
         jmodel, make_mesh(devices=jax.devices()[:1]), jax_get_schedule(*SCHED),
         param_dtype=jnp.float32, mode=mode, **OPT,
     )
     jstate = jstep.init_state(params)
-    cfg = LlamaConfig(**ARCH)
-    model = LlamaModel(cfg, dtype=torch.float32, device="cpu")
+    model = model_cls(cfg, dtype=torch.float32, device="cpu")
     step = AccoTrainStep(model, get_schedule(*SCHED), mode=mode, **OPT)
     state = step.init_state(params_from_jax(jax.tree.map(np.asarray, params), cfg))
     return jstep, jstate, step, state
@@ -89,9 +106,17 @@ def _assert_states_close(jstate, state, what):
     assert int(state.zero1.opt.count) == int(jstate.zero1.opt.count), what
 
 
-@pytest.mark.parametrize("mode", ["acco", "dpu"])
-def test_rounds_match_jax(mode):
-    jstep, jstate, step, state = _setup(mode)
+@pytest.mark.parametrize(
+    "family, mode",
+    [
+        pytest.param("llama", "acco", id="acco"),
+        pytest.param("llama", "dpu", id="dpu"),
+        pytest.param("gpt_neo", "acco", id="gpt_neo-acco"),
+        pytest.param("gpt_neo", "dpu", id="gpt_neo-dpu"),
+    ],
+)
+def test_rounds_match_jax(family, mode):
+    jstep, jstate, step, state = _setup(mode, family)
     blocks = _blocks(ROUNDS + 1)
     jstate, jloss = jstep.seed_fn()(jstate, _jax_block(blocks[0]))
     state, loss = step.seed(state, block_from_numpy(blocks[0], "cpu"))
@@ -103,7 +128,7 @@ def test_rounds_match_jax(mode):
         parity = r % 2 == 0
         jstate, jm = jstep.round_fn(parity=parity)(jstate, _jax_block(blocks[r + 1]))
         state, m = step.round(state, block_from_numpy(blocks[r + 1], "cpu"), parity)
-        what = f"{mode} round {r}"
+        what = f"{family} {mode} round {r}"
         np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=1e-5, err_msg=what)
         np.testing.assert_allclose(float(m.lr), float(jm.lr), rtol=1e-6, err_msg=what)
         assert bool(m.is_real_update) == bool(jm.is_real_update), what

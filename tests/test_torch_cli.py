@@ -12,17 +12,23 @@ import torch
 from acco_tpu_torch.__main__ import main
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TINY = ["model=tiny128", "data=synthetic", "train.max_length=128", "train.batch_size=2"]
+DATA = ["data=synthetic", "train.max_length=128", "train.batch_size=2"]
+TINY = ["model=tiny128", *DATA]
 
 
 @pytest.mark.parametrize(
-    "method, extra",
-    [("acco", []), ("dpu", ["train.const_len_batch=false"])],  # packed / padded rows
+    "method, model, extra",
+    [  # packed rows (acco) and padded rows (dpu), for Llama and GPT-Neo
+        pytest.param("acco", "tiny128", [], id="acco-extra0"),
+        pytest.param("dpu", "tiny128", ["train.const_len_batch=false"], id="dpu-extra1"),
+        pytest.param("acco", "tiny_neo", [], id="acco-tiny_neo"),
+        pytest.param("dpu", "tiny_neo", ["train.const_len_batch=false"], id="dpu-tiny_neo"),
+    ],
 )
-def test_cli_runs_rounds_on_cpu(method, extra):
+def test_cli_runs_rounds_on_cpu(method, model, extra):
     out = subprocess.run(
         [sys.executable, "-m", "acco_tpu_torch", "--device", "cpu",
-         f"train={method}", *TINY, "train.nb_steps_tot=4", *extra],
+         f"train={method}", f"model={model}", *DATA, "train.nb_steps_tot=4", *extra],
         cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, "OMP_NUM_THREADS": "2"},
     )
@@ -48,7 +54,7 @@ def test_without_device_flag_needs_a_card(monkeypatch):
     "override, item",
     [
         ("train=ddp", "item 4"),
-        ("model=tiny_neo", "item 7"),
+        ("train.finetune=true", "item 7"),
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
         ("train.mesh_shape={dp: 2}", "multi-rank"),

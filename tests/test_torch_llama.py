@@ -26,6 +26,7 @@ from acco_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from acco_tpu.models.llama import LlamaModel as JaxLlamaModel
 from acco_tpu.ops.losses import causal_lm_loss as jax_causal_lm_loss
 from acco_tpu_torch.models.convert import params_from_jax, params_to_jax
+from acco_tpu_torch.models.layers import lm_logits
 from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel, param_layout
 from acco_tpu_torch.parallel.common import make_flat_loss_fn
 
@@ -98,3 +99,24 @@ def test_flat_gradients_match_jax(jax_setup, monkeypatch):
     flat_grad_t = model_t.gather_grads(grads_t, torch.zeros(model_t.n_params))
     np.testing.assert_allclose(float(loss_t), float(value_j), rtol=1e-5)
     np.testing.assert_allclose(flat_grad_t.numpy(), np.asarray(flat_grad_j), **TOL)
+
+
+def test_lm_logits_float32_output_matches_jax_head():
+    """The head product on bf16 operands: ``lm_logits`` gives the float32
+    logits of JAX's ``einsum(..., preferred_element_type=jnp.float32)``
+    (float32 sums of exact bf16 products, at rtol 1e-5), where the bf16
+    product widened afterwards carries one bf16 rounding (2^-9 relative)
+    and does not."""
+    rng = np.random.default_rng(7)
+    h = rng.standard_normal((2, 16, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 96)) * 0.2).astype(np.float32)
+    want = np.asarray(jnp.einsum(
+        "bld,dv->blv", jnp.asarray(h, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        preferred_element_type=jnp.float32,
+    ))
+    ht, wt = (torch.tensor(x).to(torch.bfloat16) for x in (h, w))
+    got = lm_logits(ht, wt)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    widened = torch.matmul(ht, wt).float().numpy()
+    assert not np.allclose(widened, want, rtol=1e-5, atol=1e-6)
