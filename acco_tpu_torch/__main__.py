@@ -44,7 +44,6 @@ def build_trainer(argv: list[str]):
     from acco_tpu_torch.data.datasets import load_text_dataset
     from acco_tpu_torch.data.tokenizer import load_tokenizer
     from acco_tpu_torch.models.registry import build_model
-    from acco_tpu_torch.ops.losses import resolve_fused_loss
     from acco_tpu_torch.trainer import Trainer
     from acco_tpu_torch.utils.platform import resolve_device
 
@@ -66,18 +65,20 @@ def build_trainer(argv: list[str]):
         attention=cfg.train.get("use_pallas_attention", "auto"),
         device=device,
     )
-    resolve_fused_loss(cfg.train.get("fused_loss", False), model.config.vocab_size)
     tokenizer = load_tokenizer(cfg.model.get("tokenizer"), log)
     train_texts, eval_texts = load_text_dataset(cfg.data)
-    log.info(
-        "device=%s model=%s train_docs=%d eval_docs=%d method=%s",
-        device, cfg.model.config_path, len(train_texts), len(eval_texts),
-        cfg.train.method_name,
-    )
-    return Trainer(
+    trainer = Trainer(
         model, tokenizer, train_texts, cfg.train, log,
         seed=int(cfg.select("seed", 12345)), device=device,
     )
+    # train.fused_loss as the train path resolved it against the model
+    # (parallel/common.make_flat_loss_fn, which logs any downgrade)
+    log.info(
+        "device=%s model=%s train_docs=%d eval_docs=%d method=%s fused_loss=%s",
+        device, cfg.model.config_path, len(train_texts), len(eval_texts),
+        cfg.train.method_name, trainer.step.value_and_grad.fused_loss,
+    )
+    return trainer
 
 
 def main(argv: list[str] | None = None) -> dict:

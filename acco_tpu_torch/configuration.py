@@ -342,7 +342,7 @@ def compose_config(
 def check_supported(train_cfg: dict) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for the train
     keys this slice of the port does not run yet (``fused_loss`` is
-    checked where the vocab is known: ops.losses.resolve_fused_loss)."""
+    resolved against the model: ops.losses.resolve_fused_loss)."""
     from acco_tpu_torch.ops.attention import normalize_remat
 
     def refuse(what: str, item: str) -> None:

@@ -162,12 +162,16 @@ class GPTNeoModel(FlatParamModel):
 
     # -- forward ------------------------------------------------------------
 
+    def lm_head(self) -> torch.Tensor:
+        """[D, V] output projection: the tied ``wte`` transposed (a view)."""
+        return self.wte.t()
+
     def apply(
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         """[B, L, V] float32 logits through the tied head
         (``layers.lm_logits``)."""
-        return lm_logits(self.hidden(input_ids, attention_mask), self.wte.t())
+        return lm_logits(self.hidden(input_ids, attention_mask), self.lm_head())
 
     def _attention_fn(self, L: int, attention_mask, device):
         """``attend(q, k, v, window) -> [B, H, L, D]`` for this forward."""

@@ -92,6 +92,7 @@ class AccoTrainStep:
         const_len_batch: bool = False,
         nan_guard: bool = True,
         guard_max_grad_norm: float = 0.0,
+        fused_loss: "bool | str" = False,
     ):
         if mode not in ("acco", "dpu"):
             raise ValueError(f"mode must be 'acco' or 'dpu', got {mode!r}")
@@ -105,7 +106,9 @@ class AccoTrainStep:
         self.nan_guard = bool(nan_guard)
         self.guard_max_grad_norm = float(guard_max_grad_norm or 0.0)
         self.geom = ShardGeometry(model.n_params, 1)
-        self.value_and_grad = make_flat_loss_fn(model, label_smoothing, const_len_batch)
+        self.value_and_grad = make_flat_loss_fn(
+            model, label_smoothing, const_len_batch, fused_loss
+        )
 
     def init_state(self, flat_params: torch.Tensor) -> AccoState:
         """State from an [n_params] flat parameter vector (any float dtype)."""

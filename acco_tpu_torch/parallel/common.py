@@ -8,11 +8,14 @@ Counterpart of ``acco_tpu/parallel/common.py``. A microbatch whose
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from acco_tpu_torch.ops.losses import causal_lm_loss
+from acco_tpu_torch.ops.losses import model_ce, real_vocab_of, resolve_fused_loss
+
+log = logging.getLogger("acco_tpu_torch")
 
 
 class MicrobatchBlock(NamedTuple):
@@ -55,7 +58,8 @@ def block_from_numpy(block: dict, device) -> MicrobatchBlock:
 
 
 def make_flat_loss_fn(
-    model, label_smoothing: float = 0.0, const_len: bool = False
+    model, label_smoothing: float = 0.0, const_len: bool = False,
+    fused_loss: "bool | str" = False,
 ) -> Callable:
     """``value_and_grad(flat_params, batch) -> (loss, grads)``: the model
     computes with the parameters held in ``flat_params`` (views, no copy)
@@ -63,18 +67,29 @@ def make_flat_loss_fn(
 
     Const-len packed data carries all-ones masks by contract, so with
     ``const_len`` the mask is dropped statically, as in the JAX flat loss
-    (the fused kernel then runs without its pad operand)."""
+    (the fused kernel then runs without its pad operand).
+
+    ``fused_loss`` (False | 'auto' | 'chunk' | 'pallas') is resolved once,
+    here, against the model (``ops.losses.resolve_fused_loss``, warning
+    through the log on a downgrade); the loss then goes through
+    ``ops.losses.model_ce``: 'pallas' is the fused lm-head + CE kernel
+    (K3), 'chunk' the chunked loss, False the materialized CE."""
     params = [p for p, _, _ in model.flat_slices()]
+    real_vocab = real_vocab_of(model)
+    fused = resolve_fused_loss(fused_loss, model, real_vocab, warn=log.warning)
 
     def value_and_grad(flat_params: torch.Tensor, batch: dict):
         model.load_flat(flat_params)
         am = None if const_len else batch["attention_mask"]
         with torch.enable_grad():
-            logits = model.apply(batch["input_ids"], am)
-            loss = causal_lm_loss(logits, batch["labels"], label_smoothing)
+            loss = model_ce(
+                model, batch["input_ids"], am, batch["labels"],
+                label_smoothing=label_smoothing, fused=fused, real_vocab=real_vocab,
+            )
             grads = torch.autograd.grad(loss, params)
         return loss.detach(), grads
 
+    value_and_grad.fused_loss = fused
     return value_and_grad
 
 

@@ -72,6 +72,7 @@ class Trainer:
             const_len_batch=self.const_len_batch,
             nan_guard=self.nan_guard,
             guard_max_grad_norm=float(args.get("guard_max_grad_norm", 0.0) or 0.0),
+            fused_loss=args.get("fused_loss", False),
         )
         if self.const_len_batch:
             rows = pack_texts(train_texts, tokenizer, self.max_length)
@@ -137,6 +138,7 @@ class Trainer:
             "rounds": len(round_log),
             "total_time_s": time.time() - t_beg,
             "method": self.method,
+            "fused_loss": self.step.value_and_grad.fused_loss,
             "skipped_rounds": int(state.health.skipped_rounds),
             "n_params": self.model.n_params,
             "seed_loss": seed_loss,

@@ -1,38 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (acco_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py     # needs one CUDA card
+    python3 chip_smoke.py    # needs one CUDA card
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
-2. build: compiles csrc/fused_attention.cu (K1) and
-   csrc/banded_attention.cu (K2) for sm_90a from the checkout (into
-   build/), one nvcc each, started together, and prints ptxas's report;
-3. parity: each attention kernel against its plain PyTorch version on
-   the same inputs on the card, bf16. K1 at the Llama flagship shape
-   (B 8, H = Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA
-   shape with window 256 and a key pad mask, and at GPT-Neo's global
-   shape (scale 1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a
-   small odd window (W 129) and the widest band of its envelope (W 897);
-   and the head's float32 logits against the widened product;
+2. build: compiles csrc/fused_attention.cu (K1),
+   csrc/banded_attention.cu (K2) and csrc/fused_ce.cu (K3) for sm_90a
+   from the checkout (into build/), one nvcc each, started together, and
+   prints ptxas's report;
+3. parity: each kernel against its plain PyTorch version on the same
+   inputs on the card, bf16. K1 at the Llama flagship shape (B 8, H =
+   Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA shape with
+   window 256 and a key pad mask, and at GPT-Neo's global shape (scale
+   1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a small odd
+   window (W 129) and the widest band of its envelope (W 897); K3 (the
+   fused lm-head + CE: forward, dH, dW) at Llama-125M's head (8184 rows,
+   D 768, V 50257), a small unaligned shape (64 rows, D 128, V 277,
+   real vocab 256, ignored rows, smoothing 0.1) and Llama-3-8B's head
+   (1024 rows, D 4096, V 128256), the two heads also with the softmax
+   term alone in dlogits; K3's dH/dW bar against planted faults, each
+   in a patched copy of csrc/fused_ce.cu, which it must fail; and the
+   head's float32 logits against the widened product;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
-   beside K1 at the same window;
+   beside K1 at the same window; K3 at the main path's head (8192 rows)
+   beside the port's materialized head and CE (``layers.lm_logits`` +
+   ``causal_lm_loss``), which no single PyTorch call replaces;
 5. main paths: ``python -m acco_tpu_torch train=acco model=llama-125M
-   data=synthetic`` and ``... model=gptneo ...`` in-process at full
-   width (12 layers, d 768, seq 1024, batch 8, n_acc 1): the seed round
-   and 6 rounds each, with the kernels' launch counts set to 0 just
-   before each run and read just after;
+   data=synthetic``, ``... model=gptneo ...`` and ``... model=llama-125M
+   ... train.fused_loss=pallas`` in-process at full width (12 layers,
+   d 768, seq 1024, batch 8, n_acc 1): the seed round and 6 rounds each,
+   with the kernels' launch counts, and the calls of the materialized
+   head, set to 0 just before each run and read just after;
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
-   gradients (tiny128, then gpt-neo-125M at L 512);
+   gradients (tiny128, then gpt-neo-125M at L 512), and so does
+   ``train.fused_loss=pallas`` (K3) against the materialized CE;
 7. profile: each main path again under torch.profiler, for the device
-   time per kernel, K1's and K2's device time per microbatch and the
-   device's idle share.
+   time per kernel, K1's, K2's and K3's device time per microbatch and
+   the device's idle share.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -43,9 +54,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -69,18 +82,41 @@ BANDED_SHAPES = (
     ("odd window", dict(B=2, H=4, L=512, D=64, window=129)),
     ("widest band", dict(B=2, H=4, L=1024, D=64, window=897)),
 )
-# main paths at full width: Llama-125M (config/model/llama-125M.json) and
+# main paths at full width: Llama-125M (config/model/llama-125M.json),
 # GPT-Neo-125M (config/model/gpt-neo-125M.json, 6 global + 6 local layers)
+# and Llama-125M with the fused lm-head + CE (train.fused_loss=pallas)
 MAIN_ROUNDS = 6  # after the seed round
 LAYERS, D_MODEL, SEQ, BATCH = 12, 768, 1024, 8
 NEO_WINDOW = 256
+VOCAB = 50257
+
+# K3 shapes: rows N of hidden states, hidden D, vocab V, real vocab, label
+# smoothing, the share of ignored rows, and (seq) every seq-th row ignored,
+# as the main path ignores the last row of each sequence. With
+# softmax_only the cotangents are a random signed d_lse per row and no
+# d_tl or d_sl: dlogits is then the softmax term alone, which under the
+# mean loss's cotangents is too small a part of dH to show a fault in it;
+# and, d_lse differing from row to row, a block that reads another row
+# tile's stats gets another result.
+CE_LLAMA = dict(N=BATCH * (SEQ - 1), D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0)
+CE_LLAMA3 = dict(N=1024, D=4096, V=128256, v_real=128256, smoothing=0.0, ignore=0.0)
+CE_SHAPES = (
+    ("llama-125M head", CE_LLAMA),
+    ("llama-125M head, softmax term alone", {**CE_LLAMA, "softmax_only": True}),
+    ("small unaligned", dict(N=2 * 32, D=128, V=277, v_real=256, smoothing=0.1, ignore=0.25)),
+    ("llama-3-8B head", CE_LLAMA3),
+    ("llama-3-8B head, softmax term alone", {**CE_LLAMA3, "softmax_only": True}),
+)
+CE_MAIN = dict(N=BATCH * SEQ, D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0,
+               seq=SEQ)
 
 
-def main_args(model: str) -> list[str]:
+def main_args(path: str) -> list[str]:
+    spec = MAIN_PATHS[path]
     return [
-        "train=acco", f"model={model}", "data=synthetic",
+        "train=acco", f"model={spec['model']}", "data=synthetic",
         f"train.batch_size={BATCH}", f"train.max_length={SEQ}",
-        "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}",
+        "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}", *spec["extra"],
     ]
 
 # Tolerances on the card, bf16 (kernel vs its plain version, same inputs):
@@ -102,7 +138,26 @@ TOL = {
     "dq": (1e-2, 2e-2),
     "dk": (1e-2, 2e-2),
     "dv": (1e-2, 2e-2),
+    # K3's per-row float32 lse and true logit: exact bf16 products summed
+    # in another order (the sum of the real logits: check_mass)
+    "ce_lse": (1e-4, 1e-5),
+    "ce_tl": (1e-4, 1e-5),
 }
+# K3's dH and dW, elementwise: |err| <= r * |plain| + t * term, where term
+# bounds each product summed into the element (``ce_grad_terms``).
+# Both sides round dlogits to bf16 before their products and the result
+# to bf16 at the end. The final rounding can differ by one bf16 step of
+# the element (2^-7 of it): r = 2^-6. A float32 dlogit on a rounding edge
+# can round the other way on the other side and move its product by one
+# bf16 step of itself (at most 2^-7 of it), which shows in full where the
+# sum cancels: t = 2^-6 allows two such steps. The bar stays far
+# below the typical element, so that a dlogit term dropped or misweighted
+# fails (phase 3's planted faults).
+ELEMENT_TOL = {"ce_dh": (2 ** -6, 2 ** -6), "ce_dw": (2 ** -6, 2 ** -6)}
+# K3's sum of the real logits adds V float32 terms, each itself a sum of D
+# products taken in another order: |err| <= 2^-22 * sum over the row of
+# |logit| (4 float32 steps of the row's absolute mass)
+MASS_RTOL = 2 ** -22
 
 
 def log(msg: str) -> None:
@@ -117,10 +172,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check(name: str, got, want) -> float:
+def check(name: str, got, want, tol=None) -> float:
     import torch
 
-    atol, rtol = TOL[name]
+    atol, rtol = tol or TOL[name]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output has non-finite values")
@@ -134,6 +189,123 @@ def check(name: str, got, want) -> float:
             f"(max abs err {max_err:.3e})"
         )
     return max_err
+
+
+def check_mass(name: str, got, want, mass) -> float:
+    """|got - want| <= MASS_RTOL * mass, elementwise."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    log(f"  {name:5s} max_abs_err {max_err:.3e}  (tol {MASS_RTOL:g}*sum|logit|, "
+        f"max {float((err / mass).max()):.3e} of the mass)")
+    if not bool(torch.isfinite(got).all()) or bool((err > MASS_RTOL * mass).any()):
+        raise AssertionError(f"{name}: elements outside tolerance (max abs err {max_err:.3e})")
+    return max_err
+
+
+def check_elementwise(name: str, got, want, term) -> float:
+    """|got - want| <= r * |want| + t * term, elementwise."""
+    import torch
+
+    r, t = ELEMENT_TOL[name]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = r * want.abs() + t * term
+    used = float((err / tol.clamp(min=torch.finfo(torch.float32).tiny)).max())
+    max_err = float(err.max())
+    log(f"  {name:5s} max_abs_err {max_err:.3e}  (tol {r:g}*|ref| + {t:g}*term; median |ref| "
+        f"{float(want.abs().median()):.3e}, median term {float(term.median()):.3e}; "
+        f"worst err/tol {used:.3f})")
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{name}: elements outside tolerance (max abs err {max_err:.3e}, "
+                             f"worst err/tol {used:.3f})")
+    return max_err
+
+
+def ce_grad_terms(h, w, args) -> tuple:
+    """For each element of dH [N, D] and of dW [V, D], a bound on the
+    largest |product| in its sum, from the plain version's bf16 dlogits:
+    the product of the largest |dlogit| over the contraction, exactly, and
+    the second largest |dlogit| times the largest |operand| in the
+    element's column for every other product."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+
+    def bound(dp, other):  # dp [rows, K] (|dlogits|), other [K, D]
+        top = dp.topk(2, dim=1)
+        other = other.float().abs()
+        return torch.maximum(top.values[:, :1] * other[top.indices[:, 0]],
+                             top.values[:, 1:] * other.amax(0))
+
+    dp = fc.dlogits_reference(*args).float().abs()
+    return bound(dp, w), bound(dp.t(), h)
+
+
+# Faults planted in K3's bf16 backward (csrc/fused_ce.cu: the text to
+# replace, its replacement), each of which the dH/dW bar must fail at the
+# softmax-alone Llama-125M head (CE_SHAPES[1])
+K3_FAULTS = {
+    "lse + 0.1": ("- x_lse)", "- x_lse - 0.1f)"),
+    "softmax term dropped": ("dp[e] = x_dl * expf(", "dp[e] = 0.f * x_dl * expf("),
+    "dW reads the next row tile's d_lse": (
+        "rs[1][threadIdx.x] = in ? dl[r] : 0.f;",
+        "rs[1][threadIdx.x] = in ? dl[min(r + kCeT, N - 1)] : 0.f;",
+    ),
+}
+# run in the copy: exits 0 if the bar failed the fault, 3 if it passed it
+_FAULT_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+try:
+    cs.ce_parity(cs.CE_SHAPES[1][1], 7)
+except AssertionError as exc:
+    print("caught:", exc)
+    sys.exit(0)
+sys.exit(3)
+"""
+
+
+def planted_faults() -> None:
+    """Each fault of K3_FAULTS in its own copy of the package and its own
+    process, all started together: the patched K3 builds in the copy and
+    ``ce_parity`` must fail it."""
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, (fault, (old, new)) in enumerate(K3_FAULTS.items()):
+                root = os.path.join(tmp, str(i))
+                shutil.copytree(os.path.join(REPO, "acco_tpu_torch"),
+                                os.path.join(root, "acco_tpu_torch"),
+                                ignore=shutil.ignore_patterns("__pycache__"))
+                shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+                path = os.path.join(root, "acco_tpu_torch", "csrc", "fused_ce.cu")
+                with open(path) as f:
+                    src = f.read()
+                if src.count(old) != 1:
+                    raise AssertionError(f"planted fault {fault!r}: its patch no longer applies")
+                with open(path, "w") as f:
+                    f.write(src.replace(old, new))
+                procs[fault] = subprocess.Popen(
+                    [sys.executable, "-c", _FAULT_CHILD, root],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+            for fault, proc in procs.items():
+                out = proc.communicate(timeout=600)[0]
+                caught = [line for line in out.splitlines() if line.startswith("caught:")]
+                if proc.returncode == 3:
+                    raise AssertionError(f"planted fault {fault!r} passed K3's bar:\n{out[-2000:]}")
+                if proc.returncode != 0 or not caught:
+                    raise AssertionError(f"planted fault {fault!r}: the check exited "
+                                         f"{proc.returncode}:\n{out[-2000:]}")
+                log(f"  {fault}: {caught[0]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def make_inputs(shape: dict, seed: int):
@@ -453,52 +625,259 @@ def banded_timing(shape: dict) -> tuple[dict, dict]:
     return out, backward
 
 
-def reset_launch_counts() -> None:
+def make_ce_inputs(shape: dict, seed: int):
+    """K3's inputs on the card, bf16: hidden rows (std 1), the head as the
+    [V, D] table (std 0.02, the models' init), int32 targets below v_real
+    (0 on ignored rows, as fused_ce_loss maps them), and the cotangents
+    of the mean loss that fused_ce_loss's outer arithmetic gives them
+    (with ``softmax_only``: d_lse random per row, d_tl = d_sl = 0)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N, D, V, v_real = (shape[k] for k in ("N", "D", "V", "v_real"))
+    h = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(V, D, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    tgt = torch.randint(0, v_real, (N,), generator=g, device="cuda")
+    mask = (torch.rand(N, generator=g, device="cuda") >= shape["ignore"]).float()
+    if shape.get("seq"):
+        mask[shape["seq"] - 1::shape["seq"]] = 0.0
+    tgt = torch.where(mask > 0, tgt, torch.zeros_like(tgt)).to(torch.int32)
+    ls, denom = shape["smoothing"], mask.sum().clamp(min=1.0)
+    cot = (mask / denom, -(1.0 - ls) * mask / denom, -ls * mask / (denom * v_real))
+    if shape.get("softmax_only"):
+        d_lse = torch.randn(N, generator=g, device="cuda") * mask / denom
+        cot = (d_lse, torch.zeros_like(d_lse), torch.zeros_like(d_lse))
+    return h, w, tgt, v_real, mask, tuple(c.contiguous() for c in cot)
+
+
+def ce_parity(shape: dict, seed: int) -> dict:
+    """K3's three kernels against their plain versions; returns max errors.
+    The backward kernels and their plain versions get the kernel's lse."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+
+    h, w, tgt, v_real, _, cot = make_ce_inputs(shape, seed)
+    errs = {}
+    lse, tl, sl = fc.ce_fwd(h, w, tgt, v_real)
+    ref = fc.ce_fwd_reference(h, w, tgt, v_real)
+    torch.cuda.synchronize()
+    logits, _, valid = fc._logits(h, w, v_real)
+    mass = torch.where(valid, logits.abs(), torch.zeros_like(logits)).sum(-1)
+    del logits
+    errs["ce_fwd"] = max(check("ce_lse", lse, ref[0]), check("ce_tl", tl, ref[1]),
+                         check_mass("ce_sl", sl, ref[2], mass))
+    args = (h, w, tgt, v_real, lse, *cot)
+    term_dh, term_dw = ce_grad_terms(h, w, args)
+    dh = fc.ce_bwd_dh(*args)
+    torch.cuda.synchronize()
+    errs["ce_bwd_dh"] = check_elementwise("ce_dh", dh, fc.ce_bwd_dh_reference(*args), term_dh)
+    dw = fc.ce_bwd_dw(*args)
+    torch.cuda.synchronize()
+    errs["ce_bwd_dw"] = check_elementwise("ce_dw", dw, fc.ce_bwd_dw_reference(*args), term_dw)
+    del h, w, ref, dh, dw, term_dh, term_dw
+    torch.cuda.empty_cache()
+    return errs
+
+
+def ce_timing() -> tuple[dict, dict, dict]:
+    """K3's kernels at the main path's head (B L = 8192 rows, the last of
+    each sequence ignored): kernel ms, plain ms and bound, with their
+    errors against the plain versions at this shape; and the loss as a
+    whole (``fused_ce_loss`` forward, forward + backward, peak memory)
+    beside the port's materialized head and CE (``layers.lm_logits`` +
+    ``causal_lm_loss``) on the same inputs."""
+    import torch
+
+    from acco_tpu_torch.models.layers import lm_logits
+    from acco_tpu_torch.ops import fused_ce as fc
+    from acco_tpu_torch.ops.losses import IGNORE_INDEX, causal_lm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w, tgt, v_real, mask, cot = make_ce_inputs(CE_MAIN, 11)
+    N, D, V = (CE_MAIN[k] for k in ("N", "D", "V"))
+    lse, tl, sl = fc.ce_fwd(h, w, tgt, v_real)
+    args = (h, w, tgt, v_real, lse, *cot)
+    term_dh, term_dw = ce_grad_terms(h, w, args)
+    errs = {
+        "ce_fwd": check("ce_lse", lse, fc.ce_fwd_reference(h, w, tgt, v_real)[0]),
+        "ce_bwd_dh": check_elementwise("ce_dh", fc.ce_bwd_dh(*args),
+                                       fc.ce_bwd_dh_reference(*args), term_dh),
+        "ce_bwd_dw": check_elementwise("ce_dw", fc.ce_bwd_dw(*args),
+                                       fc.ce_bwd_dw_reference(*args), term_dw),
+    }
+    del term_dh, term_dw
+    torch.cuda.empty_cache()
+    rows, hb, wb = N * 4, N * D * 2, V * D * 2  # float32 [N]; bf16 h; bf16 w
+    work = {  # bytes (inputs read once, outputs written once), operations
+        "ce_fwd": (hb + wb + rows + 3 * rows, 2 * N * D * V),
+        "ce_bwd_dh": (hb + wb + rows + 4 * rows + hb, 4 * N * D * V),
+        "ce_bwd_dw": (hb + wb + rows + 4 * rows + wb, 4 * N * D * V),
+    }
+    runs = {
+        "ce_fwd": (lambda: fc.ce_fwd(h, w, tgt, v_real),
+                   lambda: fc.ce_fwd_reference(h, w, tgt, v_real)),
+        "ce_bwd_dh": (lambda: fc.ce_bwd_dh(*args), lambda: fc.ce_bwd_dh_reference(*args)),
+        "ce_bwd_dw": (lambda: fc.ce_bwd_dw(*args), lambda: fc.ce_bwd_dw_reference(*args)),
+    }
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        ms, plain_ms = time_ms(kernel, iters=10), time_ms(plain, iters=2, windows=3)
+        b_ms, b_by = bound_ms(*work[name])
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None}
+        torch.cuda.empty_cache()
+
+    # the whole loss on [B, L, D] hidden states and B L labels whose
+    # shift gives the targets above, through K3 and through the
+    # materialized head
+    h3 = h.view(BATCH, SEQ, D)
+    labels = torch.full((BATCH, SEQ), IGNORE_INDEX, dtype=torch.long, device="cuda")
+    labels[:, 1:] = torch.where(mask > 0, tgt.long(), IGNORE_INDEX).view(BATCH, SEQ)[:, :-1]
+    hg, wg = h3.detach().requires_grad_(True), w.detach().requires_grad_(True)
+
+    def fused(grad: bool):
+        loss = fc.fused_ce_loss(hg, wg.t(), labels)
+        return torch.autograd.grad(loss, (hg, wg)) if grad else loss
+
+    def materialized(grad: bool):
+        loss = causal_lm_loss(lm_logits(hg, wg.t()), labels)
+        return torch.autograd.grad(loss, (hg, wg)) if grad else loss
+
+    whole = {}
+    for name, fn in (("fused", fused), ("materialized", materialized)):
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fn(False), iters=5, windows=3)
+        step_ms = time_ms(lambda: fn(True), iters=5, windows=3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        whole[name] = {"forward_ms": fwd_ms, "backward_ms": step_ms - fwd_ms,
+                       "step_ms": step_ms, "peak_bytes": peak}
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        loss_f, loss_m = float(fused(False)), float(materialized(False))
+    log(f"  loss: K3 {loss_f:.6f}  materialized {loss_m:.6f}")
+    if abs(loss_f - loss_m) > 1e-5 * abs(loss_m):
+        raise AssertionError("K3's loss and the materialized loss disagree")
+    out["ce_fwd"]["materialized_ms"] = whole["materialized"]["forward_ms"]
+    for name in ("ce_bwd_dh", "ce_bwd_dw"):  # the materialized backward makes both
+        out[name]["materialized_ms"] = whole["materialized"]["backward_ms"]
+    backward = {
+        "ms": out["ce_bwd_dh"]["ms"] + out["ce_bwd_dw"]["ms"],
+        "plain_ms": out["ce_bwd_dh"]["plain_ms"] + out["ce_bwd_dw"]["plain_ms"],
+        "materialized_ms": whole["materialized"]["backward_ms"],
+        "bound_ms": bound_ms(2 * hb + 2 * wb + 5 * rows, 6 * N * D * V)[0],
+    }
+    for name, r in out.items():
+        log(f"  {name:15s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"materialized {r['materialized_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"  backward total  kernel {backward['ms']:.4f} ms  plain {backward['plain_ms']:.4f} ms"
+        f"  materialized {backward['materialized_ms']:.4f} ms  bound {backward['bound_ms']:.4f} ms")
+    for name, r in whole.items():
+        log(f"  whole loss, {name:12s}: forward {r['forward_ms']:.4f} ms  backward "
+            f"{r['backward_ms']:.4f} ms  step {r['step_ms']:.4f} ms  peak above inputs "
+            f"{r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.3f} GiB)")
+    del h, w, hg, wg, h3
+    torch.cuda.empty_cache()
+    return out, {**backward, "whole": whole}, errs
+
+
+def _launch_tables():
     from acco_tpu_torch.ops import banded_attention as bd
     from acco_tpu_torch.ops import fused_attention as fa
+    from acco_tpu_torch.ops import fused_ce as fc
 
-    fa.reset_launch_counts()
-    bd.reset_launch_counts()
+    return fa, bd, fc
+
+
+def reset_launch_counts() -> None:
+    for module in _launch_tables():
+        module.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from acco_tpu_torch.ops import banded_attention as bd
-    from acco_tpu_torch.ops import fused_attention as fa
+    out = {}
+    for module in _launch_tables():
+        out.update(module.LAUNCHES)
+    return out
 
-    return {**fa.LAUNCHES, **bd.LAUNCHES}
+
+class HeadLogitsCalls:
+    """Counts the models' calls of the materialized head
+    (``layers.lm_logits``, as models/llama.py and models/gpt_neo.py import
+    it) while the context is open: the fused-CE path must make none."""
+
+    def __enter__(self):
+        from acco_tpu_torch.models import gpt_neo, llama
+
+        self.count, self.saved = 0, []
+        for module in (llama, gpt_neo):
+            original = module.lm_logits
+
+            def counted(h, w, _original=original):
+                self.count += 1
+                return _original(h, w)
+
+            self.saved.append((module, original))
+            module.lm_logits = counted
+        return self
+
+    def __exit__(self, *exc):
+        for module, original in self.saved:
+            module.lm_logits = original
 
 
-# Each main path: its model, its layers' windows (0 = global), and the
-# launches per microbatch of every kernel (K2 reuses K1's delta kernel).
+# Each main path: its model and extra overrides, its layers' windows (0 =
+# global), the launches per microbatch of every kernel (K2 reuses K1's
+# delta kernel) and the calls of the materialized head per microbatch.
+_K1 = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
+_K2 = ("banded_fwd", "banded_bwd_dq", "banded_bwd_dkdv")
+_K3 = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
 MAIN_PATHS = {
     "llama-125M": dict(
-        windows=[0] * LAYERS,
-        per_microbatch={"attn_fwd": 12, "attn_bwd_delta": 12, "attn_bwd_dkdv": 12,
-                        "attn_bwd_dq": 12, "banded_fwd": 0, "banded_bwd_dq": 0,
-                        "banded_bwd_dkdv": 0},
+        model="llama-125M", extra=[], windows=[0] * LAYERS, head_logits=1,
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K3, 0)},
     ),
     "gptneo": dict(
-        windows=[0, NEO_WINDOW] * (LAYERS // 2),
+        model="gptneo", extra=[], windows=[0, NEO_WINDOW] * (LAYERS // 2), head_logits=1,
         per_microbatch={"attn_fwd": 6, "attn_bwd_delta": 12, "attn_bwd_dkdv": 6,
-                        "attn_bwd_dq": 6, "banded_fwd": 6, "banded_bwd_dq": 6,
-                        "banded_bwd_dkdv": 6},
+                        "attn_bwd_dq": 6, **dict.fromkeys(_K2, 6), **dict.fromkeys(_K3, 0)},
+    ),
+    "llama-125M-fusedce": dict(
+        model="llama-125M", extra=["train.fused_loss=pallas"], windows=[0] * LAYERS,
+        head_logits=0,
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2, 0),
+                        **dict.fromkeys(_K3, 1)},
     ),
 }
+# the kernel each JSON entry reports launches for: its own slice's path
+OWN_PATH = {**dict.fromkeys(_K1, "llama-125M"), **dict.fromkeys(_K2, "gptneo"),
+            **dict.fromkeys(_K3, "llama-125M-fusedce")}
+SOURCE = {**dict.fromkeys(_K1, "fused_attention.cu"), **dict.fromkeys(_K2, "banded_attention.cu"),
+          **dict.fromkeys(_K3, "fused_ce.cu")}
 
 
-def main_path(model: str) -> tuple[dict, float]:
+def main_path(path: str) -> tuple[dict, float, int]:
     """The port's entry point, in-process, at the model's full width, with
-    every launch count set to 0 just before the run and read just after;
-    returns the counts and the median round ms."""
+    every launch count (and the materialized head's calls) set to 0 just
+    before the run and read just after; returns the counts, the median
+    round ms and the peak memory."""
     import torch
 
     from acco_tpu_torch.__main__ import main as entry
 
-    spec = MAIN_PATHS[model]
+    spec = MAIN_PATHS[path]
+    model = path
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    summary = entry(main_args(model))
-    launches = launch_counts()
+    with HeadLogitsCalls() as head:
+        reset_launch_counts()
+        summary = entry(main_args(path))
+        launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     rounds = summary["round_log"]
     if len(rounds) != MAIN_ROUNDS:
@@ -510,6 +889,12 @@ def main_path(model: str) -> tuple[dict, float]:
     if real != [r % 2 == 1 for r in range(MAIN_ROUNDS)]:
         raise AssertionError(f"is_real_update does not alternate: {real}")
     microbatches = (MAIN_ROUNDS + 1) * 1  # seed + rounds, n_acc 1
+    want_fused = "pallas" if "train.fused_loss=pallas" in spec["extra"] else False
+    if summary["fused_loss"] != want_fused:
+        raise AssertionError(f"{model}: fused_loss resolved to {summary['fused_loss']!r}")
+    if head.count != spec["head_logits"] * microbatches:
+        raise AssertionError(f"{model}: the materialized head ran {head.count} times, expected "
+                             f"{spec['head_logits']} per microbatch x {microbatches}")
     for name, per_mb in spec["per_microbatch"].items():
         if launches[name] != per_mb * microbatches:
             raise AssertionError(
@@ -534,32 +919,44 @@ def main_path(model: str) -> tuple[dict, float]:
     log(f"  tokens/s {tok_s:.1f}  MFU {flops_per_token * tok_s / PEAK_BF16_FLOPS:.4f} "
         f"(vs {PEAK_BF16_FLOPS:.3g} FLOP/s bf16)")
     log(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
-    log(f"  launches {launches}")
-    return launches, med
+    log(f"  launches {launches}  materialized head calls {head.count}")
+    return launches, med, peak
 
 
-def small_input_agreement(args: list[str], kernels: tuple[str, ...]) -> None:
+ATTENTION_RUNS = (
+    ["train.use_pallas_attention=fused", "train.fused_loss=false"],
+    ["train.use_pallas_attention=xla", "train.fused_loss=false"],
+)
+CE_RUNS = (
+    ["train.use_pallas_attention=fused", "train.fused_loss=pallas"],
+    ["train.use_pallas_attention=fused", "train.fused_loss=false"],
+)
+
+
+def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENTION_RUNS,
+                          plain_silent: tuple[str, ...] | None = None) -> None:
     """The entry point twice on a small float32 input (4 ACCO rounds),
-    once through the kernels and once through the plain attention: every
-    kernel in ``kernels`` launched in the first run and none in the
-    second, and the losses and the last staged gradients agree."""
+    with the overrides of ``runs``: once through the kernels and once
+    through their plain path. Every kernel in ``kernels`` launched in the
+    first run; none of ``plain_silent`` (by default: no kernel at all) in
+    the second; the losses and the last staged gradients agree."""
     import torch
 
     from acco_tpu_torch.__main__ import build_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    runs = {}
-    for attention in ("fused", "xla"):
+    out = []
+    for extra in runs:
         reset_launch_counts()
         trainer = build_trainer([
-            *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false",
-            f"train.use_pallas_attention={attention}",
+            *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false", *extra,
         ])
         summary = trainer.train()
-        runs[attention] = (summary, trainer.final_state, launch_counts())
-    (s_k, st_k, n_k), (s_p, st_p, n_p) = runs["fused"], runs["xla"]
-    if any(n_k[k] == 0 for k in kernels) or any(n_p.values()):
-        raise AssertionError(f"kernel launches: fused run {n_k}, plain run {n_p}")
+        out.append((summary, trainer.final_state, launch_counts()))
+    (s_k, st_k, n_k), (s_p, st_p, n_p) = out
+    silent = n_p.keys() if plain_silent is None else plain_silent
+    if any(n_k[k] == 0 for k in kernels) or any(n_p[k] for k in silent):
+        raise AssertionError(f"kernel launches: kernel run {n_k}, plain run {n_p}")
     losses_k = [s_k["seed_loss"]] + [r["loss"] for r in s_k["round_log"]]
     losses_p = [s_p["seed_loss"]] + [r["loss"] for r in s_p["round_log"]]
     g_k, g_p = st_k.pending_grads, st_p.pending_grads
@@ -603,8 +1000,8 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
     log(f"  {model}: device busy {per_mb:.2f} ms per microbatch (init + seed + "
         f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
         f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
-    for family, tag in (("K1", "attn_"), ("K2", "banded_")):
-        rows = [e for e in kernels if tag in e.key]
+    for family, tag in (("K1", r"\battn_"), ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)")):
+        rows = [e for e in kernels if re.search(tag, e.key)]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
             f"({', '.join(sorted({re.search(r'\w+_kernel', e.key).group(0) for e in rows}))})")
@@ -614,12 +1011,12 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
 
 
 def build_all() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
+    """The three kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from acco_tpu_torch.utils import cuda_build
 
-    names = ("fused_attention", "banded_attention")
+    names = ("fused_attention", "banded_attention", "fused_ce")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(cuda_build.build, n) for n in names]:
@@ -642,6 +1039,11 @@ REPLACES = {
     "banded_fwd": "acco_tpu/ops/banded_attention.py:240",
     "banded_bwd_dq": "acco_tpu/ops/banded_attention.py:279",
     "banded_bwd_dkdv": "acco_tpu/ops/banded_attention.py:314",
+    "ce_fwd": "acco_tpu/ops/fused_ce.py:267",
+    # one dH and one dW kernel serve both backward forms of the TPU kernel:
+    # the split dH / dW calls and the fused call (:324)
+    "ce_bwd_dh": "acco_tpu/ops/fused_ce.py:356, acco_tpu/ops/fused_ce.py:324",
+    "ce_bwd_dw": "acco_tpu/ops/fused_ce.py:375, acco_tpu/ops/fused_ce.py:324",
 }
 
 
@@ -681,6 +1083,12 @@ def main() -> int:
         log(f" K2 {label}: {shape}")
         for kname, e in banded_parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
+    for seed, (label, shape) in enumerate(CE_SHAPES, start=6):
+        log(f" K3 {label}: {shape}")
+        for kname, e in ce_parity(shape, seed).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    log(" K3's dH/dW bar against planted faults (softmax-alone Llama-125M head)")
+    planted_faults()
     log(" head: float32 logits from bf16 operands")
     head_parity()
 
@@ -690,11 +1098,17 @@ def main() -> int:
     log(f" K2 at the GPT-Neo local shape {NEO_LOCAL}, scale 1.0")
     banded_times, banded_backward = banded_timing(NEO_LOCAL)
     times.update(banded_times)
+    log(f" K3 at the main path's head {CE_MAIN}")
+    ce_times, ce_backward, ce_errs = ce_timing()
+    times.update(ce_times)
+    for kname, e in ce_errs.items():
+        errs[kname] = max(errs[kname], e)
 
-    launches, round_ms = {}, {}
-    for step, model in enumerate(MAIN_PATHS, start=1):
-        log(f"== 5.{step} main path: train=acco model={model} data=synthetic")
-        launches[model], round_ms[model] = main_path(model)
+    launches, round_ms, peaks = {}, {}, {}
+    for step, path in enumerate(MAIN_PATHS, start=1):
+        log(f"== 5.{step} main path {path}: {' '.join(main_args(path))}")
+        launches[path], round_ms[path], peaks[path] = main_path(path)
+    log(f"  peak memory by path: { {p: f'{b / 2**30:.2f} GiB' for p, b in peaks.items()} }")
     log("== 6 small input: the kernel path agrees with the plain path (float32)")
     log(" tiny128 (K1), L 128")
     small_input_agreement(
@@ -709,21 +1123,32 @@ def main() -> int:
         ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
          "banded_bwd_dkdv"),
     )
+    log(" tiny128, fused_loss=pallas (K3) vs the materialized CE, L 128")
+    small_input_agreement(
+        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+         "train.batch_size=4"],
+        _K3, runs=CE_RUNS, plain_silent=_K3,
+    )
+    log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
+    small_input_agreement(
+        ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+         "train.batch_size=2"],
+        ("attn_fwd", "banded_fwd", *_K3), runs=CE_RUNS, plain_silent=_K3,
+    )
     log("== 7 where the device time goes (profiled reruns of the main paths)")
     for model in MAIN_PATHS:
         profile_main_path(model, round_ms[model])
 
     # launches: each kernel's count on its own slice's main path (K1: the
-    # Llama path, K2: the GPT-Neo path), and on every path
-    own_path = {k: ("gptneo" if k.startswith("banded") else "llama-125M") for k in times}
+    # Llama path, K2: the GPT-Neo path, K3: the fused-CE path), and on
+    # every path
     kernels = [
         {
             "name": kname,
             "route": "cuda",
-            "source": "acco_tpu_torch/csrc/"
-            + ("banded_attention.cu" if kname.startswith("banded") else "fused_attention.cu"),
+            "source": "acco_tpu_torch/csrc/" + SOURCE[kname],
             "replaces": REPLACES[kname],
-            "launches": launches[own_path[kname]][kname],
+            "launches": launches[OWN_PATH[kname]][kname],
             "launches_by_path": {m: launches[m][kname] for m in MAIN_PATHS},
             "max_abs_err": errs[kname],
             **times[kname],
@@ -732,6 +1157,7 @@ def main() -> int:
     ]
     log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
     log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
+    log(f"K3 backward total (dH + dW) and the whole loss: {json.dumps(ce_backward)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,8 +44,13 @@ NEO_ARCH = dict(
 )
 NEO_LAYERS = ("global", "local")
 # family -> (JAX config, JAX model, port config, port model)
+# a Llama inside the fused CE's envelope (hidden and vocab >= 128)
+ARCH_128 = dict(ARCH, vocab_size=128, hidden_size=128)
 FAMILIES = {
     "llama": lambda: (JaxLlamaConfig(**ARCH), JaxLlamaModel, LlamaConfig(**ARCH), LlamaModel),
+    "llama_h128": lambda: (
+        JaxLlamaConfig(**ARCH_128), JaxLlamaModel, LlamaConfig(**ARCH_128), LlamaModel,
+    ),
     "gpt_neo": lambda: (
         JaxGPTNeoConfig(**NEO_ARCH, attention_layers=list(NEO_LAYERS)), JaxGPTNeoModel,
         GPTNeoConfig(**NEO_ARCH, attention_layers=NEO_LAYERS), GPTNeoModel,
@@ -77,17 +82,18 @@ def _jax_block(block):
     return b
 
 
-def _setup(mode, family="llama"):
+def _setup(mode, family="llama", fused_loss=False):
     jcfg, jmodel_cls, cfg, model_cls = FAMILIES[family]()
     jmodel = jmodel_cls(jcfg, param_dtype=jnp.float32)
     params = jmodel.init(jax.random.PRNGKey(0))
     jstep = JaxAccoTrainStep(
         jmodel, make_mesh(devices=jax.devices()[:1]), jax_get_schedule(*SCHED),
-        param_dtype=jnp.float32, mode=mode, **OPT,
+        param_dtype=jnp.float32, mode=mode, fused_loss=fused_loss, **OPT,
     )
     jstate = jstep.init_state(params)
     model = model_cls(cfg, dtype=torch.float32, device="cpu")
-    step = AccoTrainStep(model, get_schedule(*SCHED), mode=mode, **OPT)
+    step = AccoTrainStep(model, get_schedule(*SCHED), mode=mode, fused_loss=fused_loss, **OPT)
+    assert step.value_and_grad.fused_loss == (fused_loss or False)
     state = step.init_state(params_from_jax(jax.tree.map(np.asarray, params), cfg))
     return jstep, jstate, step, state
 
@@ -107,34 +113,40 @@ def _assert_states_close(jstate, state, what):
 
 
 @pytest.mark.parametrize(
-    "family, mode",
+    "family, mode, fused_loss",
     [
-        pytest.param("llama", "acco", id="acco"),
-        pytest.param("llama", "dpu", id="dpu"),
-        pytest.param("gpt_neo", "acco", id="gpt_neo-acco"),
-        pytest.param("gpt_neo", "dpu", id="gpt_neo-dpu"),
+        pytest.param("llama", "acco", False, id="acco"),
+        pytest.param("llama", "dpu", False, id="dpu"),
+        pytest.param("gpt_neo", "acco", False, id="gpt_neo-acco"),
+        pytest.param("gpt_neo", "dpu", False, id="gpt_neo-dpu"),
+        # the fused CE: JAX's Pallas kernel in interpret mode, the port's plain version
+        pytest.param("llama_h128", "acco", "pallas", id="acco-fused_loss_pallas"),
     ],
 )
-def test_rounds_match_jax(family, mode):
-    jstep, jstate, step, state = _setup(mode, family)
-    blocks = _blocks(ROUNDS + 1)
+def test_rounds_match_jax(family, mode, fused_loss, monkeypatch):
+    monkeypatch.setenv("ACCO_FUSED_CE_INTERPRET", "1")
+    jstep, jstate, step, state = _setup(mode, family, fused_loss)
+    # the fused case compiles JAX's interpreted kernel into each program:
+    # one even and one odd round cover both of them
+    rounds = 2 if fused_loss else ROUNDS
+    blocks = _blocks(rounds + 1)
     jstate, jloss = jstep.seed_fn()(jstate, _jax_block(blocks[0]))
     state, loss = step.seed(state, block_from_numpy(blocks[0], "cpu"))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(
         state.pending_grads.numpy(), np.asarray(jstate.pending_grads), **TOL
     )
-    for r in range(ROUNDS):
+    for r in range(rounds):
         parity = r % 2 == 0
         jstate, jm = jstep.round_fn(parity=parity)(jstate, _jax_block(blocks[r + 1]))
         state, m = step.round(state, block_from_numpy(blocks[r + 1], "cpu"), parity)
-        what = f"{family} {mode} round {r}"
+        what = f"{family} {mode} {fused_loss} round {r}"
         np.testing.assert_allclose(float(m.loss), float(jm.loss), rtol=1e-5, err_msg=what)
         np.testing.assert_allclose(float(m.lr), float(jm.lr), rtol=1e-6, err_msg=what)
         assert bool(m.is_real_update) == bool(jm.is_real_update), what
         assert bool(m.is_real_update) == (r % 2 == 1 if mode == "acco" else True), what
         _assert_states_close(jstate, state, what)
-    assert int(state.zero1.opt.count) == (3 if mode == "acco" else 6)
+    assert int(state.zero1.opt.count) == (rounds // 2 if mode == "acco" else rounds)
     assert float(state.zero1.grads_committed) == float(jstate.zero1.grads_committed)
 
 

@@ -1,5 +1,6 @@
 """``python -m acco_tpu_torch``: a few CPU rounds end to end, the device
-rule, and the keys this slice refuses by name."""
+rule, ``train.fused_loss=pallas`` and its downgrade, and the keys this
+slice refuses by name."""
 
 import json
 import os
@@ -58,10 +59,24 @@ def test_without_device_flag_needs_a_card(monkeypatch):
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
         ("train.mesh_shape={dp: 2}", "multi-rank"),
-        ("train.fused_loss=pallas", "K3"),
         ("train.use_pallas_attention=flash", "row 9"),
     ],
 )
 def test_unported_keys_raise_by_name(override, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])
+
+
+@pytest.mark.parametrize("model, resolved", [("tiny128", "pallas"), ("tiny_neo", "chunk")])
+def test_fused_loss_pallas_runs_on_cpu(model, resolved, caplog):
+    """``train.fused_loss=pallas`` trains through the fused CE's plain
+    version on tiny128 (hidden 128); tiny_neo (hidden 64) is outside the
+    kernel's envelope and falls back to the chunked loss with a warning,
+    as in JAX."""
+    summary = main(["--device", "cpu", "train=acco", f"model={model}", *DATA,
+                    "train.nb_steps_tot=2", "train.fused_loss=pallas"])
+    assert summary["fused_loss"] == resolved and summary["count_grad_tot"] == 2
+    losses = [summary["seed_loss"]] + [r["loss"] for r in summary["round_log"]]
+    assert all(map(lambda x: abs(x) < 100, losses))
+    downgraded = [r.message for r in caplog.records if "outside the kernel envelope" in r.message]
+    assert len(downgraded) == (resolved == "chunk")
