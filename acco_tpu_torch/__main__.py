@@ -74,9 +74,10 @@ def build_trainer(argv: list[str]):
     # train.fused_loss as the train path resolved it against the model
     # (parallel/common.make_flat_loss_fn, which logs any downgrade)
     log.info(
-        "device=%s model=%s train_docs=%d eval_docs=%d method=%s fused_loss=%s",
+        "device=%s model=%s train_docs=%d eval_docs=%d method=%s fused_loss=%s "
+        "attention=%s",
         device, cfg.model.config_path, len(train_texts), len(eval_texts),
-        cfg.train.method_name, trainer.step.value_and_grad.fused_loss,
+        cfg.train.method_name, trainer.step.value_and_grad.fused_loss, trainer.attention,
     )
     return trainer
 

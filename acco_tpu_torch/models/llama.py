@@ -1,4 +1,4 @@
-"""Llama-family causal LM (RMSNorm, RoPE, SwiGLU, GQA, tied head).
+"""Llama-family causal LM (RMSNorm, RoPE, SwiGLU, GQA, tied or untied head).
 
 Counterpart of ``acco_tpu/models/llama.py`` for the training path. The
 parameters are ``nn.Parameter`` views into one flat vector in the order
@@ -31,6 +31,7 @@ from acco_tpu_torch.ops.attention import (
     dot_product_attention,
     resolve_attention_impl,
 )
+from acco_tpu_torch.ops.flash_attention import flash_dot_product_attention
 from acco_tpu_torch.ops.fused_attention import fused_dot_product_attention
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +140,10 @@ class LlamaModel(FlatParamModel):
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             if impl == "fused":
                 ctx = fused_dot_product_attention(
+                    q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
+                )
+            elif impl == "flash":  # the pad mask as segment ids (JAX's flash path)
+                ctx = flash_dot_product_attention(
                     q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
                 )
             else:

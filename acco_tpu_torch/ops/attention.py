@@ -7,12 +7,15 @@ Counterpart of ``acco_tpu/ops/attention.py`` for the training path:
   float32 and casts the probabilities to the activation dtype before the
   PV product — the JAX einsum path's numerics.
 - :func:`resolve_attention_impl` maps the config's
-  ``use_pallas_attention`` onto 'xla' (this module's plain path) or
-  'fused' (ops/fused_attention.py). On CUDA, 'auto' picks 'fused' when
-  the kernel supports the shape; on the CPU it picks the plain path, as
-  the JAX resolver does off the TPU. 'fused' on the CPU runs the
-  kernel's plain version. 'flash' named JAX's bundled TPU flash kernel;
-  its Hopper counterpart is not ported yet (PERF.md kernel table, row 9).
+  ``use_pallas_attention`` onto 'xla' (this module's plain path), 'fused'
+  (K1, ops/fused_attention.py) or 'flash' (K5, ops/flash_attention.py,
+  the Hopper kernel of JAX's bundled TPU flash kernel). On CUDA, 'auto'
+  takes JAX's TPU policy for flash without remat (which the port does
+  not run yet): 'flash' from L 2048 on, L a multiple of 512, where K5
+  takes the head dim; below that 'fused' where K1 takes the shape, else
+  'xla'. On the CPU 'auto' is the plain path, as the JAX resolver is off
+  the TPU; 'fused' and 'flash' on the CPU run their kernels' plain
+  versions.
 """
 
 from __future__ import annotations
@@ -122,21 +125,22 @@ def normalize_attention_impl(impl) -> str:
 
 
 def resolve_attention_impl(impl, seq_len: int, head_dim: int, device) -> str:
-    """'xla' or 'fused' for this shape on this device (see module doc)."""
+    """'xla', 'fused' or 'flash' for this shape on this device (see module
+    doc)."""
+    from acco_tpu_torch.ops.flash_attention import supports_flash_attention
     from acco_tpu_torch.ops.fused_attention import supports_fused_attention
 
     impl = normalize_attention_impl(impl)
-    if impl == "flash":
-        raise NotImplementedError(
-            "attention 'flash' named JAX's bundled TPU flash kernel; its "
-            "Hopper counterpart (the tiled fused kernel without an L cap) "
-            "is not ported yet: PERF.md kernel table row 9, ROADMAP.md "
-            "queue 2"
-        )
     if impl != "auto":
         return impl
-    if torch.device(device).type == "cuda" and supports_fused_attention(
-        seq_len, head_dim
+    if torch.device(device).type != "cuda":
+        return "xla"
+    if (
+        seq_len >= 2048
+        and seq_len % 512 == 0
+        and supports_flash_attention(seq_len, head_dim)
     ):
+        return "flash"
+    if supports_fused_attention(seq_len, head_dim):
         return "fused"
     return "xla"

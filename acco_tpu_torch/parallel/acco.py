@@ -68,11 +68,13 @@ class AccoRoundMetrics(NamedTuple):
     skipped: torch.Tensor  # bool: the guard suppressed this round's update
 
 
-def _where(pred, new, old):
-    """torch.where over a state leaf; a Python bool picks statically."""
+def _where(pred, new, old, into_new: bool = False):
+    """torch.where over a state leaf; a Python bool picks statically.
+    ``into_new`` writes the result into ``new``, a buffer this round made
+    (no third copy of a parameter-sized leaf)."""
     if isinstance(pred, bool):
         return new if pred else old
-    return torch.where(pred, new, old)
+    return torch.where(pred, new, old, out=new) if into_new else torch.where(pred, new, old)
 
 
 class AccoTrainStep:
@@ -165,14 +167,15 @@ class AccoTrainStep:
         if self.nan_guard:
             new_flat, new_opt, uh = upd
             ok, grad_norm = uh.ok, uh.grad_norm
-            new_flat = torch.where(ok, new_flat, state.flat_params)
+            new_flat = _where(ok, new_flat, state.flat_params, into_new=True)
             commit_ok = ok if commit else False
         else:
             new_flat, new_opt = upd
             grad_norm = torch.zeros((), device=lr.device)
             commit_ok = commit
         opt_out = AdamWState(*(
-            _where(commit_ok, new, old) for new, old in zip(new_opt, state.zero1.opt)
+            _where(commit_ok, new, old, into_new=True)
+            for new, old in zip(new_opt, state.zero1.opt)
         ))
         one = torch.ones((), dtype=torch.int32, device=lr.device)
         sched_out = state.zero1.sched_grads + _where(commit_ok, one, torch.zeros_like(one))
@@ -180,12 +183,13 @@ class AccoTrainStep:
         # ---- compute branch: grads at the current working params ----
         # even ACCO rounds carry in the staged grads unless the guard
         # judged them poisoned; odd and DPU rounds start from zero
+        # (a copy: accumulate_grads adds into it in place)
         grad0 = count0 = None
         if speculative:
-            grad0, count0 = state.pending_grads, state.pending_count[0]
+            grad0, count0 = state.pending_grads.clone(), state.pending_count[0]
             if self.nan_guard:
                 pok = state.health.pending_ok > 0
-                grad0 = torch.where(pok, grad0, torch.zeros_like(grad0))
+                grad0 = _where(pok, grad0, torch.zeros((), device=grad0.device), into_new=True)
                 count0 = torch.where(pok, count0, torch.zeros_like(count0))
         grad_sum, count, loss_wsum = self._accumulate(
             state.flat_params, block, grad_init=grad0, count_init=count0

@@ -103,9 +103,11 @@ def accumulate_grads(
 ):
     """Run the block's microbatches; return (grad_sum float32 [Pp], count,
     loss_weighted_sum). Each microbatch's gradient is widened to float32
-    and weighted by its ``valid`` entry before it joins the sum."""
+    and weighted by its ``valid`` entry before it joins the sum.
+    ``grad_init``, when given, is the sum's buffer and is added into in
+    place: the caller hands over a buffer of its own."""
     grad_sum = (
-        grad_init.clone()
+        grad_init
         if grad_init is not None
         else torch.zeros(flat_params.shape, dtype=torch.float32, device=flat_params.device)
     )
@@ -135,6 +137,5 @@ def mean_loss(loss_weighted_sum: torch.Tensor, valid: torch.Tensor) -> torch.Ten
 
 def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor) -> torch.Tensor:
     """float32 0/1 verdict on the grads a round stages: finite loss and a
-    finite grad sum (``g * 0`` is NaN exactly where g is not finite)."""
-    probe = (grad_sum * 0.0).sum()
-    return (torch.isfinite(loss) & torch.isfinite(probe)).float()
+    finite grad sum."""
+    return (torch.isfinite(loss) & torch.isfinite(grad_sum).all()).float()

@@ -18,6 +18,8 @@ from torch.nn import functional as F
 
 from acco_tpu_torch.ops.adamw import AdamWState, adamw_shard_update, init_adamw_state
 
+CHUNK = 1 << 26  # elements of the shard updated at a time (256 MB of float32)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardGeometry:
@@ -90,25 +92,45 @@ def zero1_update_shard(
             "ZeRO-1 over more than one rank needs the NCCL collectives: "
             "ROADMAP.md queue 1, item 4"
         )
-    grad_shard = flat_grads.float() / grad_divisor.float()
+    # AdamW runs chunk by chunk into fresh output buffers: the same
+    # arithmetic per element as one call over the shard, but eager
+    # PyTorch would hold about seven shard-sized float32 temporaries at
+    # once (35 GB at 1.5e9 parameters), and the chunks hold a few of
+    # CHUNK elements instead.
+    S = opt_shard.params.numel()
     pad_mask = geom.shard_pad_mask(0, flat_grads.device)
-    new_opt = adamw_shard_update(
-        opt_shard, grad_shard, lr=lr, weight_decay=weight_decay,
-        beta1=beta1, beta2=beta2, eps=eps, pad_mask=pad_mask,
+    new_flat = torch.empty(S, dtype=out_dtype, device=flat_grads.device)
+    out = AdamWState(
+        params=torch.empty_like(opt_shard.params),
+        mu=torch.empty_like(opt_shard.mu),
+        nu=torch.empty_like(opt_shard.nu),
+        count=opt_shard.count + 1,
     )
-    new_flat = new_opt.params.to(out_dtype)
+    zero = torch.zeros((), device=flat_grads.device)
+    grad_ss, param_ss = zero, zero
+    for lo in range(0, S, CHUNK):
+        c = slice(lo, min(lo + CHUNK, S))
+        grad_shard = flat_grads[c].float() / grad_divisor.float()
+        mask = None if pad_mask is None else pad_mask[c]
+        upd = adamw_shard_update(
+            AdamWState(opt_shard.params[c], opt_shard.mu[c], opt_shard.nu[c], opt_shard.count),
+            grad_shard, lr=lr, weight_decay=weight_decay,
+            beta1=beta1, beta2=beta2, eps=eps, pad_mask=mask,
+        )
+        for dst, src in zip(out[:3], upd[:3]):
+            dst[c] = src
+        new_flat[c] = upd.params.to(out_dtype)
+        if with_health:
+            # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
+            g, prm = grad_shard, upd.params
+            if mask is not None:
+                real = mask > 0
+                g, prm = torch.where(real, g, zero), torch.where(real, prm, zero)
+            grad_ss = grad_ss + g.square().sum()
+            param_ss = param_ss + prm.square().sum()
     if not with_health:
-        return new_flat, new_opt
-    # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
-    if pad_mask is None:
-        grad_ss = grad_shard.square().sum()
-        param_ss = new_opt.params.square().sum()
-    else:
-        real = pad_mask > 0
-        zero = torch.zeros((), device=grad_shard.device)
-        grad_ss = torch.where(real, grad_shard, zero).square().sum()
-        param_ss = torch.where(real, new_opt.params, zero).square().sum()
+        return new_flat, out
     ok = torch.isfinite(grad_ss) & torch.isfinite(param_ss)
     if max_grad_norm and max_grad_norm > 0:
         ok = ok & (grad_ss <= float(max_grad_norm) ** 2)
-    return new_flat, new_opt, UpdateHealth(ok=ok, grad_norm=grad_ss.sqrt())
+    return new_flat, out, UpdateHealth(ok=ok, grad_norm=grad_ss.sqrt())

@@ -21,6 +21,7 @@ import torch
 
 from acco_tpu_torch.data.loader import BatchIterator, infinite_batches, stack_microbatches
 from acco_tpu_torch.data.tokenize import pack_texts
+from acco_tpu_torch.ops.attention import resolve_attention_impl
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import block_from_numpy
@@ -84,6 +85,10 @@ class Trainer:
             pad_token_id=int(getattr(tokenizer, "pad_token_id", 0) or 0),
             seed=seed,
         )
+        # the attention impl the model's (global) layers run at this length
+        self.attention = resolve_attention_impl(
+            model.attention, self.max_length, model.config.head_dim, self.device
+        )
         self.final_state = None
 
     def train(self) -> dict:
@@ -139,6 +144,7 @@ class Trainer:
             "total_time_s": time.time() - t_beg,
             "method": self.method,
             "fused_loss": self.step.value_and_grad.fused_loss,
+            "attention": self.attention,
             "skipped_rounds": int(state.health.skipped_rounds),
             "n_params": self.model.n_params,
             "seed_loss": seed_loss,

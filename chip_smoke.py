@@ -9,9 +9,9 @@ and prints no result line):
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
 2. build: compiles csrc/fused_attention.cu (K1),
-   csrc/banded_attention.cu (K2) and csrc/fused_ce.cu (K3) for sm_90a
-   from the checkout (into build/), one nvcc each, started together, and
-   prints ptxas's report;
+   csrc/banded_attention.cu (K2), csrc/fused_ce.cu (K3) and
+   csrc/flash_attention.cu (K5) for sm_90a from the checkout (into
+   build/), one nvcc each, started together, and prints ptxas's report;
 3. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bf16. K1 at the Llama flagship shape (B 8, H =
    Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA shape with
@@ -22,28 +22,40 @@ and prints no result line):
    D 768, V 50257), a small unaligned shape (64 rows, D 128, V 277,
    real vocab 256, ignored rows, smoothing 0.1) and Llama-3-8B's head
    (1024 rows, D 4096, V 128256), the two heads also with the softmax
-   term alone in dlogits; K3's dH/dW bar against planted faults, each
-   in a patched copy of csrc/fused_ce.cu, which it must fail; and the
-   head's float32 logits against the widened product;
+   term alone in dlogits; the head's float32 logits against the widened
+   product; K5 (causal flash attention with segment ids: forward,
+   delta, dK/dV, dQ) at the Llama flagship shape (D 64), a small GQA
+   shape with pads in the middle and at the tail (D 128; also in
+   float32) and Llama-3-8B's long-context shape (B 1, H 32, Hkv 8, L
+   8192, D 128), where the plain version runs one KV head at a time;
+   and K3's dH/dW bar and K5's bars against planted faults, each in a
+   patched copy of the kernel's source, which they must fail;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
    beside K1 at the same window; K3 at the main path's head (8192 rows)
    beside the port's materialized head and CE (``layers.lm_logits`` +
-   ``causal_lm_loss``), which no single PyTorch call replaces;
+   ``causal_lm_loss``), which no single PyTorch call replaces; K5 at the
+   flagship shape beside K1 and at the long-context shape;
 5. main paths: ``python -m acco_tpu_torch train=acco model=llama-125M
    data=synthetic``, ``... model=gptneo ...`` and ``... model=llama-125M
    ... train.fused_loss=pallas`` in-process at full width (12 layers,
-   d 768, seq 1024, batch 8, n_acc 1): the seed round and 6 rounds each,
-   with the kernels' launch counts, and the calls of the materialized
-   head, set to 0 just before each run and read just after;
+   d 768, seq 1024, batch 8, n_acc 1), and ``... model=llama-125M
+   model.config_path=<tmp>/llama-3-8B-depth2.json train.max_length=8192
+   train.batch_size=1`` (Llama-3-8B at full width cut to 2 layers,
+   'auto' attention resolving to K5 and 'auto' fused loss to K3): the
+   seed round and 6 rounds each, with the kernels' launch counts, and
+   the calls of the materialized head, set to 0 just before each run
+   and read just after;
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
    gradients (tiny128, then gpt-neo-125M at L 512), and so does
-   ``train.fused_loss=pallas`` (K3) against the materialized CE;
+   ``train.fused_loss=pallas`` (K3) against the materialized CE, and
+   ``train.use_pallas_attention=true`` (K5) against the plain attention
+   (tiny128);
 7. profile: each main path again under torch.profiler, for the device
-   time per kernel, K1's, K2's and K3's device time per microbatch and
-   the device's idle share.
+   time per kernel, K1's, K2's, K3's and K5's device time per microbatch
+   and the device's idle share.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +63,8 @@ The last lines are the kernels JSON line, nvidia-smi's line and
 
 from __future__ import annotations
 
+import atexit
+import functools
 import json
 import os
 import re
@@ -110,12 +124,46 @@ CE_SHAPES = (
 CE_MAIN = dict(N=BATCH * SEQ, D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0,
                seq=SEQ)
 
+# K5 shapes: the Llama-125M flagship (D 64, beside K1), a small GQA shape
+# with pads in the middle and at the tail (D 128), and the long-context
+# main path's layer (Llama-3-8B: H 32, Hkv 8, D 128, L 8192, batch 1)
+FLASH_FLAGSHIP = dict(B=8, H=12, Hkv=12, L=1024, D=64)
+FLASH_SMALL = dict(B=2, H=4, Hkv=2, L=512, D=128, pad="middle+tail")
+FLASH_LLAMA3 = dict(B=1, H=32, Hkv=8, L=8192, D=128)
+FLASH_SHAPES = (
+    ("llama-125M flagship", FLASH_FLAGSHIP),
+    ("small gqa, pads in the middle and at the tail", FLASH_SMALL),
+    ("small gqa, pads, float32", {**FLASH_SMALL, "dtype": "float32"}),
+    ("llama-3-8B, L 8192", FLASH_LLAMA3),
+)
+# the long-context main path: config/model/llama-3-8B.json at full width
+# (d 4096, 32 heads, 8 KV heads, vocab 128256, untied head) cut to 2
+# layers, written at run time into a temporary directory
+LLAMA3_JSON = os.path.join(REPO, "config", "model", "llama-3-8B.json")
+LLAMA3_LAYERS, LLAMA3_SEQ = 2, 8192
+
+
+@functools.cache
+def llama3_config() -> str:
+    """The depth-cut Llama-3-8B architecture file, written once per run
+    into a temporary directory that is removed at exit."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    with open(LLAMA3_JSON) as f:
+        raw = json.load(f)
+    raw["num_layers"] = LLAMA3_LAYERS
+    path = os.path.join(tmp, f"llama-3-8B-depth{LLAMA3_LAYERS}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
 
 def main_args(path: str) -> list[str]:
     spec = MAIN_PATHS[path]
+    extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
     return [
-        "train=acco", f"model={spec['model']}", "data=synthetic",
-        f"train.batch_size={BATCH}", f"train.max_length={SEQ}",
+        "train=acco", f"model={spec['model']}", *extra, "data=synthetic",
+        f"train.batch_size={spec['batch']}", f"train.max_length={spec['seq']}",
         "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}", *spec["extra"],
     ]
 
@@ -143,6 +191,10 @@ TOL = {
     "ce_lse": (1e-4, 1e-5),
     "ce_tl": (1e-4, 1e-5),
 }
+# K5 in float32 against its plain version in float32: no rounding to bf16
+# on either side, only the summation order differs (the end-to-end
+# float32 agreement's 1e-4 bar)
+F32_TOL = (1e-4, 1e-4)
 # K3's dH and dW, elementwise: |err| <= r * |plain| + t * term, where term
 # bounds each product summed into the element (``ce_grad_terms``).
 # Both sides round dlogits to bf16 before their products and the result
@@ -243,24 +295,40 @@ def ce_grad_terms(h, w, args) -> tuple:
     return bound(dp, w), bound(dp.t(), h)
 
 
-# Faults planted in K3's bf16 backward (csrc/fused_ce.cu: the text to
-# replace, its replacement), each of which the dH/dW bar must fail at the
-# softmax-alone Llama-125M head (CE_SHAPES[1])
-K3_FAULTS = {
-    "lse + 0.1": ("- x_lse)", "- x_lse - 0.1f)"),
-    "softmax term dropped": ("dp[e] = x_dl * expf(", "dp[e] = 0.f * x_dl * expf("),
-    "dW reads the next row tile's d_lse": (
+# Faults planted in the kernels (the source file, the text to replace,
+# its replacement, and the kernel whose check must fail it): K3's bf16
+# backward against the dH/dW bar at the softmax-alone Llama-125M head
+# (CE_SHAPES[1]); K5 against its bars at the small GQA shape with pads
+# (FLASH_SMALL), where segment ids, the causal diagonal and the online
+# rescale all matter
+PLANTED_FAULTS = {
+    "K3: lse + 0.1": ("fused_ce.cu", "- x_lse)", "- x_lse - 0.1f)", "K3"),
+    "K3: softmax term dropped": (
+        "fused_ce.cu", "dp[e] = x_dl * expf(", "dp[e] = 0.f * x_dl * expf(", "K3"),
+    "K3: dW reads the next row tile's d_lse": (
+        "fused_ce.cu",
         "rs[1][threadIdx.x] = in ? dl[r] : 0.f;",
         "rs[1][threadIdx.x] = in ? dl[min(r + kCeT, N - 1)] : 0.f;",
+        "K3",
     ),
+    "K5: dK/dV ignores the segment ids": (
+        "flash_attention.cu", "(!seg_b || sg[ii] == skey[h])", "(true)", "K5"),
+    "K5: dK/dV drops the causal diagonal": (
+        "flash_attention.cu", "key_lo + h * 8 <= qq + ii", "key_lo + h * 8 < qq + ii", "K5"),
+    "K5: the forward skips the output's rescale": (
+        "flash_attention.cu", "oacc[j][e] *= corr[e / 2];", "oacc[j][e] *= 1.f;", "K5"),
 }
-# run in the copy: exits 0 if the bar failed the fault, 3 if it passed it
+FAULT_CHECKS = {
+    "K3": lambda: ce_parity(CE_SHAPES[1][1], 7),
+    "K5": lambda: flash_parity(FLASH_SMALL, 21),
+}
+# run in the copy: exits 0 if the check failed the fault, 3 if it passed it
 _FAULT_CHILD = """
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 try:
-    cs.ce_parity(cs.CE_SHAPES[1][1], 7)
+    cs.FAULT_CHECKS[sys.argv[2]]()
 except AssertionError as exc:
     print("caught:", exc)
     sys.exit(0)
@@ -269,19 +337,19 @@ sys.exit(3)
 
 
 def planted_faults() -> None:
-    """Each fault of K3_FAULTS in its own copy of the package and its own
-    process, all started together: the patched K3 builds in the copy and
-    ``ce_parity`` must fail it."""
+    """Each fault of PLANTED_FAULTS in its own copy of the package and its
+    own process, all started together: the patched kernel builds in the
+    copy and its check must fail it."""
     procs = {}
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            for i, (fault, (old, new)) in enumerate(K3_FAULTS.items()):
+            for i, (fault, (source, old, new, kernel)) in enumerate(PLANTED_FAULTS.items()):
                 root = os.path.join(tmp, str(i))
                 shutil.copytree(os.path.join(REPO, "acco_tpu_torch"),
                                 os.path.join(root, "acco_tpu_torch"),
                                 ignore=shutil.ignore_patterns("__pycache__"))
                 shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
-                path = os.path.join(root, "acco_tpu_torch", "csrc", "fused_ce.cu")
+                path = os.path.join(root, "acco_tpu_torch", "csrc", source)
                 with open(path) as f:
                     src = f.read()
                 if src.count(old) != 1:
@@ -289,14 +357,14 @@ def planted_faults() -> None:
                 with open(path, "w") as f:
                     f.write(src.replace(old, new))
                 procs[fault] = subprocess.Popen(
-                    [sys.executable, "-c", _FAULT_CHILD, root],
+                    [sys.executable, "-c", _FAULT_CHILD, root, kernel],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
             for fault, proc in procs.items():
                 out = proc.communicate(timeout=600)[0]
                 caught = [line for line in out.splitlines() if line.startswith("caught:")]
                 if proc.returncode == 3:
-                    raise AssertionError(f"planted fault {fault!r} passed K3's bar:\n{out[-2000:]}")
+                    raise AssertionError(f"planted fault {fault!r} passed its check:\n{out[-2000:]}")
                 if proc.returncode != 0 or not caught:
                     raise AssertionError(f"planted fault {fault!r}: the check exited "
                                          f"{proc.returncode}:\n{out[-2000:]}")
@@ -316,8 +384,10 @@ def make_inputs(shape: dict, seed: int):
     Hkv = shape.get("Hkv", H)
     qk_std = shape.get("qk_std", 1.0)
 
+    dtype = getattr(torch, shape.get("dtype", "bfloat16"))
+
     def randn(*s, std=1.0):
-        return (torch.randn(*s, generator=g, device="cuda") * std).to(torch.bfloat16)
+        return (torch.randn(*s, generator=g, device="cuda") * std).to(dtype)
 
     q, k = randn(B, H, L, D, std=qk_std), randn(B, Hkv, L, D, std=qk_std)
     v, dout = randn(B, Hkv, L, D), randn(B, H, L, D)
@@ -327,6 +397,9 @@ def make_inputs(shape: dict, seed: int):
         # an allowed key, so every row is compared
         pad = torch.ones(B, L, dtype=torch.int32, device="cuda")
         pad[-1, L - L // 5:] = 0
+        if shape["pad"] == "middle+tail":  # K5's segment ids: pad rows are compared too
+            pad[0, L - L // 5:] = 0
+            pad[-1, L // 3:L // 3 + 40] = 0
     return q, k, v, dout, pad
 
 
@@ -625,6 +698,146 @@ def banded_timing(shape: dict) -> tuple[dict, dict]:
     return out, backward
 
 
+def flash_plain(name: str, q, k, v, seg, *bwd, scale: float):
+    """K5's plain version of kernel ``name``; at L >= 4096 one KV head
+    (with its n_rep q heads) at a time, since heads are independent and
+    the whole [B, H, L, L] float32 scores would take tens of GB."""
+    import torch
+
+    from acco_tpu_torch.ops import flash_attention as fl
+
+    fn = {"flash_fwd": fl.flash_reference, "flash_bwd_dkdv": fl.flash_bwd_dkdv_reference,
+          "flash_bwd_dq": fl.flash_bwd_dq_reference}[name]
+    Hkv = k.shape[1]
+    n_rep = q.shape[1] // Hkv
+    if q.shape[2] < 4096:
+        return fn(q, k, v, seg, *bwd, scale)
+    outs = []
+    for h in range(Hkv):
+        qh, kvh = slice(h * n_rep, (h + 1) * n_rep), slice(h, h + 1)
+        outs.append(fn(q[:, qh], k[:, kvh], v[:, kvh], seg, *(t[:, qh] for t in bwd), scale))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+def flash_parity(shape: dict, seed: int) -> dict:
+    """Every K5 kernel against its plain version; returns max errors. The
+    backward kernels and their plain versions get the kernel forward's O
+    and LSE and the kernel delta."""
+    import torch
+
+    from acco_tpu_torch.ops import flash_attention as fl
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, dout, seg = make_inputs(shape, seed)
+    scale = shape["D"] ** -0.5
+    f32 = q.dtype == torch.float32
+
+    def tol(name):
+        return F32_TOL if f32 else TOL[name]
+
+    errs = {}
+    o, lse = fl.flash_fwd(q, k, v, seg, scale)
+    o_ref, lse_ref = flash_plain("flash_fwd", q, k, v, seg, scale=scale)
+    torch.cuda.synchronize()
+    errs["flash_fwd"] = max(check("o", o, o_ref, tol("o")), check("lse", lse, lse_ref, tol("lse")))
+    del o_ref, lse_ref
+    delta = fl.flash_bwd_delta(o, dout)
+    torch.cuda.synchronize()
+    errs["flash_bwd_delta"] = check("delta", delta, fa.delta_reference(o, dout), tol("delta"))
+    bwd = (dout, lse, delta)
+    dk, dv = fl.flash_bwd_dkdv(q, k, v, seg, *bwd, scale)
+    dk_ref, dv_ref = flash_plain("flash_bwd_dkdv", q, k, v, seg, *bwd, scale=scale)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dkdv"] = max(check("dk", dk, dk_ref, tol("dk")),
+                                 check("dv", dv, dv_ref, tol("dv")))
+    dq = fl.flash_bwd_dq(q, k, v, seg, *bwd, scale)
+    dq_ref = flash_plain("flash_bwd_dq", q, k, v, seg, *bwd, scale=scale)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dq"] = check("dq", dq, dq_ref, tol("dq"))
+    del q, k, v, dout, o, dk, dv, dq, dk_ref, dv_ref, dq_ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flash_timing(shape: dict) -> tuple[dict, dict]:
+    """Each K5 kernel's ms, plain ms, library ms and bound at ``shape``
+    (causal, no segment ids: the main path's case), and the same for the
+    backward (delta + dK/dV + dQ) together. Library: SDPA on K/V repeated
+    to q's heads beforehand (``is_causal=True``), its backward as one
+    autograd call's device time, as for K1."""
+    import torch
+    import torch.nn.functional as F
+
+    from acco_tpu_torch.ops import flash_attention as fl
+    from acco_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, dout, seg = make_inputs(shape, 9)
+    scale = shape["D"] ** -0.5
+    B, H, Hkv, L, D = (shape[x] for x in ("B", "H", "Hkv", "L", "D"))
+    o, lse = fl.flash_fwd(q, k, v, seg, scale)
+    delta = fl.flash_bwd_delta(o, dout)
+    bwd = (dout, lse, delta)
+    big = L >= 4096  # the plain version then runs one KV head at a time
+
+    pairs = B * H * L * (L + 1) / 2  # causal pairs, no segment ids
+    act = B * H * L * D * 2  # one bf16 [B, H, L, D] tensor
+    kv = B * Hkv * L * D * 2
+    row = B * H * L * 4  # one float32 [B, H, L] tensor
+    work = {
+        "flash_fwd": (act + 2 * kv + act + row, 4 * D * pairs),
+        "flash_bwd_delta": (2 * act + row, 2 * B * H * L * D),
+        "flash_bwd_dkdv": (2 * act + 2 * kv + 2 * row + 2 * kv, 8 * D * pairs),
+        "flash_bwd_dq": (2 * act + 2 * kv + 2 * row + act, 6 * D * pairs),
+    }
+    runs = {
+        "flash_fwd": (lambda: fl.flash_fwd(q, k, v, seg, scale),
+                      lambda: flash_plain("flash_fwd", q, k, v, seg, scale=scale)),
+        "flash_bwd_delta": (lambda: fl.flash_bwd_delta(o, dout),
+                            lambda: fa.delta_reference(o, dout)),
+        "flash_bwd_dkdv": (lambda: fl.flash_bwd_dkdv(q, k, v, seg, *bwd, scale),
+                           lambda: flash_plain("flash_bwd_dkdv", q, k, v, seg, *bwd,
+                                               scale=scale)),
+        "flash_bwd_dq": (lambda: fl.flash_bwd_dq(q, k, v, seg, *bwd, scale),
+                         lambda: flash_plain("flash_bwd_dq", q, k, v, seg, *bwd, scale=scale)),
+    }
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        ms = time_ms(kernel, iters=5 if big else 20)
+        plain_ms = time_ms(plain, iters=1, warmup=1, windows=3) if big else time_ms(plain, iters=5)
+        b_ms, b_by = bound_ms(*work[name])
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None}
+        torch.cuda.empty_cache()
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    out["flash_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+    )
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kr, vr))
+    y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd_ms = device_ms(lambda: torch.autograd.grad(y, (qg, kg, vg), dout, retain_graph=True))
+    del qg, kg, vg, y, kr, vr
+    bwd_names = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+    backward = {
+        "ms": sum(out[n]["ms"] for n in bwd_names),
+        "plain_ms": sum(out[n]["plain_ms"] for n in bwd_names),
+        "library_ms": sdpa_bwd_ms,
+        "bound_ms": bound_ms(3 * act + 2 * kv + row + act + 2 * kv, 10 * D * pairs)[0],
+    }
+    log(f"  attended pairs {pairs:.6g}")
+    for name, r in out.items():
+        log(f"  {name:15s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"library {r['library_ms']} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  backward total  kernel {backward['ms']:.4f} ms  plain {backward['plain_ms']:.4f} ms"
+        f"  SDPA backward {sdpa_bwd_ms:.4f} ms  bound {backward['bound_ms']:.4f} ms")
+    log(f"  forward + backward  kernel {out['flash_fwd']['ms'] + backward['ms']:.4f} ms  SDPA "
+        f"{out['flash_fwd']['library_ms'] + sdpa_bwd_ms:.4f} ms")
+    del q, k, v, dout, o, lse, delta
+    torch.cuda.empty_cache()
+    return out, backward
+
+
 def make_ce_inputs(shape: dict, seed: int):
     """K3's inputs on the card, bf16: hidden rows (std 1), the head as the
     [V, D] table (std 0.02, the models' init), int32 targets below v_real
@@ -789,10 +1002,11 @@ def ce_timing() -> tuple[dict, dict, dict]:
 
 def _launch_tables():
     from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import flash_attention as fl
     from acco_tpu_torch.ops import fused_attention as fa
     from acco_tpu_torch.ops import fused_ce as fc
 
-    return fa, bd, fc
+    return fa, bd, fc, fl
 
 
 def reset_launch_counts() -> None:
@@ -832,34 +1046,50 @@ class HeadLogitsCalls:
             module.lm_logits = original
 
 
-# Each main path: its model and extra overrides, its layers' windows (0 =
-# global), the launches per microbatch of every kernel (K2 reuses K1's
-# delta kernel) and the calls of the materialized head per microbatch.
+# Each main path: its model and extra overrides, its shape (batch, seq,
+# d_model), its layers' windows (0 = global), the parameters outside any
+# matmul (an untied embedding table), the fused loss it must resolve to,
+# the launches per microbatch of every kernel (K2 reuses K1's delta
+# kernel) and the calls of the materialized head per microbatch.
 _K1 = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 _K2 = ("banded_fwd", "banded_bwd_dq", "banded_bwd_dkdv")
 _K3 = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
+_K5 = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+_125M = dict(batch=BATCH, seq=SEQ, d_model=D_MODEL, embed_params=0)
 MAIN_PATHS = {
     "llama-125M": dict(
-        model="llama-125M", extra=[], windows=[0] * LAYERS, head_logits=1,
-        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K3, 0)},
+        model="llama-125M", extra=[], **_125M, windows=[0] * LAYERS, head_logits=1,
+        fused_loss=False, attention="fused",
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K3 + _K5, 0)},
     ),
     "gptneo": dict(
-        model="gptneo", extra=[], windows=[0, NEO_WINDOW] * (LAYERS // 2), head_logits=1,
+        model="gptneo", extra=[], **_125M, windows=[0, NEO_WINDOW] * (LAYERS // 2),
+        head_logits=1, fused_loss=False, attention="fused",
         per_microbatch={"attn_fwd": 6, "attn_bwd_delta": 12, "attn_bwd_dkdv": 6,
-                        "attn_bwd_dq": 6, **dict.fromkeys(_K2, 6), **dict.fromkeys(_K3, 0)},
+                        "attn_bwd_dq": 6, **dict.fromkeys(_K2, 6),
+                        **dict.fromkeys(_K3 + _K5, 0)},
     ),
     "llama-125M-fusedce": dict(
-        model="llama-125M", extra=["train.fused_loss=pallas"], windows=[0] * LAYERS,
-        head_logits=0,
-        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2, 0),
+        model="llama-125M", extra=["train.fused_loss=pallas"], **_125M, windows=[0] * LAYERS,
+        head_logits=0, fused_loss="pallas", attention="fused",
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K5, 0),
                         **dict.fromkeys(_K3, 1)},
+    ),
+    # Llama-3-8B at full width, 2 layers, L 8192: use_pallas_attention and
+    # fused_loss stay 'auto' and must resolve to K5 and K3
+    "llama3-8B-L8192": dict(
+        model="llama-125M", llama3=True, extra=[], batch=1, seq=LLAMA3_SEQ, d_model=4096,
+        embed_params=128256 * 4096, windows=[0] * LLAMA3_LAYERS, head_logits=0,
+        fused_loss="pallas", attention="flash",
+        per_microbatch={**dict.fromkeys(_K1 + _K2, 0), **dict.fromkeys(_K3, 1),
+                        **dict.fromkeys(_K5, LLAMA3_LAYERS)},
     ),
 }
 # the kernel each JSON entry reports launches for: its own slice's path
 OWN_PATH = {**dict.fromkeys(_K1, "llama-125M"), **dict.fromkeys(_K2, "gptneo"),
-            **dict.fromkeys(_K3, "llama-125M-fusedce")}
+            **dict.fromkeys(_K3, "llama-125M-fusedce"), **dict.fromkeys(_K5, "llama3-8B-L8192")}
 SOURCE = {**dict.fromkeys(_K1, "fused_attention.cu"), **dict.fromkeys(_K2, "banded_attention.cu"),
-          **dict.fromkeys(_K3, "fused_ce.cu")}
+          **dict.fromkeys(_K3, "fused_ce.cu"), **dict.fromkeys(_K5, "flash_attention.cu")}
 
 
 def main_path(path: str) -> tuple[dict, float, int]:
@@ -889,9 +1119,10 @@ def main_path(path: str) -> tuple[dict, float, int]:
     if real != [r % 2 == 1 for r in range(MAIN_ROUNDS)]:
         raise AssertionError(f"is_real_update does not alternate: {real}")
     microbatches = (MAIN_ROUNDS + 1) * 1  # seed + rounds, n_acc 1
-    want_fused = "pallas" if "train.fused_loss=pallas" in spec["extra"] else False
-    if summary["fused_loss"] != want_fused:
+    if summary["fused_loss"] != spec["fused_loss"]:
         raise AssertionError(f"{model}: fused_loss resolved to {summary['fused_loss']!r}")
+    if summary["attention"] != spec["attention"]:
+        raise AssertionError(f"{model}: attention resolved to {summary['attention']!r}")
     if head.count != spec["head_logits"] * microbatches:
         raise AssertionError(f"{model}: the materialized head ran {head.count} times, expected "
                              f"{spec['head_logits']} per microbatch x {microbatches}")
@@ -903,17 +1134,22 @@ def main_path(path: str) -> tuple[dict, float, int]:
             )
     round_ms = [r["ms"] for r in rounds]
     med = statistics.median(round_ms)
-    tokens = BATCH * SEQ
+    seq, d_model = spec["seq"], spec["d_model"]
+    tokens = spec["batch"] * seq
+    log(f"  attention {summary['attention']}  fused_loss {summary['fused_loss']}  "
+        f"n_params {summary['n_params']}")
     log(f"  losses {['%.4f' % x for x in losses]}")
     log(f"  is_real_update {real}")
     log(f"  round ms {['%.1f' % x for x in round_ms]}  median {med:.2f}")
     tok_s = tokens / (med / 1e3)
     # model FLOPs per token: 6 N for the matmuls (the tied head counted
-    # once) plus, per layer, 12 D times the mean keys a row attends
-    # (forward and backward of QK^T and PV)
-    mean_keys = [band_pairs(1, 1, SEQ, w) / SEQ for w in spec["windows"]]
-    flops_per_token = 6 * summary["n_params"] + sum(12 * D_MODEL * m for m in mean_keys)
-    log(f"  MFU formula: (6 x {summary['n_params']} + sum over layers of 12 x {D_MODEL} x "
+    # once; an untied embedding table, a lookup, not at all) plus, per
+    # layer, 12 d times the mean keys a row attends (forward and backward
+    # of QK^T and PV)
+    n_matmul = summary["n_params"] - spec["embed_params"]
+    mean_keys = [band_pairs(1, 1, seq, w) / seq for w in spec["windows"]]
+    flops_per_token = 6 * n_matmul + sum(12 * d_model * m for m in mean_keys)
+    log(f"  MFU formula: (6 x {n_matmul} + sum over layers of 12 x {d_model} x "
         f"mean keys {sorted(set(round(m, 3) for m in mean_keys))}) x tokens/s / "
         f"{PEAK_BF16_FLOPS:.3g}")
     log(f"  tokens/s {tok_s:.1f}  MFU {flops_per_token * tok_s / PEAK_BF16_FLOPS:.4f} "
@@ -930,6 +1166,10 @@ ATTENTION_RUNS = (
 CE_RUNS = (
     ["train.use_pallas_attention=fused", "train.fused_loss=pallas"],
     ["train.use_pallas_attention=fused", "train.fused_loss=false"],
+)
+FLASH_RUNS = (
+    ["train.use_pallas_attention=true", "train.fused_loss=false"],
+    ["train.use_pallas_attention=xla", "train.fused_loss=false"],
 )
 
 
@@ -1000,7 +1240,8 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
     log(f"  {model}: device busy {per_mb:.2f} ms per microbatch (init + seed + "
         f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
         f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
-    for family, tag in (("K1", r"\battn_"), ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)")):
+    for family, tag in (("K1", r"\battn_"), ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)"),
+                        ("K5", r"\bflash_")):
         rows = [e for e in kernels if re.search(tag, e.key)]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
@@ -1011,12 +1252,12 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
 
 
 def build_all() -> None:
-    """The three kernel libraries, one nvcc each, started together."""
+    """The four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from acco_tpu_torch.utils import cuda_build
 
-    names = ("fused_attention", "banded_attention", "fused_ce")
+    names = ("fused_attention", "banded_attention", "fused_ce", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(cuda_build.build, n) for n in names]:
@@ -1044,6 +1285,10 @@ REPLACES = {
     # the split dH / dW calls and the fused call (:324)
     "ce_bwd_dh": "acco_tpu/ops/fused_ce.py:356, acco_tpu/ops/fused_ce.py:324",
     "ce_bwd_dw": "acco_tpu/ops/fused_ce.py:375, acco_tpu/ops/fused_ce.py:324",
+    # JAX's bundled TPU flash kernel (jax.experimental.pallas.ops.tpu.
+    # flash_attention), reached through the JAX package's flash path: the
+    # forward, dK/dV and dQ pallas_calls and the backward's plain-jnp delta
+    **dict.fromkeys(_K5, "acco_tpu/ops/attention.py:193"),
 }
 
 
@@ -1071,7 +1316,7 @@ def main() -> int:
     log("== 2 build")
     build_all()
 
-    log("== 3 parity (bf16, kernel vs plain on the same inputs)")
+    log("== 3 parity (bf16 unless named, kernel vs plain on the same inputs)")
     errs = {}
     k1_shapes = (("flagship", FLAGSHIP, 0), ("small gqa+window+pad", SMALL, 1),
                  ("gpt-neo global, scale 1.0", NEO_GLOBAL, 2))
@@ -1087,10 +1332,15 @@ def main() -> int:
         log(f" K3 {label}: {shape}")
         for kname, e in ce_parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
-    log(" K3's dH/dW bar against planted faults (softmax-alone Llama-125M head)")
-    planted_faults()
     log(" head: float32 logits from bf16 operands")
     head_parity()
+    for seed, (label, shape) in enumerate(FLASH_SHAPES, start=20):
+        log(f" K5 {label}: {shape}")
+        for kname, e in flash_parity(shape, seed).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    log(" K3's dH/dW bar (softmax-alone Llama-125M head) and K5's bars (small GQA "
+        "shape with pads) against planted faults")
+    planted_faults()
 
     log("== 4 timing (CUDA events)")
     log(f" K1 at the Llama flagship shape {FLAGSHIP}")
@@ -1103,6 +1353,15 @@ def main() -> int:
     times.update(ce_times)
     for kname, e in ce_errs.items():
         errs[kname] = max(errs[kname], e)
+    log(f" K5 at the Llama flagship shape {FLASH_FLAGSHIP}, beside K1 (above)")
+    flash_flagship, flash_flagship_bwd = flash_timing(FLASH_FLAGSHIP)
+    for k5, k1 in zip(_K5, _K1):
+        log(f"  {k5:15s} K5 {flash_flagship[k5]['ms']:.4f} ms  K1 {times[k1]['ms']:.4f} ms")
+    log(f"  backward total  K5 {flash_flagship_bwd['ms']:.4f} ms  K1 {backward['ms']:.4f} ms")
+    log(f" K5 at the long-context main path's shape {FLASH_LLAMA3}")
+    flash_times, flash_backward = flash_timing(FLASH_LLAMA3)
+    for kname, r in flash_times.items():
+        times[kname] = {**r, "flagship": flash_flagship[kname]}
 
     launches, round_ms, peaks = {}, {}, {}
     for step, path in enumerate(MAIN_PATHS, start=1):
@@ -1135,13 +1394,20 @@ def main() -> int:
          "train.batch_size=2"],
         ("attn_fwd", "banded_fwd", *_K3), runs=CE_RUNS, plain_silent=_K3,
     )
+    log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
+    small_input_agreement(
+        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+         "train.batch_size=4"],
+        _K5, runs=FLASH_RUNS,
+    )
     log("== 7 where the device time goes (profiled reruns of the main paths)")
     for model in MAIN_PATHS:
         profile_main_path(model, round_ms[model])
 
     # launches: each kernel's count on its own slice's main path (K1: the
-    # Llama path, K2: the GPT-Neo path, K3: the fused-CE path), and on
-    # every path
+    # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the
+    # long-context path), and on every path. K5's times are at the
+    # long-context path's shape, with the flagship shape's beside them.
     kernels = [
         {
             "name": kname,
@@ -1158,6 +1424,8 @@ def main() -> int:
     log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
     log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
     log(f"K3 backward total (dH + dW) and the whole loss: {json.dumps(ce_backward)}")
+    log(f"K5 backward total (delta + dK/dV + dQ), L 8192: {json.dumps(flash_backward)}; "
+        f"flagship: {json.dumps(flash_flagship_bwd)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """``python -m acco_tpu_torch``: a few CPU rounds end to end, the device
-rule, ``train.fused_loss=pallas`` and its downgrade, and the keys this
-slice refuses by name."""
+rule, ``train.fused_loss=pallas`` and its downgrade, the flash route
+(``train.use_pallas_attention=true``), and the keys this slice refuses
+by name."""
 
 import json
 import os
@@ -59,7 +60,7 @@ def test_without_device_flag_needs_a_card(monkeypatch):
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
         ("train.mesh_shape={dp: 2}", "multi-rank"),
-        ("train.use_pallas_attention=flash", "row 9"),
+        ("train.use_pallas_attention=ring", "item 10"),
     ],
 )
 def test_unported_keys_raise_by_name(override, item):
@@ -80,3 +81,19 @@ def test_fused_loss_pallas_runs_on_cpu(model, resolved, caplog):
     assert all(map(lambda x: abs(x) < 100, losses))
     downgraded = [r.message for r in caplog.records if "outside the kernel envelope" in r.message]
     assert len(downgraded) == (resolved == "chunk")
+
+
+def test_flash_route_runs_on_cpu():
+    """``train.use_pallas_attention=true`` normalises to 'flash' and trains
+    through K5's plain version on the CPU; the summary names the route."""
+    out = subprocess.run(
+        [sys.executable, "-m", "acco_tpu_torch", "--device", "cpu", "train=acco", *TINY,
+         "train.nb_steps_tot=2", "train.use_pallas_attention=true"],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "OMP_NUM_THREADS": "2"},
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["attention"] == "flash" and summary["count_grad_tot"] == 2
+    losses = [summary["seed_loss"]] + [r["loss"] for r in summary["round_log"]]
+    assert all(map(lambda x: abs(x) < 100, losses))

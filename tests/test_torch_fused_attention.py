@@ -140,5 +140,5 @@ def test_envelope_and_impl_resolution():
     assert resolve("auto", 1024, 128, "cuda") == "xla"
     assert resolve("auto", 1024, 64, "cpu") == "xla"
     assert resolve("fused", 128, 64, "cpu") == "fused"
-    with pytest.raises(NotImplementedError, match="row 9"):
-        resolve("flash", 1024, 64, "cuda")
+    # 'flash' is K5 now (tests/test_torch_flash_attention.py), no longer refused
+    assert resolve("flash", 1024, 64, "cuda") == "flash"

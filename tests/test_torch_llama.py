@@ -15,11 +15,14 @@ round trip is exact.
 
 import os
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.flatten_util import ravel_pytree
 
 from acco_tpu.models.llama import LlamaConfig as JaxLlamaConfig
@@ -32,6 +35,7 @@ from acco_tpu_torch.parallel.common import make_flat_loss_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY128 = os.path.join(REPO, "config", "model", "tiny128.json")
+LLAMA3_8B = os.path.join(REPO, "config", "model", "llama-3-8B.json")
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -120,3 +124,75 @@ def test_lm_logits_float32_output_matches_jax_head():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     widened = torch.matmul(ht, wt).float().numpy()
     assert not np.allclose(widened, want, rtol=1e-5, atol=1e-6)
+
+
+def test_flash_route_matches_jax(jax_setup):
+    """attention='flash': the port (K5's plain version) against JAX's
+    ``LlamaModel(attention='flash')`` through the interpreted Pallas flash
+    kernel, on the same params: logits, loss and flat gradients."""
+    _, params, ids = jax_setup
+    ids = ids[:1]  # one row: the interpreted kernel's time grows with each grid step
+    cfg_j = JaxLlamaConfig.from_json(TINY128)
+    model_j = JaxLlamaModel(cfg_j, param_dtype=jnp.float32, attention="flash")
+    ids_j = jnp.asarray(ids)
+    with pltpu.force_tpu_interpret_mode():
+        logits_j, vjp = jax.vjp(lambda p: model_j.apply(p, ids_j), params)
+        value_j, dlogits = jax.value_and_grad(
+            lambda lg: jax_causal_lm_loss(lg, ids_j)
+        )(logits_j)
+        flat_grad_j, _ = ravel_pytree(vjp(dlogits)[0])
+        logits_j, flat_grad_j = np.asarray(logits_j), np.asarray(flat_grad_j)
+
+    cfg = LlamaConfig.from_json(TINY128)
+    model_t, flat = _port_model(params, cfg)
+    model_t.attention = "flash"
+    ids_t = torch.tensor(ids, dtype=torch.long)
+    with torch.no_grad():
+        np.testing.assert_allclose(model_t.apply(ids_t).numpy(), logits_j, **TOL)
+    loss_t, grads_t = make_flat_loss_fn(model_t, const_len=True)(
+        flat, {"input_ids": ids_t, "attention_mask": torch.ones_like(ids_t), "labels": ids_t}
+    )
+    flat_grad_t = model_t.gather_grads(grads_t, torch.zeros(model_t.n_params))
+    np.testing.assert_allclose(float(loss_t), float(value_j), rtol=1e-5)
+    np.testing.assert_allclose(flat_grad_t.numpy(), flat_grad_j, **TOL)
+
+
+def test_untied_gqa_weights_cross_exactly(tmp_path):
+    """convert.py on a GQA config (4 heads, 2 KV heads) with an untied
+    head: ravel_pytree order, an exact round trip, and equal logits."""
+    raw = json.load(open(TINY128))
+    raw.update(num_heads=4, num_kv_heads=2, tie_word_embeddings=False)
+    path = tmp_path / "tiny128-gqa-untied.json"
+    path.write_text(json.dumps(raw))
+    cfg_j = JaxLlamaConfig.from_json(str(path))
+    model_j = JaxLlamaModel(cfg_j, param_dtype=jnp.float32, attention="xla")
+    params = model_j.init(jax.random.PRNGKey(3))
+    assert "lm_head" in params
+    cfg = LlamaConfig.from_json(str(path))
+    tree = jax.tree.map(np.asarray, params)
+    flat = params_from_jax(tree, cfg)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(ravel_pytree(params)[0]))
+    jax.tree.map(np.testing.assert_array_equal, params_to_jax(flat, cfg), tree)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    model_t = LlamaModel(cfg, dtype=torch.float32, attention="xla", device="cpu")
+    model_t.load_flat(flat)
+    with torch.no_grad():
+        logits_t = model_t.apply(torch.tensor(ids, dtype=torch.long)).numpy()
+    np.testing.assert_allclose(logits_t, np.asarray(model_j.apply(params, jnp.asarray(ids))), **TOL)
+
+
+def test_reads_llama3_8b_config():
+    """The long-context path's architecture: the port reads every field of
+    config/model/llama-3-8B.json as the JAX package does; cut to 2 layers
+    it has 1,486,901,248 parameters (embedding and head 2 x 525,336,576)."""
+    cfg, cfg_j = LlamaConfig.from_json(LLAMA3_8B), JaxLlamaConfig.from_json(LLAMA3_8B)
+    for name in ("vocab_size", "hidden_size", "intermediate_size", "num_layers", "num_heads",
+                 "num_kv_heads", "max_position_embeddings", "rope_theta", "rms_norm_eps",
+                 "tie_word_embeddings"):
+        assert getattr(cfg, name) == getattr(cfg_j, name), name
+    assert (cfg.rope_theta, cfg.tie_word_embeddings, cfg.vocab_size) == (500000.0, False, 128256)
+    assert (cfg.num_kv_heads, cfg.head_dim, cfg.max_position_embeddings) == (8, 128, 8192)
+    import dataclasses
+
+    layout = param_layout(dataclasses.replace(cfg, num_layers=2))
+    assert sum(int(np.prod(shape)) for _, shape, _ in layout) == 1_486_901_248
