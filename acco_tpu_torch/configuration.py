@@ -350,12 +350,10 @@ def check_supported(train_cfg: dict) -> None:
 
     if normalize_remat(train_cfg.get("remat", False)) is not False:
         refuse(f"remat={train_cfg.get('remat')!r}", "queue 1, item 3 (remat)")
-    mesh = train_cfg.get("mesh_shape") or {}
-    devices = 1
-    for size in mesh.values():
-        devices *= int(size or 1)
-    if devices > 1:
-        refuse(f"mesh_shape={dict(mesh)}", "queue 1, items 4 and 9-10 (multi-rank)")
+    # every mesh but {dp: 1, sp: N} (context parallelism) raises by its item
+    from acco_tpu_torch.parallel.mesh import check_mesh
+
+    check_mesh(train_cfg.get("mesh_shape"))
     if bool(train_cfg.get("finetune", False)):
         refuse("finetune=True (HF checkpoint loading)", "queue 1, item 7")
     if bool(train_cfg.get("eval", False)):

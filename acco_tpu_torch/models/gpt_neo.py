@@ -17,6 +17,12 @@ Attention dispatch, as the JAX ``_dense_attn_plan`` and ``_block_body``:
   layer runs K1 with its own window and the mask;
 - 'xla': the plain path, with the per-layer window's additive bias.
 
+Context parallelism (a ``sequence_group``), as the JAX ``_cp_positions``:
+the input is this rank's chunk, the learned positions are looked up at
+the chunk's absolute positions (contiguous or zig-zag), and every layer
+runs ``windowed_ring_attention`` with its window (0 or W), whose blocks
+are K4's positional variant on the card.
+
 ``attention='auto'`` resolves as for Llama (``ops/attention.py``): K1's
 envelope on the card, the plain path on the CPU. The JAX package has one
 more plan, banded local layers beside einsum global layers, which it takes
@@ -53,6 +59,11 @@ from acco_tpu_torch.ops.banded_attention import (
     supports_banded_attention,
 )
 from acco_tpu_torch.ops.fused_attention import fused_dot_product_attention
+from acco_tpu_torch.ops.ring_attention import (
+    SequenceGroup,
+    windowed_ring_attention,
+    zigzag_positions,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,18 +140,21 @@ class GPTNeoModel(FlatParamModel):
         dtype=torch.bfloat16,
         attention: str = "auto",
         device="cpu",
-        sequence_axis: Optional[str] = None,
+        sequence_group: Optional[SequenceGroup] = None,
+        zigzag: bool = False,
         tensor_axis: Optional[str] = None,
         vocab_pad_to: Optional[int] = None,
     ):
-        for value, what, item in (
-            (sequence_axis, "sequence_axis (context parallelism)", "queue 1, item 10"),
-            (tensor_axis, "tensor_axis (tensor parallelism)", "queue 1, item 9"),
-            (vocab_pad_to, "vocab_pad_to (Megatron vocab padding)", "queue 1, item 9"),
+        for value, what in (
+            (tensor_axis, "tensor_axis (tensor parallelism)"),
+            (vocab_pad_to, "vocab_pad_to (Megatron vocab padding)"),
         ):
             if value:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-        if normalize_attention_impl(attention) == "flash":
+                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item 9")
+        impl = normalize_attention_impl(attention)
+        if impl == "ring" and sequence_group is None:
+            raise ValueError("attention='ring' requires a sequence group")
+        if impl == "flash":
             raise ValueError(
                 "GPT-Neo's local sliding-window layers do not run the flash "
                 "kernel (as in the JAX model): use attention='fused', 'xla' "
@@ -149,6 +163,8 @@ class GPTNeoModel(FlatParamModel):
         super().__init__(param_layout(config), config.num_layers, dtype, device)
         self.config = config
         self.attention = attention
+        self.sequence_group = sequence_group
+        self.zigzag = bool(zigzag)
 
     @staticmethod
     def init_fill(path: str):
@@ -196,21 +212,56 @@ class GPTNeoModel(FlatParamModel):
             q.contiguous(), k.contiguous(), v.contiguous(), attention_mask, window=w, scale=1.0
         )
 
+    def _cp_plan(self, L: int, attention_mask):
+        """Under context parallelism: this rank's absolute positions (a host
+        tensor) and ``attend(q, k, v, window)`` through the windowed ring;
+        outside it, (None, None). Refuses pad masks."""
+        sg = self.sequence_group
+        if sg is None:
+            return None, None
+        if attention_mask is not None:
+            raise ValueError(
+                "context parallelism does not support padding masks — it serves "
+                "const-len packed sequences; pass attention_mask=None"
+            )
+        if self.zigzag:
+            global_len = sg.size * L
+
+            def kv_positions(src):
+                return zigzag_positions(global_len, sg.size, src)
+        else:
+
+            def kv_positions(src):
+                return src * L + torch.arange(L)
+
+        positions = kv_positions(sg.rank)
+
+        def attend(q, k, v, window):
+            return windowed_ring_attention(q, k, v, sg, window, positions, kv_positions, scale=1.0)
+
+        return positions, attend
+
     def hidden(
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         """[B, L, D] final-norm hidden states in the activation dtype."""
         cfg = self.config
-        L = input_ids.shape[1]
-        if L > cfg.max_position_embeddings:
+        L = input_ids.shape[1]  # CP: this rank's chunk length
+        positions, attend = self._cp_plan(L, attention_mask)
+        global_len = L if positions is None else self.sequence_group.size * L
+        if global_len > cfg.max_position_embeddings:
             raise ValueError(
-                f"sequence length {L} exceeds max_position_embeddings "
+                f"sequence length {global_len} exceeds max_position_embeddings "
                 f"{cfg.max_position_embeddings}"
             )
-        attend = self._attention_fn(L, attention_mask, input_ids.device)
+        if attend is None:
+            attend = self._attention_fn(L, attention_mask, input_ids.device)
+            wpe = self.wpe[:L]
+        else:
+            wpe = self.wpe[positions.to(input_ids.device, non_blocking=True)]
         eps = cfg.layer_norm_epsilon
         D = cfg.hidden_size
-        x = F.embedding(input_ids, self.wte) + self.wpe[:L][None, :, :]
+        x = F.embedding(input_ids, self.wte) + wpe[None, :, :]
         for blk, window in zip(self.layers, cfg.layer_windows):
             h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, eps)
             q, k, v = (h @ blk.w_qkv.reshape(D, 3 * D)).split(D, dim=-1)

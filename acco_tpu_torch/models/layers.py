@@ -83,13 +83,18 @@ def lm_logits(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rope_angles(
-    seq_len: int, head_dim: int, theta: float, device=None
+    seq_len: int, head_dim: int, theta: float, device=None, offset: int = 0,
+    positions: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rotary position-embedding cos/sin tables, float32 [L, D/2]."""
+    """Rotary position-embedding cos/sin tables, float32 [L, D/2].
+    ``offset`` shifts the positions (a contiguous sequence shard starts at
+    rank * chunk length); ``positions`` gives each token's absolute
+    position instead (a zig-zag shard's tokens are not contiguous)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     inv_freq = 1.0 / (theta**exponent)
-    positions = torch.arange(seq_len, dtype=torch.float32, device=device)
-    angles = positions[:, None] * inv_freq[None, :]
+    if positions is None:
+        positions = offset + torch.arange(seq_len, dtype=torch.float32, device=device)
+    angles = positions.to(device=device, dtype=torch.float32)[:, None] * inv_freq[None, :]
     return torch.cos(angles), torch.sin(angles)
 
 

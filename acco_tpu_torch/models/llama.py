@@ -6,6 +6,13 @@ of JAX's ``ravel_pytree`` over ``LlamaModel.init`` (``models/flat.py``).
 
 The batch is const-len in pretraining, so callers pass no attention mask
 and the mask is dropped statically, as the JAX flat loss does.
+
+Context parallelism (``attention='ring'`` with a ``sequence_group``):
+the input is this rank's chunk of the sequence, RoPE takes the chunk's
+absolute positions (contiguous: rank * chunk length on; zig-zag:
+``zigzag_positions``), the position check is on the global length, and
+every layer runs the ring (``ops/ring_attention.py``). Pad masks are
+refused: the ring serves const-len packed sequences.
 """
 
 from __future__ import annotations
@@ -29,10 +36,18 @@ from acco_tpu_torch.models.layers import (
 from acco_tpu_torch.ops.attention import (
     attention_mask_bias,
     dot_product_attention,
+    normalize_attention_impl,
     resolve_attention_impl,
 )
 from acco_tpu_torch.ops.flash_attention import flash_dot_product_attention
 from acco_tpu_torch.ops.fused_attention import fused_dot_product_attention
+from acco_tpu_torch.ops.ring_attention import (
+    SequenceGroup,
+    ring_attention,
+    zigzag_positions,
+    zigzag_ring_attention,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -85,10 +100,17 @@ class LlamaModel(FlatParamModel):
         dtype=torch.bfloat16,
         attention: str = "auto",
         device="cpu",
+        sequence_group: Optional[SequenceGroup] = None,
+        zigzag: bool = False,
     ):
+        if (normalize_attention_impl(attention) == "ring") != (sequence_group is not None):
+            raise ValueError("attention='ring' requires a sequence group, and a sequence "
+                             "group attention='ring'")
         super().__init__(param_layout(config), config.num_layers, dtype, device)
         self.config = config
         self.attention = attention
+        self.sequence_group = sequence_group
+        self.zigzag = bool(zigzag)
 
     @staticmethod
     def attr_name(path: str) -> str:
@@ -120,17 +142,31 @@ class LlamaModel(FlatParamModel):
     ) -> torch.Tensor:
         """[B, L, D] final-norm hidden states in the activation dtype."""
         cfg = self.config
-        L = input_ids.shape[1]
-        if L > cfg.max_position_embeddings:
-            raise ValueError(
-                f"sequence length {L} exceeds max_position_embeddings "
-                f"{cfg.max_position_embeddings}"
-            )
+        L = input_ids.shape[1]  # ring: this rank's chunk length
         device = input_ids.device
         impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device)
+        sg = self.sequence_group
+        global_len = L
+        if impl == "ring":
+            if attention_mask is not None:
+                raise ValueError(
+                    "attention='ring' does not support padding masks — it serves "
+                    "const-len packed sequences; pass attention_mask=None"
+                )
+            global_len = sg.size * L
+        if global_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {global_len} exceeds max_position_embeddings "
+                f"{cfg.max_position_embeddings}"
+            )
         x = F.embedding(input_ids, self.wte)
         bias = attention_mask_bias(L, 0, attention_mask, device) if impl == "xla" else None
-        cos, sin = rope_angles(L, cfg.head_dim, cfg.rope_theta, device)
+        if impl == "ring" and self.zigzag:
+            positions = zigzag_positions(global_len, sg.size, sg.rank, device)
+            cos, sin = rope_angles(L, cfg.head_dim, cfg.rope_theta, device, positions=positions)
+        else:
+            offset = sg.rank * L if impl == "ring" else 0
+            cos, sin = rope_angles(L, cfg.head_dim, cfg.rope_theta, device, offset=offset)
         eps = cfg.rms_norm_eps
         for blk in self.layers:
             h = rms_norm(x, blk.attn_norm, eps)
@@ -146,6 +182,9 @@ class LlamaModel(FlatParamModel):
                 ctx = flash_dot_product_attention(
                     q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
                 )
+            elif impl == "ring":
+                ring = zigzag_ring_attention if self.zigzag else ring_attention
+                ctx = ring(q, k, v, sg)
             else:
                 ctx = dot_product_attention(q, k, v, bias)
             x = x + merge_heads(ctx) @ blk.wo

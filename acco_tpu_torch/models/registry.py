@@ -25,9 +25,13 @@ def build_model(
     dtype=torch.bfloat16,
     attention: str = "auto",
     device="cpu",
+    sequence_group=None,
+    zigzag: bool = False,
 ):
     """A model from a ``config/model/*.yaml`` node whose ``config_path``
-    names a repo-relative ``/config/model/*.json`` architecture file."""
+    names a repo-relative ``/config/model/*.json`` architecture file.
+    ``sequence_group`` (an ``ops.ring_attention.SequenceGroup``) and
+    ``zigzag`` select context parallelism and its layout."""
     config_path = model_cfg["config_path"]
     if not config_path.endswith(".json"):
         raise NotImplementedError(
@@ -42,4 +46,7 @@ def build_model(
     if model_type not in _MODEL_TYPES:
         raise ValueError(f"Unknown model_type {model_type!r} in {path}")
     cfg_cls, model_cls = _MODEL_TYPES[model_type]
-    return model_cls(cfg_cls.from_json(path), dtype=dtype, attention=attention, device=device)
+    return model_cls(
+        cfg_cls.from_json(path), dtype=dtype, attention=attention, device=device,
+        sequence_group=sequence_group, zigzag=zigzag,
+    )

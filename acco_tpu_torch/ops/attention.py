@@ -15,7 +15,8 @@ Counterpart of ``acco_tpu/ops/attention.py`` for the training path:
   takes the head dim; below that 'fused' where K1 takes the shape, else
   'xla'. On the CPU 'auto' is the plain path, as the JAX resolver is off
   the TPU; 'fused' and 'flash' on the CPU run their kernels' plain
-  versions.
+  versions. 'ring' (context parallelism, ops/ring_attention.py) is asked
+  for by name and passes through.
 """
 
 from __future__ import annotations
@@ -109,24 +110,21 @@ def normalize_remat(value) -> "bool | str":
 
 def normalize_attention_impl(impl) -> str:
     """Config spellings (YAML bool / None included) to 'auto' | 'flash' |
-    'fused' | 'xla'; anything else raises."""
+    'fused' | 'xla' | 'ring'; anything else raises. 'ring' is only valid
+    on a model built with a sequence group (context parallelism;
+    ops/ring_attention.py)."""
     if impl in (True, "flash", "true", "True"):
         return "flash"
     if impl in (False, None, "xla", "false", "False"):
         return "xla"
-    if impl in ("auto", "fused"):
+    if impl in ("auto", "fused", "ring"):
         return impl
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention='ring' (context parallelism) is not ported yet: "
-            "ROADMAP.md queue 1, item 10"
-        )
-    raise ValueError(f"attention impl must be auto/flash/fused/xla, got {impl!r}")
+    raise ValueError(f"attention impl must be auto/flash/fused/xla/ring, got {impl!r}")
 
 
 def resolve_attention_impl(impl, seq_len: int, head_dim: int, device) -> str:
     """'xla', 'fused' or 'flash' for this shape on this device (see module
-    doc)."""
+    doc); 'ring' stays 'ring'."""
     from acco_tpu_torch.ops.flash_attention import supports_flash_attention
     from acco_tpu_torch.ops.fused_attention import supports_fused_attention
 

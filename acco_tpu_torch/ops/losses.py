@@ -14,8 +14,12 @@ Counterpart of ``acco_tpu/ops/losses.py``:
   kernel (``ops/fused_ce.py``, K3), after :func:`resolve_fused_loss` has
   judged the ``fused_loss`` key against the model.
 
-Tensor and context parallelism are not ported, so a sharded vocab or
-sequence is refused by its ROADMAP item.
+Under context parallelism (``seq_sharded``) the labels arrive
+pre-shifted on the global sequence (``shift=False``) and the mean's
+denominator is the global token count (``num_valid``); 'auto' resolves
+to the fused kernel there, and 'chunk', which has no sequence-sharded
+form, to the materialized CE. Tensor parallelism is not ported, so a
+sharded vocab is refused by its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,17 +30,19 @@ from torch.nn import functional as F
 IGNORE_INDEX = -100
 
 
-def _refuse_sharding(vocab_sharded: bool, seq_sharded: bool) -> None:
+def _refuse_vocab_sharding(vocab_sharded: bool) -> None:
     if vocab_sharded:
         raise NotImplementedError(
             "a vocab-sharded head (tensor parallelism, the vocab-parallel CE) "
             "is not ported yet: ROADMAP.md queue 1, item 9"
         )
-    if seq_sharded:
-        raise NotImplementedError(
-            "a sequence-sharded loss (context parallelism) is not ported yet: "
-            "ROADMAP.md queue 1, item 10"
-        )
+
+
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Next-token targets: ``out[:, t] = labels[:, t + 1]``, the last
+    column IGNORE_INDEX. Context parallelism shifts on the global sequence
+    before sharding, since a chunk's last target lives on the next rank."""
+    return torch.cat([labels[..., 1:], torch.full_like(labels[..., :1], IGNORE_INDEX)], dim=-1)
 
 
 def normalize_fused_loss(value) -> "bool | str":
@@ -59,15 +65,16 @@ def _vocab(model) -> int:
     return getattr(model, "padded_vocab", None) or model.config.vocab_size
 
 
-def _auto_fused_policy(model, platform: str):
-    """``fused_loss: 'auto'`` at one rank, as the JAX policy decides on its
-    accelerator: the kernel for Llama-3-class vocabs (V >= 100k, where the
-    [N, V] float32 logits dwarf the head's product), the materialized CE
-    below that and everywhere on the CPU (the plain version is a test
-    vehicle, not a performance path). Never 'chunk'."""
+def _auto_fused_policy(model, platform: str, seq_sharded: bool = False):
+    """``fused_loss: 'auto'``, as the JAX policy decides on its accelerator:
+    the kernel under context parallelism (the long-sequence regime is the
+    no-logits loss's reason to exist) and for Llama-3-class vocabs (V >=
+    100k, where the [N, V] float32 logits dwarf the head's product), the
+    materialized CE otherwise and everywhere on the CPU (the plain version
+    is a test vehicle, not a performance path). Never 'chunk'."""
     if platform != "cuda":
         return False
-    return "pallas" if _vocab(model) >= 100_000 else False
+    return "pallas" if seq_sharded or _vocab(model) >= 100_000 else False
 
 
 def _platform_of(model) -> str:
@@ -89,7 +96,7 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
     optional callable taking a message, called on each downgrade of an
     explicit request. 'auto' reads the platform from the device of the
     model's parameters."""
-    _refuse_sharding(n_vocab_shards > 1, seq_sharded)
+    _refuse_vocab_sharding(n_vocab_shards > 1)
     fused_loss = requested = normalize_fused_loss(fused_loss)
     if not fused_loss:
         return False
@@ -101,7 +108,7 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
             )
         return False
     if fused_loss == "auto":
-        fused_loss = _auto_fused_policy(model, _platform_of(model))
+        fused_loss = _auto_fused_policy(model, _platform_of(model), seq_sharded)
         if not fused_loss:
             return False
     if fused_loss == "pallas":
@@ -112,17 +119,20 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
             if requested == "auto":
                 return False
             if warn is not None:
-                fallback = "'chunk'" if real_vocab is None else "the materialized CE"
+                fallback = (
+                    "'chunk'" if real_vocab is None and not seq_sharded
+                    else "the materialized CE"
+                )
                 warn(
                     f"fused_loss='pallas': hidden {hidden} / per-shard vocab "
                     f"{vocab} outside the kernel envelope; falling back to "
                     f"{fallback}"
                 )
             fused_loss = "chunk"
-    if fused_loss == "chunk" and real_vocab is not None:
+    if fused_loss == "chunk" and (real_vocab is not None or seq_sharded):
         if warn is not None and requested == "chunk":
-            warn("fused_loss='chunk' has no Megatron-padded form; using the "
-                 "materialized CE")
+            form = "context-parallel" if seq_sharded else "Megatron-padded"
+            warn(f"fused_loss='chunk' has no {form} form; using the materialized CE")
         return False
     return fused_loss
 
@@ -177,7 +187,7 @@ def causal_lm_loss(
     ``labels`` as already next-token aligned; ``num_valid`` replaces the
     mean's denominator; columns at or past ``real_vocab`` are left out of
     the softmax and the smoothing mean."""
-    _refuse_sharding(vocab_axis is not None, False)
+    _refuse_vocab_sharding(vocab_axis is not None)
     if real_vocab is not None and real_vocab < logits.shape[-1]:
         logits = logits[..., :real_vocab]
     if shift:
@@ -240,7 +250,7 @@ def model_ce(
     """The fused-vs-materialized CE dispatch of the train path, for a model
     that computes with the parameters it holds. ``fused`` must already
     have passed :func:`resolve_fused_loss`."""
-    _refuse_sharding(vocab_axis is not None, False)
+    _refuse_vocab_sharding(vocab_axis is not None)
     if fused == "pallas":
         from acco_tpu_torch.ops.fused_ce import fused_ce_loss
 

@@ -1,4 +1,4 @@
-"""ACCO ("Accumulate while you Communicate") and DPU rounds at one rank.
+"""ACCO ("Accumulate while you Communicate") and DPU rounds.
 
 Counterpart of ``acco_tpu/parallel/acco.py``'s ``AccoTrainStep``. A round
 has two data-independent branches:
@@ -18,10 +18,16 @@ top of the staged odd-half gradients, odd rounds start from zero.
 
 The in-program guard keeps a bad round a bit-exact no-op with
 ``torch.where(healthy, new, old)``; nothing in a round reads a value back
-to the host. With one rank there is no collective: the comm stream and
-NCCL come with the multi-rank slice (ROADMAP.md queue 1, item 5). The two
-branches run one after the other on the current stream; the round
+to the host. The two branches run one after the other on the current
+stream (a dedicated comm stream is ROADMAP.md queue 1, item 5); the round
 returns new tensors and never writes into the state it was given.
+
+Ranks: one, or the sequence group of context parallelism at dp 1
+(``sequence_group``). Then ZeRO-1 shards over the group, ``pending_grads``
+is this rank's partial (its sequence chunk's gradient), the counts are
+all-reduced over dp (a group of one: replicated across sp, they need no
+reduction), and the loss metric and the staged-grads verdict are reduced
+over the group so that every rank holds the same values.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ from acco_tpu_torch.parallel.common import (
     accumulate_grads,
     init_health,
     make_flat_loss_fn,
-    mean_loss,
     staged_ok,
+    world_mean_loss,
 )
 from acco_tpu_torch.parallel.zero1 import (
     ShardGeometry,
@@ -49,10 +55,11 @@ from acco_tpu_torch.parallel.zero1 import (
 
 
 class AccoState(NamedTuple):
-    """Round-carried state, as the JAX ``AccoState`` at one rank."""
+    """Round-carried state, as the JAX ``AccoState``, in this rank's view:
+    ``zero1.opt`` is its shard, ``pending_grads`` its partial."""
 
-    flat_params: torch.Tensor  # [Pp] param dtype: working params (θ or θ̃)
-    pending_grads: torch.Tensor  # [Pp] float32: grads for this round's comm
+    flat_params: torch.Tensor  # [Pp] param dtype: working params (θ or θ̃), replicated
+    pending_grads: torch.Tensor  # [Pp] float32: this rank's grads for this round's comm
     pending_count: torch.Tensor  # [1] float32: their micro-grad count
     zero1: Zero1State
     round_idx: torch.Tensor  # int32 scalar
@@ -78,7 +85,8 @@ def _where(pred, new, old, into_new: bool = False):
 
 
 class AccoTrainStep:
-    """ACCO (or DPU) rounds for one model on one rank."""
+    """ACCO (or DPU) rounds for one model, on one rank or on the ranks of
+    a sequence group."""
 
     def __init__(
         self,
@@ -95,6 +103,7 @@ class AccoTrainStep:
         nan_guard: bool = True,
         guard_max_grad_norm: float = 0.0,
         fused_loss: "bool | str" = False,
+        sequence_group=None,
     ):
         if mode not in ("acco", "dpu"):
             raise ValueError(f"mode must be 'acco' or 'dpu', got {mode!r}")
@@ -107,9 +116,18 @@ class AccoTrainStep:
         self.mode = mode
         self.nan_guard = bool(nan_guard)
         self.guard_max_grad_norm = float(guard_max_grad_norm or 0.0)
-        self.geom = ShardGeometry(model.n_params, 1)
+        on_group = getattr(model, "sequence_group", None) is sequence_group
+        if sequence_group is not None and not on_group:
+            raise ValueError("context parallelism needs a ring-attention model built on the "
+                             "same sequence group")
+        self.sequence_group = sequence_group
+        self.group = None if sequence_group is None else sequence_group.group
+        self.rank = 0 if sequence_group is None else sequence_group.rank
+        self.geom = ShardGeometry(
+            model.n_params, 1 if sequence_group is None else sequence_group.size
+        )
         self.value_and_grad = make_flat_loss_fn(
-            model, label_smoothing, const_len_batch, fused_loss
+            model, label_smoothing, const_len_batch, fused_loss, sequence_group
         )
 
     def init_state(self, flat_params: torch.Tensor) -> AccoState:
@@ -122,7 +140,7 @@ class AccoTrainStep:
                 self.geom.padded_size, dtype=torch.float32, device=device
             ),
             pending_count=torch.zeros(1, dtype=torch.float32, device=device),
-            zero1=init_zero1_state(flat_params.float(), self.geom),
+            zero1=init_zero1_state(flat_params.float(), self.geom, self.rank),
             round_idx=torch.zeros((), dtype=torch.int32, device=device),
             health=init_health(device),
         )
@@ -139,10 +157,10 @@ class AccoTrainStep:
         they also join round 1's real update; in DPU mode they are
         committed once, by round 0."""
         grad_sum, count, loss_wsum = self._accumulate(state.flat_params, block)
-        loss = mean_loss(loss_wsum, block.valid)
+        loss = world_mean_loss(loss_wsum, block.valid, self.group)
         health = state.health
         if self.nan_guard:
-            health = health._replace(pending_ok=staged_ok(grad_sum, loss))
+            health = health._replace(pending_ok=staged_ok(grad_sum, loss, self.group))
         return state._replace(
             pending_grads=grad_sum, pending_count=count.reshape(1), health=health
         ), loss
@@ -155,14 +173,14 @@ class AccoTrainStep:
         commit = not speculative
 
         # ---- communication branch: consume pending_grads ----
-        raw_total = state.pending_count[0]
+        raw_total = state.pending_count[0]  # summed over dp: one group here
         total = raw_total.clamp(min=1.0)
         lr = self.schedule(state.zero1.sched_grads)
         upd = zero1_update_shard(
             state.pending_grads, state.zero1.opt, total, lr, self.geom,
             self.weight_decay, self.beta1, self.beta2, self.eps,
             out_dtype=self.model.dtype, with_health=self.nan_guard,
-            max_grad_norm=self.guard_max_grad_norm,
+            max_grad_norm=self.guard_max_grad_norm, group=self.group,
         )
         if self.nan_guard:
             new_flat, new_opt, uh = upd
@@ -194,7 +212,7 @@ class AccoTrainStep:
         grad_sum, count, loss_wsum = self._accumulate(
             state.flat_params, block, grad_init=grad0, count_init=count0
         )
-        loss = mean_loss(loss_wsum, block.valid)
+        loss = world_mean_loss(loss_wsum, block.valid, self.group)
 
         if self.nan_guard:
             skipped = ~ok
@@ -204,7 +222,7 @@ class AccoTrainStep:
                     skipped, state.health.consec_skipped + 1,
                     torch.zeros_like(state.health.consec_skipped),
                 ),
-                pending_ok=staged_ok(grad_sum, loss),
+                pending_ok=staged_ok(grad_sum, loss, self.group),
             )
         else:
             skipped = torch.zeros((), dtype=torch.bool, device=lr.device)

@@ -4,6 +4,13 @@ counters, the flat loss and gradient accumulation.
 Counterpart of ``acco_tpu/parallel/common.py``. A microbatch whose
 ``valid`` entry is 0 still runs but contributes no gradient and no count
 (heterogeneous workers). Nothing here reads a value back to the host.
+
+Context parallelism (a ``SequenceGroup``): :func:`prep_cp_leaves` shifts
+the labels on the global sequence, applies the zig-zag permutation and
+keeps this rank's chunk; the flat loss is then this rank's partial (its
+chunk's loss sum over the global token count, all-reduced), so the
+partials and their gradients sum over the group to the full microbatch's
+(:func:`world_mean_loss`; ZeRO-1's reduce-scatter sums the gradients).
 """
 
 from __future__ import annotations
@@ -13,7 +20,13 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from acco_tpu_torch.ops.losses import model_ce, real_vocab_of, resolve_fused_loss
+from acco_tpu_torch.ops.losses import (
+    IGNORE_INDEX,
+    model_ce,
+    real_vocab_of,
+    resolve_fused_loss,
+    shift_labels,
+)
 
 log = logging.getLogger("acco_tpu_torch")
 
@@ -57,9 +70,42 @@ def block_from_numpy(block: dict, device) -> MicrobatchBlock:
     )
 
 
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` (the identity with no group)."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def prep_cp_leaves(block: MicrobatchBlock, sg, zigzag: bool) -> MicrobatchBlock:
+    """This rank's chunk of a global block under context parallelism: the
+    labels shifted to next-token targets on the global sequence, the
+    sequence reordered into the zig-zag layout when ``zigzag``, then the
+    rank's contiguous slice. No-op without a sequence group."""
+    if sg is None:
+        return block
+    from acco_tpu_torch.ops.ring_attention import zigzag_permutation
+
+    ids, am, labels = block.input_ids, block.attention_mask, shift_labels(block.labels)
+    L = ids.shape[-1]
+    if zigzag:
+        perm = torch.as_tensor(zigzag_permutation(L, sg.size)[0], device=ids.device)
+        ids, am, labels = (x.index_select(-1, perm) for x in (ids, am, labels))
+    lc = L // sg.size
+    chunk = slice(sg.rank * lc, (sg.rank + 1) * lc)
+    return MicrobatchBlock(
+        input_ids=ids[..., chunk].contiguous(),
+        attention_mask=am[..., chunk].contiguous(),
+        labels=labels[..., chunk].contiguous(),
+        valid=block.valid,
+    )
+
+
 def make_flat_loss_fn(
     model, label_smoothing: float = 0.0, const_len: bool = False,
-    fused_loss: "bool | str" = False,
+    fused_loss: "bool | str" = False, sequence_group=None,
 ) -> Callable:
     """``value_and_grad(flat_params, batch) -> (loss, grads)``: the model
     computes with the parameters held in ``flat_params`` (views, no copy)
@@ -73,19 +119,36 @@ def make_flat_loss_fn(
     here, against the model (``ops.losses.resolve_fused_loss``, warning
     through the log on a downgrade); the loss then goes through
     ``ops.losses.model_ce``: 'pallas' is the fused lm-head + CE kernel
-    (K3), 'chunk' the chunked loss, False the materialized CE."""
+    (K3), 'chunk' the chunked loss, False the materialized CE.
+
+    With ``sequence_group`` (context parallelism) the batch is this rank's
+    chunk (:func:`prep_cp_leaves`): pre-shifted labels, no pad mask, and
+    the loss is the chunk's partial over the group's total target count."""
     params = [p for p, _, _ in model.flat_slices()]
     real_vocab = real_vocab_of(model)
-    fused = resolve_fused_loss(fused_loss, model, real_vocab, warn=log.warning)
+    fused = resolve_fused_loss(
+        fused_loss, model, real_vocab, warn=log.warning, seq_sharded=sequence_group is not None
+    )
 
-    def value_and_grad(flat_params: torch.Tensor, batch: dict):
-        model.load_flat(flat_params)
-        am = None if const_len else batch["attention_mask"]
-        with torch.enable_grad():
-            loss = model_ce(
+    def loss_of(batch: dict) -> torch.Tensor:
+        if sequence_group is None:
+            am = None if const_len else batch["attention_mask"]
+            return model_ce(
                 model, batch["input_ids"], am, batch["labels"],
                 label_smoothing=label_smoothing, fused=fused, real_vocab=real_vocab,
             )
+        targets = batch["labels"]
+        num_valid = _all_reduce((targets != IGNORE_INDEX).sum().float(), sequence_group.group)
+        return model_ce(
+            model, batch["input_ids"], None, targets,
+            label_smoothing=label_smoothing, fused=fused, real_vocab=real_vocab,
+            num_valid=num_valid, shift=False,
+        )
+
+    def value_and_grad(flat_params: torch.Tensor, batch: dict):
+        model.load_flat(flat_params)
+        with torch.enable_grad():
+            loss = loss_of(batch)
             grads = torch.autograd.grad(loss, params)
         return loss.detach(), grads
 
@@ -130,12 +193,20 @@ def accumulate_grads(
     return grad_sum, count, loss_wsum
 
 
-def mean_loss(loss_weighted_sum: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Valid-count-weighted mean loss (one rank: no reduction)."""
-    return loss_weighted_sum / valid.sum().clamp(min=1.0)
+def world_mean_loss(
+    loss_weighted_sum: torch.Tensor, valid: torch.Tensor, group=None
+) -> torch.Tensor:
+    """Valid-count-weighted mean loss. Under context parallelism each
+    rank's loss is a partial of its microbatches' losses: the partials sum
+    over the group, while the valid count, replicated across the sequence
+    group, is not summed (dp is 1)."""
+    total = _all_reduce(loss_weighted_sum.clone(), group)
+    return total / valid.sum().clamp(min=1.0)
 
 
-def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor) -> torch.Tensor:
+def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor, group=None) -> torch.Tensor:
     """float32 0/1 verdict on the grads a round stages: finite loss and a
-    finite grad sum."""
-    return (torch.isfinite(loss) & torch.isfinite(grad_sum).all()).float()
+    finite grad sum on every rank of ``group`` (one scalar all-reduce), so
+    that the verdict, a replicated leaf, agrees across ranks."""
+    bad = _all_reduce((~torch.isfinite(grad_sum).all()).float(), group)
+    return (torch.isfinite(loss) & (bad == 0)).float()

@@ -1,11 +1,13 @@
-"""ZeRO-1 shard geometry and the sharded AdamW step, at one rank.
+"""ZeRO-1 shard geometry and the sharded AdamW step.
 
 Counterpart of ``acco_tpu/parallel/zero1.py``. The flat vector is padded
 to ``world_size * ceil(P / world_size)`` and each rank owns one float32
-shard with its Adam moments. At world size 1 the reduce-scatter and the
-all-gather of ``zero1_update_shard`` are the identity, so this module
-runs no collective; the NCCL versions come with the multi-rank slice
-(ROADMAP.md queue 1, item 4).
+shard with its Adam moments. Over more than one rank (the dp x sp group
+of context parallelism) the step is ``reduce_scatter_tensor`` (sum) of
+the flat gradient, AdamW on this rank's float32 shard, and
+``all_gather_into_tensor`` of the result in the parameter dtype; the sum
+in the scatter is also what adds the sequence shards' partial gradients.
+At one rank both collectives are the identity and none runs.
 """
 
 from __future__ import annotations
@@ -58,11 +60,18 @@ class Zero1State(NamedTuple):
     grads_committed: torch.Tensor  # float32 scalar: committed micro-grads
 
 
-def init_zero1_state(flat_params_f32: torch.Tensor, geom: ShardGeometry) -> Zero1State:
-    padded = geom.pad_flat(flat_params_f32.float())
-    device = padded.device
+def init_zero1_state(
+    flat_params_f32: torch.Tensor, geom: ShardGeometry, shard_index: int = 0
+) -> Zero1State:
+    """This rank's shard of the padded float32 parameters, its zero
+    moments and the counters."""
+    S = geom.shard_size
+    shard = geom.pad_flat(flat_params_f32.float())
+    if geom.world_size > 1:
+        shard = shard[shard_index * S:(shard_index + 1) * S].clone()
+    device = shard.device
     return Zero1State(
-        opt=init_adamw_state(padded),
+        opt=init_adamw_state(shard),
         sched_grads=torch.zeros((), dtype=torch.int32, device=device),
         grads_committed=torch.zeros((), dtype=torch.float32, device=device),
     )
@@ -81,24 +90,31 @@ def zero1_update_shard(
     out_dtype=torch.bfloat16,
     with_health: bool = False,
     max_grad_norm: float = 0.0,
+    group=None,
 ):
-    """One sharded AdamW step: (reduce-scatter) -> average by the grad
-    count -> AdamW on the float32 shard -> (all-gather). Returns
-    ``(new_flat [padded_size] in out_dtype, new opt shard)`` plus an
-    :class:`UpdateHealth` when ``with_health``; the caller applies the
-    verdict."""
-    if geom.world_size != 1:
-        raise NotImplementedError(
-            "ZeRO-1 over more than one rank needs the NCCL collectives: "
-            "ROADMAP.md queue 1, item 4"
-        )
+    """One sharded AdamW step: reduce-scatter (sum) over ``group`` ->
+    average by the grad count -> AdamW on this rank's float32 shard ->
+    all-gather. Returns ``(new_flat [padded_size] in
+    out_dtype, new opt shard)`` plus an :class:`UpdateHealth` when
+    ``with_health`` (its two sums of squares all-reduced over the group);
+    the caller applies the verdict. ``group`` None is one rank with no
+    collective; a group of one rank runs them (the identity)."""
+    if group is None and geom.world_size != 1:
+        raise ValueError(f"a world of {geom.world_size} ranks needs a process group")
+    import torch.distributed as dist
+
+    S = opt_shard.params.numel()
+    if group is not None:
+        grads = torch.empty(S, dtype=torch.float32, device=flat_grads.device)
+        dist.reduce_scatter_tensor(grads, flat_grads.float(), op=dist.ReduceOp.SUM, group=group)
+        flat_grads = grads
     # AdamW runs chunk by chunk into fresh output buffers: the same
     # arithmetic per element as one call over the shard, but eager
     # PyTorch would hold about seven shard-sized float32 temporaries at
     # once (35 GB at 1.5e9 parameters), and the chunks hold a few of
     # CHUNK elements instead.
-    S = opt_shard.params.numel()
-    pad_mask = geom.shard_pad_mask(0, flat_grads.device)
+    shard_index = 0 if group is None else dist.get_rank(group)
+    pad_mask = geom.shard_pad_mask(shard_index, flat_grads.device)
     new_flat = torch.empty(S, dtype=out_dtype, device=flat_grads.device)
     out = AdamWState(
         params=torch.empty_like(opt_shard.params),
@@ -128,8 +144,16 @@ def zero1_update_shard(
                 g, prm = torch.where(real, g, zero), torch.where(real, prm, zero)
             grad_ss = grad_ss + g.square().sum()
             param_ss = param_ss + prm.square().sum()
+    if group is not None:
+        gathered = torch.empty(geom.padded_size, dtype=out_dtype, device=new_flat.device)
+        dist.all_gather_into_tensor(gathered, new_flat, group=group)
+        new_flat = gathered
     if not with_health:
         return new_flat, out
+    if group is not None:  # the shards partition the vector: one [2] all-reduce
+        sums = torch.stack([grad_ss, param_ss])
+        dist.all_reduce(sums, group=group)
+        grad_ss, param_ss = sums[0], sums[1]
     ok = torch.isfinite(grad_ss) & torch.isfinite(param_ss)
     if max_grad_norm and max_grad_norm > 0:
         ok = ok & (grad_ss <= float(max_grad_norm) ** 2)

@@ -1,11 +1,18 @@
 """The training loop: the seed round, then ACCO or DPU rounds to the target.
 
 Counterpart of ``DecoupledTrainer._train`` in ``acco_tpu/trainer.py``,
-slimmed to one rank: const-len packing (or per-document truncation), a
-shuffled batch iterator, the seed round, then rounds until
-``nb_steps_tot`` gradients are committed. Each round logs its loss, LR
-and ``is_real_update``; reading them back is the loop's one sync per
-round, so a round's wall time includes its device work.
+slimmed: const-len packing (or per-document truncation), a shuffled batch
+iterator, the seed round, then rounds until ``nb_steps_tot`` gradients
+are committed. Each round logs its loss, LR and ``is_real_update``;
+reading them back is the loop's one sync per round, so a round's wall
+time includes its device work.
+
+Ranks: one, or the sequence group of context parallelism (a ``mesh``
+with sp > 1, at dp 1, as JAX's trainer turns CP on; or a mesh that
+carries a one-rank sequence group, which runs the CP code with no hop):
+every rank reads the same global block from the seed and keeps its chunk
+(``parallel/common.prep_cp_leaves``). CP needs const-len batches and
+``max_length`` divisible by sp (2 sp under the zig-zag layout).
 
 Not here yet: the ``ddp`` method (ROADMAP.md queue 1, item 4), ACCO's
 DPU warmup rounds, eval, checkpoints, TensorBoard and ``results.csv``
@@ -24,16 +31,20 @@ from acco_tpu_torch.data.tokenize import pack_texts
 from acco_tpu_torch.ops.attention import resolve_attention_impl
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
-from acco_tpu_torch.parallel.common import block_from_numpy
+from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
 
 
 class Trainer:
     def __init__(self, model, tokenizer, train_texts, args, log=None, seed: int = 0,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.log = log or logging.getLogger("acco_tpu_torch")
         self.model = model
         self.device = torch.device(device)
         self.seed = seed
+        self.mesh = mesh
+        # a mesh with a sequence group (sp > 1, JAX: trainer.py:141-145, or
+        # a group of one rank passed in by hand) turns context parallelism on
+        self.sequence_group = None if mesh is None else mesh.sequence_group
         self.method = str(args.get("method_name", "acco"))
         if self.method == "ddp":
             raise NotImplementedError(
@@ -56,6 +67,8 @@ class Trainer:
         self.max_length = int(args.get("max_length", 1024))
         self.nb_grad_tot = int(args.get("nb_steps_tot", 1000))
         self.const_len_batch = bool(args.get("const_len_batch", True))
+        if self.sequence_group is not None:
+            self._check_cp(self.sequence_group.size)
         schedule = get_schedule(
             str(args.get("scheduler_name", "cosine")),
             float(args.get("learning_rate", 6e-4)),
@@ -74,6 +87,7 @@ class Trainer:
             nan_guard=self.nan_guard,
             guard_max_grad_norm=float(args.get("guard_max_grad_norm", 0.0) or 0.0),
             fused_loss=args.get("fused_loss", False),
+            sequence_group=self.sequence_group,
         )
         if self.const_len_batch:
             rows = pack_texts(train_texts, tokenizer, self.max_length)
@@ -91,12 +105,34 @@ class Trainer:
         )
         self.final_state = None
 
+    def _check_cp(self, sp: int) -> None:
+        """JAX's context-parallel preconditions (trainer.py:318-352)."""
+        if self.max_length % sp:
+            raise ValueError(
+                f"max_length {self.max_length} must divide evenly over the sp axis "
+                f"({sp} shards)"
+            )
+        if getattr(self.model, "zigzag", False) and self.max_length % (2 * sp):
+            raise ValueError(
+                f"zig-zag context parallelism shards the sequence into 2*sp half-chunks: "
+                f"max_length {self.max_length} must be divisible by {2 * sp} "
+                f"(train.zigzag_cp=false uses contiguous sharding instead)"
+            )
+        if not self.const_len_batch:
+            raise ValueError(
+                "context parallelism (sp > 1) requires const_len_batch=True: the "
+                "sequence-sharded attention path has no per-token attention mask, so "
+                "padded (truncation-mode) batches are not supported"
+            )
+
     def train(self) -> dict:
         t_beg = time.time()
         batches = infinite_batches(self.loader)
+        zigzag = getattr(self.model, "zigzag", False)
 
         def next_block():
-            return block_from_numpy(stack_microbatches(batches, self.n_acc), self.device)
+            block = block_from_numpy(stack_microbatches(batches, self.n_acc), self.device)
+            return prep_cp_leaves(block, self.sequence_group, zigzag)
 
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         state = self.step.init_state(self.model.init_flat(gen))
@@ -104,7 +140,7 @@ class Trainer:
         seed_loss = float(seed_loss)
         self.log.info("seed round: loss %.4f", seed_loss)
 
-        grads_per_round = float(self.n_acc)  # one rank, every microbatch valid
+        grads_per_round = float(self.n_acc)  # dp 1, every microbatch valid
         count_grad_tot = 0.0
         round_idx = 0  # host mirror of state.round_idx: the parity
         round_log = []
@@ -145,6 +181,7 @@ class Trainer:
             "method": self.method,
             "fused_loss": self.step.value_and_grad.fused_loss,
             "attention": self.attention,
+            "mesh": self.mesh.describe() if self.mesh is not None else {"dp": 1, "sp": 1},
             "skipped_rounds": int(state.health.skipped_rounds),
             "n_params": self.model.n_params,
             "seed_loss": seed_loss,

@@ -8,54 +8,68 @@ and prints no result line):
 
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
-2. build: compiles csrc/fused_attention.cu (K1),
-   csrc/banded_attention.cu (K2), csrc/fused_ce.cu (K3) and
-   csrc/flash_attention.cu (K5) for sm_90a from the checkout (into
-   build/), one nvcc each, started together, and prints ptxas's report;
+2. build: compiles csrc/fused_attention.cu (K1), banded_attention.cu
+   (K2), fused_ce.cu (K3), flash_attention.cu (K5) and
+   block_attention.cu (K4) for sm_90a from the checkout (into build/),
+   one nvcc each, started together, and prints ptxas's report;
 3. parity: each kernel against its plain PyTorch version on the same
-   inputs on the card, bf16. K1 at the Llama flagship shape (B 8, H =
-   Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA shape with
-   window 256 and a key pad mask, and at GPT-Neo's global shape (scale
-   1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a small odd
-   window (W 129) and the widest band of its envelope (W 897); K3 (the
-   fused lm-head + CE: forward, dH, dW) at Llama-125M's head (8184 rows,
-   D 768, V 50257), a small unaligned shape (64 rows, D 128, V 277,
-   real vocab 256, ignored rows, smoothing 0.1) and Llama-3-8B's head
-   (1024 rows, D 4096, V 128256), the two heads also with the softmax
-   term alone in dlogits; the head's float32 logits against the widened
-   product; K5 (causal flash attention with segment ids: forward,
-   delta, dK/dV, dQ) at the Llama flagship shape (D 64), a small GQA
-   shape with pads in the middle and at the tail (D 128; also in
-   float32) and Llama-3-8B's long-context shape (B 1, H 32, Hkv 8, L
-   8192, D 128), where the plain version runs one KV head at a time;
-   and K3's dH/dW bar and K5's bars against planted faults, each in a
+   inputs on the card, bf16 unless named. K1 at the Llama flagship shape
+   (B 8, H = Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA
+   shape with window 256 and a key pad mask, and at GPT-Neo's global
+   shape (scale 1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a
+   small odd window (W 129) and the widest band of its envelope (W 897);
+   K3 (the fused lm-head + CE: forward, dH, dW) at Llama-125M's head
+   (8184 rows, D 768, V 50257), a small unaligned shape (64 rows, D 128,
+   V 277, real vocab 256, ignored rows, smoothing 0.1) and Llama-3-8B's
+   head (1024 rows, D 4096, V 128256), the two heads also with the
+   softmax term alone in dlogits; the head's float32 logits against the
+   widened product; K5 (causal flash attention with segment ids) at the
+   Llama flagship shape, a small GQA shape with pads in the middle and at
+   the tail (D 128; also in float32) and Llama-3-8B's long-context shape
+   (B 1, H 32, Hkv 8, L 8192, D 128); K4 (the ring's block: forward, row
+   pre-pass, dK/dV, dQ, with random cotangents on o, m and l) at (a) the
+   Llama-350M preset's block at sp 16 (B 1, H 16, L 1024, D 64), (b)
+   Llama-3-8B at the ring path's half-chunk (H 32, Hkv 8, L 4096, D 128),
+   both full and diagonal, (c) GPT-Neo-125M's positional block at a
+   zig-zag hop at sp 2 (windows 0 and 256, rows fully masked), (d) small
+   float32 cases with ties planted at the row max, and a small bf16 GQA
+   case; then K3's, K5's and K4's bars against planted faults, each in a
    patched copy of the kernel's source, which they must fail;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
    beside K1 at the same window; K3 at the main path's head (8192 rows)
-   beside the port's materialized head and CE (``layers.lm_logits`` +
-   ``causal_lm_loss``), which no single PyTorch call replaces; K5 at the
-   flagship shape beside K1 and at the long-context shape;
+   beside the port's materialized head and CE, which no single PyTorch
+   call replaces; K5 at the flagship shape beside K1 and at the
+   long-context shape; K4 at (a), (b) and (c), beside SDPA on the same
+   attended pairs (the same work, not the same function: SDPA returns
+   the normalised output and no row max or sum);
 5. main paths: ``python -m acco_tpu_torch train=acco model=llama-125M
    data=synthetic``, ``... model=gptneo ...`` and ``... model=llama-125M
    ... train.fused_loss=pallas`` in-process at full width (12 layers,
    d 768, seq 1024, batch 8, n_acc 1), and ``... model=llama-125M
    model.config_path=<tmp>/llama-3-8B-depth2.json train.max_length=8192
    train.batch_size=1`` (Llama-3-8B at full width cut to 2 layers,
-   'auto' attention resolving to K5 and 'auto' fused loss to K3): the
-   seed round and 6 rounds each, with the kernels' launch counts, and
-   the calls of the materialized head, set to 0 just before each run
-   and read just after;
+   'auto' attention resolving to K5 and 'auto' fused loss to K3), with
+   no process group; then the ring paths, the last two paths' models on
+   the ring of context parallelism through a one-rank NCCL sequence
+   group handed to ``build_trainer`` (zig-zag: two diagonal half-blocks
+   and one full a layer for Llama; the windowed ring's positional block
+   a layer for GPT-Neo; the loss through K3, as 'auto' resolves under
+   CP): the seed round and 6 rounds each, with the kernels' launch counts
+   and the calls of the materialized head set to 0 just before each run
+   and read just after, the ring paths' round-0 losses against their
+   base paths' on the same weights and batch, and one GPT-Neo forward and
+   backward through the windowed ring against the non-CP path (K1 + K2);
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
-   gradients (tiny128, then gpt-neo-125M at L 512), and so does
-   ``train.fused_loss=pallas`` (K3) against the materialized CE, and
-   ``train.use_pallas_attention=true`` (K5) against the plain attention
-   (tiny128);
-7. profile: each main path again under torch.profiler, for the device
-   time per kernel, K1's, K2's, K3's and K5's device time per microbatch
-   and the device's idle share.
+   gradients (tiny128, then gpt-neo-125M at L 512), and so do
+   ``train.fused_loss=pallas`` (K3) against the materialized CE,
+   ``train.use_pallas_attention=true`` (K5) and the one-rank ring (K4)
+   against the plain attention (tiny128);
+7. profile: each path again under torch.profiler, for the device time
+   per kernel, K1's to K5's device time per microbatch and the device's
+   idle share.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +78,7 @@ The last lines are the kernels JSON line, nvidia-smi's line and
 from __future__ import annotations
 
 import atexit
+import contextlib
 import functools
 import json
 import os
@@ -136,6 +151,32 @@ FLASH_SHAPES = (
     ("small gqa, pads, float32", {**FLASH_SMALL, "dtype": "float32"}),
     ("llama-3-8B, L 8192", FLASH_LLAMA3),
 )
+# K4 (the ring's block) shapes: (a) the Llama-350M preset's per-device
+# block, a zig-zag half-chunk of Lc 2048 at sp 16; (b) Llama-3-8B at the
+# card's ring path's half-chunk (L 8192 at sp 1); (c) GPT-Neo-125M's
+# positional block at the positions of a zig-zag hop at sp 2, L 2048
+# (rank 1's queries against rank 0's keys: with window 256 the queries at
+# 768..1535 have no key left, and their rows are fully masked); (d) small,
+# float32, with ties planted at each row's max. Each shape lists its
+# variants: 'full', 'diag', or (query positions, key positions, window).
+BLOCK_350M = dict(B=1, H=16, Hkv=16, L=1024, D=64)
+BLOCK_LLAMA3 = dict(B=1, H=32, Hkv=8, L=4096, D=128)
+BLOCK_NEO = dict(B=8, H=12, Hkv=12, L=1024, D=64, scale=1.0, qk_std=NEO_QK_STD)
+BLOCK_TIES = dict(B=2, H=4, Hkv=2, L=128, D=64, dtype="float32", ties=True)
+BLOCK_SMALL = dict(B=2, H=4, Hkv=2, L=128, D=64)
+# (query rank, key rank, global length, ranks, window) of a zig-zag hop
+ZZ_NEO = {f"hop sp2 w{w}": (1, 0, 2048, 2, w) for w in (0, NEO_WINDOW)}
+ZZ_SMALL = {"hop w0": (1, 0, 256, 2, 0), "hop w48": (1, 0, 256, 2, 48),
+            "self w48": (0, 0, 256, 2, 48)}
+BLOCK_SHAPES = (
+    ("(a) llama-350M preset's block at sp 16", BLOCK_350M, ("full", "diag")),
+    ("(b) llama-3-8B, the card ring path's half-chunk", BLOCK_LLAMA3, ("full", "diag")),
+    ("(c) gpt-neo-125M, a zig-zag hop at sp 2, L 2048", BLOCK_NEO, tuple(ZZ_NEO)),
+    ("(d) small, planted ties, float32", BLOCK_TIES, ("full", "diag", *ZZ_SMALL)),
+    ("(d) small, planted ties, float32, D 128", {**BLOCK_TIES, "D": 128},
+     ("full", "diag", *ZZ_SMALL)),
+    ("small gqa, bf16", BLOCK_SMALL, ("full", "diag", *ZZ_SMALL)),
+)
 # the long-context main path: config/model/llama-3-8B.json at full width
 # (d 4096, 32 heads, 8 KV heads, vocab 128256, untied head) cut to 2
 # layers, written at run time into a temporary directory
@@ -188,6 +229,12 @@ TOL = {
     "dv": (1e-2, 2e-2),
     # K3's per-row float32 lse and true logit: exact bf16 products summed
     # in another order (the sum of the real logits: check_mass)
+    # K4's row statistics: float32 on both sides; m and l differ only by
+    # the summation order of s, c = (dm - rowsum(dO o) - dl l) / cnt only
+    # by that of its dot product
+    "blk_m": (1e-3, 1e-4),
+    "blk_l": (1e-3, 1e-4),
+    "blk_c": (1e-3, 1e-4),
     "ce_lse": (1e-4, 1e-5),
     "ce_tl": (1e-4, 1e-5),
 }
@@ -315,12 +362,19 @@ PLANTED_FAULTS = {
         "flash_attention.cu", "(!seg_b || sg[ii] == skey[h])", "(true)", "K5"),
     "K5: dK/dV drops the causal diagonal": (
         "flash_attention.cu", "key_lo + h * 8 <= qq + ii", "key_lo + h * 8 < qq + ii", "K5"),
+    "K4: the tie term dropped": (
+        "block_attention.cu", "+ (eq ? c : 0.f)", "+ 0.f * (eq ? c : 0.f)", "K4"),
+    "K4: dl ignored": ("block_attention.cu", "p * (dp_dot + dl)", "p * (dp_dot + 0.f * dl)", "K4"),
+    "K4: the window edge off by one": (
+        "block_attention.cu", "kp > qp - window", "kp >= qp - window", "K4"),
     "K5: the forward skips the output's rescale": (
         "flash_attention.cu", "oacc[j][e] *= corr[e / 2];", "oacc[j][e] *= 1.f;", "K5"),
 }
 FAULT_CHECKS = {
     "K3": lambda: ce_parity(CE_SHAPES[1][1], 7),
     "K5": lambda: flash_parity(FLASH_SMALL, 21),
+    "K4": lambda: (block_parity(BLOCK_TIES, 31, ("full", "diag", *ZZ_SMALL)),
+                   block_parity(BLOCK_SMALL, 32, ("full", *ZZ_SMALL))),
 }
 # run in the copy: exits 0 if the check failed the fault, 3 if it passed it
 _FAULT_CHILD = """
@@ -838,6 +892,267 @@ def flash_timing(shape: dict) -> tuple[dict, dict]:
     return out, backward
 
 
+def block_variant(shape: dict, variant: str):
+    """(diag, query positions, key positions, window) of a K4 variant."""
+    import torch
+
+    from acco_tpu_torch.ops.ring_attention import zigzag_positions
+
+    if variant in ("full", "diag"):
+        return variant == "diag", None, None, 0
+    q_rank, kv_rank, length, ranks, window = {**ZZ_NEO, **ZZ_SMALL}[variant]
+    if length // ranks != shape["L"]:
+        raise ValueError(f"{variant}: a chunk of {length // ranks}, shape has L {shape['L']}")
+    pos = [zigzag_positions(length, ranks, r).to(torch.int32).cuda() for r in (q_rank, kv_rank)]
+    return False, pos[0], pos[1], window
+
+
+def make_block_inputs(shape: dict, seed: int):
+    """q, k, v in the shape's dtype and random float32 cotangents g [B, H,
+    L, D], r_m, r_l [B, H, L] (std 1) for K4's three outputs, which
+    ``block_cotangents`` scales. With ``ties``, three keys of every KV head
+    are one vector u and every query leans on u, so each row that sees
+    them has its max three times."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, Hkv, L, D = (shape[x] for x in ("B", "H", "Hkv", "L", "D"))
+    dtype = getattr(torch, shape.get("dtype", "bfloat16"))
+    std = shape.get("qk_std", 1.0)
+
+    def randn(*size, s=1.0):
+        return torch.randn(*size, generator=g, device="cuda") * s
+
+    q, k, v = randn(B, H, L, D, s=std), randn(B, Hkv, L, D, s=std), randn(B, Hkv, L, D)
+    if shape.get("ties"):
+        u = randn(D, s=std)
+        q = q + u
+        k[:, :, [3, 4, 5]] = 2 * u
+    cot = (randn(B, H, L, D), randn(B, H, L), randn(B, H, L))
+    return (q.to(dtype), k.to(dtype), v.to(dtype)), cot
+
+
+def block_cotangents(cot, l):
+    """(dO, dm, dl) at the scale the ring's merge gives them: the partial
+    o is unnormalised (|o| grows with the row sum l), and the merge's
+    cotangents on o and l carry a 1 / l, on m none: dO = g / l, dl = r_l /
+    l, dm = r_m, random so that the tie term (dm - sum p dp) / cnt carries
+    weight."""
+    g, r_m, r_l = cot
+    inv = 1.0 / l
+    return (g * inv[..., None]).contiguous(), r_m.contiguous(), (r_l * inv).contiguous()
+
+
+def block_plain(fn, q, k, v, *rows, **kw):
+    """K4's plain version ``fn`` (forward or backward); at L >= 4096 one KV
+    head (with its n_rep q heads) at a time, as flash_plain does."""
+    import torch
+
+    if q.shape[2] < 4096:
+        return fn(q, k, v, *rows, **kw)
+    n_rep = q.shape[1] // k.shape[1]
+    outs = []
+    for h in range(k.shape[1]):
+        qh, kvh = slice(h * n_rep, (h + 1) * n_rep), slice(h, h + 1)
+        outs.append(fn(q[:, qh], k[:, kvh], v[:, kvh], *(t[:, qh] for t in rows), **kw))
+        torch.cuda.empty_cache()
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=1)
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def block_grad_terms(q, k, v, m, do, dm, dl, **kw):
+    """For each element of K4's dQ, dK and dV, a bound on the largest
+    product in its sum, from the plain version's dS and P: dq[i, d] sums
+    scale ds[i, j] k[j, d] over keys, bounded by scale max_j |ds[i, j]|
+    max_j |k[j, d]|; dk[j, d] and dv[j, d] likewise over the rows (and the
+    q heads) of the KV head."""
+    from acco_tpu_torch.ops import block_attention as bl
+
+    def terms(q, k, v, m, do, dm, dl, **kw):
+        p, ds, kr, scale = bl._block_bwd_terms(q, k, v, m, do, dm, dl, kw["diag"], kw["q_pos"],
+                                               kw["kv_pos"], kw["window"], kw["scale"])
+        B, H = q.shape[:2]
+        Hkv = k.shape[1]
+
+        def per_kv(x):  # [B, H, n] -> [B, Hkv, n], the max over each KV head's q heads
+            return x.view(B, Hkv, H // Hkv, -1).amax(2)
+
+        a = ds.abs()
+        t_dq = scale * a.amax(-1, keepdim=True) * kr.float().abs().amax(2, keepdim=True)
+        t_dk = scale * per_kv(a.amax(2))[..., None] * per_kv(q.float().abs().amax(2))[:, :, None]
+        t_dv = per_kv(p.amax(2))[..., None] * per_kv(do.abs().amax(2))[:, :, None]
+        return t_dq, t_dk, t_dv
+
+    return block_plain(terms, q, k, v, m, do, dm, dl, **kw)
+
+
+def check_term(name: str, got, want, term) -> float:
+    """|got - want| <= atol + rtol |want| + 2^-6 term, elementwise (TOL's
+    bar plus two bf16 steps of the element's largest product)."""
+    import torch
+
+    atol, rtol = TOL[name]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = atol + rtol * want.abs() + 2 ** -6 * term
+    max_err = float(err.max())
+    used = float((err / tol).max())
+    log(f"  {name:5s} max_abs_err {max_err:.3e}  (tol {atol:g} + {rtol:g}*|ref| + 2^-6*term; "
+        f"median term {float(term.median()):.3e}; worst err/tol {used:.3f})")
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        raise AssertionError(f"{name}: {int((err > tol).sum())} elements outside tolerance "
+                             f"(max abs err {max_err:.3e}, worst err/tol {used:.3f})")
+    return max_err
+
+
+def block_parity(shape: dict, seed: int, variants) -> dict:
+    """Every K4 kernel against its plain version, per variant; returns max
+    errors. The row-statistics kernel and its plain version take the same
+    inputs (the kernel forward's o, l, cnt); the dK/dV and dQ kernels and
+    the plain backward each take their own forward's m, since eq = (s ==
+    m) needs the s that its own products give."""
+    import torch
+
+    from acco_tpu_torch.ops import block_attention as bl
+
+    (q, k, v), cot = make_block_inputs(shape, seed)
+    scale = shape.get("scale", shape["D"] ** -0.5)
+    f32 = q.dtype == torch.float32
+
+    def tol(name):
+        return F32_TOL if f32 else TOL[name]
+
+    errs = {}
+    for variant in variants:
+        diag, qp, kp, window = block_variant(shape, variant)
+        mode = bl._mode(diag, qp)
+        fwd_name = "blk_fwd_" + ("pos" if qp is not None else variant)
+        kw = dict(diag=diag, q_pos=qp, kv_pos=kp, window=window, scale=scale)
+        log(f"  {variant}")
+        o, m, l, cnt = bl.blk_fwd(q, k, v, mode, qp, kp, window, scale)
+        o_r, m_r, l_r, cnt_r = block_plain(bl.block_fwd_reference, q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, cnt_r):
+            raise AssertionError(f"cnt: {int((cnt != cnt_r).sum())} rows count other ties")
+        # o is unnormalised: compared as o / l_ref, the normalised output's scale
+        inv = 1.0 / l_r[..., None]
+        e = max(check("o", o * inv, o_r * inv, tol("o")), check("blk_m", m, m_r, tol("blk_m")),
+                check("blk_l", l, l_r, tol("blk_l")))
+        do, dm, dl = block_cotangents(cot, l_r)
+        errs[fwd_name] = max(errs.get(fwd_name, 0.0), e)
+        log(f"  rows fully masked: {int((m == -1e9).sum())}; rows with tied maxima: "
+            f"{int((cnt > 1).sum())}")
+        del o_r, l_r, cnt_r
+        do_t = do.to(q.dtype).contiguous()  # as the autograd backward passes it
+        c = bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt)
+        torch.cuda.synchronize()
+        e = check("blk_c", c, bl.block_rowc_reference(o, do_t, dm, dl, l, cnt), tol("blk_c"))
+        errs["blk_bwd_rowc"] = max(errs.get("blk_bwd_rowc", 0.0), e)
+        args = (q, k, v, mode, qp, kp, window, scale, do_t, m, dl, c)
+        dk, dv = bl.blk_bwd_dkdv(*args)
+        dq = bl.blk_bwd_dq(*args)
+        grads = block_plain(bl.block_bwd_reference, q, k, v, m_r, do, dm, dl, **kw)
+        torch.cuda.synchronize()
+        if f32:  # no rounding on either side: the float32 bar alone
+            e = {n: check(n, g, r, F32_TOL) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                                                 grads)}
+        else:  # a random dm makes single products of dS large: their bf16 steps count
+            terms = block_grad_terms(q, k, v, m_r, do, dm, dl, **kw)
+            e = {n: check_term(n, g, r, t) for n, g, r, t in zip(("dq", "dk", "dv"),
+                                                                  (dq, dk, dv), grads, terms)}
+            del terms
+        errs["blk_bwd_dkdv"] = max(errs.get("blk_bwd_dkdv", 0.0), e["dk"], e["dv"])
+        errs["blk_bwd_dq"] = max(errs.get("blk_bwd_dq", 0.0), e["dq"])
+        del o, dq, dk, dv, grads, do, dm, dl
+        torch.cuda.empty_cache()
+    return errs
+
+
+def block_timing(shape: dict, variants, seed: int) -> dict:
+    """Each K4 kernel's ms, plain ms and bound at ``shape``, per variant,
+    beside SDPA on the same attended pairs (no mask for 'full',
+    ``is_causal`` for 'diag', the bool mask for a positional variant): a
+    reference time for the same work, not the same function (SDPA returns
+    the normalised output and no m or l); its backward as one autograd
+    call's device time. Keys '<kernel>/<variant>'."""
+    import torch
+    import torch.nn.functional as F
+
+    from acco_tpu_torch.ops import block_attention as bl
+
+    (q, k, v), cot = make_block_inputs(shape, seed)
+    scale = shape.get("scale", shape["D"] ** -0.5)
+    B, H, Hkv, L, D = (shape[x] for x in ("B", "H", "Hkv", "L", "D"))
+    big = L >= 4096  # the plain version then runs one KV head at a time
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    out = {}
+    for variant in variants:
+        diag, qp, kp, window = block_variant(shape, variant)
+        mode = bl._mode(diag, qp)
+        kw = dict(diag=diag, q_pos=qp, kv_pos=kp, window=window, scale=scale)
+        mask = bl.block_mask(L, L, diag, qp, kp, window, q.device)
+        pairs = B * H * (L * L if mask is None else int(mask.sum()))
+        o, m, l, cnt = bl.blk_fwd(q, k, v, mode, qp, kp, window, scale)
+        do, dm, dl = block_cotangents(cot, l)
+        do_t = do.to(q.dtype).contiguous()
+        c = bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt)
+        args = (q, k, v, mode, qp, kp, window, scale, do_t, m, dl, c)
+        bwd = (q, k, v, m, do, dm, dl)
+        act = B * H * L * D * q.element_size()  # q, dO or dQ
+        kv = B * Hkv * L * D * k.element_size()
+        o_bytes = B * H * L * D * 4  # the float32 partial o
+        row = B * H * L * 4  # a float32 [B, H, L]
+        work = {  # bytes (inputs read once, outputs written once), operations
+            "blk_fwd": (act + 2 * kv + o_bytes + 3 * row, 4 * D * pairs),
+            "blk_bwd_rowc": (o_bytes + act + 4 * row + row, 2 * B * H * L * D),
+            "blk_bwd_dkdv": (2 * act + 2 * kv + 3 * row + 2 * kv, 8 * D * pairs),
+            "blk_bwd_dq": (2 * act + 2 * kv + 3 * row + act, 6 * D * pairs),
+        }
+        runs = {
+            "blk_fwd": (lambda: bl.blk_fwd(q, k, v, mode, qp, kp, window, scale),
+                        lambda: block_plain(bl.block_fwd_reference, q, k, v, **kw)),
+            "blk_bwd_rowc": (lambda: bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt),
+                             lambda: bl.block_rowc_reference(o, do_t, dm, dl, l, cnt)),
+            "blk_bwd_dkdv": (lambda: bl.blk_bwd_dkdv(*args),
+                             lambda: block_plain(bl.block_bwd_dkdv_reference, *bwd, **kw)),
+            "blk_bwd_dq": (lambda: bl.blk_bwd_dq(*args),
+                           lambda: block_plain(bl.block_bwd_dq_reference, *bwd, **kw)),
+        }
+        sdpa_kw = {"full": {}, "diag": {"is_causal": True}}.get(variant, {"attn_mask": mask})
+        for name, (kernel, plain) in runs.items():
+            ms = time_ms(kernel, iters=5 if big else 20)
+            plain_ms = (time_ms(plain, iters=1, warmup=1, windows=3) if big
+                        else time_ms(plain, iters=5))
+            b_ms, b_by = bound_ms(*work[name])
+            out[f"{name}/{variant}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                        "bound_by": b_by, "library_ms": None}
+            torch.cuda.empty_cache()
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, scale=scale,
+                                                                  **sdpa_kw))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kr, vr))
+        y = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **sdpa_kw)
+        sdpa_bwd = device_ms(lambda: torch.autograd.grad(y, (qg, kg, vg), do_t,
+                                                         retain_graph=True))
+        out[f"blk_fwd/{variant}"]["sdpa_ms"] = sdpa_fwd
+        for name in ("blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"):
+            out[f"{name}/{variant}"]["sdpa_bwd_ms"] = sdpa_bwd
+        del qg, kg, vg, y, o, m, l, cnt, c, do, do_t
+        torch.cuda.empty_cache()
+        log(f"  {variant}: attended pairs {pairs:.6g}")
+        for name in runs:
+            r = out[f"{name}/{variant}"]
+            log(f"  {name:13s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        bwd_ms = sum(out[f"{n}/{variant}"]["ms"] for n in ("blk_bwd_rowc", "blk_bwd_dkdv",
+                                                           "blk_bwd_dq"))
+        log(f"  SDPA on the same pairs: forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms; "
+            f"K4 forward {out[f'blk_fwd/{variant}']['ms']:.4f}, backward {bwd_ms:.4f} ms")
+    del q, k, v, kr, vr
+    torch.cuda.empty_cache()
+    return out
+
+
 def make_ce_inputs(shape: dict, seed: int):
     """K3's inputs on the card, bf16: hidden rows (std 1), the head as the
     [V, D] table (std 0.02, the models' init), int32 targets below v_real
@@ -1002,11 +1317,12 @@ def ce_timing() -> tuple[dict, dict, dict]:
 
 def _launch_tables():
     from acco_tpu_torch.ops import banded_attention as bd
+    from acco_tpu_torch.ops import block_attention as bl
     from acco_tpu_torch.ops import flash_attention as fl
     from acco_tpu_torch.ops import fused_attention as fa
     from acco_tpu_torch.ops import fused_ce as fc
 
-    return fa, bd, fc, fl
+    return fa, bd, fc, fl, bl
 
 
 def reset_launch_counts() -> None:
@@ -1046,6 +1362,27 @@ class HeadLogitsCalls:
             module.lm_logits = original
 
 
+class BlockWindows:
+    """Counts K4's positional forward launches by window while the
+    context is open (the windowed ring's layers: 0 = global)."""
+
+    def __enter__(self):
+        from acco_tpu_torch.ops import block_attention as bl
+
+        self.module, self.original, self.counts = bl, bl.blk_fwd, {}
+
+        def counted(q, k, v, mode, q_pos, kv_pos, window, scale):
+            if mode == bl.MODES["pos"]:
+                self.counts[window] = self.counts.get(window, 0) + 1
+            return self.original(q, k, v, mode, q_pos, kv_pos, window, scale)
+
+        bl.blk_fwd = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.blk_fwd = self.original
+
+
 # Each main path: its model and extra overrides, its shape (batch, seq,
 # d_model), its layers' windows (0 = global), the parameters outside any
 # matmul (an untied embedding table), the fused loss it must resolve to,
@@ -1055,24 +1392,26 @@ _K1 = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 _K2 = ("banded_fwd", "banded_bwd_dq", "banded_bwd_dkdv")
 _K3 = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
 _K5 = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+_K4 = ("blk_fwd_diag", "blk_fwd_full", "blk_fwd_pos", "blk_bwd_rowc", "blk_bwd_dkdv",
+       "blk_bwd_dq")
 _125M = dict(batch=BATCH, seq=SEQ, d_model=D_MODEL, embed_params=0)
 MAIN_PATHS = {
     "llama-125M": dict(
         model="llama-125M", extra=[], **_125M, windows=[0] * LAYERS, head_logits=1,
         fused_loss=False, attention="fused",
-        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K3 + _K5, 0)},
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K3 + _K5 + _K4, 0)},
     ),
     "gptneo": dict(
         model="gptneo", extra=[], **_125M, windows=[0, NEO_WINDOW] * (LAYERS // 2),
         head_logits=1, fused_loss=False, attention="fused",
         per_microbatch={"attn_fwd": 6, "attn_bwd_delta": 12, "attn_bwd_dkdv": 6,
                         "attn_bwd_dq": 6, **dict.fromkeys(_K2, 6),
-                        **dict.fromkeys(_K3 + _K5, 0)},
+                        **dict.fromkeys(_K3 + _K5 + _K4, 0)},
     ),
     "llama-125M-fusedce": dict(
         model="llama-125M", extra=["train.fused_loss=pallas"], **_125M, windows=[0] * LAYERS,
         head_logits=0, fused_loss="pallas", attention="fused",
-        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K5, 0),
+        per_microbatch={**dict.fromkeys(_K1, 12), **dict.fromkeys(_K2 + _K5 + _K4, 0),
                         **dict.fromkeys(_K3, 1)},
     ),
     # Llama-3-8B at full width, 2 layers, L 8192: use_pallas_attention and
@@ -1081,32 +1420,72 @@ MAIN_PATHS = {
         model="llama-125M", llama3=True, extra=[], batch=1, seq=LLAMA3_SEQ, d_model=4096,
         embed_params=128256 * 4096, windows=[0] * LLAMA3_LAYERS, head_logits=0,
         fused_loss="pallas", attention="flash",
-        per_microbatch={**dict.fromkeys(_K1 + _K2, 0), **dict.fromkeys(_K3, 1),
+        per_microbatch={**dict.fromkeys(_K1 + _K2 + _K4, 0), **dict.fromkeys(_K3, 1),
                         **dict.fromkeys(_K5, LLAMA3_LAYERS)},
+    ),
+}
+# The ring paths (context parallelism through a one-rank NCCL sequence
+# group: every layout runs its self blocks, no hop): the long-context
+# Llama path's model and data through the zig-zag ring (per layer two
+# diagonal half-blocks and one full, 4096 rows each; K3 for the loss, as
+# fused_loss 'auto' resolves under CP), and GPT-Neo-125M through the
+# windowed ring (one positional block per layer, window 0 or 256; K3 as
+# well). GPT-Neo-125M's position table holds 1024 positions, so its ring
+# runs at L 1024 as its main path does.
+RING_PATHS = {
+    "llama3-8B-L8192-ring": dict(
+        base="llama3-8B-L8192", batch=1, seq=LLAMA3_SEQ, d_model=4096,
+        embed_params=128256 * 4096, windows=[0] * LLAMA3_LAYERS, head_logits=0,
+        fused_loss="pallas", attention="ring",
+        per_microbatch={**dict.fromkeys(_K1 + _K2 + _K5, 0), **dict.fromkeys(_K3, 1),
+                        "blk_fwd_diag": 2 * LLAMA3_LAYERS, "blk_fwd_full": LLAMA3_LAYERS,
+                        "blk_fwd_pos": 0,
+                        **dict.fromkeys(("blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"),
+                                        3 * LLAMA3_LAYERS)},
+    ),
+    "gptneo-ring": dict(
+        base="gptneo", **_125M, windows=[0, NEO_WINDOW] * (LAYERS // 2), head_logits=0,
+        fused_loss="pallas", attention="ring",
+        per_microbatch={**dict.fromkeys(_K1 + _K2 + _K5, 0), **dict.fromkeys(_K3, 1),
+                        "blk_fwd_diag": 0, "blk_fwd_full": 0, "blk_fwd_pos": LAYERS,
+                        **dict.fromkeys(("blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"),
+                                        LAYERS)},
+        pos_windows={0: LAYERS // 2, NEO_WINDOW: LAYERS // 2},
     ),
 }
 # the kernel each JSON entry reports launches for: its own slice's path
 OWN_PATH = {**dict.fromkeys(_K1, "llama-125M"), **dict.fromkeys(_K2, "gptneo"),
-            **dict.fromkeys(_K3, "llama-125M-fusedce"), **dict.fromkeys(_K5, "llama3-8B-L8192")}
+            **dict.fromkeys(_K3, "llama-125M-fusedce"), **dict.fromkeys(_K5, "llama3-8B-L8192"),
+            **dict.fromkeys(_K4, "llama3-8B-L8192-ring"), "blk_fwd_pos": "gptneo-ring"}
 SOURCE = {**dict.fromkeys(_K1, "fused_attention.cu"), **dict.fromkeys(_K2, "banded_attention.cu"),
-          **dict.fromkeys(_K3, "fused_ce.cu"), **dict.fromkeys(_K5, "flash_attention.cu")}
+          **dict.fromkeys(_K3, "fused_ce.cu"), **dict.fromkeys(_K5, "flash_attention.cu"),
+          **dict.fromkeys(_K4, "block_attention.cu")}
 
 
-def main_path(path: str) -> tuple[dict, float, int]:
-    """The port's entry point, in-process, at the model's full width, with
-    every launch count (and the materialized head's calls) set to 0 just
-    before the run and read just after; returns the counts, the median
-    round ms and the peak memory."""
+def ring_trainer(path: str, sg, extra=()):
+    """The trainer of a ring path: its base path's configuration, the model
+    on the ring, and ``sg`` (a one-rank sequence group) handed in."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra], sequence_group=sg)
+
+
+def main_path(path: str, sg=None) -> tuple[dict, float, int, dict]:
+    """The port's entry point, in-process, at the model's full width (a
+    ring path: its trainer on the one-rank group ``sg``), with every
+    launch count (and the materialized head's calls) set to 0 just before
+    the run and read just after; returns the counts, the median round ms,
+    the peak memory and the summary."""
     import torch
 
     from acco_tpu_torch.__main__ import main as entry
 
-    spec = MAIN_PATHS[path]
+    spec = MAIN_PATHS.get(path) or RING_PATHS[path]
     model = path
     torch.cuda.reset_peak_memory_stats()
-    with HeadLogitsCalls() as head:
+    with HeadLogitsCalls() as head, BlockWindows() as windows:
         reset_launch_counts()
-        summary = entry(main_args(path))
+        summary = entry(main_args(path)) if sg is None else ring_trainer(path, sg).train()
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     rounds = summary["round_log"]
@@ -1126,6 +1505,10 @@ def main_path(path: str) -> tuple[dict, float, int]:
     if head.count != spec["head_logits"] * microbatches:
         raise AssertionError(f"{model}: the materialized head ran {head.count} times, expected "
                              f"{spec['head_logits']} per microbatch x {microbatches}")
+    want_windows = {w: n * microbatches for w, n in spec.get("pos_windows", {}).items()}
+    if windows.counts != want_windows:
+        raise AssertionError(f"{model}: K4's positional launches by window {windows.counts}, "
+                             f"expected {want_windows}")
     for name, per_mb in spec["per_microbatch"].items():
         if launches[name] != per_mb * microbatches:
             raise AssertionError(
@@ -1155,8 +1538,9 @@ def main_path(path: str) -> tuple[dict, float, int]:
     log(f"  tokens/s {tok_s:.1f}  MFU {flops_per_token * tok_s / PEAK_BF16_FLOPS:.4f} "
         f"(vs {PEAK_BF16_FLOPS:.3g} FLOP/s bf16)")
     log(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
-    log(f"  launches {launches}  materialized head calls {head.count}")
-    return launches, med, peak
+    log(f"  launches {launches}  materialized head calls {head.count}"
+        + (f"  K4 positional launches by window {windows.counts}" if windows.counts else ""))
+    return launches, med, peak, summary
 
 
 ATTENTION_RUNS = (
@@ -1173,24 +1557,31 @@ FLASH_RUNS = (
 )
 
 
+RING_RUNS = (
+    ["train.fused_loss=false"],
+    ["train.use_pallas_attention=xla", "train.fused_loss=false"],
+)
+
+
 def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENTION_RUNS,
-                          plain_silent: tuple[str, ...] | None = None) -> None:
+                          plain_silent: tuple[str, ...] | None = None, sg=None) -> None:
     """The entry point twice on a small float32 input (4 ACCO rounds),
-    with the overrides of ``runs``: once through the kernels and once
-    through their plain path. Every kernel in ``kernels`` launched in the
-    first run; none of ``plain_silent`` (by default: no kernel at all) in
-    the second; the losses and the last staged gradients agree."""
+    with the overrides of ``runs``: once through the kernels (on the ring,
+    with ``sg`` handed in, when given) and once through their plain path.
+    Every kernel in ``kernels`` launched in the first run; none of
+    ``plain_silent`` (by default: no kernel at all) in the second; the
+    losses and the last staged gradients agree."""
     import torch
 
     from acco_tpu_torch.__main__ import build_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
-    for extra in runs:
+    for group, extra in zip((sg, None), runs):
         reset_launch_counts()
         trainer = build_trainer([
             *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false", *extra,
-        ])
+        ], sequence_group=group)
         summary = trainer.train()
         out.append((summary, trainer.final_state, launch_counts()))
     (s_k, st_k, n_k), (s_p, st_p, n_p) = out
@@ -1211,7 +1602,95 @@ def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENT
         raise AssertionError("kernel and plain training runs disagree")
 
 
-def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group on the card (any free local port),
+    yielding its SequenceGroup (the port's context-parallel code with no
+    hop) and destroyed on the way out."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from acco_tpu_torch.ops.ring_attention import SequenceGroup
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        yield SequenceGroup.of(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+
+# the ring paths against the paths they share weights and data with:
+# losses in bf16 within this share of the reference (both sides round
+# the attention output to bf16; K4 merges float32 partials where K5 and
+# K1/K2 normalise in-kernel), gradients within this relative L2 distance
+RING_LOSS_RTOL = 1e-3
+RING_GRAD_RTOL = 1e-2
+
+
+def ring_loss_vs(summary: dict, reference: dict, what: str) -> float:
+    """The round-0 loss of a ring path against its reference path's: same
+    weights (the seed), same batch (the loader's seed), both before any
+    update (round 0 computes at the initial weights)."""
+    got, want = summary["round_log"][0]["loss"], reference["round_log"][0]["loss"]
+    rel = abs(got - want) / abs(want)
+    log(f"  round-0 loss: ring {got:.6f}  {what} {want:.6f}  relative difference {rel:.3e} "
+        f"(bar {RING_LOSS_RTOL:g})")
+    if rel > RING_LOSS_RTOL:
+        raise AssertionError(f"the ring path's round-0 loss is off the {what} path's")
+    return rel
+
+
+def neo_ring_step_agreement(sg) -> None:
+    """GPT-Neo-125M, one forward and backward on the same weights and
+    batch: the windowed ring (K4, on the one-rank group) against the
+    non-CP path (K1 on the global layers, K2 on the local ones), both
+    with the loss through K3."""
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
+    from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
+
+    out = []
+    for group in (sg, None):
+        trainer = build_trainer([*main_args("gptneo"), "train.fused_loss=pallas"],
+                                sequence_group=group)
+        device = trainer.device
+        flat = trainer.step.init_state(trainer.model.init_flat(
+            torch.Generator(device=device).manual_seed(trainer.seed))).flat_params
+        block = block_from_numpy(stack_microbatches(infinite_batches(trainer.loader), 1), device)
+        block = prep_cp_leaves(block, group, trainer.model.zigzag)
+        reset_launch_counts()
+        loss, grads = trainer.step.value_and_grad(flat, {
+            "input_ids": block.input_ids[0], "attention_mask": block.attention_mask[0],
+            "labels": block.labels[0]})
+        torch.cuda.synchronize()
+        out.append((float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
+                    launch_counts()))
+        del trainer, flat, grads
+        torch.cuda.empty_cache()
+    (loss_r, g_r, n_r), (loss_d, g_d, n_d) = out
+    rel = abs(loss_r - loss_d) / abs(loss_d)
+    g_rel = float((g_r - g_d).norm() / g_d.norm())
+    log(f"  launches: ring { {k: n_r[k] for k in _K4 + _K1[:1] + _K2[:1]} }")
+    log(f"  launches: non-CP { {k: n_d[k] for k in _K4 + _K1[:1] + _K2[:1]} }")
+    log(f"  loss ring {loss_r:.6f}  non-CP {loss_d:.6f}  relative difference {rel:.3e} (bar "
+        f"{RING_LOSS_RTOL:g}); gradients |ring - non-CP| / |non-CP| = {g_rel:.3e} (bar "
+        f"{RING_GRAD_RTOL:g})")
+    if (n_r["blk_fwd_pos"] != LAYERS or n_r["attn_fwd"] or n_d["blk_fwd_pos"]
+            or not n_d["attn_fwd"] or not n_d["banded_fwd"]):
+        raise AssertionError("the two GPT-Neo runs did not take the kernels they name")
+    if rel > RING_LOSS_RTOL or g_rel > RING_GRAD_RTOL:
+        raise AssertionError("GPT-Neo's windowed ring and its non-CP path disagree")
+
+
+def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> None:
     """Where the device time of a main path goes: the same run again,
     under torch.profiler (after the measured run, so the profiler's own
     cost touches no reported time). Prints device ms per microbatch for
@@ -1224,7 +1703,7 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
 
     from acco_tpu_torch.__main__ import build_trainer
 
-    trainer = build_trainer(main_args(model))
+    trainer = build_trainer(main_args(model)) if sg is None else ring_trainer(model, sg)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train()
@@ -1241,7 +1720,7 @@ def profile_main_path(model: str, round_ms: float, top: int = 12) -> None:
         f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
         f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
     for family, tag in (("K1", r"\battn_"), ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)"),
-                        ("K5", r"\bflash_")):
+                        ("K5", r"\bflash_"), ("K4", r"\bblk_")):
         rows = [e for e in kernels if re.search(tag, e.key)]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
@@ -1257,7 +1736,8 @@ def build_all() -> None:
 
     from acco_tpu_torch.utils import cuda_build
 
-    names = ("fused_attention", "banded_attention", "fused_ce", "flash_attention")
+    names = ("fused_attention", "banded_attention", "fused_ce", "flash_attention",
+             "block_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for future in [pool.submit(cuda_build.build, n) for n in names]:
@@ -1289,6 +1769,9 @@ REPLACES = {
     # flash_attention), reached through the JAX package's flash path: the
     # forward, dK/dV and dQ pallas_calls and the backward's plain-jnp delta
     **dict.fromkeys(_K5, "acco_tpu/ops/attention.py:193"),
+    # the ring's block: forward and VJP pallas_calls
+    **dict.fromkeys(_K4[:3], "acco_tpu/ops/block_attention.py:200"),
+    **dict.fromkeys(_K4[3:], "acco_tpu/ops/block_attention.py:250"),
 }
 
 
@@ -1338,8 +1821,13 @@ def main() -> int:
         log(f" K5 {label}: {shape}")
         for kname, e in flash_parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
-    log(" K3's dH/dW bar (softmax-alone Llama-125M head) and K5's bars (small GQA "
-        "shape with pads) against planted faults")
+    for seed, (label, shape, variants) in enumerate(BLOCK_SHAPES, start=40):
+        log(f" K4 {label}: {shape}")
+        for kname, e in block_parity(shape, seed, variants).items():
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    log(" K3's dH/dW bar (softmax-alone Llama-125M head), K5's bars (small GQA shape "
+        "with pads) and K4's (the small float32 case with ties and the small bf16 case) "
+        "against planted faults")
     planted_faults()
 
     log("== 4 timing (CUDA events)")
@@ -1362,75 +1850,121 @@ def main() -> int:
     flash_times, flash_backward = flash_timing(FLASH_LLAMA3)
     for kname, r in flash_times.items():
         times[kname] = {**r, "flagship": flash_flagship[kname]}
+    # K4: the JSON entry of each kernel is its time at the Llama ring
+    # path's shape (b) (the backward kernels: on the full block), or for
+    # the positional forward at GPT-Neo's (c) with window 256; every
+    # shape and variant measured stands beside it under "by_shape"
+    block_times = {}
+    for tag, shape, variants in (("a", BLOCK_350M, ("full", "diag")),
+                                 ("b", BLOCK_LLAMA3, ("full", "diag")),
+                                 ("c", BLOCK_NEO, (f"hop sp2 w{NEO_WINDOW}",))):
+        log(f" K4 at ({tag}) {shape}")
+        for key, r in block_timing(shape, variants, 50).items():
+            block_times[f"{key} ({tag})"] = r
+    pos = f"hop sp2 w{NEO_WINDOW}"
+    for kname, key, variants in (
+        ("blk_fwd_full", "blk_fwd/full (b)", ("full",)),
+        ("blk_fwd_diag", "blk_fwd/diag (b)", ("diag",)),
+        ("blk_fwd_pos", f"blk_fwd/{pos} (c)", (pos,)),
+        ("blk_bwd_rowc", "blk_bwd_rowc/full (b)", ("full", "diag", pos)),
+        ("blk_bwd_dkdv", "blk_bwd_dkdv/full (b)", ("full", "diag", pos)),
+        ("blk_bwd_dq", "blk_bwd_dq/full (b)", ("full", "diag", pos)),
+    ):
+        family = key.split("/")[0]
+        times[kname] = {**block_times[key], "by_shape": {
+            k: {x: r[x] for x in ("ms", "plain_ms", "bound_ms", "sdpa_ms", "sdpa_bwd_ms") if x in r}
+            for k, r in block_times.items()
+            if k.split("/")[0] == family and k.split("/")[1].rsplit(" (", 1)[0] in variants}}
 
-    launches, round_ms, peaks = {}, {}, {}
+    launches, round_ms, peaks, summaries = {}, {}, {}, {}
     for step, path in enumerate(MAIN_PATHS, start=1):
         log(f"== 5.{step} main path {path}: {' '.join(main_args(path))}")
-        launches[path], round_ms[path], peaks[path] = main_path(path)
-    log(f"  peak memory by path: { {p: f'{b / 2**30:.2f} GiB' for p, b in peaks.items()} }")
-    log("== 6 small input: the kernel path agrees with the plain path (float32)")
-    log(" tiny128 (K1), L 128")
-    small_input_agreement(
-        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-         "train.batch_size=4"],
-        ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq"),
-    )
-    log(" gpt-neo-125M (K1 and K2), L 512")
-    small_input_agreement(
-        ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
-         "train.batch_size=2"],
-        ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
-         "banded_bwd_dkdv"),
-    )
-    log(" tiny128, fused_loss=pallas (K3) vs the materialized CE, L 128")
-    small_input_agreement(
-        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-         "train.batch_size=4"],
-        _K3, runs=CE_RUNS, plain_silent=_K3,
-    )
-    log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
-    small_input_agreement(
-        ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
-         "train.batch_size=2"],
-        ("attn_fwd", "banded_fwd", *_K3), runs=CE_RUNS, plain_silent=_K3,
-    )
-    log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
-    small_input_agreement(
-        ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-         "train.batch_size=4"],
-        _K5, runs=FLASH_RUNS,
-    )
-    log("== 7 where the device time goes (profiled reruns of the main paths)")
-    for model in MAIN_PATHS:
-        profile_main_path(model, round_ms[model])
+        launches[path], round_ms[path], peaks[path], summaries[path] = main_path(path)
+    # the ring paths: context parallelism on a one-rank NCCL sequence
+    # group, made only now (the paths above run with no process group)
+    with one_rank_group() as sg:
+        for step, path in enumerate(RING_PATHS, start=len(MAIN_PATHS) + 1):
+            base = RING_PATHS[path]["base"]
+            log(f"== 5.{step} ring path {path}: {' '.join(main_args(base))}, the model on the ring, "
+                f"a one-rank NCCL sequence group handed in")
+            launches[path], round_ms[path], peaks[path], summaries[path] = main_path(path, sg)
+            ring_loss_vs(summaries[path], summaries[base], base)
+        log(" gpt-neo-125M: one forward and backward, the windowed ring (K4) against the non-CP "
+            "path (K1 + K2), K3 on both")
+        neo_ring_step_agreement(sg)
+        log(f"  peak memory by path: { {p: f'{b / 2**30:.2f} GiB' for p, b in peaks.items()} }")
+        log("== 6 small input: the kernel path agrees with the plain path (float32)")
+        log(" tiny128 (K1), L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq"),
+        )
+        log(" gpt-neo-125M (K1 and K2), L 512")
+        small_input_agreement(
+            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+             "train.batch_size=2"],
+            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
+             "banded_bwd_dkdv"),
+        )
+        log(" tiny128, fused_loss=pallas (K3) vs the materialized CE, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            _K3, runs=CE_RUNS, plain_silent=_K3,
+        )
+        log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
+        small_input_agreement(
+            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+             "train.batch_size=2"],
+            ("attn_fwd", "banded_fwd", *_K3), runs=CE_RUNS, plain_silent=_K3,
+        )
+        log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            _K5, runs=FLASH_RUNS,
+        )
+        log(" tiny128 on the one-rank ring (K4) vs the plain attention, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            ("blk_fwd_diag", "blk_fwd_full", "blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"),
+            runs=RING_RUNS, sg=sg,
+        )
+        log("== 7 where the device time goes (profiled reruns of the main paths)")
+        for model in MAIN_PATHS:
+            profile_main_path(model, round_ms[model])
+        for model in RING_PATHS:
+            profile_main_path(model, round_ms[model], sg=sg)
 
-    # launches: each kernel's count on its own slice's main path (K1: the
-    # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the
-    # long-context path), and on every path. K5's times are at the
-    # long-context path's shape, with the flagship shape's beside them.
-    kernels = [
-        {
-            "name": kname,
-            "route": "cuda",
-            "source": "acco_tpu_torch/csrc/" + SOURCE[kname],
-            "replaces": REPLACES[kname],
-            "launches": launches[OWN_PATH[kname]][kname],
-            "launches_by_path": {m: launches[m][kname] for m in MAIN_PATHS},
-            "max_abs_err": errs[kname],
-            **times[kname],
-        }
-        for kname in times
-    ]
-    log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
-    log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
-    log(f"K3 backward total (dH + dW) and the whole loss: {json.dumps(ce_backward)}")
-    log(f"K5 backward total (delta + dK/dV + dQ), L 8192: {json.dumps(flash_backward)}; "
-        f"flagship: {json.dumps(flash_flagship_bwd)}")
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
-    return 0
+        # launches: each kernel's count on its own slice's main path (K1: the
+        # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the
+        # long-context path), and on every path. K5's times are at the
+        # long-context path's shape, with the flagship shape's beside them.
+        kernels = [
+            {
+                "name": kname,
+                "route": "cuda",
+                "source": "acco_tpu_torch/csrc/" + SOURCE[kname],
+                "replaces": REPLACES[kname],
+                "launches": launches[OWN_PATH[kname]][kname],
+                "launches_by_path": {m: launches[m][kname] for m in launches},
+                "max_abs_err": errs[kname],
+                **times[kname],
+            }
+            for kname in times
+        ]
+        log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
+        log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
+        log(f"K3 backward total (dH + dW) and the whole loss: {json.dumps(ce_backward)}")
+        log(f"K5 backward total (delta + dK/dV + dQ), L 8192: {json.dumps(flash_backward)}; "
+            f"flagship: {json.dumps(flash_flagship_bwd)}")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": count}}), flush=True)
+        return 0
 
 
 if __name__ == "__main__":

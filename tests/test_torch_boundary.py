@@ -41,4 +41,6 @@ def test_no_jax_or_acco_tpu_import(relpath):
 
 def test_scan_sees_the_package():
     assert len(FILES) > 15
-    assert "acco_tpu_torch/ops/fused_attention.py" in FILES
+    for path in ("acco_tpu_torch/ops/fused_attention.py", "acco_tpu_torch/ops/block_attention.py",
+                 "acco_tpu_torch/ops/ring_attention.py", "acco_tpu_torch/parallel/mesh.py"):
+        assert path in FILES

@@ -1,7 +1,8 @@
 """``python -m acco_tpu_torch``: a few CPU rounds end to end, the device
 rule, ``train.fused_loss=pallas`` and its downgrade, the flash route
-(``train.use_pallas_attention=true``), and the keys this slice refuses
-by name."""
+(``train.use_pallas_attention=true``), the keys this slice refuses by
+name, and context parallelism's preconditions at one process (its runs
+on two ranks: tests/test_torch_context_parallel.py)."""
 
 import json
 import os
@@ -60,11 +61,23 @@ def test_without_device_flag_needs_a_card(monkeypatch):
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
         ("train.mesh_shape={dp: 2}", "multi-rank"),
-        ("train.use_pallas_attention=ring", "item 10"),
     ],
 )
 def test_unported_keys_raise_by_name(override, item):
     with pytest.raises(NotImplementedError, match=item):
+        main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])
+
+
+@pytest.mark.parametrize(
+    "override, match",
+    [  # context parallelism is ported: the ring needs a sequence group (sp > 1),
+       # and sp > 1 needs as many processes
+        ("train.use_pallas_attention=ring", "requires a sequence group"),
+        ("train.mesh_shape={dp: 1, sp: 2}", "needs 2 processes"),
+    ],
+)
+def test_context_parallel_needs_its_ranks(override, match):
+    with pytest.raises(ValueError, match=match):
         main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])
 
 

@@ -239,9 +239,18 @@ def test_resolve_fused_loss_gate():
     assert resolve(True, ok, None) == "chunk"
     assert resolve(False, ok, None) is False
     assert resolve("pallas", object(), None) is False
-    for kw, item in ((dict(n_vocab_shards=2), "item 9"), (dict(seq_sharded=True), "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            resolve("pallas", ok, None, **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        resolve("pallas", ok, None, n_vocab_shards=2)
+    # context parallelism (JAX's seq_sharded chains): the kernel composes
+    # with it; 'chunk' has no sequence-sharded form and goes to the
+    # materialized CE, with a warning when asked for, silently when the
+    # kernel's envelope sent it there (the envelope warning came first)
+    msgs.clear()
+    assert resolve("pallas", ok, None, seq_sharded=True) == "pallas"
+    assert resolve("chunk", ok, None, warn=msgs.append, seq_sharded=True) is False
+    assert resolve("pallas", small, None, warn=msgs.append, seq_sharded=True) is False
+    assert len(msgs) == 2 and "context-parallel" in msgs[0]
+    assert "envelope" in msgs[1] and "the materialized CE" in msgs[1]
 
 
 class _OnCard:
@@ -258,13 +267,17 @@ class _OnCard:
 
 def test_resolve_fused_loss_auto_policy():
     """'auto' as JAX's policy decides on its accelerator: the kernel for
-    V >= 100k on the card, the materialized CE below that and on the CPU,
-    never 'chunk', and silent."""
+    V >= 100k and under context parallelism on the card, the materialized
+    CE otherwise and on the CPU, never 'chunk', and silent."""
     resolve = port_losses.resolve_fused_loss
     msgs = []
     assert resolve("auto", _OnCard(_llama(vocab=50304)), None, msgs.append) is False
     assert resolve("auto", _OnCard(_llama(vocab=128256)), None, msgs.append) == "pallas"
     assert resolve("auto", _llama(vocab=128256), None, msgs.append) is False  # on the CPU
+    # under context parallelism the kernel at any vocab on the card
+    assert resolve("auto", _OnCard(_llama(vocab=50304)), None, msgs.append,
+                   seq_sharded=True) == "pallas"
+    assert resolve("auto", _llama(vocab=50304), None, msgs.append, seq_sharded=True) is False
     assert resolve("auto", _OnCard(_llama(hidden=96, vocab=128256)), None, msgs.append) is False
     assert resolve("auto", object(), None, msgs.append) is False
     assert msgs == []

@@ -193,7 +193,9 @@ def test_unported_options_raise():
     cfg = GPTNeoConfig(**ARCH)
     with pytest.raises(ValueError, match="flash"):
         GPTNeoModel(cfg, attention="flash")
-    for kwargs, item in (({"sequence_axis": "sp"}, "item 10"), ({"tensor_axis": "tp"}, "item 9"),
-                         ({"vocab_pad_to": 256}, "item 9")):
+    # context parallelism is ported (a sequence group); the ring needs one
+    with pytest.raises(ValueError, match="requires a sequence group"):
+        GPTNeoModel(cfg, attention="ring")
+    for kwargs, item in (({"tensor_axis": "tp"}, "item 9"), ({"vocab_pad_to": 256}, "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             GPTNeoModel(cfg, **kwargs)
