@@ -78,6 +78,9 @@ def build_trainer(argv: list[str], sequence_group=None):
         format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
     )
     log = logging.getLogger("acco_tpu_torch")
+    if bool(cfg.train.get("save", False)):
+        log.info("train.save=True: this port writes no checkpoint, params or logs to disk "
+                 "(ROADMAP.md queue 1, item 6); the summary is returned and printed")
     use_mp = bool(cfg.train.get("use_mixed_precision", True))
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
     model = build_model(

@@ -358,3 +358,15 @@ def check_supported(train_cfg: dict) -> None:
         refuse("finetune=True (HF checkpoint loading)", "queue 1, item 7")
     if bool(train_cfg.get("eval", False)):
         refuse("eval=True", "queue 1, item 6")
+    # keys JAX honours and the port has no code for: a non-default value
+    # would otherwise run as if it were absent
+    if train_cfg.get("resume_from") is not None:
+        refuse(f"resume_from={train_cfg.get('resume_from')!r}", "queue 1, item 6")
+    if train_cfg.get("microbatch_mask") is not None:
+        refuse(f"microbatch_mask={train_cfg.get('microbatch_mask')!r}", "queue 1, item 4")
+    if bool(train_cfg.get("lr_grad_accounting", False)):
+        refuse("lr_grad_accounting=True", "queue 1, item 4")
+    if train_cfg.get("fault_injection") is not None:
+        refuse(f"fault_injection={train_cfg.get('fault_injection')!r}", "queue 1, item 8")
+    if int(train_cfg.get("profile_steps", 0) or 0) > 0:
+        refuse(f"profile_steps={train_cfg.get('profile_steps')!r}", "queue 1, item 8")

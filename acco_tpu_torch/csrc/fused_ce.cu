@@ -17,172 +17,118 @@
 //            dH = dp w and dW = dp^T h, summed in float32 and written once
 //            in the activation dtype.
 //
-// No [N, V] tensor is ever written to device memory. What bounds it on the
-// H100, at the Llama-125M head (N 8192, D 768, V 50257, bf16; the data
-// sheet's 989 TFLOP/s and 3.35 TB/s, not measured): the forward's 2 N D V =
-// 632 GFLOP take 0.64 ms and its bytes (h, w, three [N] rows) 0.01 ms, so
-// it is bound by operations; the backward's dH, dW and one logits
-// recompute, 6 N D V, take 1.92 ms, also bound by operations.
+// What bounds it on the H100 (the data sheet's 989 TFLOP/s and 3.35 TB/s):
+// each of the four bf16 passes below is one product of 2 N D V operations
+// (8.70 ms at N 8192, D 4096, V 128256; 0.64 ms at the Llama-125M head, N
+// 8192, D 768, V 50257) against bytes worth a few ms at most, so every pass
+// is bound by operations, and the design's job is to run each product once
+// at the tensor cores' rate.
 //
-// The TPU kernels keep an [RB, D] f32 dH or a [D, VT] f32 dW accumulator in
-// 128 MB of VMEM. A Hopper block has 227 KB of shared memory and its
-// registers hold about as much; a 64-row accumulator over D 768 is 192 KB
-// of f32, and over D 4096 1 MB. So each backward block owns a 64-row tile
-// and a DC-column chunk of D (the widest of 384, 256, 128 that divides D),
-// keeps that [64, DC] accumulator in the registers of eight warps, and
-// recomputes the logits tile over the whole D for each chunk: D / DC
-// recomputes (2 at D 768) buy a single kernel for every D of the envelope,
-// with no partial buffers and no atomics, so dH and dW are deterministic.
-// The forward splits the vocab
-// across blocks for occupancy (64 rows give 128 row tiles at N 8192, on 132
-// SMs) and a second small kernel merges each row's per-split (max, sumexp,
-// true logit, sum) in a fixed order.
+// bfloat16, the training path: four launches of one GEMM mainloop
+// (hopper_gemm.cuh: TMA into a 4-stage ring of 128B-swizzled tiles, one
+// producer warp, two consumer warpgroups on wgmma m64n256k16 or m64n128k16,
+// float32 accumulators in registers), each with its own epilogue:
+//   ce_fwd     logits tile = h w^T per (128-row tile, vocab split of
+//              256-column tiles); the epilogue keeps each row's running
+//              max, sumexp, true logit and sum of real logits across the
+//              split's tiles; a second small kernel merges the splits in a
+//              fixed order;
+//   ce_bwd_dp  the same logits product, once; the epilogue forms dp in
+//              float32, rounds it to bf16 and writes it to dp [Nc, Vp]
+//              (Vp = V rounded up to 128, so that TMA's row stride is a
+//              multiple of 16 bytes; columns >= V written as 0);
+//   ce_bwd_dh  dH = dp w: A = dp (K-major), B = w [V, D] read MN-major
+//              (wgmma's transpose bit), K = Vp; TMA fills w's rows >= V
+//              with zeros; 256-column tiles of D, or 128 where 256 would
+//              leave the last wave of blocks mostly idle (D 768);
+//   ce_bwd_dw  dW = dp^T h: A = dp read MN-major, B = h MN-major, K = Nc;
+//              written in bf16, or, when the rows come in several chunks,
+//              summed chunk after chunk in a float32 [V, D] buffer (a fixed
+//              order) and rounded once by the last chunk's launch.
+// The TPU kernels keep an [RB, D] f32 dH or [D, VT] f32 dW accumulator in
+// VMEM and recompute the logits in each backward kernel; the port instead
+// writes the bf16 dlogits once (the values `_dp_tile` multiplies) and
+// reads them twice: 2 N Vp bytes of device memory (1.96 GiB at N 8192, V
+// 128256; the wrapper chunks the rows to keep it under a cap) for one
+// logits product in place of two, and no partial buffers. Every output
+// element is summed by one thread in a fixed order, with no atomics, so
+// dH and dW are bit-identical from run to run.
 //
-// Two implementations, chosen by dtype:
-// * bfloat16, the training path: tensor cores through mma.sync m16n8k16
-//   (attention_common.cuh's ldmatrix / mma pieces); the forward's four
-//   warps own 16 rows each, the backward's eight 16 rows and half the
-//   columns each. The logits tile's D chunks stream through two cp.async
-//   stages, and the next inner tile's DC-column operand arrives with the
-//   first chunk. In the backward dp passes through shared memory, rounded
-//   to bf16, into the A operand of the second product.
-// * float32: FMAs on the CUDA cores (no TF32), 16 x 16 threads over a
-//   64 x 64 tile, 4 x 4 elements each.
+// float32 (the end-to-end float32 check): FMAs on the CUDA cores (no
+// TF32), 16 x 16 threads over a 64 x 64 tile, 4 x 4 elements each; each
+// backward block owns a 64-row tile and a 64-column chunk of D and
+// recomputes the logits tile over the whole D.
 //
-// Three launchers with a plain C interface, each returning
-// cudaGetLastError(); dtype code 0 = float32, 1 = bfloat16:
-//   acco_ce_fwd     grid (row tiles, vocab splits), then the merge, one
-//                   thread per row: two kernels from one call
-//   acco_ce_bwd_dh  grid (row tiles, D / DC), looping over vocab tiles
-//   acco_ce_bwd_dw  grid (vocab tiles, D / DC), looping over row tiles
+// Launchers with a plain C interface, each returning cudaGetLastError():
+//   acco_ce_fwd        dtype 0 = float32, 1 = bfloat16: the split pass and
+//                      the merge, two kernels from one call
+//   acco_ce_bwd_dp     bf16
+//   acco_ce_bwd_dh     bf16, from dp
+//   acco_ce_bwd_dw     bf16, from dp
+//   acco_ce_bwd_dh_f32 / acco_ce_bwd_dw_f32   float32, recomputing dp
 // D must be a multiple of 128 (the envelope); N, V and v_real are free.
 
-#include "attention_common.cuh"
+#include <math.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
+using hopper::bf16;
+
 constexpr float kCeMask = -1e30f;  // the JAX kernel's column mask (`_NEG`)
-constexpr int kCeT = 64;           // rows of every tile: hidden rows or vocab rows
-constexpr int kCeK = kHeadDim;     // D chunk of the logits product (64: kRow fits)
-constexpr int kCeThreads = 32 * kWarps;  // forward: four warps, 16 rows each
-constexpr int kCeBwdThreads = 64 * kWarps;  // backward: eight warps, 16 rows x half the columns
+constexpr int kCeT = 64;           // the float32 kernels' tile: hidden rows or vocab rows
+constexpr int kVocabTile = 256;    // bf16 forward and dp: vocab columns per tile
+constexpr int kGroup = 16;         // row tiles per group of blocks (hopper_gemm.cuh)
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16: epilogues of the Hopper GEMM
 // ---------------------------------------------------------------------------
 
-// Rows [row0, row0 + 64) x columns [c0, c0 + W) of a row-major [nrows, ld]
-// bf16 matrix into a padded shared tile through cp.async; rows at or past
-// nrows are zero.
-template <int W>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[W + 8], const bf16* src, int row0,
-                                          int nrows, int ld, int c0) {
-  for (int e = threadIdx.x; e < kCeT * W / 8; e += blockDim.x) {
-    const int r = e / (W / 8), c = (e % (W / 8)) * 8;
-    if (row0 + r < nrows) {
-      cp_async16(&dst[r][c], src + (size_t)(row0 + r) * ld + c0 + c);
-    } else {
-      *reinterpret_cast<uint4*>(&dst[r][c]) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+// This thread's rows (r, r + 8) of the block's 128-row tile and the first
+// column of its pair in each 8-column group (hopper_gemm.cuh's layout).
+__device__ __forceinline__ void frag_coords(int wg, int& r, int& c) {
+  const int t = threadIdx.x % 128;
+  r = 64 * wg + 16 * (t / 32) + (t % 32) / 4;
+  c = 2 * (t % 4);
 }
 
-// acc[j] += A . B for the NT 8-column tiles j of a [16, 8 NT] product
-// whose B operand is B(k, n) = s[c0 + n][k] (attention_common.cuh's
-// mma_rows, from column c0 and NT wide).
-template <int NT>
-__device__ __forceinline__ void mma_rows_at(float (&acc)[NT][4], const uint32_t (&a)[4][4],
-                                            bf16 (*s)[kRow], int c0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &s[c0 + np * 16 + (lane % 8) + (lane / 16) * 8][ks * 16 + ((lane / 8) % 2) * 8]);
-      mma_16816(acc[2 * np], a[ks], b[0], b[1]);
-      mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// s = A[a0 .. a0 + 64) . B[b0 .. b0 + 64)^T over the whole D, for this
-// warp's share: rows 16 (warp % 4) + [0, 16), columns 8 NT (warp / 4) +
-// [0, 8 NT) (accumulator layout: lane 4g + t holds rows g, g + 8 and
-// columns 2t, 2t + 1 of each 8-column tile). The D chunks stream through
-// two cp.async stages (sa, sb: two [64][kRow] tiles each). `first` issues
-// more copies (or stores) into the first group; it runs after the barrier
-// that ends every earlier use of the shared tiles.
-template <int NT, typename First>
-__device__ __forceinline__ void tile_logits(float (&s)[NT][4], bf16 (*sa)[kRow], bf16 (*sb)[kRow],
-                                            const bf16* A, int a0, int na, const bf16* B,
-                                            int b0, int nb, int D, First first) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  __syncthreads();
-  load_rows<kCeK>(sa, A, a0, na, D, 0);
-  load_rows<kCeK>(sb, B, b0, nb, D, 0);
-  first();
-  cp_async_commit();
-  const int nk = D / kCeK;
-  for (int kc = 0; kc < nk; ++kc) {
-    const int st = kc & 1;
-    if (kc + 1 < nk) {
-      load_rows<kCeK>(sa + (st ^ 1) * kCeT, A, a0, na, D, (kc + 1) * kCeK);
-      load_rows<kCeK>(sb + (st ^ 1) * kCeT, B, b0, nb, D, (kc + 1) * kCeK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t a[4][4];
-    load_a(a, sa + st * kCeT, (warp % 4) * 16);
-    mma_rows_at<NT>(s, a, sb + st * kCeT, (warp / 4) * 8 * NT);
-    __syncthreads();
-  }
-}
-
-// One (row tile, vocab split): per row, this split's running max, sumexp,
-// true logit and sum of real logits, into part[4][S][N].
-__global__ void __launch_bounds__(kCeThreads)
-    ce_fwd_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const int* __restrict__ tgt, float* __restrict__ part, int N, int D,
-                       int V, int v_real, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*sa)[kRow] = reinterpret_cast<bf16 (*)[kRow]>(smem);
-  bf16 (*sb)[kRow] = sa + 2 * kCeT;
-  const int S = gridDim.y, split = blockIdx.y;
-  const int r0 = blockIdx.x * kCeT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+// Per row of the block, over the vocab split's tiles: running max, sumexp,
+// true logit and sum of real logits, into part[4][splits][N].
+struct ce_fwd_epilogue {
+  struct Params {
+    const int* tgt;
+    float* part;
+    int N, V, v_real, splits;
+  };
+  float* part;
+  int N, V, v_real, splits, split, c;
   int row[2], tg[2];
   float m[2], l[2], tl[2], sl[2];
+
+  __device__ ce_fwd_epilogue(const Params& p, int m0, int bn, int wg)
+      : part(p.part), N(p.N), V(p.V), v_real(p.v_real), splits(p.splits), split(bn) {
+    int r;
+    frag_coords(wg, r, c);
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    row[hh] = r0 + warp * 16 + g + hh * 8;
-    tg[hh] = row[hh] < N ? tgt[row[hh]] : -1;
-    m[hh] = kCeMask;
-    l[hh] = tl[hh] = sl[hh] = 0.f;
+    for (int hh = 0; hh < 2; ++hh) {
+      row[hh] = m0 + r + 8 * hh;
+      tg[hh] = row[hh] < N ? p.tgt[row[hh]] : -1;
+      m[hh] = kCeMask;
+      l[hh] = tl[hh] = sl[hh] = 0.f;
+    }
   }
-  const int T = (V + kCeT - 1) / kCeT;
-  const int t_end = min(T, (split + 1) * tiles_per_split);
-  for (int vt = split * tiles_per_split; vt < t_end; ++vt) {
-    const int v0 = vt * kCeT;
-    float s[8][4];
-    tile_logits(s, sa, sb, h, r0, N, w, v0, V, D, [] {});
+
+  template <int NA>
+  __device__ __forceinline__ void tile(const float (&acc)[NA], int n0) {
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NA / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int hh = e / 2, col = v0 + j * 8 + 2 * t + (e % 2);
+        const int hh = e / 2, col = n0 + 8 * j + c + (e % 2);
         if (col < V) {
-          const float x = col < v_real ? s[j][e] : kCeMask;
-          s[j][e] = x;
+          const float x = col < v_real ? acc[4 * j + e] : kCeMask;
           mx[hh] = fmaxf(mx[hh], x);
           if (col == tg[hh]) tl[hh] += x;
           if (col < v_real) sl[hh] += x;
@@ -196,164 +142,183 @@ __global__ void __launch_bounds__(kCeThreads)
       m[hh] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NA / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (v0 + j * 8 + 2 * t + (e % 2) < V) l[e / 2] += expf(s[j][e] - m[e / 2]);
+        const int col = n0 + 8 * j + c + (e % 2);
+        if (col < V) {
+          const float x = col < v_real ? acc[4 * j + e] : kCeMask;
+          l[e / 2] += expf(x - m[e / 2]);
+        }
       }
     }
   }
+
   // join the quad's four column shares; a + b == b + a, so both lanes of
   // each exchange hold the same value
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[hh], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[hh], off);
-      const float m_new = fmaxf(m[hh], mo);
-      l[hh] = l[hh] * expf(m[hh] - m_new) + lo * expf(mo - m_new);
-      m[hh] = m_new;
-      tl[hh] += __shfl_xor_sync(0xffffffffu, tl[hh], off);
-      sl[hh] += __shfl_xor_sync(0xffffffffu, sl[hh], off);
-    }
-    if (t == 0 && row[hh] < N) {
-      const size_t at = (size_t)split * N + row[hh];
-      part[at] = m[hh];
-      part[(size_t)S * N + at] = l[hh];
-      part[(size_t)2 * S * N + at] = tl[hh];
-      part[(size_t)3 * S * N + at] = sl[hh];
-    }
-  }
-}
-
-// dH (DW false: own rows are hidden rows, the inner tiles vocab rows) or dW
-// (DW true: own rows are vocab rows, the inner tiles hidden rows) for one
-// 64-row tile and the D columns [blockIdx.y * DC, + DC). Eight warps: warp
-// w owns rows 16 (w % 4) + [0, 16) and, of the logits tile, columns
-// 32 (w / 4) + [0, 32); of the accumulator, columns DC / 2 (w / 4) +
-// [0, DC / 2). dp passes through shared memory (bf16, the rounding of
-// `_dp_tile`) between the two products.
-template <int DC, bool DW>
-__global__ void __launch_bounds__(kCeBwdThreads)
-    ce_bwd_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const int* __restrict__ tgt, const float* __restrict__ lse,
-                       const float* __restrict__ dl, const float* __restrict__ dt,
-                       const float* __restrict__ ds, bf16* __restrict__ out, int N, int D, int V,
-                       int v_real) {
-  constexpr int HC = DC / 2;  // accumulator columns of one warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*sa)[kRow] = reinterpret_cast<bf16 (*)[kRow]>(smem);
-  bf16 (*sb)[kRow] = sa + 2 * kCeT;
-  bf16 (*dps)[kRow] = sb + 2 * kCeT;  // dp, [own row][inner row]
-  bf16 (*bd)[DC + 8] = reinterpret_cast<bf16 (*)[DC + 8]>(dps + kCeT);
-  float (*rs)[kCeT] = reinterpret_cast<float (*)[kCeT]>(bd + kCeT);  // dW: inner rows' stats
-  int* rt = reinterpret_cast<int*>(rs + 4);
-
-  const int a0 = blockIdx.x * kCeT, dc0 = blockIdx.y * DC;
-  const bf16* A = DW ? w : h;
-  const bf16* B = DW ? h : w;
-  const int na = DW ? V : N, nb = DW ? N : V;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r16 = (warp % 4) * 16, half = warp / 4;
-
-  // dH: the stats of this lane's two hidden rows, for the whole loop; rows
-  // past N get zero cotangents, so their dp is 0
-  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f}, dt_r[2] = {0.f, 0.f}, ds_r[2] = {0.f, 0.f};
-  int tg_r[2] = {-1, -1};
-  if (!DW) {
+  __device__ __forceinline__ void finish() {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = a0 + r16 + g + hh * 8;
-      if (r < N) {
-        lse_r[hh] = lse[r];
-        dl_r[hh] = dl[r];
-        dt_r[hh] = dt[r];
-        ds_r[hh] = ds[r];
-        tg_r[hh] = tgt[r];
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[hh], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[hh], off);
+        const float m_new = fmaxf(m[hh], mo);
+        l[hh] = l[hh] * expf(m[hh] - m_new) + lo * expf(mo - m_new);
+        m[hh] = m_new;
+        tl[hh] += __shfl_xor_sync(0xffffffffu, tl[hh], off);
+        sl[hh] += __shfl_xor_sync(0xffffffffu, sl[hh], off);
+      }
+      if (c == 0 && row[hh] < N) {
+        const size_t at = (size_t)split * N + row[hh];
+        part[at] = m[hh];
+        part[(size_t)splits * N + at] = l[hh];
+        part[(size_t)2 * splits * N + at] = tl[hh];
+        part[(size_t)3 * splits * N + at] = sl[hh];
       }
     }
   }
+};
 
-  float acc[HC / 8][4];
-#pragma unroll
-  for (int j = 0; j < HC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+// dp = d_lse * exp(logit - lse) + d_tl * onehot + d_sl * valid, rounded to
+// bf16, into dp [N, Vp]; 0 at the columns >= V.
+struct ce_bwd_dp_epilogue {
+  struct Params {
+    const int* tgt;
+    const float *lse, *dl, *dt, *ds;
+    bf16* dp;
+    int N, V, Vp, v_real;
+  };
+  bf16* dp;
+  int N, V, Vp, v_real, c;
+  int row[2], tg_r[2];
+  float lse_r[2], dl_r[2], dt_r[2], ds_r[2];
 
-  const int n_inner = (nb + kCeT - 1) / kCeT;
-  for (int it = 0; it < n_inner; ++it) {
-    const int b0 = it * kCeT;
-    float s[4][4];
-    tile_logits(s, sa, sb, A, a0, na, B, b0, nb, D, [&] {
-      load_rows<DC>(bd, B, b0, nb, D, dc0);
-      if (DW && threadIdx.x < kCeT) {
-        const int r = b0 + threadIdx.x;
-        const bool in = r < N;
-        rs[0][threadIdx.x] = in ? lse[r] : 0.f;
-        rs[1][threadIdx.x] = in ? dl[r] : 0.f;
-        rs[2][threadIdx.x] = in ? dt[r] : 0.f;
-        rs[3][threadIdx.x] = in ? ds[r] : 0.f;
-        rt[threadIdx.x] = in ? tgt[r] : -1;
-      }
-    });
-    // dp over this warp's [16, 32] share of the tile, rounded into dps
+  __device__ ce_bwd_dp_epilogue(const Params& p, int m0, int, int wg)
+      : dp(p.dp), N(p.N), V(p.V), Vp(p.Vp), v_real(p.v_real) {
+    int r;
+    frag_coords(wg, r, c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float dp[4];
+    for (int hh = 0; hh < 2; ++hh) {
+      row[hh] = m0 + r + 8 * hh;
+      const bool in = row[hh] < N;
+      lse_r[hh] = in ? p.lse[row[hh]] : 0.f;
+      dl_r[hh] = in ? p.dl[row[hh]] : 0.f;
+      dt_r[hh] = in ? p.dt[row[hh]] : 0.f;
+      ds_r[hh] = in ? p.ds[row[hh]] : 0.f;
+      tg_r[hh] = in ? p.tgt[row[hh]] : -1;
+    }
+  }
+
+  __device__ __forceinline__ float dlogit(float s, int col, int hh) const {
+    if (col >= V) return 0.f;
+    const bool valid = col < v_real;
+    return dl_r[hh] * expf((valid ? s : kCeMask) - lse_r[hh]) + (col == tg_r[hh] ? dt_r[hh] : 0.f) +
+           (valid ? ds_r[hh] : 0.f);
+  }
+
+  template <int NA>
+  __device__ __forceinline__ void tile(const float (&acc)[NA], int n0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e / 2, bl = half * 32 + j * 8 + 2 * t + (e % 2);
-        const int v = DW ? a0 + r16 + g + hh * 8 : b0 + bl;
-        float x_lse, x_dl, x_dt, x_ds;
-        int x_tg;
-        if (DW) {
-          x_lse = rs[0][bl], x_dl = rs[1][bl], x_dt = rs[2][bl], x_ds = rs[3][bl], x_tg = rt[bl];
-        } else {
-          x_lse = lse_r[hh], x_dl = dl_r[hh], x_dt = dt_r[hh], x_ds = ds_r[hh], x_tg = tg_r[hh];
-        }
-        dp[e] = 0.f;
-        if (v < V) {
-          const bool valid = v < v_real;
-          dp[e] = x_dl * expf((valid ? s[j][e] : kCeMask) - x_lse) + (v == x_tg ? x_dt : 0.f) +
-                  (valid ? x_ds : 0.f);
-        }
-      }
+    for (int j = 0; j < NA / 4; ++j) {
+      const int col = n0 + 8 * j + c;
+      if (col >= Vp) break;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        *reinterpret_cast<uint32_t*>(&dps[r16 + g + hh * 8][half * 32 + j * 8 + 2 * t]) =
-            pack_bf16(dp[2 * hh], dp[2 * hh + 1]);
-      }
-    }
-    __syncthreads();
-    // acc += dp . bd over this warp's rows and half of the D chunk, bd's
-    // rows being the contraction
-    uint32_t a[4][4];
-    load_a(a, dps, r16);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int cp = 0; cp < HC / 16; ++cp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, &bd[kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8][half * HC + cp * 16 + (lane / 16) * 8]);
-        mma_16816(acc[2 * cp], a[kk], b[0], b[1]);
-        mma_16816(acc[2 * cp + 1], a[kk], b[2], b[3]);
+        if (row[hh] < N) {
+          *reinterpret_cast<__nv_bfloat162*>(dp + (size_t)row[hh] * Vp + col) =
+              __floats2bfloat162_rn(dlogit(acc[4 * j + 2 * hh], col, hh),
+                                    dlogit(acc[4 * j + 2 * hh + 1], col + 1, hh));
+        }
       }
     }
   }
+
+  __device__ __forceinline__ void finish() {}
+};
+
+// dH rows [0, rows), columns [0, ld), of a row-major [rows, ld] bf16 output.
+struct ce_bwd_dh_epilogue {
+  struct Params {
+    bf16* out;
+    int rows, ld;
+  };
+  bf16* out;
+  int rows, ld, r0, c;
+
+  __device__ ce_bwd_dh_epilogue(const Params& p, int m0, int, int wg)
+      : out(p.out), rows(p.rows), ld(p.ld) {
+    int r;
+    frag_coords(wg, r, c);
+    r0 = m0 + r;
+  }
+
+  template <int NA>
+  __device__ __forceinline__ void tile(const float (&acc)[NA], int n0) {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = a0 + r16 + g + hh * 8;
-    if (r >= na) continue;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < HC / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(out + (size_t)r * D + dc0 + half * HC + j * 8 + 2 * t) =
-          pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      for (int j = 0; j < NA / 4; ++j) {
+        if (n0 + 8 * j + c >= ld) break;
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ld + n0 + 8 * j + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      }
     }
   }
-}
+
+  __device__ __forceinline__ void finish() {}
+};
+
+// dW rows [0, rows) (the vocab rows < V of a Vp-row product), columns
+// [0, ld), by mode:
+// 0 write bf16 (one chunk of rows); 1 write the float32 sum buffer (the
+// first of several chunks); 2 add to it; 3 add to it and write the sum
+// in bf16 (the last chunk).
+struct ce_bwd_dw_epilogue {
+  struct Params {
+    bf16* out;
+    float* sum;
+    int rows, ld, mode;
+  };
+  bf16* out;
+  float* sum;
+  int rows, ld, mode, r0, c;
+
+  __device__ ce_bwd_dw_epilogue(const Params& p, int m0, int, int wg)
+      : out(p.out), sum(p.sum), rows(p.rows), ld(p.ld), mode(p.mode) {
+    int r;
+    frag_coords(wg, r, c);
+    r0 = m0 + r;
+  }
+
+  template <int NA>
+  __device__ __forceinline__ void tile(const float (&acc)[NA], int n0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        if (n0 + 8 * j + c >= ld) break;
+        const size_t at = (size_t)row * ld + n0 + 8 * j + c;
+        float2 v = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        if (mode >= 2) {
+          const float2 s = *reinterpret_cast<const float2*>(sum + at);
+          v = make_float2(s.x + v.x, s.y + v.y);
+        }
+        if (mode == 1 || mode == 2) {
+          *reinterpret_cast<float2*>(sum + at) = v;
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v.x, v.y);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() {}
+};
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -467,8 +432,10 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-// dH or dW, as ce_bwd_bf16_kernel, for one 64-row tile and the D columns
-// [blockIdx.y * 64, + 64); dp stays float32.
+// dH (DW false: own rows are hidden rows, the inner tiles vocab rows) or dW
+// (DW true: own rows are vocab rows, the inner tiles hidden rows) for one
+// 64-row tile and the D columns [blockIdx.y * 64, + 64), recomputing the
+// logits tile over the whole D; dp stays float32.
 template <bool DW>
 __global__ void __launch_bounds__(kF32Threads)
     ce_bwd_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
@@ -585,44 +552,23 @@ __global__ void ce_fwd_merge_kernel(const float* __restrict__ part, float* __res
   sl[r] = u;
 }
 
+
 bool ce_shape_ok(int N, int D, int V, int v_real) {
   return N > 0 && D >= 128 && D % 128 == 0 && V > 0 && v_real >= 0 && v_real <= V;
 }
 
-template <int DC, bool DW>
-cudaError_t launch_bwd_bf16(const void* h, const void* w, const void* tgt, const void* lse,
-                            const void* dl, const void* dt, const void* ds, void* out, int N,
-                            int D, int V, int v_real, cudaStream_t s) {
-  const size_t bytes = 5 * kCeT * kRow * sizeof(bf16) + kCeT * (DC + 8) * sizeof(bf16) +
-                       4 * kCeT * sizeof(float) + kCeT * sizeof(int);
-  auto kernel = ce_bwd_bf16_kernel<DC, DW>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int rows = DW ? V : N;
-  kernel<<<dim3((rows + kCeT - 1) / kCeT, D / DC), kCeBwdThreads, bytes, s>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w), static_cast<const int*>(tgt),
-      static_cast<const float*>(lse), static_cast<const float*>(dl),
-      static_cast<const float*>(dt), static_cast<const float*>(ds), static_cast<bf16*>(out), N,
-      D, V, v_real);
-  return cudaGetLastError();
-}
+bool vp_ok(int V, int Vp) { return Vp >= V && Vp % 128 == 0; }
 
 template <bool DW>
-int launch_bwd(int dtype, const void* h, const void* w, const void* tgt, const void* lse,
-               const void* dl, const void* dt, const void* ds, void* out, int N, int D, int V,
-               int v_real, void* stream) {
-  if (!ce_shape_ok(N, D, V, v_real)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // the widest D chunk that divides D: fewer logits recomputes
-    if (D % 384 == 0) return (int)launch_bwd_bf16<384, DW>(h, w, tgt, lse, dl, dt, ds, out, N, D, V, v_real, s);
-    if (D % 256 == 0) return (int)launch_bwd_bf16<256, DW>(h, w, tgt, lse, dl, dt, ds, out, N, D, V, v_real, s);
-    return (int)launch_bwd_bf16<128, DW>(h, w, tgt, lse, dl, dt, ds, out, N, D, V, v_real, s);
+int launch_bwd_f32(const void* h, const void* w, const void* tgt, const void* lse, const void* dl,
+                   const void* dt, const void* ds, void* out, int N, int D, int V, int v_real,
+                   void* stream) {
+  if (!ce_shape_ok(N, D, V, v_real) || !hopper::bind_device_of(out)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int rows = DW ? V : N;
-  ce_bwd_f32_kernel<DW><<<dim3((rows + kCeT - 1) / kCeT, D / kF32DC), kF32Threads, 0, s>>>(
+  ce_bwd_f32_kernel<DW><<<dim3((rows + kCeT - 1) / kCeT, D / kF32DC), kF32Threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h), static_cast<const float*>(w), static_cast<const int*>(tgt),
       static_cast<const float*>(lse), static_cast<const float*>(dl),
       static_cast<const float*>(dt), static_cast<const float*>(ds), static_cast<float*>(out), N,
@@ -634,30 +580,40 @@ int launch_bwd(int dtype, const void* h, const void* w, const void* tgt, const v
 
 extern "C" {
 
-// part: float32 scratch [4, splits, N]; the vocab tiles of 64 are cut into
-// `splits` runs of `tiles_per_split`, none empty.
+// part: float32 scratch [4, splits, N]; the vocab tiles (256 columns in
+// bf16, 64 in float32) are cut into `splits` runs of `tiles_per_split`,
+// none empty.
 int acco_ce_fwd(int dtype, const void* h, const void* w, const void* tgt, void* part, void* lse,
                 void* tl, void* sl, int N, int D, int V, int v_real, int splits,
                 int tiles_per_split, void* stream) {
-  const int T = (V + kCeT - 1) / kCeT;
+  const int tile = dtype == 1 ? kVocabTile : kCeT;
+  const int T = (V + tile - 1) / tile;
   if (!ce_shape_ok(N, D, V, v_real) || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
       (long)(splits - 1) * tiles_per_split >= T || (long)splits * tiles_per_split < T) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kCeT - 1) / kCeT, splits);
+  cudaError_t err;
   if (dtype == 1) {
-    ce_fwd_bf16_kernel<<<grid, kCeThreads, 4 * kCeT * kRow * sizeof(bf16), s>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(w), static_cast<const int*>(tgt),
-        static_cast<float*>(part), N, D, V, v_real, tiles_per_split);
+    CUtensorMap ma, mb;
+    if (!hopper::make_map(&ma, h, N, D, false) ||
+        !hopper::make_map(&mb, w, V, D, false, kVocabTile)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const hopper::GemmArgs g{(N + hopper::kBM - 1) / hopper::kBM, T, D / hopper::kBK,
+                             tiles_per_split, kGroup};
+    err = hopper::launch_gemm<kVocabTile, false, false, ce_fwd_epilogue>(
+        ma, mb, g, {static_cast<const int*>(tgt), static_cast<float*>(part), N, V, v_real, splits},
+        s);
   } else if (dtype == 0) {
-    ce_fwd_f32_kernel<<<grid, kF32Threads, 0, s>>>(
+    if (!hopper::bind_device_of(part)) return (int)cudaErrorInvalidValue;
+    ce_fwd_f32_kernel<<<dim3((N + kCeT - 1) / kCeT, splits), kF32Threads, 0, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), static_cast<const int*>(tgt),
         static_cast<float*>(part), N, D, V, v_real, tiles_per_split);
+    err = cudaGetLastError();
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ce_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(lse), static_cast<float*>(tl),
@@ -665,16 +621,87 @@ int acco_ce_fwd(int dtype, const void* h, const void* w, const void* tgt, void* 
   return (int)cudaGetLastError();
 }
 
-int acco_ce_bwd_dh(int dtype, const void* h, const void* w, const void* tgt, const void* lse,
-                   const void* dl, const void* dt, const void* ds, void* dh, int N, int D, int V,
-                   int v_real, void* stream) {
-  return launch_bwd<false>(dtype, h, w, tgt, lse, dl, dt, ds, dh, N, D, V, v_real, stream);
+// bf16 dp [N, Vp] of N hidden rows (a chunk of them: every row pointer
+// starts at the chunk); blocks (128-row tiles, vocab splits of
+// `tiles_per_split` 256-column tiles of Vp).
+int acco_ce_bwd_dp(const void* h, const void* w, const void* tgt, const void* lse, const void* dl,
+                   const void* dt, const void* ds, void* dp, int N, int D, int V, int Vp,
+                   int v_real, int splits, int tiles_per_split, void* stream) {
+  const int T = (Vp + kVocabTile - 1) / kVocabTile;
+  if (!ce_shape_ok(N, D, V, v_real) || !vp_ok(V, Vp) || splits < 1 || tiles_per_split < 1 ||
+      (long)(splits - 1) * tiles_per_split >= T || (long)splits * tiles_per_split < T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap ma, mb;
+  if (!hopper::make_map(&ma, h, N, D, false) ||
+      !hopper::make_map(&mb, w, V, D, false, kVocabTile)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const hopper::GemmArgs g{(N + hopper::kBM - 1) / hopper::kBM, T, D / hopper::kBK,
+                           tiles_per_split, kGroup};
+  const ce_bwd_dp_epilogue::Params p{static_cast<const int*>(tgt), static_cast<const float*>(lse),
+                                     static_cast<const float*>(dl), static_cast<const float*>(dt),
+                                     static_cast<const float*>(ds), static_cast<bf16*>(dp),
+                                     N, V, Vp, v_real};
+  return (int)hopper::launch_gemm<kVocabTile, false, false, ce_bwd_dp_epilogue>(
+      ma, mb, g, p, static_cast<cudaStream_t>(stream));
 }
 
-int acco_ce_bwd_dw(int dtype, const void* h, const void* w, const void* tgt, const void* lse,
-                   const void* dl, const void* dt, const void* ds, void* dw, int N, int D, int V,
-                   int v_real, void* stream) {
-  return launch_bwd<true>(dtype, h, w, tgt, lse, dl, dt, ds, dw, N, D, V, v_real, stream);
+// bf16 dH [N, D] = dp [N, Vp] . w [V, D] (w's rows >= V read as zeros).
+int acco_ce_bwd_dh(const void* dp, const void* w, void* dh, int N, int D, int V, int Vp,
+                   void* stream) {
+  if (!ce_shape_ok(N, D, V, V) || !vp_ok(V, Vp)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (!hopper::make_map(&ma, dp, N, Vp, false) || !hopper::make_map(&mb, w, V, D, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int m_tiles = (N + hopper::kBM - 1) / hopper::kBM;
+  const int k_steps_dh = Vp / hopper::kBK;
+  const ce_bwd_dh_epilogue::Params p{static_cast<bf16*>(dh), N, D};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper::pick_bn(m_tiles, D) == 256) {
+    const hopper::GemmArgs g{m_tiles, (D + 255) / 256, k_steps_dh, 1, kGroup};
+    return (int)hopper::launch_gemm<256, false, true, ce_bwd_dh_epilogue>(ma, mb, g, p, s);
+  }
+  const hopper::GemmArgs g{m_tiles, D / 128, k_steps_dh, 1, kGroup};
+  return (int)hopper::launch_gemm<128, false, true, ce_bwd_dh_epilogue>(ma, mb, g, p, s);
+}
+
+// bf16 dW [V, D] = dp [N, Vp]^T . h [N, D] over N rows (a chunk), by
+// `mode` (ce_bwd_dw_epilogue) with `sum` a float32 [V, D] buffer.
+int acco_ce_bwd_dw(const void* dp, const void* h, void* dw, void* sum, int N, int D, int V,
+                   int Vp, int mode, void* stream) {
+  if (!ce_shape_ok(N, D, V, V) || !vp_ok(V, Vp) || mode < 0 || mode > 3 ||
+      (mode > 0 && sum == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap ma, mb;
+  if (!hopper::make_map(&ma, dp, N, Vp, true) || !hopper::make_map(&mb, h, N, D, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int m_tiles = Vp / hopper::kBM;
+  const int k_steps = (N + hopper::kBK - 1) / hopper::kBK;
+  const ce_bwd_dw_epilogue::Params p{static_cast<bf16*>(dw), static_cast<float*>(sum), V, D,
+                                     mode};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper::pick_bn(m_tiles, D) == 256) {
+    const hopper::GemmArgs g{m_tiles, (D + 255) / 256, k_steps, 1, kGroup};
+    return (int)hopper::launch_gemm<256, true, true, ce_bwd_dw_epilogue>(ma, mb, g, p, s);
+  }
+  const hopper::GemmArgs g{m_tiles, D / 128, k_steps, 1, kGroup};
+  return (int)hopper::launch_gemm<128, true, true, ce_bwd_dw_epilogue>(ma, mb, g, p, s);
+}
+
+int acco_ce_bwd_dh_f32(const void* h, const void* w, const void* tgt, const void* lse,
+                       const void* dl, const void* dt, const void* ds, void* dh, int N, int D,
+                       int V, int v_real, void* stream) {
+  return launch_bwd_f32<false>(h, w, tgt, lse, dl, dt, ds, dh, N, D, V, v_real, stream);
+}
+
+int acco_ce_bwd_dw_f32(const void* h, const void* w, const void* tgt, const void* lse,
+                       const void* dl, const void* dt, const void* ds, void* dw, int N, int D,
+                       int V, int v_real, void* stream) {
+  return launch_bwd_f32<true>(h, w, tgt, lse, dl, dt, ds, dw, N, D, V, v_real, stream);
 }
 
 }  // extern "C"

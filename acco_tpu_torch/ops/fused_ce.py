@@ -2,29 +2,40 @@
 
 Replaces ``acco_tpu/ops/fused_ce.py``: ``_lm_head_ce_fwd`` and the three
 Pallas calls of ``_lm_head_ce_bwd`` (its fused form and its split dH / dW
-form). The loss never writes the [N, V] logits to device memory: the
-forward keeps a running (max, sumexp, true logit, sum of real logits)
-per row over vocab tiles, and the backward recomputes each logits tile
-and contracts its dlogits twice. On Hopper one deterministic dH kernel
-and one deterministic dW kernel serve every shape: the JAX package's
-fused backward, its [T, N, D] float32 dH partials and the cap that
-switches to the split form (``ACCO_FUSED_CE_PARTIAL_CAP``) exist for the
-TPU's VMEM pipeline and have no counterpart here. ``csrc/fused_ce.cu``
-says what bounds the kernels and how their accumulators fit a block.
+form). The loss never writes the [N, V] float32 logits to device memory:
+the forward keeps a running (max, sumexp, true logit, sum of real logits)
+per row over vocab tiles. The backward computes the logits once more and
+writes dlogits, rounded to the activation dtype as the JAX ``_dp_tile``
+rounds them, into a [Nc, Vp] buffer (Vp = V rounded up to 128) that the
+dH and dW products then read: the buffer holds the values JAX's kernel
+multiplies, but JAX keeps them in VMEM and the port moves them through
+device memory, 2 Nc Vp bytes at a time. The rows are taken in chunks of
+Nc so that the buffer stays under ``DP_CAP_BYTES`` (2 GiB: one chunk at
+the Llama-125M head, 0.77 GiB at N 8192 x V 50257, and at Llama-3-8B's,
+1.96 GiB at N 8192 x V 128256), which :func:`dp_plan` decides; with
+several chunks dW sums in a float32 [V, D] buffer in chunk order and is
+rounded once. JAX's fused backward, its [T, N, D] float32 dH partials and
+the cap that switches it to the split form (``ACCO_FUSED_CE_PARTIAL_CAP``)
+exist for the TPU's VMEM pipeline and have no counterpart here.
+``csrc/fused_ce.cu`` says what bounds the kernels and how they are built
+on ``csrc/hopper_gemm.cuh``.
 
 The head reaches the kernels as the row-major [V, D] matrix it is stored
 as (the tied embedding table), and dW comes back in that layout: the
 [D, V] view the models hand over is transposed back, not copied.
 
-Three kernel wrappers (:func:`ce_fwd`, :func:`ce_bwd_dh`,
-:func:`ce_bwd_dw`) check device, dtype (bfloat16 or float32), shape and
-contiguity, allocate their outputs with ``torch.empty``, launch on the
-current stream, raise if the launch returned a CUDA error, and add one to
-their count in :data:`LAUNCHES`. Their plain versions
-(:func:`ce_fwd_reference`, :func:`ce_bwd_dh_reference`,
-:func:`ce_bwd_dw_reference`) materialize the logits in PyTorch and round
-dlogits to the activation dtype before both products, as the JAX
-``_dp_tile`` does. :func:`fused_ce_loss` takes the plain versions only
+Kernel wrappers, bfloat16 (the training path): :func:`ce_fwd`,
+:func:`ce_bwd_dp`, :func:`ce_bwd_dh` (from dp) and :func:`ce_bwd_dw`
+(from dp); float32 (CUDA cores, recomputing dp): :func:`ce_fwd`,
+:func:`ce_bwd_dh_f32` and :func:`ce_bwd_dw_f32`, which count as
+``ce_bwd_dh`` and ``ce_bwd_dw``. Each checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty`` unless given them,
+launches on the current stream, raises if the launch returned a CUDA
+error, and adds one to its count in :data:`LAUNCHES`. Their plain
+versions (:func:`ce_fwd_reference`, :func:`ce_bwd_dp_reference`,
+:func:`ce_bwd_dh_reference`, :func:`ce_bwd_dw_reference`, and the whole
+chunked backward :func:`lm_head_ce_backward_reference`) materialize the
+logits in PyTorch. :func:`fused_ce_loss` takes the plain versions only
 for tensors on the CPU; a tensor anywhere else goes to the kernels or
 raises.
 """
@@ -33,28 +44,36 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from acco_tpu_torch.ops.losses import IGNORE_INDEX
 
 NEG = -1e30  # the JAX kernel's column mask (``_NEG``)
-TILE = 64  # rows (hidden or vocab) per kernel tile
+TILE = 64  # rows (hidden or vocab) per tile of the float32 kernels
+GEMM_TILE = 128  # hidden rows per tile of the bf16 kernels (csrc/hopper_gemm.cuh)
+VOCAB_TILE = 256  # vocab columns per tile of the bf16 forward and dp
+DP_CAP_BYTES = 2 << 30  # the most the backward's bf16 dp buffer may take
 
 # Launches per kernel wrapper since the last reset_launch_counts();
 # ``ce_fwd`` is one C call that launches the split pass and its merge.
-LAUNCHES = {"ce_fwd": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0}
+LAUNCHES = {"ce_fwd": 0, "ce_bwd_dp": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# argtypes of the C launchers: (dtype, pointers..., sizes..., stream)
+# argtypes of the C launchers: (pointers..., sizes..., stream)
 _SIGNATURES = {
     "acco_ce_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_P],
-    "acco_ce_bwd_dh": [_I] + [_P] * 8 + [_I] * 4 + [_P],
-    "acco_ce_bwd_dw": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    "acco_ce_bwd_dp": [_P] * 8 + [_I] * 7 + [_P],
+    "acco_ce_bwd_dh": [_P] * 3 + [_I] * 4 + [_P],
+    "acco_ce_bwd_dw": [_P] * 4 + [_I] * 5 + [_P],
+    "acco_ce_bwd_dh_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "acco_ce_bwd_dw_f32": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 
@@ -70,6 +89,52 @@ def supports_fused_ce(n_rows: int, hidden: int, vocab: int) -> bool:
     return n_rows >= 1 and hidden % 128 == 0 and vocab >= 128
 
 
+def padded_vocab(vocab: int) -> int:
+    """Vp: the dp buffer's row length, V rounded up to a tile of 128 (TMA
+    needs rows of a multiple of 16 bytes, and V = 50257 is odd)."""
+    return -(-vocab // GEMM_TILE) * GEMM_TILE
+
+
+@dataclass(frozen=True)
+class DpPlan:
+    """How the backward takes the rows: chunks of ``chunk_rows`` (the last
+    one ragged), a bf16 dp buffer [chunk_rows, vp], and whether dW sums in
+    a float32 [V, D] buffer (more than one chunk)."""
+
+    vp: int
+    chunk_rows: int
+    n_chunks: int
+    dw_f32: bool
+
+    def chunks(self, n_rows: int):
+        for r0 in range(0, n_rows, self.chunk_rows):
+            yield r0, min(n_rows, r0 + self.chunk_rows)
+
+
+def dp_plan(n_rows: int, vocab: int, cap_bytes: int = DP_CAP_BYTES) -> DpPlan:
+    """Chunks of the most rows whose bf16 dp fits ``cap_bytes`` (a
+    multiple of 128 rows where that is at least one tile, else of 4, so
+    that every chunk's float32 rows start on a 16-byte boundary), taken
+    from the first row; the last chunk holds what is left."""
+    vp = padded_vocab(vocab)
+    rows = max(1, cap_bytes // (2 * vp))
+    if rows >= GEMM_TILE:
+        rows -= rows % GEMM_TILE
+    elif rows >= 4:
+        rows -= rows % 4
+    chunk = min(n_rows, rows)
+    n_chunks = -(-n_rows // chunk)
+    return DpPlan(vp=vp, chunk_rows=chunk, n_chunks=n_chunks, dw_f32=n_chunks > 1)
+
+
+def dw_mode(chunk: int, n_chunks: int) -> int:
+    """What ``ce_bwd_dw`` does with chunk ``chunk``'s product: 0 write dW
+    (one chunk), 1 write the float32 sum, 2 add to it, 3 add and write dW."""
+    if n_chunks == 1:
+        return 0
+    return 1 if chunk == 0 else 3 if chunk == n_chunks - 1 else 2
+
+
 def _library() -> ctypes.CDLL:
     from acco_tpu_torch.utils import cuda_build
 
@@ -80,8 +145,22 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _on_card(name: str, *tensors) -> None:
+    """Every tensor on CUDA, contiguous, and starting on a 16-byte
+    boundary (TMA's and the float32 kernels' copies)."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: a tensor is on {t.device}, the kernel needs CUDA")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: every input must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every input must start on a 16-byte boundary")
 
 
 def _check(name: str, h, w, tgt, v_real: int, rows=()) -> None:
@@ -100,13 +179,25 @@ def _check(name: str, h, w, tgt, v_real: int, rows=()) -> None:
     for i, r in enumerate(rows):
         if r.shape != (N,) or r.dtype != torch.float32:
             raise ValueError(f"{name}: row input {i} must be float32 [{N}]")
-    for t in (h, w, tgt, *rows):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: a tensor is on {t.device}, the kernel needs CUDA")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: every input must be contiguous")
-        if t.data_ptr() % 16:  # the kernels copy rows 16 bytes at a time
-            raise ValueError(f"{name}: every input must start on a 16-byte boundary")
+    _on_card(name, h, w, tgt, *rows)
+
+
+def _check_dp(name: str, dp, other, vocab: int) -> None:
+    """dp bf16 [N, Vp] with Vp = padded_vocab(vocab), other bf16 [*, D]."""
+    if dp.dim() != 2 or dp.dtype != torch.bfloat16 or dp.shape[1] != padded_vocab(vocab):
+        raise ValueError(f"{name}: dp must be bfloat16 [N, {padded_vocab(vocab)}], got "
+                         f"{dp.dtype} {tuple(dp.shape)}")
+    if other.dim() != 2 or other.dtype != torch.bfloat16 or other.shape[1] % 128:
+        raise ValueError(f"{name}: the other operand must be bfloat16 [*, D], D a multiple of "
+                         f"128; got {other.dtype} {tuple(other.shape)}")
+    if dp.shape[0] < 1:
+        raise ValueError(f"{name}: no rows")
+
+
+def _check_out(name: str, out, shape, dtype) -> None:
+    if out.shape != shape or out.dtype != dtype:
+        raise ValueError(f"{name}: out must be {dtype} {tuple(shape)}, got {out.dtype} "
+                         f"{tuple(out.shape)}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -114,17 +205,29 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def vocab_splits(n_rows: int, vocab: int, n_sm: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the forward: enough (row tile, vocab
-    split) blocks for about four on each SM, no split empty."""
-    row_tiles = math.ceil(n_rows / TILE)
-    vocab_tiles = math.ceil(vocab / TILE)
-    want = max(1, min(vocab_tiles, math.ceil(4 * n_sm / row_tiles)))
-    per = math.ceil(vocab_tiles / want)
-    return math.ceil(vocab_tiles / per), per
+def vocab_splits(n_rows: int, vocab: int, n_sm: int, row_tile: int = TILE,
+                 vocab_tile: int = TILE) -> tuple[int, int]:
+    """(splits, tiles per split) of a pass over the vocab in tiles of
+    ``vocab_tile``, one block per (row tile, split), no split empty: the
+    fewest splits whose waves of ``n_sm`` blocks, each as long as its
+    tiles per split, take the least time."""
+    row_tiles = math.ceil(n_rows / row_tile)
+    vocab_tiles = math.ceil(vocab / vocab_tile)
+    best = None
+    for want in range(1, min(vocab_tiles, 64) + 1):
+        per = math.ceil(vocab_tiles / want)
+        splits = math.ceil(vocab_tiles / per)
+        cost = math.ceil(row_tiles * splits / n_sm) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
-# -- the three kernel wrappers ----------------------------------------------
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# -- the kernel wrappers ------------------------------------------------------
 
 
 def ce_fwd(h, w, tgt, v_real: int):
@@ -134,8 +237,8 @@ def ce_fwd(h, w, tgt, v_real: int):
     _check("ce_fwd", h, w, tgt, v_real)
     N, D = h.shape
     V = w.shape[0]
-    n_sm = torch.cuda.get_device_properties(h.device).multi_processor_count
-    splits, per = vocab_splits(N, V, n_sm)
+    tiles = (GEMM_TILE, VOCAB_TILE) if h.dtype == torch.bfloat16 else (TILE, TILE)
+    splits, per = vocab_splits(N, V, _n_sm(h.device), *tiles)
     part = torch.empty((4, splits, N), dtype=torch.float32, device=h.device)
     lse, tl, sl = (torch.empty(N, dtype=torch.float32, device=h.device) for _ in range(3))
     err = lib.acco_ce_fwd(
@@ -147,29 +250,122 @@ def ce_fwd(h, w, tgt, v_real: int):
     return lse, tl, sl
 
 
-def _bwd(name: str, fn: str, out: torch.Tensor, h, w, tgt, v_real, lse, d_lse, d_tl, d_sl):
+def ce_bwd_dp(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl, out=None):
+    """Kernel dlogits, bf16 [N, Vp]: ``ce_bwd_dp_reference``'s values,
+    the columns >= V zero."""
     lib = _library()
+    if h.dtype != torch.bfloat16:
+        raise ValueError(f"ce_bwd_dp: bfloat16 only, got {h.dtype}")
+    _check("ce_bwd_dp", h, w, tgt, v_real, (lse, d_lse, d_tl, d_sl))
+    N, D = h.shape
+    V = w.shape[0]
+    vp = padded_vocab(V)
+    if out is None:
+        out = torch.empty((N, vp), dtype=h.dtype, device=h.device)
+    _check_out("ce_bwd_dp", out, (N, vp), h.dtype)
+    _on_card("ce_bwd_dp", out)
+    splits, per = vocab_splits(N, vp, _n_sm(h.device), GEMM_TILE, VOCAB_TILE)
+    err = lib.acco_ce_bwd_dp(
+        _ptr(h), _ptr(w), _ptr(tgt), _ptr(lse), _ptr(d_lse), _ptr(d_tl), _ptr(d_sl), _ptr(out),
+        N, D, V, vp, int(v_real), splits, per, _stream(),
+    )
+    _raise_on(err, "ce_bwd_dp")
+    LAUNCHES["ce_bwd_dp"] += 1
+    return out
+
+
+def ce_bwd_dh(dp, w, out=None):
+    """Kernel dH = dp[:, :V] w, bf16 [N, D]."""
+    lib = _library()
+    _check_dp("ce_bwd_dh", dp, w, w.shape[0])
+    N, vp = dp.shape
+    V, D = w.shape
+    if out is None:
+        out = torch.empty((N, D), dtype=w.dtype, device=w.device)
+    _check_out("ce_bwd_dh", out, (N, D), w.dtype)
+    _on_card("ce_bwd_dh", dp, w, out)
+    err = lib.acco_ce_bwd_dh(_ptr(dp), _ptr(w), _ptr(out), N, D, V, vp, _stream())
+    _raise_on(err, "ce_bwd_dh")
+    LAUNCHES["ce_bwd_dh"] += 1
+    return out
+
+
+def ce_bwd_dw(dp, h, vocab: int, out=None, acc=None, mode: int = 0):
+    """Kernel dW = dp[:, :vocab]^T h, bf16 [vocab, D], by ``mode``
+    (:func:`dw_mode`) with ``acc`` the float32 [vocab, D] sum of the
+    chunks; returns ``out`` (modes 1 and 2 leave it unwritten)."""
+    lib = _library()
+    _check_dp("ce_bwd_dw", dp, h, vocab)
+    N, vp = dp.shape
+    D = h.shape[1]
+    if h.shape[0] != N:
+        raise ValueError(f"ce_bwd_dw: dp has {N} rows, h {h.shape[0]}")
+    if out is None:
+        out = torch.empty((vocab, D), dtype=h.dtype, device=h.device)
+    _check_out("ce_bwd_dw", out, (vocab, D), h.dtype)
+    if mode not in (0, 1, 2, 3) or (mode and acc is None):
+        raise ValueError(f"ce_bwd_dw: mode {mode} (0-3; 1-3 need the float32 sum buffer)")
+    if acc is not None:
+        _check_out("ce_bwd_dw", acc, (vocab, D), torch.float32)
+    _on_card("ce_bwd_dw", dp, h, out, acc)
+    err = lib.acco_ce_bwd_dw(_ptr(dp), _ptr(h), _ptr(out), _ptr(acc), N, D, vocab, vp, mode,
+                             _stream())
+    _raise_on(err, "ce_bwd_dw")
+    LAUNCHES["ce_bwd_dw"] += 1
+    return out
+
+
+def _bwd_f32(name: str, fn: str, out: torch.Tensor, h, w, tgt, v_real, lse, d_lse, d_tl, d_sl):
+    lib = _library()
+    if h.dtype != torch.float32:
+        raise ValueError(f"{name}: float32 only, got {h.dtype}")
     _check(name, h, w, tgt, v_real, (lse, d_lse, d_tl, d_sl))
     err = getattr(lib, fn)(
-        _DTYPE_CODES[h.dtype], _ptr(h), _ptr(w), _ptr(tgt), _ptr(lse), _ptr(d_lse),
-        _ptr(d_tl), _ptr(d_sl), _ptr(out), h.shape[0], h.shape[1], w.shape[0], int(v_real),
-        _stream(),
+        _ptr(h), _ptr(w), _ptr(tgt), _ptr(lse), _ptr(d_lse), _ptr(d_tl), _ptr(d_sl), _ptr(out),
+        h.shape[0], h.shape[1], w.shape[0], int(v_real), _stream(),
     )
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
 
 
-def ce_bwd_dh(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
-    """Kernel dH [N, D], like h."""
-    return _bwd("ce_bwd_dh", "acco_ce_bwd_dh", torch.empty_like(h),
-                h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
+def ce_bwd_dh_f32(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
+    """Kernel dH [N, D], float32 (CUDA cores, dp recomputed)."""
+    return _bwd_f32("ce_bwd_dh", "acco_ce_bwd_dh_f32", torch.empty_like(h),
+                    h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
 
 
-def ce_bwd_dw(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
-    """Kernel dW [V, D], like w."""
-    return _bwd("ce_bwd_dw", "acco_ce_bwd_dw", torch.empty_like(w),
-                h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
+def ce_bwd_dw_f32(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
+    """Kernel dW [V, D], float32 (CUDA cores, dp recomputed)."""
+    return _bwd_f32("ce_bwd_dw", "acco_ce_bwd_dw_f32", torch.empty_like(w),
+                    h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
+
+
+def _backward_kernels(h, w, tgt, v_real: int, lse, cot, cap_bytes: int, need_h: bool,
+                      need_w: bool):
+    """dH and dW through the kernels: float32 through the recomputing
+    kernels, bf16 chunk by chunk through dp, dH and dW."""
+    if h.dtype == torch.float32:
+        args = (h, w, tgt, v_real, lse, *cot)
+        return (ce_bwd_dh_f32(*args) if need_h else None,
+                ce_bwd_dw_f32(*args) if need_w else None)
+    N = h.shape[0]
+    V, D = w.shape
+    plan = dp_plan(N, V, cap_bytes)
+    dp = torch.empty((plan.chunk_rows, plan.vp), dtype=h.dtype, device=h.device)
+    dh = torch.empty_like(h) if need_h else None
+    dw = torch.empty_like(w) if need_w else None
+    acc = torch.empty((V, D), dtype=torch.float32, device=h.device) if need_w and plan.dw_f32 \
+        else None
+    for i, (r0, r1) in enumerate(plan.chunks(N)):
+        buf = dp[: r1 - r0]
+        ce_bwd_dp(h[r0:r1], w, tgt[r0:r1], v_real, lse[r0:r1], *(c[r0:r1] for c in cot),
+                  out=buf)
+        if need_h:
+            ce_bwd_dh(buf, w, out=dh[r0:r1])
+        if need_w:
+            ce_bwd_dw(buf, h[r0:r1], V, out=dw, acc=acc, mode=dw_mode(i, plan.n_chunks))
+    return dh, dw
 
 
 # -- plain versions -----------------------------------------------------------
@@ -183,51 +379,95 @@ def _logits(h, w, v_real: int):
     return logits, col, col < v_real
 
 
+def _target_cols(tgt, vocab: int):
+    """(rows, columns) of the targets inside [0, vocab): the onehot's ones."""
+    hit = (tgt >= 0) & (tgt < vocab)
+    return torch.arange(tgt.shape[0], device=tgt.device)[hit], tgt[hit].long()
+
+
 def ce_fwd_reference(h, w, tgt, v_real: int):
     """Plain forward: (lse, true logit, sum of real logits), float32 [N]."""
     logits, col, valid = _logits(h, w, v_real)
-    masked = torch.where(valid, logits, torch.full_like(logits, NEG))
-    zero = torch.zeros_like(logits)
-    tl = torch.where(col == tgt[:, None].long(), masked, zero).sum(-1)
-    sl = torch.where(valid, logits, zero).sum(-1)
-    return torch.logsumexp(masked, dim=-1), tl, sl
+    sl = torch.where(valid, logits, torch.zeros_like(logits)).sum(-1)
+    logits[:, v_real:] = NEG  # the masked logits, in place
+    tl = torch.zeros_like(sl)
+    rows, cols = _target_cols(tgt, w.shape[0])
+    tl[rows] = logits[rows, cols]
+    return torch.logsumexp(logits, dim=-1), tl, sl
+
+
+def dlogits_f32(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
+    """d_lse * softmax + d_tl * onehot + d_sl * valid, float32 [N, V],
+    summed in that order, built in place in the logits' buffer."""
+    x, _, _ = _logits(h, w, v_real)
+    x[:, v_real:] = NEG
+    x.sub_(lse[:, None]).exp_().mul_(d_lse[:, None])
+    rows, cols = _target_cols(tgt, w.shape[0])
+    x[rows, cols] += d_tl[rows]
+    x[:, :v_real] += d_sl[:, None]
+    return x
 
 
 def dlogits_reference(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
-    """d_lse * softmax + d_tl * onehot + d_sl * valid, rounded to the
-    activation dtype, as the JAX ``_dp_tile``."""
-    logits, col, valid = _logits(h, w, v_real)
-    p = torch.exp(torch.where(valid, logits, torch.full_like(logits, NEG)) - lse[:, None])
-    onehot = (col == tgt[:, None].long()).float()
-    dp = d_lse[:, None] * p + d_tl[:, None] * onehot + d_sl[:, None] * valid.float()
-    return dp.to(h.dtype)
+    """:func:`dlogits_f32` rounded to the activation dtype, as the JAX
+    ``_dp_tile``."""
+    return dlogits_f32(h, w, tgt, v_real, lse, d_lse, d_tl, d_sl).to(h.dtype)
 
 
-def ce_bwd_dh_reference(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
-    """Plain dH, like h."""
+def ce_bwd_dp_reference(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
+    """Plain ``ce_bwd_dp``: :func:`dlogits_reference` padded with zero
+    columns to [N, Vp]."""
     dp = dlogits_reference(h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
-    return torch.matmul(dp.float(), w.float()).to(h.dtype)
+    return F.pad(dp, (0, padded_vocab(w.shape[0]) - w.shape[0]))
 
 
-def ce_bwd_dw_reference(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl):
-    """Plain dW, like w."""
-    dp = dlogits_reference(h, w, tgt, v_real, lse, d_lse, d_tl, d_sl)
-    return torch.matmul(dp.float().t(), h.float()).to(w.dtype)
+def ce_bwd_dh_reference(dp, w):
+    """Plain dH from dp [N, Vp]: float32 sums of the exact products,
+    rounded once to w's dtype."""
+    return torch.matmul(dp[:, : w.shape[0]].float(), w.float()).to(w.dtype)
+
+
+def ce_bwd_dw_reference(dp, h, vocab: int):
+    """Plain dW [vocab, D] from dp [N, Vp], like ``ce_bwd_dh_reference``."""
+    return torch.matmul(dp[:, :vocab].float().t(), h.float()).to(h.dtype)
+
+
+def lm_head_ce_backward_reference(h, w, tgt, v_real: int, lse, d_lse, d_tl, d_sl,
+                                  cap_bytes: int = DP_CAP_BYTES, need_h: bool = True,
+                                  need_w: bool = True):
+    """Plain backward, chunked as the kernels chunk it (:func:`dp_plan`):
+    per chunk of rows its dp, its rows of dH, and its float32 share of dW,
+    summed in chunk order and rounded once."""
+    N = h.shape[0]
+    V = w.shape[0]
+    plan = dp_plan(N, V, cap_bytes)
+    dh = torch.empty_like(h) if need_h else None
+    acc = None
+    for r0, r1 in plan.chunks(N):
+        dp = ce_bwd_dp_reference(h[r0:r1], w, tgt[r0:r1], v_real, lse[r0:r1], d_lse[r0:r1],
+                                 d_tl[r0:r1], d_sl[r0:r1])
+        if need_h:
+            dh[r0:r1] = ce_bwd_dh_reference(dp, w)
+        if need_w:
+            part = torch.matmul(dp[:, :V].float().t(), h[r0:r1].float())
+            acc = part if acc is None else acc.add_(part)
+    return dh, (acc.to(w.dtype) if need_w else None)
 
 
 # -- autograd and the public function ---------------------------------------
 
 
 class LmHeadCE(torch.autograd.Function):
-    """(lse, true logit, sum of real logits) per row of h w^T, with the dH
-    and dW kernels as its gradient. CPU tensors run the plain versions."""
+    """(lse, true logit, sum of real logits) per row of h w^T, with the
+    backward kernels as its gradient (their dp buffer held under
+    ``dp_cap_bytes``). CPU tensors run the plain versions."""
 
     @staticmethod
-    def forward(ctx, h, w, tgt, v_real: int):
+    def forward(ctx, h, w, tgt, v_real: int, dp_cap_bytes: int = DP_CAP_BYTES):
         fwd = ce_fwd_reference if h.device.type == "cpu" else ce_fwd
         lse, tl, sl = fwd(h, w, tgt, v_real)
         ctx.save_for_backward(h, w, tgt, lse)
-        ctx.v_real = v_real
+        ctx.v_real, ctx.cap = v_real, dp_cap_bytes
         return lse, tl, sl
 
     @staticmethod
@@ -237,14 +477,14 @@ class LmHeadCE(torch.autograd.Function):
             torch.zeros_like(lse) if c is None else c.float().contiguous()
             for c in (d_lse, d_tl, d_sl)
         ]
-        cpu = h.device.type == "cpu"
-        args = (h, w, tgt, ctx.v_real, lse, *cot)
-        dh = dw = None
-        if ctx.needs_input_grad[0]:
-            dh = (ce_bwd_dh_reference if cpu else ce_bwd_dh)(*args)
-        if ctx.needs_input_grad[1]:
-            dw = (ce_bwd_dw_reference if cpu else ce_bwd_dw)(*args)
-        return dh, dw, None, None
+        need_h, need_w = ctx.needs_input_grad[:2]
+        if h.device.type == "cpu":
+            dh, dw = lm_head_ce_backward_reference(h, w, tgt, ctx.v_real, lse, *cot,
+                                                   cap_bytes=ctx.cap, need_h=need_h,
+                                                   need_w=need_w)
+        else:
+            dh, dw = _backward_kernels(h, w, tgt, ctx.v_real, lse, cot, ctx.cap, need_h, need_w)
+        return dh, dw, None, None, None
 
 
 def fused_ce_loss(
@@ -256,13 +496,15 @@ def fused_ce_loss(
     num_valid=None,
     real_vocab: Optional[int] = None,
     interpret: Optional[bool] = None,
+    dp_cap_bytes: int = DP_CAP_BYTES,
 ) -> torch.Tensor:
     """``causal_lm_loss(hidden @ lm_head, labels)`` with no [B, L, V]
     logits, with the JAX ``fused_ce_loss``'s contract and outer
     arithmetic. With ``shift`` every row of ``hidden`` goes in (no copy of
     ``hidden[:, :-1]``) and each sequence's last target is IGNORE_INDEX,
     so that row's cotangents, dlogits and dH are exactly 0. There is no
-    interpreter, so ``interpret=True`` raises."""
+    interpreter, so ``interpret=True`` raises. ``dp_cap_bytes`` caps the
+    backward's bf16 dlogits buffer (:func:`dp_plan`)."""
     if interpret:
         raise ValueError(
             "interpret=True: the Hopper kernel has no interpreter; CPU "
@@ -284,7 +526,8 @@ def fused_ce_loss(
     v_real = V if real_vocab is None else int(real_vocab)
     mask = (targets != IGNORE_INDEX).float()
     safe = torch.where(targets == IGNORE_INDEX, torch.zeros_like(targets), targets)
-    lse, tl, sl = LmHeadCE.apply(h2, w, safe.to(torch.int32).contiguous(), v_real)
+    lse, tl, sl = LmHeadCE.apply(h2, w, safe.to(torch.int32).contiguous(), v_real,
+                                  dp_cap_bytes)
     per_tok = lse - tl
     if label_smoothing:
         per_tok = (1.0 - label_smoothing) * per_tok + label_smoothing * (lse - sl / v_real)

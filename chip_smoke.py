@@ -9,7 +9,7 @@ and prints no result line):
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
 2. build: compiles csrc/fused_attention.cu (K1), banded_attention.cu
-   (K2), fused_ce.cu (K3), flash_attention.cu (K5) and
+   (K2), fused_ce.cu (K3, with hopper_gemm.cuh), flash_attention.cu (K5) and
    block_attention.cu (K4) for sm_90a from the checkout (into build/),
    one nvcc each, started together, and prints ptxas's report;
 3. parity: each kernel against its plain PyTorch version on the same
@@ -18,11 +18,17 @@ and prints no result line):
    shape with window 256 and a key pad mask, and at GPT-Neo's global
    shape (scale 1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a
    small odd window (W 129) and the widest band of its envelope (W 897);
-   K3 (the fused lm-head + CE: forward, dH, dW) at Llama-125M's head
-   (8184 rows, D 768, V 50257), a small unaligned shape (64 rows, D 128,
-   V 277, real vocab 256, ignored rows, smoothing 0.1) and Llama-3-8B's
-   head (1024 rows, D 4096, V 128256), the two heads also with the
-   softmax term alone in dlogits; the head's float32 logits against the
+   K3 (the fused lm-head + CE: forward, dp, dH, dW, the four on the
+   wgmma/TMA mainloop of hopper_gemm.cuh; dp held exactly, up to one bf16
+   step at a rounding edge; dp, dH and dW run twice must give the same
+   bits) at Llama-125M's head (8184 rows, D 768, V 50257), a small
+   unaligned shape (64 rows, D 128, V 277, real vocab 256, ignored rows,
+   smoothing 0.1) and Llama-3-8B's head (1024 rows, D 4096, V 128256),
+   the two heads also with the softmax term alone in dlogits, and its
+   backward in 3 chunks of rows (dW summed in float32) at the
+   Llama-125M head against the one-chunk dH and the plain chunked dW;
+   the head's
+   float32 logits against the
    widened product; K5 (causal flash attention with segment ids) at the
    Llama flagship shape, a small GQA shape with pads in the middle and at
    the tail (D 128; also in float32) and Llama-3-8B's long-context shape
@@ -33,14 +39,17 @@ and prints no result line):
    both full and diagonal, (c) GPT-Neo-125M's positional block at a
    zig-zag hop at sp 2 (windows 0 and 256, rows fully masked), (d) small
    float32 cases with ties planted at the row max, and a small bf16 GQA
-   case; then K3's, K5's and K4's bars against planted faults, each in a
-   patched copy of the kernel's source, which they must fail;
+   case; then K3's (one fault in each of its four passes), K5's and
+   K4's bars against planted faults, each in a patched copy of the
+   kernel's source, which they must fail;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
-   beside K1 at the same window; K3 at the main path's head (8192 rows)
-   beside the port's materialized head and CE, which no single PyTorch
-   call replaces; K5 at the flagship shape beside K1 and at the
+   beside K1 at the same window; K3 at the main path's head (8192 rows,
+   D 768, V 50257) and at the long-context paths' head (8192 rows, D
+   4096, V 128256; before the paths, its 4.2 GB of float32 logits freed
+   after) beside the port's materialized head and CE, which no single
+   PyTorch call replaces; K5 at the flagship shape beside K1 and at the
    long-context shape; K4 at (a), (b) and (c), beside SDPA on the same
    attended pairs (the same work, not the same function: SDPA returns
    the normalised output and no row max or sum);
@@ -138,6 +147,9 @@ CE_SHAPES = (
 )
 CE_MAIN = dict(N=BATCH * SEQ, D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0,
                seq=SEQ)
+# the long-context cells' head: Llama-3-8B's (D 4096, V 128256) at batch 1 x
+# L 8192; its float32 logits are 4.2 GB, so it is timed before the paths
+CE_LONG = dict(N=8192, D=4096, V=128256, v_real=128256, smoothing=0.0, ignore=0.0, seq=8192)
 
 # K5 shapes: the Llama-125M flagship (D 64, beside K1), a small GQA shape
 # with pads in the middle and at the tail (D 128), and the long-context
@@ -253,6 +265,14 @@ F32_TOL = (1e-4, 1e-4)
 # below the typical element, so that a dlogit term dropped or misweighted
 # fails (phase 3's planted faults).
 ELEMENT_TOL = {"ce_dh": (2 ** -6, 2 ** -6), "ce_dw": (2 ** -6, 2 ** -6)}
+# K3's dp buffer against the plain version's bf16 dlogits: equal, except
+# where the two float32 values lie on either side of a bf16 rounding edge.
+# The kernel's float32 dlogit differs from the plain one only by the
+# summation order of its logit and by expf's last bits (about 2^-20 of
+# itself); an element may round the other way, by one bf16 step, only
+# where the plain float32 value lies within DP_EDGE_RTOL of itself from
+# the midpoint of the two bf16 values. The pad columns [V, Vp) are 0.
+DP_EDGE_RTOL = 2 ** -12
 # K3's sum of the real logits adds V float32 terms, each itself a sum of D
 # products taken in another order: |err| <= 2^-22 * sum over the row of
 # |logit| (4 float32 steps of the row's absolute mass)
@@ -322,6 +342,39 @@ def check_elementwise(name: str, got, want, term) -> float:
     return max_err
 
 
+def check_dp(name: str, got, want, exact, vocab: int) -> float:
+    """bf16 dp [N, Vp] against the plain bf16 dp: equal but one bf16 step
+    at a rounding edge of the plain float32 value ``exact`` [N, V]
+    (DP_EDGE_RTOL); 0 in the pad columns."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, want bf16 "
+                             f"{tuple(want.shape)}")
+    if bool((got[:, vocab:] != 0).any()):
+        raise AssertionError(f"{name}: nonzero pad columns")
+    got, want = got[:, :vocab], want[:, :vocab]
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: kernel output has non-finite values")
+    differ = got != want
+    n_diff = int(differ.sum())
+    max_err = float((got.float() - want.float()).abs().max())
+    if n_diff:
+        g, w_, x = got[differ], want[differ], exact[differ]
+        steps = (g.view(torch.int16).int() - w_.view(torch.int16).int()).abs()
+        same_sign = torch.signbit(g) == torch.signbit(w_)
+        mid = (g.float() + w_.float()) / 2
+        edge = (x - mid).abs() <= DP_EDGE_RTOL * x.abs()
+        bad = ~(same_sign & (steps == 1) & edge)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} of {n_diff} differing elements are not one bf16 step "
+                f"apart at a rounding edge (max abs err {max_err:.3e})")
+    log(f"  {name:5s} max_abs_err {max_err:.3e}  ({n_diff} of {got.numel()} elements one bf16 "
+        f"step off, each at a rounding edge within {DP_EDGE_RTOL:g} of itself; pad columns 0)")
+    return max_err
+
+
 def ce_grad_terms(h, w, args) -> tuple:
     """For each element of dH [N, D] and of dW [V, D], a bound on the
     largest |product| in its sum, from the plain version's bf16 dlogits:
@@ -338,26 +391,32 @@ def ce_grad_terms(h, w, args) -> tuple:
         return torch.maximum(top.values[:, :1] * other[top.indices[:, 0]],
                              top.values[:, 1:] * other.amax(0))
 
-    dp = fc.dlogits_reference(*args).float().abs()
+    dp = fc.dlogits_reference(*args).float().abs_()
     return bound(dp, w), bound(dp.t(), h)
 
 
 # Faults planted in the kernels (the source file, the text to replace,
-# its replacement, and the kernel whose check must fail it): K3's bf16
-# backward against the dH/dW bar at the softmax-alone Llama-125M head
+# its replacement, and the kernel whose check must fail it): K3's four bf16
+# passes against their bars at the softmax-alone Llama-125M head
 # (CE_SHAPES[1]); K5 against its bars at the small GQA shape with pads
 # (FLASH_SMALL), where segment ids, the causal diagonal and the online
 # rescale all matter
 PLANTED_FAULTS = {
-    "K3: lse + 0.1": ("fused_ce.cu", "- x_lse)", "- x_lse - 0.1f)", "K3"),
-    "K3: softmax term dropped": (
-        "fused_ce.cu", "dp[e] = x_dl * expf(", "dp[e] = 0.f * x_dl * expf(", "K3"),
-    "K3: dW reads the next row tile's d_lse": (
-        "fused_ce.cu",
-        "rs[1][threadIdx.x] = in ? dl[r] : 0.f;",
-        "rs[1][threadIdx.x] = in ? dl[min(r + kCeT, N - 1)] : 0.f;",
-        "K3",
-    ),
+    "K3: the forward skips the running sum's rescale": (
+        "fused_ce.cu", "l[hh] *= expf(m[hh] - m_new);", "l[hh] *= 1.f;", "K3"),
+    "K3: lse + 0.1 in the dp epilogue": (
+        "fused_ce.cu", "- lse_r[hh])", "- lse_r[hh] - 0.1f)", "K3"),
+    "K3: the softmax term dropped from dp": (
+        "fused_ce.cu", "return dl_r[hh] * expf(", "return 0.f * dl_r[hh] * expf(", "K3"),
+    "K3: dH's K loop skips its last Vp tile": (
+        "fused_ce.cu", "const int k_steps_dh = Vp / hopper::kBK;",
+        "const int k_steps_dh = Vp / hopper::kBK - 1;", "K3"),
+    "K3: dW's B operand (h) read one 64-row chunk late": (
+        "fused_ce.cu", "hopper::make_map(&mb, h, N, D, true)",
+        "hopper::make_map(&mb, static_cast<const bf16*>(h) + 64 * (size_t)D, N - 64, D, true)",
+        "K3"),
+    "K3: dW's middle chunk overwrites the float32 sum": (
+        "fused_ce.cu", "if (mode >= 2) {", "if (mode >= 3) {", "K3 chunks"),
     "K5: dK/dV ignores the segment ids": (
         "flash_attention.cu", "(!seg_b || sg[ii] == skey[h])", "(true)", "K5"),
     "K5: dK/dV drops the causal diagonal": (
@@ -372,6 +431,7 @@ PLANTED_FAULTS = {
 }
 FAULT_CHECKS = {
     "K3": lambda: ce_parity(CE_SHAPES[1][1], 7),
+    "K3 chunks": lambda: ce_chunked_parity(CE_LLAMA, 11),
     "K5": lambda: flash_parity(FLASH_SMALL, 21),
     "K4": lambda: (block_parity(BLOCK_TIES, 31, ("full", "diag", *ZZ_SMALL)),
                    block_parity(BLOCK_SMALL, 32, ("full", *ZZ_SMALL))),
@@ -390,14 +450,21 @@ sys.exit(3)
 """
 
 
+# checks of planted faults running at once: each of K3's holds a few
+# float32 [8184, 50257] tensors (1.6 GB each) of its plain version
+FAULT_PROCS = 6
+
+
 def planted_faults() -> None:
     """Each fault of PLANTED_FAULTS in its own copy of the package and its
-    own process, all started together: the patched kernel builds in the
+    own process, FAULT_PROCS at a time: the patched kernel builds in the
     copy and its check must fail it."""
     procs = {}
     with tempfile.TemporaryDirectory() as tmp:
         try:
             for i, (fault, (source, old, new, kernel)) in enumerate(PLANTED_FAULTS.items()):
+                while sum(p.poll() is None for p in procs.values()) >= FAULT_PROCS:
+                    time.sleep(0.5)
                 root = os.path.join(tmp, str(i))
                 shutil.copytree(os.path.join(REPO, "acco_tpu_torch"),
                                 os.path.join(root, "acco_tpu_torch"),
@@ -410,12 +477,15 @@ def planted_faults() -> None:
                     raise AssertionError(f"planted fault {fault!r}: its patch no longer applies")
                 with open(path, "w") as f:
                     f.write(src.replace(old, new))
-                procs[fault] = subprocess.Popen(
-                    [sys.executable, "-c", _FAULT_CHILD, root, kernel],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                )
-            for fault, proc in procs.items():
-                out = proc.communicate(timeout=600)[0]
+                with open(os.path.join(root, "check.log"), "w") as out:  # no pipe to fill
+                    procs[fault] = subprocess.Popen(
+                        [sys.executable, "-c", _FAULT_CHILD, root, kernel],
+                        stdout=out, stderr=subprocess.STDOUT, text=True,
+                    )
+            for i, (fault, proc) in enumerate(procs.items()):
+                proc.wait(timeout=600)
+                with open(os.path.join(tmp, str(i), "check.log")) as f:
+                    out = f.read()
                 caught = [line for line in out.splitlines() if line.startswith("caught:")]
                 if proc.returncode == 3:
                     raise AssertionError(f"planted fault {fault!r} passed its check:\n{out[-2000:]}")
@@ -558,25 +628,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 5) -> float:
     return statistics.median(means)
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, attempts: int = 3) -> float:
     """Mean device ms per call: the CUDA kernels' own time under
     torch.profiler, for calls whose host cost (autograd) can exceed their
-    device time and so would leak into an event-timed loop."""
+    device time and so would leak into an event-timed loop. A session
+    whose trace holds no device activity (it happened once on the card,
+    for a call that other sessions of the same run had traced) is
+    profiled again, up to ``attempts`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in rows)
-    if total <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in rows)
+        if total > 0:
+            return total / 1e3 / iters
+        log(f"  the profiler recorded no device time (attempt {attempt} of {attempts})")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -1179,41 +1254,99 @@ def make_ce_inputs(shape: dict, seed: int):
 
 
 def ce_parity(shape: dict, seed: int) -> dict:
-    """K3's three kernels against their plain versions; returns max errors.
-    The backward kernels and their plain versions get the kernel's lse."""
+    """K3's four kernels against their plain versions; returns max errors.
+    dp and its plain version get the kernel's lse; dH and dW take the
+    kernel's dp and are held against the plain products of the plain dp.
+    A second run of dp, dH and dW must give the same bits."""
     import torch
 
     from acco_tpu_torch.ops import fused_ce as fc
 
     h, w, tgt, v_real, _, cot = make_ce_inputs(shape, seed)
+    V = w.shape[0]
     errs = {}
     lse, tl, sl = fc.ce_fwd(h, w, tgt, v_real)
     ref = fc.ce_fwd_reference(h, w, tgt, v_real)
     torch.cuda.synchronize()
-    logits, _, valid = fc._logits(h, w, v_real)
-    mass = torch.where(valid, logits.abs(), torch.zeros_like(logits)).sum(-1)
+    logits = fc._logits(h, w, v_real)[0]
+    mass = logits.abs_()[:, :v_real].sum(-1)
     del logits
     errs["ce_fwd"] = max(check("ce_lse", lse, ref[0]), check("ce_tl", tl, ref[1]),
                          check_mass("ce_sl", sl, ref[2], mass))
     args = (h, w, tgt, v_real, lse, *cot)
     term_dh, term_dw = ce_grad_terms(h, w, args)
-    dh = fc.ce_bwd_dh(*args)
+    dp = fc.ce_bwd_dp(*args)
     torch.cuda.synchronize()
-    errs["ce_bwd_dh"] = check_elementwise("ce_dh", dh, fc.ce_bwd_dh_reference(*args), term_dh)
-    dw = fc.ce_bwd_dw(*args)
+    dp_ref = fc.ce_bwd_dp_reference(*args)
+    errs["ce_bwd_dp"] = check_dp("ce_dp", dp, dp_ref, fc.dlogits_f32(*args), V)
+    dh = fc.ce_bwd_dh(dp, w)
     torch.cuda.synchronize()
-    errs["ce_bwd_dw"] = check_elementwise("ce_dw", dw, fc.ce_bwd_dw_reference(*args), term_dw)
-    del h, w, ref, dh, dw, term_dh, term_dw
+    errs["ce_bwd_dh"] = check_elementwise("ce_dh", dh, fc.ce_bwd_dh_reference(dp_ref, w), term_dh)
+    dw = fc.ce_bwd_dw(dp, h, V)
+    torch.cuda.synchronize()
+    errs["ce_bwd_dw"] = check_elementwise("ce_dw", dw, fc.ce_bwd_dw_reference(dp_ref, h, V),
+                                          term_dw)
+    dp2 = fc.ce_bwd_dp(*args)
+    same = (torch.equal(dp2, dp), torch.equal(fc.ce_bwd_dh(dp2, w), dh),
+            torch.equal(fc.ce_bwd_dw(dp2, h, V), dw))
+    log(f"  a second run of dp, dH, dW bit-identical: {same}")
+    if not all(same):
+        raise AssertionError(f"K3's backward is not deterministic: {same}")
+    del h, w, ref, dp, dp2, dp_ref, dh, dw, term_dh, term_dw
     torch.cuda.empty_cache()
     return errs
 
 
-def ce_timing() -> tuple[dict, dict, dict]:
-    """K3's kernels at the main path's head (B L = 8192 rows, the last of
-    each sequence ignored): kernel ms, plain ms and bound, with their
-    errors against the plain versions at this shape; and the loss as a
-    whole (``fused_ce_loss`` forward, forward + backward, peak memory)
-    beside the port's materialized head and CE (``layers.lm_logits`` +
+def ce_chunked_parity(shape: dict, seed: int, n_chunks: int = 3) -> dict:
+    """K3's bf16 backward through ``LmHeadCE`` with a dp cap that cuts the
+    rows into ``n_chunks`` chunks of a multiple of 128 rows, the last
+    ragged (dW summed in the float32 buffer: modes 1, 2, 3): dH bit-equal
+    to the one-chunk run's (each row's dp and products do not depend on
+    the chunk), dW against the plain chunked backward at the same cap."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+
+    h, w, tgt, v_real, _, cot = make_ce_inputs(shape, seed)
+    N, V = h.shape[0], w.shape[0]
+    rows = -(-N // n_chunks)
+    cap = 2 * fc.padded_vocab(V) * -(-rows // 128) * 128
+    plan = fc.dp_plan(N, V, cap)
+    if plan.n_chunks != n_chunks or not plan.dw_f32 or N % plan.chunk_rows == 0:
+        raise AssertionError(f"cap {cap} gives {plan}, not {n_chunks} chunks, the last ragged")
+
+    def grads(cap_bytes):
+        hg, wg = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        out = fc.LmHeadCE.apply(hg, wg, tgt, v_real, cap_bytes)
+        return torch.autograd.grad(out, (hg, wg), cot), out[0].detach()
+
+    (dh1, _), lse = grads(fc.DP_CAP_BYTES)
+    reset_launch_counts()
+    dh, dw = grads(cap)[0]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if k.startswith("ce_")}
+    log(f"  {plan}; launches {launches}")
+    if launches != {"ce_fwd": 1, **dict.fromkeys(("ce_bwd_dp", "ce_bwd_dh", "ce_bwd_dw"),
+                                                   n_chunks)}:
+        raise AssertionError(f"the chunked backward launched {launches}")
+    if not torch.equal(dh, dh1):
+        raise AssertionError("the chunked dH differs from the one-chunk dH")
+    log("  dH bit-equal to the one-chunk run's")
+    args = (h, w, tgt, v_real, lse, *cot)
+    _, term_dw = ce_grad_terms(h, w, args)
+    ref_dw = fc.lm_head_ce_backward_reference(*args, cap_bytes=cap, need_h=False)[1]
+    err = check_elementwise("ce_dw", dw, ref_dw, term_dw)
+    del h, w, dh, dh1, dw, ref_dw, term_dw
+    torch.cuda.empty_cache()
+    return {"ce_bwd_dw": err}
+
+
+def ce_timing(shape: dict, batch: int, seq: int) -> tuple[dict, dict, dict]:
+    """K3's kernels at a head of ``batch`` x ``seq`` rows (the last of each
+    sequence ignored): kernel ms, plain ms and bound, with their errors
+    against the plain versions at this shape; and the loss as a whole
+    (``fused_ce_loss`` forward, forward + backward, peak memory) beside the
+    port's materialized head and CE (``layers.lm_logits`` +
     ``causal_lm_loss``) on the same inputs."""
     import torch
 
@@ -1222,31 +1355,38 @@ def ce_timing() -> tuple[dict, dict, dict]:
     from acco_tpu_torch.ops.losses import IGNORE_INDEX, causal_lm_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    h, w, tgt, v_real, mask, cot = make_ce_inputs(CE_MAIN, 11)
-    N, D, V = (CE_MAIN[k] for k in ("N", "D", "V"))
+    h, w, tgt, v_real, mask, cot = make_ce_inputs(shape, 11)
+    N, D, V = (shape[k] for k in ("N", "D", "V"))
     lse, tl, sl = fc.ce_fwd(h, w, tgt, v_real)
     args = (h, w, tgt, v_real, lse, *cot)
     term_dh, term_dw = ce_grad_terms(h, w, args)
-    errs = {
-        "ce_fwd": check("ce_lse", lse, fc.ce_fwd_reference(h, w, tgt, v_real)[0]),
-        "ce_bwd_dh": check_elementwise("ce_dh", fc.ce_bwd_dh(*args),
-                                       fc.ce_bwd_dh_reference(*args), term_dh),
-        "ce_bwd_dw": check_elementwise("ce_dw", fc.ce_bwd_dw(*args),
-                                       fc.ce_bwd_dw_reference(*args), term_dw),
-    }
-    del term_dh, term_dw
+    dp = fc.ce_bwd_dp(*args)
+    dp_ref = fc.ce_bwd_dp_reference(*args)
+    errs = {"ce_fwd": check("ce_lse", lse, fc.ce_fwd_reference(h, w, tgt, v_real)[0]),
+            "ce_bwd_dp": check_dp("ce_dp", dp, dp_ref, fc.dlogits_f32(*args), V)}
+    errs["ce_bwd_dh"] = check_elementwise("ce_dh", fc.ce_bwd_dh(dp, w),
+                                          fc.ce_bwd_dh_reference(dp_ref, w), term_dh)
+    errs["ce_bwd_dw"] = check_elementwise("ce_dw", fc.ce_bwd_dw(dp, h, V),
+                                          fc.ce_bwd_dw_reference(dp_ref, h, V), term_dw)
+    del term_dh, term_dw, dp_ref
     torch.cuda.empty_cache()
-    rows, hb, wb = N * 4, N * D * 2, V * D * 2  # float32 [N]; bf16 h; bf16 w
+    vp = fc.padded_vocab(V)
+    rows, hb, wb, dpb = N * 4, N * D * 2, V * D * 2, N * vp * 2  # float32 [N]; bf16 h, w, dp
+    ops = 2 * N * D * V
     work = {  # bytes (inputs read once, outputs written once), operations
-        "ce_fwd": (hb + wb + rows + 3 * rows, 2 * N * D * V),
-        "ce_bwd_dh": (hb + wb + rows + 4 * rows + hb, 4 * N * D * V),
-        "ce_bwd_dw": (hb + wb + rows + 4 * rows + wb, 4 * N * D * V),
+        "ce_fwd": (hb + wb + rows + 3 * rows, ops),
+        "ce_bwd_dp": (hb + wb + rows + 4 * rows + dpb, ops),
+        "ce_bwd_dh": (dpb + wb + hb, ops),
+        "ce_bwd_dw": (dpb + hb + wb, ops),
     }
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
     runs = {
         "ce_fwd": (lambda: fc.ce_fwd(h, w, tgt, v_real),
                    lambda: fc.ce_fwd_reference(h, w, tgt, v_real)),
-        "ce_bwd_dh": (lambda: fc.ce_bwd_dh(*args), lambda: fc.ce_bwd_dh_reference(*args)),
-        "ce_bwd_dw": (lambda: fc.ce_bwd_dw(*args), lambda: fc.ce_bwd_dw_reference(*args)),
+        "ce_bwd_dp": (lambda: fc.ce_bwd_dp(*args, out=dp), lambda: fc.ce_bwd_dp_reference(*args)),
+        "ce_bwd_dh": (lambda: fc.ce_bwd_dh(dp, w, out=dh), lambda: fc.ce_bwd_dh_reference(dp, w)),
+        "ce_bwd_dw": (lambda: fc.ce_bwd_dw(dp, h, V, out=dw),
+                      lambda: fc.ce_bwd_dw_reference(dp, h, V)),
     }
     out = {}
     for name, (kernel, plain) in runs.items():
@@ -1255,13 +1395,14 @@ def ce_timing() -> tuple[dict, dict, dict]:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None}
         torch.cuda.empty_cache()
+    del dp, dh, dw
 
     # the whole loss on [B, L, D] hidden states and B L labels whose
     # shift gives the targets above, through K3 and through the
     # materialized head
-    h3 = h.view(BATCH, SEQ, D)
-    labels = torch.full((BATCH, SEQ), IGNORE_INDEX, dtype=torch.long, device="cuda")
-    labels[:, 1:] = torch.where(mask > 0, tgt.long(), IGNORE_INDEX).view(BATCH, SEQ)[:, :-1]
+    h3 = h.view(batch, seq, D)
+    labels = torch.full((batch, seq), IGNORE_INDEX, dtype=torch.long, device="cuda")
+    labels[:, 1:] = torch.where(mask > 0, tgt.long(), IGNORE_INDEX).view(batch, seq)[:, :-1]
     hg, wg = h3.detach().requires_grad_(True), w.detach().requires_grad_(True)
 
     def fused(grad: bool):
@@ -1292,20 +1433,24 @@ def ce_timing() -> tuple[dict, dict, dict]:
     if abs(loss_f - loss_m) > 1e-5 * abs(loss_m):
         raise AssertionError("K3's loss and the materialized loss disagree")
     out["ce_fwd"]["materialized_ms"] = whole["materialized"]["forward_ms"]
-    for name in ("ce_bwd_dh", "ce_bwd_dw"):  # the materialized backward makes both
+    for name in ("ce_bwd_dp", "ce_bwd_dh", "ce_bwd_dw"):  # the materialized backward makes all
         out[name]["materialized_ms"] = whole["materialized"]["backward_ms"]
+    bwd = ("ce_bwd_dp", "ce_bwd_dh", "ce_bwd_dw")
     backward = {
-        "ms": out["ce_bwd_dh"]["ms"] + out["ce_bwd_dw"]["ms"],
-        "plain_ms": out["ce_bwd_dh"]["plain_ms"] + out["ce_bwd_dw"]["plain_ms"],
+        "ms": sum(out[k]["ms"] for k in bwd),
+        "plain_ms": sum(out[k]["plain_ms"] for k in bwd),
         "materialized_ms": whole["materialized"]["backward_ms"],
-        "bound_ms": bound_ms(2 * hb + 2 * wb + 5 * rows, 6 * N * D * V)[0],
+        "bound_ms": sum(out[k]["bound_ms"] for k in bwd),
     }
     for name, r in out.items():
         log(f"  {name:15s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"materialized {r['materialized_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}; kernel / bound {r['ms'] / r['bound_ms']:.2f}, "
+            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s)")
     log(f"  backward total  kernel {backward['ms']:.4f} ms  plain {backward['plain_ms']:.4f} ms"
         f"  materialized {backward['materialized_ms']:.4f} ms  bound {backward['bound_ms']:.4f} ms")
+    log(f"  K3 forward + backward {out['ce_fwd']['ms'] + backward['ms']:.4f} ms against the "
+        f"materialized head and CE's {whole['materialized']['step_ms']:.4f} ms")
     for name, r in whole.items():
         log(f"  whole loss, {name:12s}: forward {r['forward_ms']:.4f} ms  backward "
             f"{r['backward_ms']:.4f} ms  step {r['step_ms']:.4f} ms  peak above inputs "
@@ -1390,7 +1535,8 @@ class BlockWindows:
 # kernel) and the calls of the materialized head per microbatch.
 _K1 = ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 _K2 = ("banded_fwd", "banded_bwd_dq", "banded_bwd_dkdv")
-_K3 = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")
+_K3 = ("ce_fwd", "ce_bwd_dp", "ce_bwd_dh", "ce_bwd_dw")
+_K3_F32 = ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw")  # float32: dp recomputed inside dH and dW
 _K5 = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 _K4 = ("blk_fwd_diag", "blk_fwd_full", "blk_fwd_pos", "blk_bwd_rowc", "blk_bwd_dkdv",
        "blk_bwd_dq")
@@ -1724,10 +1870,17 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> No
         rows = [e for e in kernels if re.search(tag, e.key)]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
-            f"({', '.join(sorted({re.search(r'\w+_kernel', e.key).group(0) for e in rows}))})")
+            f"({', '.join(sorted({kernel_label(e.key) for e in rows}))})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3 / microbatches:9.3f} ms/microbatch "
-            f"x{e.count // microbatches:<4d} {e.key[:90]}")
+            f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
+
+
+def kernel_label(key: str) -> str:
+    """A kernel's short name in a profile: the epilogue of a Hopper GEMM
+    (``hopper_gemm_kernel<..., ce_fwd_epilogue>``), else its own name."""
+    m = re.search(r"\w+_epilogue", key) or re.search(r"\w+_kernel", key) or re.search(r"\w+", key)
+    return m.group(0) if m else key
 
 
 def build_all() -> None:
@@ -1761,8 +1914,11 @@ REPLACES = {
     "banded_bwd_dq": "acco_tpu/ops/banded_attention.py:279",
     "banded_bwd_dkdv": "acco_tpu/ops/banded_attention.py:314",
     "ce_fwd": "acco_tpu/ops/fused_ce.py:267",
-    # one dH and one dW kernel serve both backward forms of the TPU kernel:
-    # the split dH / dW calls and the fused call (:324)
+    # one dp, one dH and one dW kernel serve both backward forms of the TPU
+    # kernel: the split dH / dW calls and the fused call (:324); dp is the
+    # `_dp_tile` (:160) that each of those calls computes
+    "ce_bwd_dp": "acco_tpu/ops/fused_ce.py:324, acco_tpu/ops/fused_ce.py:356, "
+                 "acco_tpu/ops/fused_ce.py:375",
     "ce_bwd_dh": "acco_tpu/ops/fused_ce.py:356, acco_tpu/ops/fused_ce.py:324",
     "ce_bwd_dw": "acco_tpu/ops/fused_ce.py:375, acco_tpu/ops/fused_ce.py:324",
     # JAX's bundled TPU flash kernel (jax.experimental.pallas.ops.tpu.
@@ -1815,6 +1971,9 @@ def main() -> int:
         log(f" K3 {label}: {shape}")
         for kname, e in ce_parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
+    log(f" K3's backward in 3 chunks of rows (dW summed in float32) at {CE_LLAMA}")
+    for kname, e in ce_chunked_parity(CE_LLAMA, 11).items():
+        errs[kname] = max(errs[kname], e)
     log(" head: float32 logits from bf16 operands")
     head_parity()
     for seed, (label, shape) in enumerate(FLASH_SHAPES, start=20):
@@ -1825,9 +1984,9 @@ def main() -> int:
         log(f" K4 {label}: {shape}")
         for kname, e in block_parity(shape, seed, variants).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
-    log(" K3's dH/dW bar (softmax-alone Llama-125M head), K5's bars (small GQA shape "
-        "with pads) and K4's (the small float32 case with ties and the small bf16 case) "
-        "against planted faults")
+    log(" K3's bars (softmax-alone Llama-125M head; the chunked backward), K5's bars "
+        "(small GQA shape with pads) and K4's (the small float32 case with ties and the "
+        "small bf16 case) against planted faults")
     planted_faults()
 
     log("== 4 timing (CUDA events)")
@@ -1837,10 +1996,13 @@ def main() -> int:
     banded_times, banded_backward = banded_timing(NEO_LOCAL)
     times.update(banded_times)
     log(f" K3 at the main path's head {CE_MAIN}")
-    ce_times, ce_backward, ce_errs = ce_timing()
-    times.update(ce_times)
-    for kname, e in ce_errs.items():
-        errs[kname] = max(errs[kname], e)
+    ce_times, ce_backward, ce_errs = ce_timing(CE_MAIN, BATCH, SEQ)
+    log(f" K3 at the long-context paths' head {CE_LONG}")
+    long_times, long_backward, long_errs = ce_timing(CE_LONG, 1, CE_LONG["seq"])
+    for kname, r in ce_times.items():
+        times[kname] = {**r, "long_head": long_times[kname]}
+    for kname in ce_errs:
+        errs[kname] = max(errs[kname], ce_errs[kname], long_errs[kname])
     log(f" K5 at the Llama flagship shape {FLASH_FLAGSHIP}, beside K1 (above)")
     flash_flagship, flash_flagship_bwd = flash_timing(FLASH_FLAGSHIP)
     for k5, k1 in zip(_K5, _K1):
@@ -1911,13 +2073,13 @@ def main() -> int:
         small_input_agreement(
             ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
              "train.batch_size=4"],
-            _K3, runs=CE_RUNS, plain_silent=_K3,
+            _K3_F32, runs=CE_RUNS, plain_silent=_K3,
         )
         log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
         small_input_agreement(
             ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
              "train.batch_size=2"],
-            ("attn_fwd", "banded_fwd", *_K3), runs=CE_RUNS, plain_silent=_K3,
+            ("attn_fwd", "banded_fwd", *_K3_F32), runs=CE_RUNS, plain_silent=_K3,
         )
         log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
         small_input_agreement(
@@ -1957,7 +2119,8 @@ def main() -> int:
         ]
         log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
         log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
-        log(f"K3 backward total (dH + dW) and the whole loss: {json.dumps(ce_backward)}")
+        log(f"K3 backward total (dp + dH + dW) and the whole loss, Llama-125M head: "
+            f"{json.dumps(ce_backward)}; long-context head: {json.dumps(long_backward)}")
         log(f"K5 backward total (delta + dK/dV + dQ), L 8192: {json.dumps(flash_backward)}; "
             f"flagship: {json.dumps(flash_flagship_bwd)}")
         print(json.dumps({"kernels": kernels}), flush=True)

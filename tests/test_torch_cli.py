@@ -5,6 +5,7 @@ name, and context parallelism's preconditions at one process (its runs
 on two ranks: tests/test_torch_context_parallel.py)."""
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -61,11 +62,27 @@ def test_without_device_flag_needs_a_card(monkeypatch):
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
         ("train.mesh_shape={dp: 2}", "multi-rank"),
+        # keys JAX honours that the port has no code for yet
+        ("train.resume_from=/nonexistent/ckpt", "queue 1, item 6"),
+        ("train.microbatch_mask=[1, 0]", "queue 1, item 4"),
+        ("+train.lr_grad_accounting=true", "queue 1, item 4"),
+        ("train.fault_injection=nan_grads@3", "queue 1, item 8"),
+        ("train.profile_steps=2", "queue 1, item 8"),
     ],
 )
 def test_unported_keys_raise_by_name(override, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])
+
+
+def test_default_save_runs_and_logs_once(caplog):
+    """``train.save`` defaults to true and the port writes nothing: the
+    default command runs, and says so once."""
+    caplog.set_level(logging.INFO, logger="acco_tpu_torch")
+    summary = main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2"])
+    assert summary["count_grad_tot"] == 2
+    notices = [r for r in caplog.records if "writes no checkpoint" in r.message]
+    assert len(notices) == 1 and notices[0].name == "acco_tpu_torch"
 
 
 @pytest.mark.parametrize(

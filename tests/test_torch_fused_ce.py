@@ -300,14 +300,17 @@ def test_envelope_and_vocab_splits():
     assert not port.supports_fused_ce(8184, 100, 50257)  # unaligned hidden
     assert not port.supports_fused_ce(0, 768, 50257)
     for n_rows, vocab, n_sm in ((8192, 50257, 132), (1024, 128256, 132), (64, 277, 132), (1, 128, 8)):
-        splits, per = port.vocab_splits(n_rows, vocab, n_sm)
-        tiles = -(-vocab // port.TILE)
-        assert (splits - 1) * per < tiles <= splits * per  # every split holds a tile
+        # the float32 kernels' tiles, and the bf16 kernels' rows and vocab columns
+        for rows, cols in ((port.TILE, port.TILE), (port.GEMM_TILE, port.VOCAB_TILE)):
+            splits, per = port.vocab_splits(n_rows, vocab, n_sm, rows, cols)
+            tiles = -(-vocab // cols)
+            assert (splits - 1) * per < tiles <= splits * per  # every split holds a tile
 
 
 def test_off_cpu_tensor_launches_kernel_or_raises(monkeypatch):
-    """A tensor that is not on the CPU goes to the kernel: without a build
-    the call raises, and the plain version is never called."""
+    """A tensor that is not on the CPU goes to the kernels: without a build
+    the call raises, and the plain version is never called; so does the
+    backward, whose first launch is ``ce_bwd_dp``."""
 
     def no_build():
         raise RuntimeError("no kernel build")
@@ -316,12 +319,29 @@ def test_off_cpu_tensor_launches_kernel_or_raises(monkeypatch):
         raise AssertionError("the plain version ran for a non-CPU tensor")
 
     monkeypatch.setattr(port, "_library", no_build)
-    monkeypatch.setattr(port, "ce_fwd_reference", plain_called)
+    for name in ("ce_fwd_reference", "ce_bwd_dp_reference", "lm_head_ce_backward_reference"):
+        monkeypatch.setattr(port, name, plain_called)
     hidden = torch.empty(B, L, D, device="meta")
     w = torch.empty(D, V, device="meta")
     labels = torch.zeros(B, L, dtype=torch.long, device="meta")
     with pytest.raises(RuntimeError, match="no kernel build"):
         port.fused_ce_loss(hidden, w, labels)
+
+    # the backward of a forward that ran (here: stood in for) on the card
+    def fwd_on_card(h, w_, tgt, v_real):
+        return tuple(torch.zeros(h.shape[0], device=h.device) for _ in range(3))
+
+    monkeypatch.setattr(port, "ce_fwd", fwd_on_card)
+    hidden_bf16 = torch.empty(B, L, D, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    w_bf16 = torch.empty(D, V, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    loss = port.fused_ce_loss(hidden_bf16, w_bf16, labels)
+    with pytest.raises(RuntimeError, match="no kernel build"):
+        loss.backward()
+    n = B * L
+    rows = [torch.empty(n, device="meta") for _ in range(4)]
+    with pytest.raises(RuntimeError, match="no kernel build"):
+        port.ce_bwd_dp(hidden_bf16.detach().reshape(n, D), w_bf16.detach().t(),
+                       torch.zeros(n, dtype=torch.int32, device="meta"), V, *rows)
 
 
 def test_wrappers_refuse_cpu_tensors(monkeypatch):
@@ -330,6 +350,111 @@ def test_wrappers_refuse_cpu_tensors(monkeypatch):
     tgt, row = torch.zeros(64, dtype=torch.int32), torch.zeros(64)
     with pytest.raises(ValueError, match="needs CUDA"):
         port.ce_fwd(h, w, tgt, V)
-    for fn in (port.ce_bwd_dh, port.ce_bwd_dw):
+    for fn in (port.ce_bwd_dh_f32, port.ce_bwd_dw_f32):
         with pytest.raises(ValueError, match="needs CUDA"):
             fn(h, w, tgt, V, row, row, row, row)
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    dp = torch.zeros(64, port.padded_vocab(V), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        port.ce_bwd_dp(hb, wb, tgt, V, row, row, row, row)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        port.ce_bwd_dh(dp, wb)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        port.ce_bwd_dw(dp, hb, V)
+    # each takes only its own dtype and the dp buffer's padded width
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        port.ce_bwd_dp(h, w, tgt, V, row, row, row, row)
+    with pytest.raises(ValueError, match="float32 only"):
+        port.ce_bwd_dh_f32(hb, wb, tgt, V, row, row, row, row)
+    with pytest.raises(ValueError, match=r"dp must be bfloat16 \[N, 384\]"):
+        port.ce_bwd_dh(dp[:, :V], wb)
+
+
+# -- the backward's dp buffer, its plan and its chunks -----------------------
+
+
+def test_dp_plan():
+    """Vp, the chunk rows, the float32 dW decision; one chunk at both
+    cells' heads (Llama-125M: 8192 rows x V 50257; Llama-3-8B at L 8192:
+    8192 rows x V 128256) under the default 2 GiB cap."""
+    for n_rows, vocab, vp in ((8192, 50257, 50304), (8192, 128256, 128256)):
+        plan = port.dp_plan(n_rows, vocab)
+        assert plan.vp == vp == port.padded_vocab(vocab)
+        assert (plan.chunk_rows, plan.n_chunks, plan.dw_f32) == (n_rows, 1, False)
+        assert 2 * plan.chunk_rows * plan.vp <= port.DP_CAP_BYTES
+    assert port.padded_vocab(128) == 128 and port.padded_vocab(129) == 256
+    # past the cap: chunks of a multiple of 128 rows, the last ragged
+    plan = port.dp_plan(20000, 128256)
+    assert plan.chunk_rows == 8320 and 2 * 8320 * 128256 <= port.DP_CAP_BYTES
+    assert (plan.n_chunks, plan.dw_f32) == (3, True)
+    assert list(plan.chunks(20000)) == [(0, 8320), (8320, 16640), (16640, 20000)]
+    # a cap below one tile of rows keeps the rows it can, a multiple of 4
+    plan = port.dp_plan(66, 277, cap_bytes=2 * 384 * 24)
+    assert (plan.vp, plan.chunk_rows, plan.n_chunks) == (384, 24, 3)
+    assert list(plan.chunks(66))[-1] == (48, 66)
+    assert port.dp_plan(66, 277, cap_bytes=2 * 384 * 27).chunk_rows == 24
+    assert [port.dw_mode(i, 1) for i in range(1)] == [0]
+    assert [port.dw_mode(i, 4) for i in range(4)] == [1, 2, 2, 3]
+
+
+def test_dp_reference_pads_and_masks():
+    """``ce_bwd_dp_reference``: the activation dtype, [N, Vp]; zero in the
+    pad columns [V, Vp) and, with every target below v_real, in the
+    masked columns [v_real, V); equal to the rounded dlogits elsewhere."""
+    N, v, v_real = 48, 277, 250
+    rng = np.random.default_rng(12)
+    h = torch.tensor(rng.standard_normal((N, D)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((v, D)) * 0.1, dtype=torch.bfloat16)
+    tgt = torch.tensor(rng.integers(0, v_real, N), dtype=torch.int32)
+    lse = port.ce_fwd_reference(h, w, tgt, v_real)[0]
+    cot = [torch.tensor(rng.standard_normal(N) / N, dtype=torch.float32) for _ in range(3)]
+    dp = port.ce_bwd_dp_reference(h, w, tgt, v_real, lse, *cot)
+    assert dp.dtype == torch.bfloat16 and dp.shape == (N, port.padded_vocab(v)) == (N, 384)
+    assert bool((dp[:, v_real:] == 0).all())
+    want = port.dlogits_f32(h, w, tgt, v_real, lse, *cot)
+    assert torch.equal(dp[:, :v], want.to(torch.bfloat16))
+    assert bool((dp[:, :v_real] != 0).any())
+
+
+def _chunked_grads(B_, L_, cap_bytes):
+    """The port's gradients of the mean loss at (B_, L_) rows, float32, with
+    the dp buffer capped at ``cap_bytes``, and JAX's, interpreted."""
+    rng = np.random.default_rng(B_ * 100 + L_)
+    hidden = rng.standard_normal((B_, L_, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.1).astype(np.float32)
+    labels = rng.integers(0, V, (B_, L_)).astype(np.int32)
+    labels[0, 3:7] = IGNORE_INDEX
+    kw = dict(label_smoothing=0.1)
+    l_j, (gh_j, gw_j) = jax.value_and_grad(
+        lambda h, w_: _jax_loss(h, w_, labels, **kw), argnums=(0, 1)
+    )(jnp.asarray(hidden), jnp.asarray(w))
+    h_t = torch.tensor(hidden, requires_grad=True)
+    w_t = torch.tensor(w, requires_grad=True)
+    loss = port.fused_ce_loss(h_t, w_t, torch.tensor(labels, dtype=torch.long),
+                              dp_cap_bytes=cap_bytes, **kw)
+    gh_t, gw_t = torch.autograd.grad(loss, (h_t, w_t))
+    return (float(loss.detach()), gh_t.numpy(), gw_t.numpy()), (float(l_j), np.asarray(gh_j),
+                                                      np.asarray(gw_j))
+
+
+@pytest.mark.parametrize(
+    "form, B_, L_",
+    [  # shapes no other case traces: JAX reads its cap when it traces the backward
+        pytest.param("fused", 2, 41, id="jax-fused-form"),
+        pytest.param("split", 3, 25, id="jax-split-form"),
+    ],
+)
+def test_chunked_backward_matches_jax(form, B_, L_, monkeypatch):
+    """The chunked plain backward (3 chunks of 32 rows, the last ragged;
+    dW summed in float32 across them) against both of JAX's backward forms:
+    its fused kernel at the default cap and its split dH / dW kernels when
+    ``ACCO_FUSED_CE_PARTIAL_CAP`` is 1 byte."""
+    if form == "split":
+        monkeypatch.setenv("ACCO_FUSED_CE_PARTIAL_CAP", "1")
+    cap = 2 * port.padded_vocab(V) * 32
+    plan = port.dp_plan(B_ * L_, V, cap)
+    assert plan.n_chunks == 3 and plan.dw_f32 and (B_ * L_) % plan.chunk_rows
+    (l_t, gh_t, gw_t), (l_j, gh_j, gw_j) = _chunked_grads(B_, L_, cap)
+    np.testing.assert_allclose(l_t, l_j, **LOSS_TOL)
+    np.testing.assert_allclose(gh_t, gh_j, **GRAD_TOL)
+    np.testing.assert_allclose(gw_t, gw_j, **GRAD_TOL)
