@@ -124,9 +124,19 @@ __global__ void __launch_bounds__(2 * kBKV)
     q_end = hi < L ? ((hi + kBQT - 1) / kBQT) * kBQT : L;
   }
 
+  // With a key pad mask a row may have no allowed key (left padding); JAX
+  // normalises it over all L keys, so P = exp(-1e9 - lse) = 1 on every key,
+  // these included: the q tiles outside the band that hold such a row
+  // (lse -1e9) are walked too.
+  const bool scan = pad != nullptr;
   for (int r = 0; r < n_rep; ++r) {
     const size_t bh = (size_t)b * H + (size_t)hk * n_rep + r;
-    for (int q0 = q_begin; q0 < q_end; q0 += kBQT) {
+    for (int q0 = scan ? 0 : q_begin; q0 < (scan ? L : q_end); q0 += kBQT) {
+      if (scan && (q0 < q_begin || q0 >= q_end) &&
+          !__syncthreads_or(threadIdx.x < kBQT &&
+                            lse[bh * L + q0 + threadIdx.x] <= 0.5f * kMasked)) {
+        continue;
+      }
       __syncthreads();
       load_halves<D>(qs, q + (bh * L + q0) * D, kBQT, kThreads);
       load_halves<D>(dos, dout + (bh * L + q0) * D, kBQT, kThreads);
@@ -207,8 +217,11 @@ __global__ void __launch_bounds__(2 * kBQ)
   const float lse_i = lse[row];
   const float delta_i = delta[row];
 
-  const int kv_end = q0 + kBQ;
-  for (int k0 = kv_band_begin(q0, window, kBK); k0 < kv_end; k0 += kBK) {
+  // a row with no allowed key (lse -1e9, key pads only) has P = 1 on all L
+  // keys, as in JAX: the block then walks every key
+  const bool widen = __syncthreads_or(pad != nullptr && lse_i <= 0.5f * kMasked);
+  const int kv_end = widen ? L : q0 + kBQ;
+  for (int k0 = widen ? 0 : kv_band_begin(q0, window, kBK); k0 < kv_end; k0 += kBK) {
     __syncthreads();
     load_halves<D>(ks, kb + (size_t)k0 * D, kBK, 2 * kBQ);
     load_halves<D>(vs, vb + (size_t)k0 * D, kBK, 2 * kBQ);

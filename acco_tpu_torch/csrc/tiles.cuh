@@ -1,5 +1,6 @@
 // Tiles shared by the attention kernels that template on the head dim (64
-// or 128): flash_attention.cu (K5) and block_attention.cu (K4).
+// or 128): block_attention.cu (K4) and, for its float32 kernels,
+// flash_attention.cu (K5, whose bf16 kernels are hopper_attention.cuh's).
 // * bfloat16: one warp owns 16 rows of a 64-row block tile and computes its
 //   products with mma.sync m16n8k16 (bf16 in, f32 accumulate), both
 //   operands read through ldmatrix from shared tiles whose rows are padded

@@ -42,6 +42,7 @@ from acco_tpu_torch.ops.attention import NEG_INF, allowed_mask
 
 QB = 128  # the JAX kernel's q-row block: the unit of its key band
 MAX_BAND_BLOCKS = 8  # the JAX envelope's cap on nprev + 1
+KERNEL_HEAD_DIM = 64  # the one head_dim csrc/banded_attention.cu is built for
 
 # Launches per kernel since the last reset_launch_counts().
 LAUNCHES = {"banded_fwd": 0, "banded_bwd_dq": 0, "banded_bwd_dkdv": 0}
@@ -73,7 +74,7 @@ def supports_banded_attention(seq_len: int, head_dim: int, window: int) -> bool:
         0 < window < seq_len
         and 128 <= seq_len <= 8192
         and seq_len % QB == 0
-        and head_dim == fa.KERNEL_HEAD_DIM
+        and head_dim == KERNEL_HEAD_DIM
         and _nprev(window) + 1 <= MAX_BAND_BLOCKS
     )
 

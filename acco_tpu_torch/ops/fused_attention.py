@@ -5,20 +5,25 @@ Replaces ``acco_tpu/ops/fused_attention.py`` (``_attn_fwd`` and
 ``fused_dot_product_attention``). The TPU kernels hold one head's whole
 [L, L] float32 score tile in VMEM; an H100 block has 227 KB of shared
 memory, so ``csrc/fused_attention.cu`` is a tiled online-softmax kernel
-with the same contract instead. What bounds it on the H100: at the
-flagship shape (B 8, H 12, L 1024, D 64, bf16) an ideal forward is
-memory-bound (~51 MB, ~15 us) and an ideal backward compute-bound
-(~32 GFLOP, ~33 us). The design keeps every [L, L] intermediate out of
-device memory: blocks walk KV (or Q) tiles only inside the causal/window
-band, with running max, sum and output rows in registers. bfloat16
-inputs run on the tensor cores (``mma.sync``, one warp per 16 rows);
-float32 inputs run FMAs on the CUDA cores. Four kernels:
+with the same contract instead, for head_dim 64 and 128. What bounds it
+on the H100: at the flagship shape (B 8, H 12, L 1024, D 64, bf16) an
+ideal forward is memory-bound (~51 MB, ~15 us) and an ideal backward
+compute-bound (~32 GFLOP, ~33 us). The design keeps every [L, L]
+intermediate out of device memory: blocks walk KV tiles (or q steps)
+only inside the causal/window band, with running max, sum and output
+rows in registers. bfloat16 inputs run on the wgmma + TMA mainloop of
+``csrc/hopper_attention.cuh`` (shared with K5, with K1's mask as its
+policy); float32 inputs run FMAs on the CUDA cores. Four kernels:
 
 - ``attn_fwd``: O and the float32 log-sum-exp, one block per q tile;
 - ``attn_bwd_delta``: delta = rowsum(dO * O);
 - ``attn_bwd_dkdv``: dK, dV summed over the ``n_rep`` q heads of each KV
   head, one block per KV tile (no atomics: deterministic);
 - ``attn_bwd_dq``: dQ, one block per q tile.
+
+A row whose keys are all padding (left padding) is normalised over all L
+keys, as the TPU kernel's whole-row softmax does: the kernel gives it the
+mean of V and lse -1e9, and its backward P = 1 on every key.
 
 Each wrapper checks device, dtype (bfloat16 or float32), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
@@ -40,8 +45,8 @@ import torch
 
 from acco_tpu_torch.ops.attention import NEG_INF, allowed_mask, repeat_kv
 
-KERNEL_HEAD_DIM = 64  # the one head_dim csrc/fused_attention.cu is built for
-KERNEL_TILE = 64  # L must be a multiple of the kernels' 64-row tiles
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims csrc/fused_attention.cu is built for
+KERNEL_TILE = 64  # L must be a multiple of 64 (the kernels' 64-row steps)
 
 # Launches per kernel since the last reset_launch_counts().
 LAUNCHES = {"attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
@@ -57,10 +62,10 @@ def reset_launch_counts() -> None:
 
 
 def supports_fused_attention(seq_len: int, head_dim: int) -> bool:
-    """Shapes the Hopper kernel takes: head_dim 64 and L a multiple of 64.
-    Unlike the TPU kernel there is no upper bound on L: no [L, L] tile is
-    ever resident."""
-    return head_dim == KERNEL_HEAD_DIM and seq_len >= KERNEL_TILE and (
+    """Shapes the Hopper kernel takes: head_dim 64 or 128 and L a multiple
+    of 64. Unlike the TPU kernel there is no upper bound on L: no [L, L]
+    tile is ever resident."""
+    return head_dim in KERNEL_HEAD_DIMS and seq_len >= KERNEL_TILE and (
         seq_len % KERNEL_TILE == 0
     )
 
@@ -109,7 +114,7 @@ def _check_qkv(name, q, k, v, pad_mask):
     if not supports_fused_attention(L, D):
         raise ValueError(
             f"{name}: L={L} D={D} outside the kernel's envelope "
-            f"(D == {KERNEL_HEAD_DIM}, L a multiple of {KERNEL_TILE})"
+            f"(D in {KERNEL_HEAD_DIMS}, L a multiple of {KERNEL_TILE})"
         )
     if pad_mask is not None and (
         pad_mask.shape != (B, L) or pad_mask.dtype != torch.int32
@@ -154,7 +159,7 @@ def attn_fwd(q, k, v, pad_mask, window: int, scale: float):
 def attn_bwd_delta(o, dout):
     """Kernel delta = rowsum(dO * O): [B, H, L] float32."""
     lib = _library()
-    if o.shape != dout.shape or o.shape[-1] != KERNEL_HEAD_DIM:
+    if o.shape != dout.shape or o.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attn_bwd_delta: o {tuple(o.shape)} / dout {tuple(dout.shape)}")
     _check_cuda("attn_bwd_delta", o.dtype, o=o, dout=dout)
     delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=o.device)
@@ -297,6 +302,29 @@ class FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class PlainFusedAttention(torch.autograd.Function):
+    """The plain forward with the plain versions of the three backward
+    kernels as its gradient: the kernel path's arithmetic on the CPU. It
+    differs from autograd of the plain forward only on a row with no
+    allowed key, where JAX's kernel backward (and the Hopper kernel) take
+    P = exp(s - lse) = 1 on every key."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, window: int, scale: float):
+        o, lse = attention_reference(q, k, v, pad_mask, window, scale)
+        ctx.save_for_backward(q, k, v, pad_mask, o, lse)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pad_mask, o, lse = ctx.saved_tensors
+        delta = delta_reference(o, dout)
+        args = (q, k, v, pad_mask, dout, lse, delta, ctx.window, ctx.scale)
+        dk, dv = attn_bwd_dkdv_reference(*args)
+        return attn_bwd_dq_reference(*args), dk, dv, None, None, None
+
+
 def fused_dot_product_attention(
     q: torch.Tensor,  # [B, H, L, D]
     k: torch.Tensor,  # [B, Hkv, L, D]
@@ -308,10 +336,10 @@ def fused_dot_product_attention(
 ) -> torch.Tensor:
     """Causal (+window +padding) attention, with the JAX
     ``fused_dot_product_attention``'s signature. The tensors' device
-    decides the path: CPU tensors take the plain version (its gradient
-    through autograd); any other device goes to the Hopper kernel, which
-    raises if it cannot build or launch. There is no interpreter, so
-    ``interpret=True`` raises."""
+    decides the path: CPU tensors take the plain versions (forward and
+    the three backward kernels'); any other device goes to the Hopper
+    kernel, which raises if it cannot build or launch. There is no
+    interpreter, so ``interpret=True`` raises."""
     if interpret:
         raise ValueError(
             "interpret=True: the Hopper kernel has no interpreter; CPU "
@@ -322,8 +350,8 @@ def fused_dot_product_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     window = int(window)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, pad_mask, window, scale)[0]
     if pad_mask is not None:
         pad_mask = pad_mask.to(torch.int32).contiguous()
+    if q.device.type == "cpu":
+        return PlainFusedAttention.apply(q, k, v, pad_mask, window, float(scale))
     return FusedAttention.apply(q, k, v, pad_mask, window, float(scale))

@@ -9,15 +9,23 @@ and prints no result line):
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
 2. build: compiles csrc/fused_attention.cu (K1), banded_attention.cu
-   (K2), fused_ce.cu (K3, with hopper_gemm.cuh), flash_attention.cu (K5) and
+   (K2), fused_ce.cu (K3, with hopper_gemm.cuh), flash_attention.cu (K5;
+   K1 and K5 on the attention mainloop of hopper_attention.cuh) and
    block_attention.cu (K4) for sm_90a from the checkout (into build/),
-   one nvcc each, started together, and prints ptxas's report;
+   one nvcc each, started together, and prints each nvcc's time and
+   ptxas's report (registers, spills, its notes on wgmma);
 3. parity: each kernel against its plain PyTorch version on the same
-   inputs on the card, bf16 unless named. K1 at the Llama flagship shape
-   (B 8, H = Hkv 12, L 1024, D 64, window 0, no pad), at a small GQA
-   shape with window 256 and a key pad mask, and at GPT-Neo's global
-   shape (scale 1.0); K2 at GPT-Neo's local shape (W 256, scale 1.0), a
-   small odd window (W 129) and the widest band of its envelope (W 897);
+   inputs on the card, bf16 unless named, and each attention backward
+   kernel (K1, K5) against a second run of itself, which must give the
+   same bits. 'auto' at head_dim 128, L 1024 must resolve to K1. K1 at
+   the Llama flagship shape (B 8, H = Hkv 12, L 1024, D 64, window 0, no
+   pad), at a small GQA shape with window 256 and a key pad mask, at
+   GPT-Neo's global shape (scale 1.0), at Llama-3-8B's width (B 1, H 32,
+   Hkv 8, L 1024, D 128), with left padding (rows with no allowed key;
+   also with a window 16 wide and a run of pads, at L 320, a half tile),
+   at L 320 with GQA and D 64, and in float32 at D 128; K2 at GPT-Neo's
+   local shape (W 256, scale 1.0), a small odd window (W 129) and the
+   widest band of its envelope (W 897);
    K3 (the fused lm-head + CE: forward, dp, dH, dW, the four on the
    wgmma/TMA mainloop of hopper_gemm.cuh; dp held exactly, up to one bf16
    step at a rounding edge; dp, dH and dW run twice must give the same
@@ -31,17 +39,19 @@ and prints no result line):
    float32 logits against the
    widened product; K5 (causal flash attention with segment ids) at the
    Llama flagship shape, a small GQA shape with pads in the middle and at
-   the tail (D 128; also in float32) and Llama-3-8B's long-context shape
-   (B 1, H 32, Hkv 8, L 8192, D 128); K4 (the ring's block: forward, row
+   the tail (D 128; also in float32, and at L 320), Llama-3-8B's
+   long-context shape (B 1, H 32, Hkv 8, L 8192, D 128) and L 320 at D
+   64; K4 (the ring's block: forward, row
    pre-pass, dK/dV, dQ, with random cotangents on o, m and l) at (a) the
    Llama-350M preset's block at sp 16 (B 1, H 16, L 1024, D 64), (b)
    Llama-3-8B at the ring path's half-chunk (H 32, Hkv 8, L 4096, D 128),
    both full and diagonal, (c) GPT-Neo-125M's positional block at a
    zig-zag hop at sp 2 (windows 0 and 256, rows fully masked), (d) small
    float32 cases with ties planted at the row max, and a small bf16 GQA
-   case; then K3's (one fault in each of its four passes), K5's and
-   K4's bars against planted faults, each in a patched copy of the
-   kernel's source, which they must fail;
+   case; then K3's (one fault in each of its four passes), K5's, K1's
+   (the mask policy, dK/dV, dQ, the RS fragments of
+   hopper_attention.cuh) and K4's bars against planted faults, each in a
+   patched copy of the kernel's source, which they must fail;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
@@ -49,7 +59,8 @@ and prints no result line):
    D 768, V 50257) and at the long-context paths' head (8192 rows, D
    4096, V 128256; before the paths, its 4.2 GB of float32 logits freed
    after) beside the port's materialized head and CE, which no single
-   PyTorch call replaces; K5 at the flagship shape beside K1 and at the
+   PyTorch call replaces; K1 also at Llama-3-8B's width (D 128, L 1024)
+   beside SDPA; K5 at the flagship shape beside K1 and at the
    long-context shape; K4 at (a), (b) and (c), beside SDPA on the same
    attended pairs (the same work, not the same function: SDPA returns
    the normalised output and no row max or sum);
@@ -107,11 +118,32 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False)
 SMALL = dict(B=2, H=4, Hkv=2, L=512, D=64, window=256, pad=True)
+# K1 at Llama-3-8B's width (head_dim 128, GQA 32 / 8) at L 1024, where
+# 'auto' resolves to K1 on the card as JAX's resolver does on the TPU
+K1_LLAMA3 = dict(B=1, H=32, Hkv=8, L=1024, D=128, window=0, pad=False)
+# K1 where rows have no allowed key: left padding (rows 0 .. L/8 - 1 of
+# batch 0), and with a window 16 wide a run of 32 pads (17 more such rows);
+# L 320 is a multiple of 64 but not of 128 (a half tile of rows and keys)
+K1_NO_KEY = dict(B=2, H=4, Hkv=2, L=320, D=128, window=16, pad="left+run")
+K1_SHAPES = (
+    ("flagship", FLAGSHIP),
+    ("small gqa+window+pad", SMALL),
+    ("gpt-neo global, scale 1.0", None),  # NEO_GLOBAL, below
+    ("llama-3-8B width, D 128, L 1024", K1_LLAMA3),
+    ("left padding: rows with no allowed key, D 64", dict(B=2, H=4, Hkv=2, L=512, D=64, window=0,
+                                                        pad="left")),
+    ("rows with no allowed key, window 16, L 320, D 128", K1_NO_KEY),
+    ("L 320, gqa, D 64, window 100, left padding", dict(B=2, H=4, Hkv=2, L=320, D=64, window=100,
+                                                      pad="left")),
+    ("rows with no allowed key, float32, D 128", dict(B=2, H=4, Hkv=2, L=192, D=128, window=0,
+                                                     pad="left", dtype="float32")),
+)
 # GPT-Neo scores are unscaled (scale 1.0): q and k are drawn with std
 # D^-1/4 so that the scores still have unit variance
 NEO_QK_STD = 64 ** -0.25
 NEO_GLOBAL = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False,
                   scale=1.0, qk_std=NEO_QK_STD)
+K1_SHAPES = tuple((label, shape or NEO_GLOBAL) for label, shape in K1_SHAPES)
 # K2 (MHA, no pad): GPT-Neo-125M's local layer, an odd window, the widest
 # band of the envelope (nprev(897) + 1 = 8 blocks of 128 keys)
 NEO_LOCAL = dict(B=8, H=12, L=1024, D=64, window=256)
@@ -162,6 +194,8 @@ FLASH_SHAPES = (
     ("small gqa, pads in the middle and at the tail", FLASH_SMALL),
     ("small gqa, pads, float32", {**FLASH_SMALL, "dtype": "float32"}),
     ("llama-3-8B, L 8192", FLASH_LLAMA3),
+    ("L 320 (a half tile), gqa, pads, D 128", {**FLASH_SMALL, "L": 320}),
+    ("L 320 (a half tile), gqa, D 64", dict(B=2, H=4, Hkv=2, L=320, D=64)),
 )
 # K4 (the ring's block) shapes: (a) the Llama-350M preset's per-device
 # block, a zig-zag half-chunk of Lc 2048 at sp 16; (b) Llama-3-8B at the
@@ -400,7 +434,10 @@ def ce_grad_terms(h, w, args) -> tuple:
 # passes against their bars at the softmax-alone Llama-125M head
 # (CE_SHAPES[1]); K5 against its bars at the small GQA shape with pads
 # (FLASH_SMALL), where segment ids, the causal diagonal and the online
-# rescale all matter
+# rescale all matter; K1 at K1_NO_KEY (a narrow window, rows with no
+# allowed key, a half tile), through the mask policy, dK/dV, dQ and the
+# conversion of an accumulator into the A fragments of an RS wgmma (in
+# hopper_attention.cuh, which K5 shares)
 PLANTED_FAULTS = {
     "K3: the forward skips the running sum's rescale": (
         "fused_ce.cu", "l[hh] *= expf(m[hh] - m_new);", "l[hh] *= 1.f;", "K3"),
@@ -417,22 +454,38 @@ PLANTED_FAULTS = {
         "K3"),
     "K3: dW's middle chunk overwrites the float32 sum": (
         "fused_ce.cu", "if (mode >= 2) {", "if (mode >= 3) {", "K3 chunks"),
-    "K5: dK/dV ignores the segment ids": (
-        "flash_attention.cu", "(!seg_b || sg[ii] == skey[h])", "(true)", "K5"),
-    "K5: dK/dV drops the causal diagonal": (
-        "flash_attention.cu", "key_lo + h * 8 <= qq + ii", "key_lo + h * 8 < qq + ii", "K5"),
+    "K5: the mask policy ignores the segment ids": (
+        "flash_attention.cu", "return j <= i && qv == kv;", "return j <= i;", "K5"),
+    "K5: the mask policy drops the causal diagonal": (
+        "flash_attention.cu", "return j <= i && qv == kv;", "return j < i && qv == kv;", "K5"),
     "K4: the tie term dropped": (
         "block_attention.cu", "+ (eq ? c : 0.f)", "+ 0.f * (eq ? c : 0.f)", "K4"),
     "K4: dl ignored": ("block_attention.cu", "p * (dp_dot + dl)", "p * (dp_dot + 0.f * dl)", "K4"),
     "K4: the window edge off by one": (
         "block_attention.cu", "kp > qp - window", "kp >= qp - window", "K4"),
     "K5: the forward skips the output's rescale": (
-        "flash_attention.cu", "oacc[j][e] *= corr[e / 2];", "oacc[j][e] *= 1.f;", "K5"),
+        "hopper_attention.cuh", "o[x] *= corr[(x / 2) % 2];", "o[x] *= 1.f;", "K5"),
+    "K1: the mask policy's window one key wider": (
+        "fused_attention.cu", "(window == 0 || i - j < window)", "(window == 0 || i - j <= window)",
+        "K1"),
+    "K1: dK/dV drops delta from dS": (
+        "hopper_attention.cuh", "float ds = p * (dpt[x] - dl[col]);", "float ds = p * dpt[x];",
+        "K1"),
+    "K1: dQ's P off by exp(-0.1)": (
+        "hopper_attention.cuh", "exp2_approx((sc[x] - lse_r[hh]) * kLog2e)",
+        "exp2_approx((sc[x] - lse_r[hh] - 0.1f) * kLog2e)", "K1"),
+    "K1: the RS A fragments' row halves swapped": (
+        "hopper_attention.cuh",
+        "a[kk][1] = pack_bf16x2(acc[8 * kk + 2], acc[8 * kk + 3]);\n"
+        "    a[kk][2] = pack_bf16x2(acc[8 * kk + 4], acc[8 * kk + 5]);",
+        "a[kk][1] = pack_bf16x2(acc[8 * kk + 4], acc[8 * kk + 5]);\n"
+        "    a[kk][2] = pack_bf16x2(acc[8 * kk + 2], acc[8 * kk + 3]);", "K1"),
 }
 FAULT_CHECKS = {
     "K3": lambda: ce_parity(CE_SHAPES[1][1], 7),
     "K3 chunks": lambda: ce_chunked_parity(CE_LLAMA, 11),
     "K5": lambda: flash_parity(FLASH_SMALL, 21),
+    "K1": lambda: parity(K1_NO_KEY, 5),
     "K4": lambda: (block_parity(BLOCK_TIES, 31, ("full", "diag", *ZZ_SMALL)),
                    block_parity(BLOCK_SMALL, 32, ("full", *ZZ_SMALL))),
 }
@@ -524,37 +577,63 @@ def make_inputs(shape: dict, seed: int):
         if shape["pad"] == "middle+tail":  # K5's segment ids: pad rows are compared too
             pad[0, L - L // 5:] = 0
             pad[-1, L // 3:L // 3 + 40] = 0
+        elif shape["pad"] in ("left", "left+run"):
+            # K1: left padding, so rows 0 .. L/8 - 1 of batch 0 see no key
+            # (normalised over all L keys, as JAX's whole-row softmax does)
+            pad[0, :L // 8] = 0
+            if shape["pad"] == "left+run":  # and a run of pads twice the window
+                pad[-1, L // 3:L // 3 + 2 * shape["window"]] = 0
     return q, k, v, dout, pad
 
 
+def check_rerun(name: str, first, again) -> None:
+    """A backward kernel run twice on the same inputs gives the same bits
+    (no atomics: every element is summed by one thread in a fixed order)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: a second run differs in {int((a != b).sum())} elements")
+    log(f"  {name}: a second run gives the same bits")
+
+
 def parity(shape: dict, seed: int) -> dict:
-    """Every kernel against its plain version; returns max errors."""
+    """Every kernel against its plain version, and each backward kernel
+    against a second run of itself; returns max errors."""
     import torch
 
     from acco_tpu_torch.ops import fused_attention as fa
 
     q, k, v, dout, pad = make_inputs(shape, seed)
     window, scale = shape["window"], shape.get("scale", shape["D"] ** -0.5)
+    f32 = q.dtype == torch.float32
+
+    def tol(name):
+        return F32_TOL if f32 else TOL[name]
+
     errs = {}
     o, lse = fa.attn_fwd(q, k, v, pad, window, scale)
     o_ref, lse_ref = fa.attention_reference(q, k, v, pad, window, scale)
     torch.cuda.synchronize()
-    errs["attn_fwd"] = max(check("o", o, o_ref), check("lse", lse, lse_ref))
+    errs["attn_fwd"] = max(check("o", o, o_ref, tol("o")), check("lse", lse, lse_ref, tol("lse")))
     # The backward kernels get the same inputs as their plain versions: the
     # kernel forward's O and LSE, the kernel delta.
     delta = fa.attn_bwd_delta(o, dout)
     torch.cuda.synchronize()
-    errs["attn_bwd_delta"] = check("delta", delta, fa.delta_reference(o, dout))
-    dk, dv = fa.attn_bwd_dkdv(q, k, v, pad, dout, lse, delta, window, scale)
-    dk_ref, dv_ref = fa.attn_bwd_dkdv_reference(
-        q, k, v, pad, dout, lse, delta, window, scale
-    )
+    errs["attn_bwd_delta"] = check("delta", delta, fa.delta_reference(o, dout), tol("delta"))
+    args = (q, k, v, pad, dout, lse, delta, window, scale)
+    dk, dv = fa.attn_bwd_dkdv(*args)
+    dk_ref, dv_ref = fa.attn_bwd_dkdv_reference(*args)
     torch.cuda.synchronize()
-    errs["attn_bwd_dkdv"] = max(check("dk", dk, dk_ref), check("dv", dv, dv_ref))
-    dq = fa.attn_bwd_dq(q, k, v, pad, dout, lse, delta, window, scale)
-    dq_ref = fa.attn_bwd_dq_reference(q, k, v, pad, dout, lse, delta, window, scale)
+    errs["attn_bwd_dkdv"] = max(check("dk", dk, dk_ref, tol("dk")),
+                                check("dv", dv, dv_ref, tol("dv")))
+    dq = fa.attn_bwd_dq(*args)
+    dq_ref = fa.attn_bwd_dq_reference(*args)
     torch.cuda.synchronize()
-    errs["attn_bwd_dq"] = check("dq", dq, dq_ref)
+    errs["attn_bwd_dq"] = check("dq", dq, dq_ref, tol("dq"))
+    check_rerun("attn_bwd_dkdv", (dk, dv), fa.attn_bwd_dkdv(*args))
+    check_rerun("attn_bwd_dq", (dq,), (fa.attn_bwd_dq(*args),))
     return errs
 
 
@@ -711,13 +790,15 @@ def timing(shape: dict) -> tuple[dict, dict]:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None}
     # Library yardstick, timed here and never called by the port:
-    # F.scaled_dot_product_attention(is_causal=True) forward, and its
-    # backward (one autograd call, device time: its host cost is larger
-    # than its kernels') for the three backward kernels together.
+    # F.scaled_dot_product_attention(is_causal=True) forward (K/V repeated
+    # to q's heads beforehand under GQA), and its backward (one autograd
+    # call, device time: its host cost is larger than its kernels') for the
+    # three backward kernels together.
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
     out["attn_fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
     )
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, kr, vr))
     y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     sdpa_bwd_ms = device_ms(
         lambda: torch.autograd.grad(y, (qg, kg, vg), dout, retain_graph=True)
@@ -885,7 +966,10 @@ def flash_parity(shape: dict, seed: int) -> dict:
     dq_ref = flash_plain("flash_bwd_dq", q, k, v, seg, *bwd, scale=scale)
     torch.cuda.synchronize()
     errs["flash_bwd_dq"] = check("dq", dq, dq_ref, tol("dq"))
-    del q, k, v, dout, o, dk, dv, dq, dk_ref, dv_ref, dq_ref
+    del dk_ref, dv_ref, dq_ref
+    check_rerun("flash_bwd_dkdv", (dk, dv), fl.flash_bwd_dkdv(q, k, v, seg, *bwd, scale))
+    check_rerun("flash_bwd_dq", (dq,), (fl.flash_bwd_dq(q, k, v, seg, *bwd, scale),))
+    del q, k, v, dout, o, dk, dv, dq
     torch.cuda.empty_cache()
     return errs
 
@@ -1865,9 +1949,8 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> No
     log(f"  {model}: device busy {per_mb:.2f} ms per microbatch (init + seed + "
         f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
         f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
-    for family, tag in (("K1", r"\battn_"), ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)"),
-                        ("K5", r"\bflash_"), ("K4", r"\bblk_")):
-        rows = [e for e in kernels if re.search(tag, e.key)]
+    for family in ("K1", "K2", "K3", "K5", "K4"):
+        rows = [e for e in kernels if kernel_family(e.key) == family]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
             f"({', '.join(sorted({kernel_label(e.key) for e in rows}))})")
@@ -1876,11 +1959,25 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> No
             f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
 
 
+# A profiled kernel's family, by its name: K5 before K1, since the
+# attention mainloop's instances (hopper_attention.cuh) are attn_*_kernel
+# for both and differ in their mask policy.
+KERNEL_FAMILIES = (("K5", r"\bflash_|SegmentMask"), ("K1", r"\battn_|WindowPadMask"),
+                   ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)"), ("K4", r"\bblk_"))
+
+
+def kernel_family(key: str):
+    return next((family for family, tag in KERNEL_FAMILIES if re.search(tag, key)), None)
+
+
 def kernel_label(key: str) -> str:
     """A kernel's short name in a profile: the epilogue of a Hopper GEMM
-    (``hopper_gemm_kernel<..., ce_fwd_epilogue>``), else its own name."""
+    (``hopper_gemm_kernel<..., ce_fwd_epilogue>``), else its own name, with
+    the mask policy of an attention mainloop instance."""
     m = re.search(r"\w+_epilogue", key) or re.search(r"\w+_kernel", key) or re.search(r"\w+", key)
-    return m.group(0) if m else key
+    label = m.group(0) if m else key
+    policy = re.search(r"SegmentMask|WindowPadMask", key)
+    return f"{label}<{policy.group(0)}>" if policy else label
 
 
 def build_all() -> None:
@@ -1957,9 +2054,13 @@ def main() -> int:
 
     log("== 3 parity (bf16 unless named, kernel vs plain on the same inputs)")
     errs = {}
-    k1_shapes = (("flagship", FLAGSHIP, 0), ("small gqa+window+pad", SMALL, 1),
-                 ("gpt-neo global, scale 1.0", NEO_GLOBAL, 2))
-    for label, shape, seed in k1_shapes:
+    from acco_tpu_torch.ops.attention import resolve_attention_impl
+
+    impl = resolve_attention_impl("auto", K1_LLAMA3["L"], K1_LLAMA3["D"], "cuda")
+    log(f" 'auto' at Llama-3-8B's head_dim 128, L {K1_LLAMA3['L']}, on the card: {impl!r}")
+    if impl != "fused":  # JAX's resolver picks its fused kernel there on the TPU
+        raise AssertionError(f"'auto' resolved to {impl!r} at head_dim 128, L 1024, not 'fused'")
+    for seed, (label, shape) in enumerate(K1_SHAPES):
         log(f" K1 {label}: {shape}")
         for kname, e in parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
@@ -1992,6 +2093,10 @@ def main() -> int:
     log("== 4 timing (CUDA events)")
     log(f" K1 at the Llama flagship shape {FLAGSHIP}")
     times, backward = timing(FLAGSHIP)
+    log(f" K1 at Llama-3-8B's width {K1_LLAMA3} (head_dim 128)")
+    k1_d128, k1_d128_bwd = timing(K1_LLAMA3)
+    for kname, r in k1_d128.items():
+        times[kname]["llama3_width"] = r
     log(f" K2 at the GPT-Neo local shape {NEO_LOCAL}, scale 1.0")
     banded_times, banded_backward = banded_timing(NEO_LOCAL)
     times.update(banded_times)
@@ -2117,7 +2222,8 @@ def main() -> int:
             }
             for kname in times
         ]
-        log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}")
+        log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}; at Llama-3-8B's "
+            f"width: {json.dumps(k1_d128_bwd)}")
         log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
         log(f"K3 backward total (dp + dH + dW) and the whole loss, Llama-125M head: "
             f"{json.dumps(ce_backward)}; long-context head: {json.dumps(long_backward)}")

@@ -146,7 +146,7 @@ def test_explicit_backward_matches_autograd():
         ("auto", 8192, 128, "cuda", "flash"),
         ("auto", 2112, 64, "cuda", "fused"),  # past 2048, not a multiple of 512
         ("auto", 1024, 64, "cuda", "fused"),
-        ("auto", 1024, 128, "cuda", "xla"),
+        ("auto", 1024, 128, "cuda", "fused"),  # K1 takes head_dim 128
         ("auto", 8192, 128, "cpu", "xla"),
         ("auto", 2048, 64, "cpu", "xla"),
         ("flash", 128, 64, "cpu", "flash"),

@@ -1,10 +1,13 @@
 """The port's fused attention (plain version on the CPU) against the JAX
-Pallas kernel run in interpret mode, forward and gradients.
+Pallas kernel run in interpret mode, forward and gradients, at head_dim
+64 and 128.
 
 Inputs come from a numpy seed and go through both frameworks as float32.
 Tolerances are the JAX suite's own for this kernel against its einsum
 reference (tests/test_fused_attention.py): 2e-5 on the output and 5e-5
-on gradients, for float32 sums taken in another order.
+on gradients, for float32 sums taken in another order. Rows with no
+allowed key (left padding) are compared too: both normalise them over
+all L keys.
 
 The Hopper kernel itself cannot run here (no card, no nvcc); it is held
 against the same plain version on the card by chip_smoke.py. What this
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from acco_tpu.ops.attention import resolve_attention_impl as jax_resolve
 from acco_tpu.ops.fused_attention import fused_dot_product_attention as jax_fused
 from acco_tpu_torch.ops import attention as port_attention
 from acco_tpu_torch.ops import fused_attention as port
@@ -27,7 +31,7 @@ FWD_TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-5)
 
 
-def _inputs(seed, hkv=H, pad=False):
+def _inputs(seed, hkv=H, pad=False, D=D):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, H, L, D)).astype(np.float32)
     k = rng.standard_normal((B, hkv, L, D)).astype(np.float32)
@@ -47,22 +51,19 @@ CASES = {
     "pad_mask": dict(window=0, scale=None, hkv=H, pad=True),
     "gqa": dict(window=0, scale=None, hkv=2, pad=False),
     "scale1": dict(window=0, scale=1.0, hkv=H, pad=False),
+    # head_dim 128 (Llama-3-8B's), which the Hopper kernel takes too
+    "d128_causal": dict(window=0, scale=None, hkv=H, pad=False, D=128),
+    "d128_gqa_pad": dict(window=0, scale=None, hkv=2, pad=True, D=128),
+    "d128_window32": dict(window=32, scale=None, hkv=H, pad=False, D=128),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_matches_jax_kernel(case):
     c = CASES[case]
-    q, k, v, cot, pad = _inputs(sorted(CASES).index(case), hkv=c["hkv"], pad=c["pad"])
-    if pad is not None:
-        # Rows with no allowed key (left padding) are pad queries that never
-        # reach the loss; the tiled Hopper kernel averages such a row over
-        # fewer keys than the JAX kernel does, so no caller may depend on
-        # them. The forward is still compared on every row here (the plain
-        # version normalises them as JAX does); the cotangent is zeroed on
-        # them, as the CE's ignore mask does, so the gradients compared are
-        # the ones training uses.
-        cot = cot * (pad.cumsum(-1) > 0)[:, None, :, None]
+    q, k, v, cot, pad = _inputs(
+        sorted(CASES).index(case), hkv=c["hkv"], pad=c["pad"], D=c.get("D", D)
+    )
 
     def jax_fn(q, k, v):
         return jax_fused(
@@ -105,7 +106,8 @@ def test_explicit_backward_matches_autograd():
         np.testing.assert_allclose(got.numpy(), t.grad.numpy(), **GRAD_TOL)
 
 
-def test_off_cpu_tensor_launches_kernel_or_raises(monkeypatch):
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_off_cpu_tensor_launches_kernel_or_raises(monkeypatch, head_dim):
     """A tensor that is not on the CPU goes to the kernel: with no kernel
     build the call raises, and the plain version is never called."""
 
@@ -117,28 +119,39 @@ def test_off_cpu_tensor_launches_kernel_or_raises(monkeypatch):
 
     monkeypatch.setattr(port, "_library", no_build)
     monkeypatch.setattr(port, "attention_reference", plain_called)
-    q = torch.empty(B, H, L, D, device="meta")
+    q = torch.empty(B, H, L, head_dim, device="meta")
     with pytest.raises(RuntimeError, match="no kernel build"):
         port.fused_dot_product_attention(q, q, q)
 
 
-def test_wrapper_refuses_cpu_tensors(monkeypatch):
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_wrapper_refuses_cpu_tensors(monkeypatch, head_dim):
     """The kernel wrappers take CUDA tensors only, checked before launch."""
     monkeypatch.setattr(port, "_library", lambda: None)
-    q = torch.zeros(B, H, L, D, dtype=torch.bfloat16)
+    q = torch.zeros(B, H, L, head_dim, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="needs CUDA"):
-        port.attn_fwd(q, q, q, None, 0, D**-0.5)
+        port.attn_fwd(q, q, q, None, 0, head_dim**-0.5)
 
 
 def test_envelope_and_impl_resolution():
     assert port.supports_fused_attention(1024, 64)
+    assert port.supports_fused_attention(1024, 128)  # Llama-3-8B's head_dim
     assert port.supports_fused_attention(4096, 64)  # no L cap: nothing [L, L] resident
     assert not port.supports_fused_attention(1000, 64)
-    assert not port.supports_fused_attention(1024, 128)
+    assert not port.supports_fused_attention(1024, 96)
     resolve = port_attention.resolve_attention_impl
     assert resolve("auto", 1024, 64, "cuda") == "fused"
-    assert resolve("auto", 1024, 128, "cuda") == "xla"
+    assert resolve("auto", 1024, 128, "cuda") == "fused"
     assert resolve("auto", 1024, 64, "cpu") == "xla"
     assert resolve("fused", 128, 64, "cpu") == "fused"
     # 'flash' is K5 now (tests/test_torch_flash_attention.py), no longer refused
     assert resolve("flash", 1024, 64, "cuda") == "flash"
+
+
+@pytest.mark.parametrize("seq_len, head_dim", [(128, 64), (512, 128), (1024, 64), (1024, 128)])
+def test_auto_resolves_as_jax_does_up_to_l1024(seq_len, head_dim):
+    """'auto' on the card picks what the JAX resolver picks on the TPU at L
+    <= 1024: the fused kernel, at head_dim 64 and 128."""
+    want = jax_resolve("auto", seq_len, platform="tpu", head_dim=head_dim)
+    assert want == "fused"
+    assert port_attention.resolve_attention_impl("auto", seq_len, head_dim, "cuda") == want
