@@ -1,16 +1,15 @@
-// Device code shared by the attention kernels of this package:
+// Device code shared by the float32 attention kernels of this package:
 // fused_attention.cu (K1, causal + runtime window + key pad, GQA) and
-// banded_attention.cu (K2, static sliding window, MHA, no pad).
+// banded_attention.cu (K2, static sliding window, MHA, no pad), and the
+// float32 tiles of tiles.cuh (K5, K4).
 //
-// * helpers: masks, float32 dot products over half rows, and the bf16
-//   tensor-core pieces (ldmatrix, mma.sync m16n8k16, fragment moves,
-//   cp.async tile copies);
+// * helpers: masks, float32 dot products over half rows;
 // * the float32 backward kernels (dK/dV and dQ on the CUDA cores) with
 //   their launchers, which both libraries launch: the JAX package's banded
 //   backward (`_dq_kernel`, `_dkv_kernel`) has the arithmetic of its full
 //   backward restricted to the key band (P from the saved LSE, dS =
 //   P * (dP - delta), dQ and dK scaled after the sum), and these kernels
-//   walk only the band. Each library has its own bf16 backward kernels.
+//   walk only the band. The bf16 kernels are hopper_attention.cuh's.
 //
 // Each .cu file that includes this header is built into its own shared
 // library, so everything here has internal linkage.
@@ -24,12 +23,13 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kMasked = -1e9f;  // the JAX kernels' mask value
 constexpr int kBQ = 64;           // query rows per float32 block (two threads each)
 constexpr int kBK = 32;           // keys per float32 shared-memory tile (fwd, dQ)
 constexpr int kBKV = 64;          // keys per float32 dK/dV block (two threads each)
 constexpr int kBQT = 16;          // query rows per shared tile in float32 dK/dV
-constexpr int kHeadDim = 64;      // the one head dim the kernels are built for
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -252,171 +252,28 @@ __global__ void __launch_bounds__(2 * kBQ)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync)
-// ---------------------------------------------------------------------------
-// One warp owns 16 rows (query rows in the forward and dQ, key rows in
-// dK/dV) and computes its products with mma.sync.m16n8k16 (bf16 in, f32
-// accumulate). Operands reach registers through ldmatrix from shared
-// tiles whose rows are padded by 8 elements, so the 8 row addresses of
-// each 8x8 matrix fall in distinct banks. Accumulator layout (PTX ISA,
-// m16n8 f32 C fragment): lane = 4 * g + t holds rows g and g + 8, columns
-// 2t and 2t + 1 of each 8-column tile; the four lanes of a quad share a
-// row, so row reductions are two shuffles.
-constexpr int kTile = 64;             // rows per block, keys / queries per tile
-constexpr int kRow = kHeadDim + 8;    // padded shared row, in bf16 elements
-constexpr int kWarps = kTile / 16;
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a [kTile, 64] bf16 tile (rows contiguous in global memory) into a
-// padded shared tile, 16 bytes per thread per step.
-__device__ __forceinline__ void copy_tile(bf16 (*dst)[kRow], const bf16* src, int nthreads) {
-  for (int e = threadIdx.x; e < kTile * kHeadDim / 8; e += nthreads) {
-    const int r = e / (kHeadDim / 8), c = (e % (kHeadDim / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c]) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * kHeadDim + c);
-  }
-}
-
-// The same copy through cp.async (16 bytes a thread a step, bypassing the
-// registers): it returns at once, and cp_async_wait<0>() then
-// __syncthreads() make the tile visible, so the next tile's load overlaps
-// this tile's products. Each group of copies is closed by cp_async_commit().
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void copy_tile_async(bf16 (*dst)[kRow], const bf16* src,
-                                                int nthreads) {
-  for (int e = threadIdx.x; e < kTile * kHeadDim / 8; e += nthreads) {
-    const int r = e / (kHeadDim / 8), c = (e % (kHeadDim / 8)) * 8;
-    cp_async16(&dst[r][c], src + (size_t)r * kHeadDim + c);
-  }
-}
-
-// A fragments (16 rows x 64 columns, four k-steps of 16) of a row-major
-// shared tile, rows [row0, row0 + 16).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], bf16 (*s)[kRow], int row0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(a[ks], &s[row0 + lane % 16][ks * 16 + (lane / 16) * 8]);
-}
-
-// acc[j] += A . B for the 8 column tiles j of a [16, 64] product whose B
-// operand is B(k, n) = s[n][k]: the shared tile's rows are the product's
-// columns (Q K^T with s = K).
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         bf16 (*s)[kRow]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &s[np * 16 + (lane % 8) + (lane / 16) * 8][ks * 16 + ((lane / 8) % 2) * 8]);
-      mma_16816(acc[2 * np], a[ks], b[0], b[1]);
-      mma_16816(acc[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc[j] += A . B for a [16, 64] product whose B operand is B(k, n) =
-// s[k][n]: the shared tile's rows are the contraction (P V with s = V).
-// ``a`` holds the A fragments of the four k-steps (k = the tile's rows).
-__device__ __forceinline__ void mma_cols(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                         bf16 (*s)[kRow]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &s[kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8][dp * 16 + (lane / 16) * 8]);
-      mma_16816(acc[2 * dp], a[kk], b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// The A fragments of a [16, 64] accumulator rounded to bf16, for use as
-// the left operand of the next product (k = the accumulator's columns).
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-    a[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-    a[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// ---------------------------------------------------------------------------
 // float32 backward launchers, for both libraries (K2 passes no pad mask and
 // n_rep 1): float32 runs only with mixed precision off, never in a bf16
 // training cell, and the band's float32 arithmetic is the full kernels'
 // restricted to the band, which these kernels already walk.
 // ---------------------------------------------------------------------------
+template <int D>
 void launch_bwd_dkdv_f32(const void* q, const void* k, const void* v, const void* pad,
                          const void* dout, const void* lse, const void* delta, void* dk,
                          void* dv, int B, int H, int Hkv, int L, int window, float scale,
                          cudaStream_t s) {
-  attn_bwd_dkdv_f32_kernel<kHeadDim><<<dim3(L / kBKV, B * Hkv), 2 * kBKV, 0, s>>>(
+  attn_bwd_dkdv_f32_kernel<D><<<dim3(L / kBKV, B * Hkv), 2 * kBKV, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(pad), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), H, H / Hkv, L, window, scale);
 }
 
+template <int D>
 void launch_bwd_dq_f32(const void* q, const void* k, const void* v, const void* pad,
                        const void* dout, const void* lse, const void* delta, void* dq, int B,
                        int H, int Hkv, int L, int window, float scale, cudaStream_t s) {
-  attn_bwd_dq_f32_kernel<kHeadDim><<<dim3(L / kBQ, B * H), 2 * kBQ, 0, s>>>(
+  attn_bwd_dq_f32_kernel<D><<<dim3(L / kBQ, B * H), 2 * kBQ, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(pad), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),

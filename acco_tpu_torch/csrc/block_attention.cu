@@ -13,8 +13,7 @@
 // self hop, Lq == Lk), 2 positional (kv_pos[j] <= q_pos[i] and, when window
 // != 0, kv_pos[j] > q_pos[i] - window). A positional row may be fully masked:
 // it then has m = -1e9, p = 1 on every key, l = Lk and o = sum of V, as in
-// JAX, so the positional mask is evaluated per element and no tile is
-// skipped; the diag mask skips the tiles above the diagonal, whose p is 0.
+// JAX.
 //
 // The backward takes the cotangents (dO, dm, dl) of all three outputs:
 //   dp = dO V^T + dl,  eq = (s == m),  c = (dm - sum_j p dp) / max(#eq, 1),
@@ -25,34 +24,46 @@
 // the cotangent on m split evenly over tied maxima. #eq (`cnt`) is counted
 // by the forward against its running max (the count restarts when the max
 // rises); sum_j p dp comes from a pre-pass as rowsum(dO * o) + dl * l (o =
-// sum_j p V). The backward kernels recompute s with the forward's products
-// (the same tiles, the same k order, scale applied after), so `s == m` finds
-// the forward's maxima bit for bit.
+// sum_j p V).
 //
 // What bounds it on the H100 (data sheet: 989 TFLOP/s bf16, 3.35 TB/s): the
 // ring's block at Llama-3-8B's shape on the card path (B 1, H 32, Hkv 8,
 // Lq = Lk 4096, D 128) is 5.4e8 pairs (full) or 2.7e8 (diag); the forward's
 // 4 D operations a pair take 0.28 ms (full) against 0.04 ms of bytes:
-// compute-bound, like K5. The design is K5's: blocks walk KV (or Q) tiles
-// with the running max, sum, count and output (or gradient) rows in
-// registers, through mma.sync from ldmatrix (tiles.cuh), and load the
-// next tile with cp.async under the current one's products. Nothing [Lq, Lk]
-// reaches device memory.
+// compute-bound, like K5. GPT-Neo's positional block (B 8, H 12, L 1024, D
+// 64, a zig-zag hop at window 256) attends few pairs and is bound by its
+// bytes.
 //
 // Two implementations, chosen by dtype:
-// * bfloat16: tensor cores (tiles.cuh), four warps of 16 rows. P is
-//   rounded to bf16 against the running max before P V (as K5); dV is
-//   bf16(P)^T bf16(dO) with float32 accumulation (JAX: float32 p and dO).
+// * bfloat16: the wgmma + TMA attention mainloop of hopper_attention.cuh,
+//   one instance a mask (BlockMask below; forward: 128 query rows a block,
+//   128-key tiles; dQ: 128 query rows, 64-key tiles; dK/dV: 128 keys, the
+//   64-query steps of the n_rep q heads, no atomics). The mainloop's kStats
+//   path keeps the forward's scores as the raw accumulator, so that the
+//   emitted m = scale * max is bit for bit the backward's s at the maximum
+//   (the backward's products run in the same k order), writes o float32
+//   and unnormalised from registers, and m, l and the tie count. The diag
+//   mask walks K5's causal band (no tile above the diagonal, in dK/dV
+//   too); the positional mask walks only the tiles whose spans of positions
+//   can meet, masks only the tiles whose spans it does not cover (a span:
+//   a 64-position tile's min and max, which the wrapper appends to the
+//   positions), and gives a row with no allowed key the sum of V over all
+//   Lk keys after its walk; dK/dV walks the q steps that hold one as well,
+//   as P^T dO alone where no pair of the step is allowed (their p = 1
+//   gives dV, their dS is 0). P is rounded to bf16 against the running
+//   max before P V (as K5); dV is bf16(P)^T bf16(dO) with float32
+//   accumulation (JAX: float32 p and dO).
 // * float32: FMAs on the CUDA cores, D / 32 threads per row, as K5's.
 //
 // Four launchers, each with a plain C interface returning cudaGetLastError();
-// dtype code 0 = float32, 1 = bfloat16:
-//   acco_blk_fwd       one block per (64-row q tile, b*h)
+// dtype code 0 = float32, 1 = bfloat16; Lq and Lk multiples of 64:
+//   acco_blk_fwd       one block per (128-row q tile, b*h)
 //   acco_blk_bwd_rowc  one warp per (b, h, row): c
-//   acco_blk_bwd_dkdv  one block per (64-key tile, b*hkv), looping over the
-//                      n_rep q heads and the q tiles (at or after it: diag)
-//   acco_blk_bwd_dq    one block per (64-row q tile, b*h)
+//   acco_blk_bwd_dkdv  one block per (128-key tile, b*hkv), looping over the
+//                      n_rep q heads and the q steps (at or after it: diag)
+//   acco_blk_bwd_dq    one block per (128-row q tile, b*h)
 
+#include "hopper_attention.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -69,360 +80,68 @@ __device__ __forceinline__ bool blk_allowed(int mode, int i, int j, int qp, int 
   return kp <= qp && (window == 0 || kp > qp - window);
 }
 
+// The mask policy of hopper_attention.cuh for K4, one a mode: none (a past
+// chunk), diag (the self hop) or positional (windowed or not).
+template <int kMode>
+struct BlockMask {
+  static constexpr bool kScaleInDs = false;         // dQ, dK scaled after the sum
+  static constexpr bool kFlagRows = kMode == kPos;  // a positional row may see no key
+  static constexpr bool kStats = true;
+  static constexpr bool kExactP = false;
+  static constexpr bool kBounds = kMode == kPos;
+  struct Params {
+    const int* qpos;
+    const int* kpos;
+    int window;
+  };
+  const int *qpos, *kpos;
+  int window, Lq, Lk;
+
+  __device__ BlockMask(const Params& p, int, int Lq_, int Lk_)
+      : qpos(p.qpos), kpos(p.kpos), window(p.window), Lq(Lq_), Lk(Lk_) {}
+  __device__ bool has_key_mask() const { return kMode == kPos; }
+  __device__ int key_begin(int) const { return 0; }
+  __device__ int key_end(int q1) const { return kMode == kDiag ? min(Lk, q1) : Lk; }
+  __device__ int query_begin(int k0) const { return kMode == kDiag ? k0 : 0; }
+  __device__ int query_end(int) const { return Lq; }
+  __device__ bool partial(int i0, int i1, int j0, int j1) const {
+    if (i1 > Lq || j1 > Lk) return true;
+    if (kMode == kPos) return !covers(q_span(i0, i1), k_span(j0, j1));
+    return kMode == kDiag && j1 - 1 > i0;
+  }
+  __device__ int query_val(int i) const { return kMode == kPos && i < Lq ? qpos[i] : 0; }
+  __device__ int key_val(int j) const { return kMode == kPos && j < Lk ? kpos[j] : 0; }
+  __device__ bool allowed(int i, int qp, int j, int kp) const {
+    return blk_allowed(kMode, i, j, qp, kp, window);
+  }
+  // The positions' (min, max) over rows [i0, i1) of pos, n long (i0 < n),
+  // from the (min, max) of each 64-position tile that follow the n
+  // positions (ops/block_attention.py `positions_with_spans`).
+  __device__ int2 span(const int* pos, int n, int i0, int i1) const {
+    const int2* tiles = reinterpret_cast<const int2*>(pos + n);
+    int2 r = tiles[i0 / 64];
+    for (int x = i0 / 64 + 1; x < (min(i1, n) + 63) / 64; ++x) {
+      r.x = min(r.x, tiles[x].x);
+      r.y = max(r.y, tiles[x].y);
+    }
+    return r;
+  }
+  __device__ int2 q_span(int i0, int i1) const { return span(qpos, Lq, i0, i1); }
+  __device__ int2 k_span(int j0, int j1) const { return span(kpos, Lk, j0, j1); }
+  // queries with positions in qs, keys in ks: may some pair be allowed?
+  __device__ bool meets(int2 qs, int2 ks) const {
+    return ks.x <= qs.y && (window == 0 || ks.y > qs.x - window);
+  }
+  // ... is every pair allowed?
+  __device__ bool covers(int2 qs, int2 ks) const {
+    return ks.y <= qs.x && (window == 0 || ks.x > qs.y - window);
+  }
+};
+
 // dS of one (query, key) pair, before its rounding to the activation dtype.
 __device__ __forceinline__ float blk_ds(bool ok, float p, float dp_dot, float dl, bool eq,
                                         float c) {
   return ok ? p * (dp_dot + dl) + (eq ? c : 0.f) : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: forward
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    blk_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ qpos,
-                        const int* __restrict__ kpos, float* __restrict__ o,
-                        float* __restrict__ m_out, float* __restrict__ l_out,
-                        float* __restrict__ cnt_out, int H, int n_rep, int Lq, int Lk, int mode,
-                        int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld<D>();
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* kb = qs + kT * LD;       // two stages
-  bf16* vb = kb + 2 * kT * LD;   // two stages
-  int* kps = reinterpret_cast<int*>(vb + 2 * kT * LD);  // [2][kT]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const size_t kv_head = (size_t)b * (H / n_rep) + (bh % H) / n_rep;
-  const bool diag = mode == kDiag;
-  const bool pos = mode == kPos;
-  const int q0 = (diag ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kT;  // diag: longest first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row_lo = q0 + warp * 16 + g;  // this lane's rows: row_lo, row_lo + 8
-  const bf16* kh = k + kv_head * Lk * D;
-  const bf16* vh = v + kv_head * Lk * D;
-  int qp[2] = {0, 0};
-  if (pos) {
-    qp[0] = qpos[row_lo];
-    qp[1] = qpos[row_lo + 8];
-  }
-
-  const int n_tiles = diag ? q0 / kT + 1 : Lk / kT;
-  load_rows<D>(qs, q + ((size_t)bh * Lq + q0) * D, kT);
-  load_rows<D>(kb, kh, kT);
-  load_rows<D>(vb, vh, kT);
-  if (pos) load_ints(kps, kpos, kT);
-  cp_async_commit();
-
-  float oacc[D / 8][4];
-  zero(oacc);
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float cnt[2] = {0.f, 0.f};
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const int k0 = it * kT;
-    if (it + 1 < n_tiles) {  // the next tile's loads run under this tile's products
-      const int nxt = cur ^ 1;
-      load_rows<D>(kb + nxt * kT * LD, kh + (size_t)(k0 + kT) * D, kT);
-      load_rows<D>(vb + nxt * kT * LD, vh + (size_t)(k0 + kT) * D, kT);
-      if (pos) load_ints(kps + nxt * kT, kpos + k0 + kT, kT);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int* kp = kps + cur * kT;
-
-    float s[kT / 8][4];
-    zero(s);
-    mma_abt<D, kT>(s, qs + warp * 16 * LD, kb + cur * kT * LD);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int jj = j * 8 + 2 * t + (e % 2);
-        const bool ok = blk_allowed(mode, row_lo + h * 8, k0 + jj, qp[h], pos ? kp[jj] : 0,
-                                    window);
-        s[j][e] = ok ? s[j][e] * scale : kMasked;
-        mx[h] = fmaxf(mx[h], s[j][e]);
-      }
-    }
-    float corr[2], tie[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      corr[h] = expf(m[h] - m_new);  // 0 on the first tile (m = -inf)
-      if (m_new != m[h]) cnt[h] = 0.f;  // the running max rose: its ties are gone
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        tie[e / 2] += s[j][e] == m[e / 2] ? 1.f : 0.f;
-        s[j][e] = expf(s[j][e] - m[e / 2]);
-        l[e / 2] += s[j][e];  // this lane's share; the quad is summed at the end
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tie[h] += __shfl_xor_sync(0xffffffffu, tie[h], 1);
-      tie[h] += __shfl_xor_sync(0xffffffffu, tie[h], 2);
-      cnt[h] += tie[h];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[j][e] *= corr[e / 2];
-    }
-    uint32_t pa[kT / 16][4];
-    acc_to_a<kT>(pa, s);  // P rounded to bf16 before P V, as the JAX kernel
-    mma_ab<D, kT>(oacc, pa, vb + cur * kT * LD);
-    __syncthreads();  // this stage is reloaded by the next iteration but one
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const size_t row = (size_t)bh * Lq + row_lo + h * 8;
-    float* orow = o + row * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(orow + j * 8 + 2 * t) =
-          make_float2(oacc[j][2 * h], oacc[j][2 * h + 1]);
-    }
-    if (t == 0) {
-      m_out[row] = m[h];
-      l_out[row] = l[h];
-      cnt_out[row] = cnt[h];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: dQ
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    blk_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const int* __restrict__ qpos,
-                           const int* __restrict__ kpos, const bf16* __restrict__ dout,
-                           const float* __restrict__ m, const float* __restrict__ dl,
-                           const float* __restrict__ c, bf16* __restrict__ dq, int H, int n_rep,
-                           int Lq, int Lk, int mode, int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld<D>();
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kT * LD;
-  bf16* kb = dos + kT * LD;      // two stages
-  bf16* vb = kb + 2 * kT * LD;   // two stages
-  int* kps = reinterpret_cast<int*>(vb + 2 * kT * LD);  // [2][kT]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const size_t kv_head = (size_t)b * (H / n_rep) + (bh % H) / n_rep;
-  const bool diag = mode == kDiag;
-  const bool pos = mode == kPos;
-  const int q0 = (diag ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row_lo = q0 + warp * 16 + g;
-  const bf16* kh = k + kv_head * Lk * D;
-  const bf16* vh = v + kv_head * Lk * D;
-  int qp[2] = {0, 0};
-  float m_r[2], dl_r[2], c_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * Lq + row_lo + h * 8;
-    m_r[h] = m[row];
-    dl_r[h] = dl[row];
-    c_r[h] = c[row];
-    if (pos) qp[h] = qpos[row_lo + h * 8];
-  }
-
-  const int n_tiles = diag ? q0 / kT + 1 : Lk / kT;
-  load_rows<D>(qs, q + ((size_t)bh * Lq + q0) * D, kT);
-  load_rows<D>(dos, dout + ((size_t)bh * Lq + q0) * D, kT);
-  load_rows<D>(kb, kh, kT);
-  load_rows<D>(vb, vh, kT);
-  if (pos) load_ints(kps, kpos, kT);
-  cp_async_commit();
-
-  float dqacc[D / 8][4];
-  zero(dqacc);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    const int k0 = it * kT;
-    if (it + 1 < n_tiles) {
-      const int nxt = cur ^ 1;
-      load_rows<D>(kb + nxt * kT * LD, kh + (size_t)(k0 + kT) * D, kT);
-      load_rows<D>(vb + nxt * kT * LD, vh + (size_t)(k0 + kT) * D, kT);
-      if (pos) load_ints(kps + nxt * kT, kpos + k0 + kT, kT);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ks = kb + cur * kT * LD;
-    const int* kp = kps + cur * kT;
-
-    float s[kT / 8][4], dp[kT / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<D, kT>(s, qs + warp * 16 * LD, ks);
-    mma_abt<D, kT>(dp, dos + warp * 16 * LD, vb + cur * kT * LD);
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int jj = j * 8 + 2 * t + (e % 2);
-        const bool ok = blk_allowed(mode, row_lo + h * 8, k0 + jj, qp[h], pos ? kp[jj] : 0,
-                                    window);
-        const float sv = ok ? s[j][e] * scale : kMasked;
-        const float p = expf(sv - m_r[h]);
-        s[j][e] = blk_ds(ok, p, dp[j][e], dl_r[h], sv == m_r[h], c_r[h]);  // rounded by acc_to_a
-      }
-    }
-    uint32_t dsa[kT / 16][4];
-    acc_to_a<kT>(dsa, s);
-    mma_ab<D, kT>(dqacc, dsa, ks);
-    __syncthreads();
-  }
-  const float mul[2] = {scale, scale};  // scale after the product, as the JAX kernel
-  store_rows<D>(dq + ((size_t)bh * Lq + q0 + warp * 16) * D, dqacc, mul);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: dK, dV (summed over the n_rep q heads of each KV head)
-// ---------------------------------------------------------------------------
-// Each warp owns 16 keys; S^T = K Q^T and dP^T = V dO^T come out with keys
-// as rows, so P^T and dS^T feed the next products as A fragments straight
-// from the registers. Each element of S^T is the same sum of the same
-// bf16 products, in the same k order, as the forward's S.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    blk_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const int* __restrict__ qpos,
-                             const int* __restrict__ kpos, const bf16* __restrict__ dout,
-                             const float* __restrict__ m, const float* __restrict__ dl,
-                             const float* __restrict__ c, bf16* __restrict__ dk,
-                             bf16* __restrict__ dv, int H, int n_rep, int Lq, int Lk, int mode,
-                             int window, float scale) {
-  constexpr int QS = D == 128 ? 32 : 64;  // queries a step (registers, as K5)
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = ld<D>();
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kT * LD;
-  bf16* qb = vs + kT * LD;        // two stages of QS rows
-  bf16* db = qb + 2 * QS * LD;    // two stages of QS rows of dO
-  float* m_s = reinterpret_cast<float*>(db + 2 * QS * LD);  // [2][QS]
-  float* dl_s = m_s + 2 * QS;                               // [2][QS]
-  float* c_s = dl_s + 2 * QS;                               // [2][QS]
-  int* qp_s = reinterpret_cast<int*>(c_s + 2 * QS);         // [2][QS]
-
-  const int Hkv = H / n_rep;
-  const int bkv = blockIdx.y;
-  const int b = bkv / Hkv;
-  const int hk = bkv % Hkv;
-  const int k0 = blockIdx.x * kT;
-  const bool diag = mode == kDiag;
-  const bool pos = mode == kPos;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key_lo = k0 + warp * 16 + g;  // this lane's keys: key_lo, key_lo + 8
-  int kp[2] = {0, 0};
-  if (pos) {
-    kp[0] = kpos[key_lo];
-    kp[1] = kpos[key_lo + 8];
-  }
-
-  const int q_begin = diag ? k0 : 0;  // diag: no query before the key tile sees it
-  const int n_q = (Lq - q_begin) / QS;
-  const int n_steps = n_rep * n_q;
-  auto stage = [&](int step, int buf) {
-    const int r = step / n_q;
-    const int qq = q_begin + (step % n_q) * QS;
-    const size_t bh = (size_t)b * H + (size_t)hk * n_rep + r;
-    load_rows<D>(qb + buf * QS * LD, q + (bh * Lq + qq) * D, QS);
-    load_rows<D>(db + buf * QS * LD, dout + (bh * Lq + qq) * D, QS);
-    load_ints(reinterpret_cast<int*>(m_s + buf * QS), reinterpret_cast<const int*>(m + bh * Lq + qq),
-              QS);
-    load_ints(reinterpret_cast<int*>(dl_s + buf * QS),
-              reinterpret_cast<const int*>(dl + bh * Lq + qq), QS);
-    load_ints(reinterpret_cast<int*>(c_s + buf * QS), reinterpret_cast<const int*>(c + bh * Lq + qq),
-              QS);
-    if (pos) load_ints(qp_s + buf * QS, qpos + qq, QS);
-  };
-  load_rows<D>(ks, k + ((size_t)bkv * Lk + k0) * D, kT);
-  load_rows<D>(vs, v + ((size_t)bkv * Lk + k0) * D, kT);
-  stage(0, 0);
-  cp_async_commit();
-
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-  zero(dkacc);
-  zero(dvacc);
-  for (int step = 0; step < n_steps; ++step) {
-    const int cur = step & 1;
-    const int qq = q_begin + (step % n_q) * QS;
-    if (step + 1 < n_steps) stage(step + 1, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* qt = qb + cur * QS * LD;
-    const bf16* dt = db + cur * QS * LD;
-    const float* ms = m_s + cur * QS;
-    const float* dls = dl_s + cur * QS;
-    const float* cs = c_s + cur * QS;
-    const int* qps = qp_s + cur * QS;
-
-    float st[QS / 8][4], dpt[QS / 8][4];
-    zero(st);
-    zero(dpt);
-    mma_abt<D, QS>(st, ks + warp * 16 * LD, qt);
-    mma_abt<D, QS>(dpt, vs + warp * 16 * LD, dt);
-#pragma unroll
-    for (int j = 0; j < QS / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const int ii = j * 8 + 2 * t + (e % 2);
-        const bool ok = blk_allowed(mode, qq + ii, key_lo + h * 8, pos ? qps[ii] : 0, kp[h],
-                                    window);
-        const float sv = ok ? st[j][e] * scale : kMasked;
-        const float p = expf(sv - ms[ii]);
-        st[j][e] = p;  // P^T, rounded by acc_to_a
-        dpt[j][e] = blk_ds(ok, p, dpt[j][e], dls[ii], sv == ms[ii], cs[ii]);  // dS^T
-      }
-    }
-    uint32_t a[QS / 16][4];
-    acc_to_a<QS>(a, st);
-    mma_ab<D, QS>(dvacc, a, dt);
-    acc_to_a<QS>(a, dpt);
-    mma_ab<D, QS>(dkacc, a, qt);
-    __syncthreads();
-  }
-  const float one[2] = {1.f, 1.f};
-  const float mul[2] = {scale, scale};
-  store_rows<D>(dk + ((size_t)bkv * Lk + k0 + warp * 16) * D, dkacc, mul);
-  store_rows<D>(dv + ((size_t)bkv * Lk + k0 + warp * 16) * D, dvacc, one);
-}
-
-template <int D>
-constexpr int fwd_smem() { return 5 * tile_bytes<D>(kT) + 2 * kT * 4; }
-template <int D>
-constexpr int dq_smem() { return 6 * tile_bytes<D>(kT) + 2 * kT * 4; }
-template <int D>
-constexpr int dkdv_smem() {
-  constexpr int QS = D == 128 ? 32 : 64;
-  return 2 * tile_bytes<D>(kT) + 4 * tile_bytes<D>(QS) + 4 * 2 * QS * 4;
 }
 
 // ---------------------------------------------------------------------------
@@ -654,33 +373,42 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // launchers, templated on the head dim
 // ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 struct Shape {
   int B, H, Hkv, Lq, Lk, mode, window;
   float scale;
 };
 
+template <int kMode>
+struct ModeTag {
+  using Mask = BlockMask<kMode>;
+};
+
+// The bf16 launch of `mode`: fn(ModeTag<mode>, dims, the mask's params).
+template <class Fn>
+cudaError_t by_mode(const Shape& sh, const int* qpos, const int* kpos, Fn fn) {
+  const hopper::attn::Dims d{sh.B, sh.H, sh.Hkv, sh.Lq, sh.Lk, sh.scale};
+  if (sh.mode == kFull) {
+    return fn(ModeTag<kFull>{}, d, BlockMask<kFull>::Params{qpos, kpos, sh.window});
+  }
+  if (sh.mode == kDiag) {
+    return fn(ModeTag<kDiag>{}, d, BlockMask<kDiag>::Params{qpos, kpos, sh.window});
+  }
+  return fn(ModeTag<kPos>{}, d, BlockMask<kPos>::Params{qpos, kpos, sh.window});
+}
+
 template <int D>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, const int* qpos,
                 const int* kpos, float* o, float* m, float* l, float* cnt, Shape sh,
                 cudaStream_t s) {
-  const int n_rep = sh.H / sh.Hkv;
   if (dtype == 1) {
-    auto kernel = blk_fwd_bf16_kernel<D>;
-    const cudaError_t err = allow_smem(kernel, fwd_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(sh.Lq / kT, sh.B * sh.H), kThreads, fwd_smem<D>(), s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        qpos, kpos, o, m, l, cnt, sh.H, n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
-  } else {
-    blk_fwd_f32_kernel<D><<<dim3(sh.Lq / F32<D>::RB, sh.B * sh.H), kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        qpos, kpos, o, m, l, cnt, sh.H, n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
+    return by_mode(sh, qpos, kpos, [&](auto tag, const hopper::attn::Dims& d, const auto& p) {
+      using Mask = typename decltype(tag)::Mask;
+      return hopper::attn::launch_fwd<D, Mask>(q, k, v, o, m, l, cnt, d, p, s);
+    });
   }
+  blk_fwd_f32_kernel<D><<<dim3(sh.Lq / F32<D>::RB, sh.B * sh.H), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qpos, kpos, o, m, l, cnt, sh.H, sh.H / sh.Hkv, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
   return cudaGetLastError();
 }
 
@@ -688,21 +416,16 @@ template <int D>
 cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, const void* dout, const float* m, const float* dl,
                    const float* c, void* dq, Shape sh, cudaStream_t s) {
-  const int n_rep = sh.H / sh.Hkv;
   if (dtype == 1) {
-    auto kernel = blk_bwd_dq_bf16_kernel<D>;
-    const cudaError_t err = allow_smem(kernel, dq_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(sh.Lq / kT, sh.B * sh.H), kThreads, dq_smem<D>(), s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        qpos, kpos, static_cast<const bf16*>(dout), m, dl, c, static_cast<bf16*>(dq), sh.H,
-        n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
-  } else {
-    blk_bwd_dq_f32_kernel<D><<<dim3(sh.Lq / F32<D>::RB, sh.B * sh.H), kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        qpos, kpos, static_cast<const float*>(dout), m, dl, c, static_cast<float*>(dq), sh.H,
-        n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
+    return by_mode(sh, qpos, kpos, [&](auto tag, const hopper::attn::Dims& d, const auto& p) {
+      using Mask = typename decltype(tag)::Mask;
+      return hopper::attn::launch_bwd_dq<D, Mask>(q, k, v, dout, m, dl, c, dq, d, p, s);
+    });
   }
+  blk_bwd_dq_f32_kernel<D><<<dim3(sh.Lq / F32<D>::RB, sh.B * sh.H), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qpos, kpos, static_cast<const float*>(dout), m, dl, c, static_cast<float*>(dq), sh.H,
+      sh.H / sh.Hkv, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
   return cudaGetLastError();
 }
 
@@ -710,21 +433,16 @@ template <int D>
 cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, const int* qpos,
                      const int* kpos, const void* dout, const float* m, const float* dl,
                      const float* c, void* dk, void* dv, Shape sh, cudaStream_t s) {
-  const int n_rep = sh.H / sh.Hkv;
   if (dtype == 1) {
-    auto kernel = blk_bwd_dkdv_bf16_kernel<D>;
-    const cudaError_t err = allow_smem(kernel, dkdv_smem<D>());
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(sh.Lk / kT, sh.B * sh.Hkv), kThreads, dkdv_smem<D>(), s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        qpos, kpos, static_cast<const bf16*>(dout), m, dl, c, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), sh.H, n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
-  } else {
-    blk_bwd_dkdv_f32_kernel<D><<<dim3(sh.Lk / F32<D>::RB, sh.B * sh.Hkv), kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        qpos, kpos, static_cast<const float*>(dout), m, dl, c, static_cast<float*>(dk),
-        static_cast<float*>(dv), sh.H, n_rep, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
+    return by_mode(sh, qpos, kpos, [&](auto tag, const hopper::attn::Dims& d, const auto& p) {
+      using Mask = typename decltype(tag)::Mask;
+      return hopper::attn::launch_bwd_dkdv<D, Mask>(q, k, v, dout, m, dl, c, dk, dv, d, p, s);
+    });
   }
+  blk_bwd_dkdv_f32_kernel<D><<<dim3(sh.Lk / F32<D>::RB, sh.B * sh.Hkv), kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qpos, kpos, static_cast<const float*>(dout), m, dl, c, static_cast<float*>(dk),
+      static_cast<float*>(dv), sh.H, sh.H / sh.Hkv, sh.Lq, sh.Lk, sh.mode, sh.window, sh.scale);
   return cudaGetLastError();
 }
 

@@ -55,16 +55,21 @@ namespace {
 struct SegmentMask {
   static constexpr bool kScaleInDs = true;  // dS = P (dP - delta) scale, rounded
   static constexpr bool kFlagRows = false;
+  static constexpr bool kStats = false;
+  static constexpr bool kExactP = false;
+  static constexpr bool kBounds = false;
   struct Params {
     const int* seg;
   };
   const int* seg;
   int L;
 
-  __device__ SegmentMask(const Params& p, int b, int L_)
+  __device__ SegmentMask(const Params& p, int b, int L_, int)
       : seg(p.seg ? p.seg + (size_t)b * L_ : nullptr), L(L_) {}
   __device__ bool has_key_mask() const { return seg != nullptr; }
   __device__ int key_begin(int) const { return 0; }
+  __device__ int key_end(int q1) const { return min(L, q1); }
+  __device__ int query_begin(int k0) const { return k0; }
   __device__ int query_end(int) const { return L; }
   __device__ bool partial(int i0, int i1, int j0, int j1) const {
     return seg != nullptr || j1 - 1 > i0 || i1 > L || j1 > L;
@@ -280,8 +285,8 @@ template <int D>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, const int* seg, void* o,
                 void* lse, int B, int H, int Hkv, int L, float scale, cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_fwd<D, SegmentMask>(q, k, v, o, lse, B, H, Hkv, L, scale, {seg},
-                                                     s);
+    return hopper::attn::launch_fwd<D, SegmentMask>(q, k, v, o, static_cast<float*>(lse), nullptr,
+                                                     nullptr, {B, H, Hkv, L, L, scale}, {seg}, s);
   }
   if (!hopper::bind_device_of(o)) return cudaErrorInvalidValue;
   flash_fwd_f32_kernel<D><<<dim3(L / F32<D>::RB, B * H), kThreads, 0, s>>>(
@@ -295,8 +300,8 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const
                    const void* dout, const float* lse, const float* delta, void* dq, int B,
                    int H, int Hkv, int L, float scale, cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_bwd_dq<D, SegmentMask>(q, k, v, dout, lse, delta, dq, B, H, Hkv,
-                                                        L, scale, {seg}, s);
+    return hopper::attn::launch_bwd_dq<D, SegmentMask>(q, k, v, dout, lse, delta, nullptr, dq,
+                                                        {B, H, Hkv, L, L, scale}, {seg}, s);
   }
   if (!hopper::bind_device_of(dq)) return cudaErrorInvalidValue;
   flash_bwd_dq_f32_kernel<D><<<dim3(L / F32<D>::RB, B * H), kThreads, 0, s>>>(
@@ -311,8 +316,8 @@ cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, con
                      const void* dout, const float* lse, const float* delta, void* dk, void* dv,
                      int B, int H, int Hkv, int L, float scale, cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_bwd_dkdv<D, SegmentMask>(q, k, v, dout, lse, delta, dk, dv, B,
-                                                          H, Hkv, L, scale, {seg}, s);
+    return hopper::attn::launch_bwd_dkdv<D, SegmentMask>(q, k, v, dout, lse, delta, nullptr, dk,
+                                                          dv, {B, H, Hkv, L, L, scale}, {seg}, s);
   }
   if (!hopper::bind_device_of(dk)) return cudaErrorInvalidValue;
   flash_bwd_dkdv_f32_kernel<D><<<dim3(L / F32<D>::RB, B * Hkv), kThreads, 0, s>>>(

@@ -62,6 +62,9 @@ namespace {
 struct WindowPadMask {
   static constexpr bool kScaleInDs = false;  // dS = P (dP - delta); dQ, dK scaled after
   static constexpr bool kFlagRows = true;    // all of a row's keys may be pads
+  static constexpr bool kStats = false;
+  static constexpr bool kExactP = false;
+  static constexpr bool kBounds = false;
   struct Params {
     const int* pad;
     int window;
@@ -69,10 +72,12 @@ struct WindowPadMask {
   const int* pad;
   int window, L;
 
-  __device__ WindowPadMask(const Params& p, int b, int L_)
+  __device__ WindowPadMask(const Params& p, int b, int L_, int)
       : pad(p.pad ? p.pad + (size_t)b * L_ : nullptr), window(p.window), L(L_) {}
   __device__ bool has_key_mask() const { return pad != nullptr; }
   __device__ int key_begin(int q0) const { return window > 0 ? max(0, q0 - window + 1) : 0; }
+  __device__ int key_end(int q1) const { return min(L, q1); }
+  __device__ int query_begin(int k0) const { return k0; }
   __device__ int query_end(int j) const { return window > 0 ? min(L, j + window) : L; }
   __device__ bool partial(int i0, int i1, int j0, int j1) const {
     return pad != nullptr || j1 - 1 > i0 || (window > 0 && i1 - 1 - j0 >= window) || i1 > L ||
@@ -209,7 +214,8 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, const in
                 void* lse, int B, int H, int Hkv, int L, int window, float scale,
                 cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_fwd<D, WindowPadMask>(q, k, v, o, lse, B, H, Hkv, L, scale,
+    return hopper::attn::launch_fwd<D, WindowPadMask>(q, k, v, o, static_cast<float*>(lse),
+                                                       nullptr, nullptr, {B, H, Hkv, L, L, scale},
                                                        {pad, window}, s);
   }
   if (!hopper::bind_device_of(o)) return cudaErrorInvalidValue;
@@ -224,8 +230,9 @@ cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, con
                      const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                      int B, int H, int Hkv, int L, int window, float scale, cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_bwd_dkdv<D, WindowPadMask>(q, k, v, dout, lse, delta, dk, dv, B,
-                                                            H, Hkv, L, scale, {pad, window}, s);
+    return hopper::attn::launch_bwd_dkdv<D, WindowPadMask>(
+        q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta), nullptr,
+        dk, dv, {B, H, Hkv, L, L, scale}, {pad, window}, s);
   }
   if (!hopper::bind_device_of(dk)) return cudaErrorInvalidValue;
   attn_bwd_dkdv_f32_kernel<D><<<dim3(L / kBKV, B * Hkv), 2 * kBKV, 0, s>>>(
@@ -241,8 +248,9 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const
                    const void* dout, const void* lse, const void* delta, void* dq, int B, int H,
                    int Hkv, int L, int window, float scale, cudaStream_t s) {
   if (dtype == 1) {
-    return hopper::attn::launch_bwd_dq<D, WindowPadMask>(q, k, v, dout, lse, delta, dq, B, H,
-                                                          Hkv, L, scale, {pad, window}, s);
+    return hopper::attn::launch_bwd_dq<D, WindowPadMask>(
+        q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta), nullptr,
+        dq, {B, H, Hkv, L, L, scale}, {pad, window}, s);
   }
   if (!hopper::bind_device_of(dq)) return cudaErrorInvalidValue;
   attn_bwd_dq_f32_kernel<D><<<dim3(L / kBQ, B * H), 2 * kBQ, 0, s>>>(

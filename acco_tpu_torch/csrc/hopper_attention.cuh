@@ -1,7 +1,10 @@
 // One Hopper attention mainloop for the bf16 kernels of K5 (flash_attention.cu:
-// causal + segment ids) and K1 (fused_attention.cu: causal + window + key
-// pads), which differ only in the mask policy given as a template parameter.
-// Built on hopper_gemm.cuh's mbarrier, TMA, descriptor and wgmma helpers.
+// causal + segment ids), K1 (fused_attention.cu: causal + window + key
+// pads), K2 (banded_attention.cu: a static band) and K4 (block_attention.cu:
+// one ring hop's block, unmasked, causal or by positions, with its row
+// statistics), which differ only in the mask policy given as a template
+// parameter. Built on hopper_gemm.cuh's mbarrier, TMA, descriptor and wgmma
+// helpers.
 //
 // Every kernel here is one block of 384 threads:
 //   warpgroup 0: warp 0 decides the block's walk (which K/V tiles, or which
@@ -36,10 +39,11 @@
 //     R * 128 bytes on (LBO).
 // These are hopper_gemm.cuh's two layouts with a box R rows high.
 //
-// Tensor maps are rank 3, (D, L, B * heads), so TMA zero-fills the rows
-// past L of a 128-row tile when L is a multiple of 64 but not of 128; rows
-// past L are never stored, and keys past L are masked to -inf in the
-// forward (they must not count even for a row with no allowed key).
+// Tensor maps are rank 3, (D, Lq or Lk, B * heads), so TMA zero-fills the
+// rows past the end of a 128-row tile when a length is a multiple of 64 but
+// not of 128; rows past Lq are never stored, and keys past Lk are masked to
+// -inf in the forward (they must not count even for a row with no allowed
+// key).
 //
 // Accumulator layout (wgmma m64nN, f32): thread t = 32 w + l of a
 // warpgroup holds rows 16 w + l / 4 (acc[4 j + 0, 1]) and + 8 (acc[4 j +
@@ -52,26 +56,56 @@
 //   struct Params;                    kernel argument, by value
 //   kScaleInDs                        dS is rounded with the softmax scale
 //                                     in it (K5), or dQ, dK are scaled
-//                                     after the sum (K1)
+//                                     after the sum (K1, K2, K4)
 //   kFlagRows                         a row may have no allowed key (K1's
-//                                     pads): its scores are all -1e9, and
-//                                     the reference normalises it over all
-//                                     L keys (P = 1 in the backward)
-//   Mask(const Params&, int b, int L)
-//   has_key_mask()                    per-key data (segment ids, pads)
-//   key_begin(q0), query_end(k)       the band: the first key rows >= q0
-//                                     may see; one past the last query
-//                                     that key k may be seen by
+//                                     pads, K4's positions): its scores
+//                                     are all -1e9, and the reference takes
+//                                     P = 1 on all Lk keys
+//   kStats                            K4's block statistics: the forward
+//                                     writes o float32 and unnormalised, m
+//                                     (in lse's place), l and the count of
+//                                     ties at m; the backward takes m for
+//                                     lse and dl for delta, dS = P (dP + dl)
+//                                     + [s == m] c, 0 where masked
+//   kExactP                           the forward walks the band twice: S
+//                                     alone for the row max and sum, then
+//                                     the normalised P rounded to bf16
+//                                     before P V (K2, as the JAX kernel)
+//   kBounds                           the walks skip the tiles whose spans
+//                                     of positions (qpos, kpos) allow no
+//                                     pair (K4's positional mask)
+//   Mask(const Params&, int b, int Lq, int Lk)
+//   has_key_mask()                    per-key data (segment ids, pads,
+//                                     positions)
+//   key_begin(q0), key_end(q1)        the band of rows [q0, q1): the first
+//                                     key rows >= q0 may see, one past the
+//                                     last key rows < q1 may see
+//   query_begin(k0), query_end(k)     the first query that may see a key
+//                                     >= k0; one past the last query that
+//                                     key k may be seen by
 //   partial(i0, i1, j0, j1)           some pair of rows [i0, i1) x keys
-//                                     [j0, j1) is masked (or past L)
-//   query_val(i), key_val(j)          per-row data for allowed()
+//                                     [j0, j1) is masked (or past Lq, Lk)
+//   query_val(i), key_val(j)          per-row data for allowed(), 0 past
+//                                     the end
 //   allowed(i, qv, j, kv)
+//   q_span(i0, i1), k_span(j0, j1)    kBounds: the (min, max) of the
+//                                     positions of rows [i0, i1) (keys [j0,
+//                                     j1)), i0 (j0) below the length
+//   meets(qspan, kspan)               kBounds: a query whose position lies
+//                                     in qspan may see a key in kspan
 // Masked scores are -1e9 (the JAX kernels' value), so P = exp(s - lse)
 // keeps JAX's arithmetic for a row with no allowed key: lse = -1e9 and
-// P = 1 on every key. The forward gives such a row the mean of V over all
-// L keys (a pass over V, only in a warpgroup that holds one); dQ walks all
-// key tiles, and dK/dV the q steps that hold one, only where one is
-// (found from lse).
+// P = 1 on every key. The forward gives such a row the sum of V over all
+// Lk keys (a pass over V, only in a warpgroup that holds one; K1 then
+// divides by l = Lk: the mean); K1's dQ walks all key tiles in a block that
+// holds one, and dK/dV the q steps that hold one, only where one is (found
+// from lse, or m).
+//
+// K4's forward keeps its scores as the raw accumulator Q K^T (the others
+// scale them into log2 units): with scale > 0 the raw max and its ties are
+// those of s = scale * raw, and m = scale * max is, bit for bit, the s that
+// the backward's products give at the maximum, so that [s == m] finds the
+// forward's ties. A masked raw score is -1e9 there.
 
 #pragma once
 
@@ -92,6 +126,9 @@ constexpr float kMasked2 = kMasked * kLog2e;
 constexpr int kRows = 128;         // the block's rows: two consumer warpgroups of 64
 constexpr int kFwdKeys = 128;      // forward: keys of a K/V tile
 constexpr int kStep = 64;          // dQ: keys of a K/V tile; dK/dV: queries of a step
+// meta + kMetaFlag: a stage of the forward's first walk (kExactP), or a q
+// step that dK/dV walks only for its rows with no allowed key (kStats)
+constexpr int kMetaFlag = 1 << 30;
 
 // -- PTX ----------------------------------------------------------------------
 
@@ -346,6 +383,87 @@ __device__ __forceinline__ int wait_stage(Ring<S>* ring, int it) {
 constexpr int kBwdProducerRegs = 24;   // dK/dV: its consumers hold dK and dV
 constexpr int kBwdConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65536
 
+// -- walks ---------------------------------------------------------------------
+
+// Producer warp, all lanes: a walk over the key tiles of Tile keys from
+// k_first up to k_end (both multiples of Tile, or k_end the length) for
+// the rows [q0, q1), from ring position `it`: K and V of each tile go into
+// the ring (lane 0), in order, with meta k0 + `flag`, but a tile whose
+// keys' positions no row's may meet (kBounds: the lanes test 32 tiles at
+// a time) is skipped; the walk holds at least one tile. Without kBounds
+// lane 0 walks alone, the other lanes leave at once. Returns the ring
+// position after the walk (lane 0).
+template <int D, int Tile, int S, class Mask>
+__device__ __forceinline__ int walk_keys(Ring<S>* ring, unsigned char* skv, const CUtensorMap* mk,
+                                         const CUtensorMap* mv, const Mask& mask, int q0, int q1,
+                                         int k_first, int k_end, int kvh, int it, int flag) {
+  constexpr int kKVBytes = Tile * D * 2;
+  const int lane = threadIdx.x % 32;
+  int2 qs = make_int2(0, 0);
+  if constexpr (Mask::kBounds) qs = mask.q_span(q0, q1);
+  const int it0 = it;
+  auto issue = [&](int k0) {  // the forward's first walk (kMetaFlag) reads no V
+    const bool with_v = flag != kMetaFlag;
+    const int s = begin_stage(ring, it++, k0 + flag, (with_v ? 2 : 1) * kKVBytes);
+    unsigned char* st = skv + s * 2 * kKVBytes;
+    load_tile<Tile, D>(mk, st, &ring->full[s], k0, kvh);
+    if (with_v) load_tile<Tile, D>(mv, st + kKVBytes, &ring->full[s], k0, kvh);
+  };
+  if constexpr (Mask::kBounds) {
+    for (int c0 = k_first; c0 < k_end; c0 += 32 * Tile) {
+      const int t0 = c0 + lane * Tile;
+      const unsigned bits = __ballot_sync(
+          0xffffffffu, t0 < k_end && mask.meets(qs, mask.k_span(t0, t0 + Tile)));
+      if (lane == 0) {
+        for (int b = 0; b < 32 && c0 + b * Tile < k_end; ++b) {
+          if ((bits >> b) & 1u) issue(c0 + b * Tile);
+        }
+      }
+      __syncwarp();
+    }
+  } else if (lane == 0) {
+    for (int k0 = k_first; k0 < k_end; k0 += Tile) issue(k0);
+  }
+  if (lane == 0 && it == it0) issue(k_first);
+  return it;
+}
+
+// The sum over the n rows of vh (bf16 [n, D]) of each column, by the 128
+// threads t of a consumer warpgroup (barrier `bar`), in the float scratch
+// cs ((128 / (D / 8) + 1) * D floats): returns cs + the partial sums'
+// size, where the D sums lie.
+template <int D>
+__device__ __forceinline__ const float* col_sums(const bf16* vh, int n, float* cs, int t, int bar) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kParts = 128 / kChunks;
+  const int chunk = t % kChunks, part = t / kChunks;
+  const uint4* src = reinterpret_cast<const uint4*>(vh) + chunk;
+  float acc[8] = {};
+#pragma unroll 8
+  for (int j = part; j < n; j += kParts) {
+    const uint4 x = __ldg(src + (size_t)j * kChunks);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      acc[2 * e] += f.x;
+      acc[2 * e + 1] += f.y;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) cs[part * D + 8 * chunk + e] = acc[e];
+  warpgroup_sync(bar);
+  float* sums = cs + kParts * D;
+  if (t < D) {
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) s += cs[p * D + t];
+    sums[t] = s;
+  }
+  warpgroup_sync(bar);
+  return sums;
+}
+
 // -- forward ------------------------------------------------------------------
 
 template <int D>
@@ -356,21 +474,22 @@ struct FwdCfg {
   static constexpr int kQBytes = kRows * D * 2;
   static constexpr int kKVBytes = kFwdKeys * D * 2;  // each of K and V
   static constexpr int kStageBytes = 2 * kKVBytes;
-  static constexpr int kSmem =
-      1024 + kQBytes + kStages * kStageBytes + (int)sizeof(Ring<kStages>) + 2 * 128 * 4;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + (int)sizeof(Ring<kStages>);
   static_assert(kSmem <= 232448, "a block has at most 227 KB of shared memory");
 };
 
 struct FwdArgs {
   const bf16* v;  // read again for the rows with no allowed key
-  bf16* o;
-  float* lse;
-  int H, n_rep, L;
+  void* o;        // bf16 O; kStats: float32 o, unnormalised
+  float* lse;     // lse; kStats: m
+  float* l;       // kStats: the row sum
+  float* cnt;     // kStats: the ties at the row max
+  int H, n_rep, Lq, Lk;
   float scale;
 };
 
 // One block: 128 query rows of head bh against the K/V tiles of their
-// band, 128 keys a tile; O and lse.
+// band, 128 keys a tile; O and lse (K4: o, m, l and the ties).
 template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -383,30 +502,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sq = align_1024(smem_raw);
   unsigned char* skv = sq + C::kQBytes;
   Ring<S>* ring = reinterpret_cast<Ring<S>*>(skv + S * C::kStageBytes);
-  float* colsum = reinterpret_cast<float*>(ring + 1);  // [2][128]
 
   const int bh = blockIdx.y;
   const int b = bh / a.H;
   const int kvh = b * (a.H / a.n_rep) + (bh % a.H) / a.n_rep;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest rows first
-  const Mask mask(mp, b, a.L);
+  const Mask mask(mp, b, a.Lq, a.Lk);
   init_ring(ring);
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(&ring->resident, C::kQBytes);
-      load_tile<kRows, D>(&map_q, sq, &ring->resident, q0, bh);
-      const int k_end = min(a.L, q0 + kRows);
-      int it = 0;
-      for (int k0 = mask.key_begin(q0) / kFwdKeys * kFwdKeys; k0 < k_end; k0 += kFwdKeys, ++it) {
-        const int s = begin_stage(ring, it, k0, C::kStageBytes);
-        unsigned char* st = skv + s * C::kStageBytes;
-        load_tile<kFwdKeys, D>(&map_k, st, &ring->full[s], k0, kvh);
-        load_tile<kFwdKeys, D>(&map_v, st + C::kKVBytes, &ring->full[s], k0, kvh);
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&ring->resident, C::kQBytes);
+        load_tile<kRows, D>(&map_q, sq, &ring->resident, q0, bh);
       }
-      end_walk(ring, it);
+      const int k_first = mask.key_begin(q0) / kFwdKeys * kFwdKeys;
+      const int k_end = mask.key_end(q0 + kRows);
+      int it = 0;
+      if constexpr (Mask::kExactP) {  // the first walk: S alone, for the row max and sum
+        it = walk_keys<D, kFwdKeys>(ring, skv, &map_k, &map_v, mask, q0, q0 + kRows, k_first,
+                                    k_end, kvh, it, kMetaFlag);
+      }
+      it = walk_keys<D, kFwdKeys>(ring, skv, &map_k, &map_v, mask, q0, q0 + kRows, k_first, k_end,
+                                  kvh, it, 0);
+      if (threadIdx.x == 0) end_walk(ring, it);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -419,6 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float cnt[2] = {0.f, 0.f};  // K4: this thread's ties at the running max
     float sc[kFwdKeys / 2];
     uint32_t pa[kFwdKeys / 16][4];
     // S = Q K^T of the tile in stage s, issued (the caller commits)
@@ -429,24 +551,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_ss(sc, kmajor<kRows>(sq, 64 * cw, j), kmajor<kFwdKeys>(ks, 0, j), j);
       }
     };
-    // the mask and the online softmax of the scores in sc (keys k0 ...):
-    // sc becomes the unnormalised P, m and l move on, corr rescales O
     const float scale2 = a.scale * kLog2e;
-    auto softmax = [&](int k0, float (&corr)[2]) {
+    constexpr float kMaskedS = Mask::kStats ? kMasked : kMasked2;  // a masked score
+    // the mask on the scores in sc (keys k0 ...), and their scale
+    auto scores = [&](int k0) {
       if (mask.partial(i0, i0 + 64, k0, k0 + kFwdKeys)) {
 #pragma unroll
         for (int x = 0; x < kFwdKeys / 2; ++x) {
           const int hh = (x / 2) % 2;
           const int j = k0 + 8 * (x / 4) + 2 * tq + (x & 1);
-          sc[x] = j >= a.L ? -INFINITY
-                           : (mask.allowed(r_lo + 8 * hh, qv[hh], j, mask.key_val(j))
-                                  ? sc[x] * scale2
-                                  : kMasked2);
+          sc[x] = j >= a.Lk ? -INFINITY
+                            : (mask.allowed(r_lo + 8 * hh, qv[hh], j, mask.key_val(j))
+                                   ? (Mask::kStats ? sc[x] : sc[x] * scale2)
+                                   : kMaskedS);
         }
-      } else {
+      } else if constexpr (!Mask::kStats) {
 #pragma unroll
         for (int x = 0; x < kFwdKeys / 2; ++x) sc[x] *= scale2;
       }
+    };
+    // the mask and the online softmax of the scores in sc: sc becomes the
+    // unnormalised P, m and l move on, corr rescales O
+    auto online = [&](int k0, float (&corr)[2]) {
+      scores(k0);
       // each row's max and sum in four partial chains: a single chain of
       // 32 dependent operations a thread leaves the two warps of each
       // scheduler waiting on latency
@@ -461,29 +588,77 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int hh = 0; hh < 2; ++hh) {
         const float tile_max = fmaxf(fmaxf(mx[hh][0], mx[hh][1]), fmaxf(mx[hh][2], mx[hh][3]));
         const float m_new = fmaxf(m[hh], quad_max(tile_max));
-        corr[hh] = exp2_approx(m[hh] - m_new);  // 0 on the first tile (m = -inf)
+        if constexpr (Mask::kStats) {
+          corr[hh] = exp2_approx((m[hh] - m_new) * scale2);
+          if (m_new != m[hh]) cnt[hh] = 0.f;  // the running max rose: its ties are gone
+        } else {
+          corr[hh] = exp2_approx(m[hh] - m_new);  // 0 on the first tile (m = -inf)
+        }
         m[hh] = m_new;
       }
-      float ls[2][4] = {};
+      float ls[2][4] = {}, ties[2][4] = {};
 #pragma unroll
       for (int x = 0; x < kFwdKeys / 2; ++x) {
         const int hh = (x / 2) % 2;
-        const float p = exp2_approx(sc[x] - m[hh]);
+        float p;
+        if constexpr (Mask::kStats) {
+          p = exp2_approx((sc[x] - m[hh]) * scale2);
+          ties[hh][(x / 4) % 4] += sc[x] == m[hh] ? 1.f : 0.f;
+        } else {
+          p = exp2_approx(sc[x] - m[hh]);
+        }
         sc[x] = p;
         ls[hh][(x / 4) % 4] += p;  // this thread's share; the quad's are summed at the end
       }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         l[hh] = l[hh] * corr[hh] + ((ls[hh][0] + ls[hh][1]) + (ls[hh][2] + ls[hh][3]));
+        if constexpr (Mask::kStats) {
+          cnt[hh] += (ties[hh][0] + ties[hh][1]) + (ties[hh][2] + ties[hh][3]);
+        }
+      }
+    };
+    // kExactP: the second walk's P = exp(s - m) / l with the band's final m
+    // and l, O's rescale 1
+    float inv_l[2] = {1.f, 1.f};
+    auto softmax = [&](int k0, float (&corr)[2]) {
+      if constexpr (Mask::kExactP) {
+        scores(k0);
+#pragma unroll
+        for (int x = 0; x < kFwdKeys / 2; ++x) {
+          sc[x] = exp2_approx(sc[x] - m[(x / 2) % 2]) * inv_l[(x / 2) % 2];
+        }
+        corr[0] = corr[1] = 1.f;
+      } else {
+        online(k0, corr);
       }
     };
     mbar_wait(&ring->resident, 0);
     float corr[2];
+    int it = 0;
     int k0 = wait_stage(ring, 0);  // the walk holds at least one tile
-    if (cw == 1) turn_pass(1);     // the first consumer warpgroup issues first
+    if constexpr (Mask::kExactP) {
+      // the first walk: the band's row max and sum from S alone, as the JAX
+      // kernel's first passes, so that the second rounds the normalised P
+      for (; k0 >= kMetaFlag; k0 = wait_stage(ring, ++it)) {
+        wgmma_fence();
+        issue_s(it % S);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sc);
+        if (t == 0) mbar_arrive(&ring->empty[it % S]);
+        online(k0 - kMetaFlag, corr);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] = quad_sum(l[hh]);
+        inv_l[hh] = 1.f / l[hh];
+      }
+    }
+    if (cw == 1) turn_pass(1);  // the first consumer warpgroup issues first
     turn_wait(cw);
     wgmma_fence();
-    issue_s(0);
+    issue_s(it % S);
     wgmma_commit();
     turn_pass(cw);
     wgmma_wait<0>();
@@ -492,8 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     acc_to_frag<kFwdKeys>(pa, sc);  // P rounded to bf16 before P V, as the JAX kernels
     // Tile it's S product and tile it - 1's P V run on the tensor cores
     // while tile it's softmax runs; O is rescaled once P V is done.
-    int it = 1;
-    for (;; ++it) {
+    for (++it;; ++it) {
       const int prev = (it - 1) % S;
       k0 = wait_stage(ring, it);
       if (k0 < 0) break;
@@ -532,53 +706,64 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t == 0) mbar_arrive(&ring->empty[prev]);
     }
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) l[hh] = quad_sum(l[hh]);
+    for (int hh = 0; hh < 2; ++hh) {
+      if constexpr (!Mask::kExactP) l[hh] = quad_sum(l[hh]);
+      if constexpr (Mask::kStats) cnt[hh] = quad_sum(cnt[hh]);
+    }
     if (Mask::kFlagRows && mask.has_key_mask()) {
-      // a row whose every score is masked: P = 1 on all L keys, O = mean of V
-      const bool f = __any_sync(0xffffffffu, m[0] == kMasked2 || m[1] == kMasked2);
+      // a row whose every score is masked: P = 1 on all Lk keys, o = the
+      // sum of V (K1 then divides by l = Lk: the mean)
+      const bool f = __any_sync(0xffffffffu, m[0] == kMaskedS || m[1] == kMaskedS);
       if (lane == 0) ring->flags[4 * cw + w] = f;
       warpgroup_sync(1 + cw);
       const int* fl = ring->flags + 4 * cw;
       if (fl[0] | fl[1] | fl[2] | fl[3]) {
-        constexpr int kParts = 128 / D;
-        float* cs = colsum + 128 * cw;
-        const bf16* vh = a.v + (size_t)kvh * a.L * D;
-        float acc = 0.f;
-        for (int j = t / D; j < a.L; j += kParts) {
-          acc += __bfloat162float(vh[(size_t)j * D + t % D]);
-        }
-        cs[t] = acc;
-        warpgroup_sync(1 + cw);
+        // the sums go through this warpgroup's own Q rows, which its
+        // finished products no longer read
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const float* cs = col_sums<D>(a.v + (size_t)kvh * a.Lk * D, a.Lk,
+                                      reinterpret_cast<float*>(sq + 64 * cw * 128), t, 1 + cw);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          if (m[hh] != kMasked2) continue;
+          if (m[hh] != kMaskedS) continue;
 #pragma unroll
           for (int x = 0; x < D / 2; ++x) {
-            if ((x / 2) % 2 != hh) continue;
-            const int col = 8 * (x / 4) + 2 * tq + (x & 1);
-            float sum = 0.f;
-#pragma unroll
-            for (int part_ = 0; part_ < kParts; ++part_) sum += cs[part_ * D + col];
-            o[x] = sum;
+            if ((x / 2) % 2 == hh) o[x] = cs[8 * (x / 4) + 2 * tq + (x & 1)];
           }
-          l[hh] = (float)a.L;
+          l[hh] = (float)a.Lk;
+          cnt[hh] = (float)a.Lk;
         }
       }
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r_lo + 8 * hh;
-      if (row >= a.L) continue;
-      const float inv = 1.f / l[hh];
-      bf16* out = a.o + ((size_t)bh * a.L + row) * D + 2 * tq;
+      if (row >= a.Lq) continue;
+      const size_t at = (size_t)bh * a.Lq + row;
+      if constexpr (Mask::kStats) {
+        float* out = static_cast<float*>(a.o) + at * D + 2 * tq;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        *reinterpret_cast<uint32_t*>(out + 8 * jj) =
-            pack_bf16x2(o[4 * jj + 2 * hh] * inv, o[4 * jj + 2 * hh + 1] * inv);
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<float2*>(out + 8 * jj) = make_float2(o[4 * jj + 2 * hh],
+                                                                 o[4 * jj + 2 * hh + 1]);
+        }
+        if (tq == 0) {  // m = scale * the raw max, as the backward's s
+          a.lse[at] = m[hh] == kMasked ? kMasked : m[hh] * a.scale;
+          a.l[at] = l[hh];
+          a.cnt[at] = cnt[hh];
+        }
+      } else {
+        const float inv = Mask::kExactP ? 1.f : 1.f / l[hh];  // kExactP: P normalised
+        bf16* out = static_cast<bf16*>(a.o) + at * D + 2 * tq;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<uint32_t*>(out + 8 * jj) =
+              pack_bf16x2(o[4 * jj + 2 * hh] * inv, o[4 * jj + 2 * hh + 1] * inv);
+        }
+        // a row with no allowed key: lse = -1e9 + log L, as JAX's (-1e9 in float32)
+        const float m_nat = m[hh] == kMasked2 ? kMasked : m[hh] * kLn2;
+        if (tq == 0) a.lse[at] = m_nat + logf(l[hh]);
       }
-      // a row with no allowed key: lse = -1e9 + log L, as JAX's (-1e9 in float32)
-      const float m_nat = m[hh] == kMasked2 ? kMasked : m[hh] * kLn2;
-      if (tq == 0) a.lse[(size_t)bh * a.L + row] = m_nat + logf(l[hh]);
     }
   }
 }
@@ -597,16 +782,31 @@ struct DqCfg {
 };
 
 struct BwdArgs {
-  const float* lse;
-  const float* delta;
-  bf16* out0;  // dQ, or dK
-  bf16* out1;  // dV
-  int H, n_rep, L;
+  const float* lse;    // lse; kStats: m
+  const float* delta;  // delta; kStats: dl
+  const float* c;      // kStats: the tie term's row coefficient
+  bf16* out0;          // dQ, or dK
+  bf16* out1;          // dV
+  int H, n_rep, Lq, Lk;
   float scale;
 };
 
+// dS of one pair from P, dP and its row's (or query's) values: K1, K2, K5:
+// P (dP - delta); K4: P (dP + dl) + [s == m] c, 0 where masked (s the
+// masked score, -1e9 there). Rounded to bf16 by the caller.
+template <class Mask>
+__device__ __forceinline__ float pair_ds(float p, float dp, float s, float lse, float delta,
+                                         float c, float scale) {
+  if constexpr (Mask::kStats) {
+    return s == kMasked ? 0.f : p * (dp + delta) + (s == lse ? c : 0.f);
+  } else {
+    const float ds = p * (dp - delta);
+    return Mask::kScaleInDs ? ds * scale : ds;
+  }
+}
+
 // One block: dQ of 128 query rows of head bh over the K/V tiles of their
-// band, 64 keys a tile (all of them where a row has no allowed key).
+// band, 64 keys a tile (K1: all of them where a row has no allowed key).
 template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -626,18 +826,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / a.H;
   const int kvh = b * (a.H / a.n_rep) + (bh % a.H) / a.n_rep;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const Mask mask(mp, b, a.L);
+  const Mask mask(mp, b, a.Lq, a.Lk);
   init_ring(ring);
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x < 32) {
-      bool widen = false;
-      if (Mask::kFlagRows && mask.has_key_mask()) {
+      bool widen = false;  // K1: P = 1 on every key of a row with none allowed
+      if (Mask::kFlagRows && !Mask::kStats && mask.has_key_mask()) {
         bool f = false;
-        for (int r = q0 + threadIdx.x; r < min(a.L, q0 + kRows); r += 32) {
-          f |= a.lse[(size_t)bh * a.L + r] <= kFlagLse;
+        for (int r = q0 + threadIdx.x; r < min(a.Lq, q0 + kRows); r += 32) {
+          f |= a.lse[(size_t)bh * a.Lq + r] <= kFlagLse;
         }
         widen = __any_sync(0xffffffffu, f);
       }
@@ -645,17 +845,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(&ring->resident, 2 * C::kQBytes);
         load_tile<kRows, D>(&map_q, sq, &ring->resident, q0, bh);
         load_tile<kRows, D>(&map_do, sdo, &ring->resident, q0, bh);
-        const int k_end = widen ? a.L : min(a.L, q0 + kRows);
-        int it = 0;
-        for (int k0 = widen ? 0 : mask.key_begin(q0) / kStep * kStep; k0 < k_end;
-             k0 += kStep, ++it) {
-          const int s = begin_stage(ring, it, k0, C::kStageBytes);
-          unsigned char* st = skv + s * C::kStageBytes;
-          load_tile<kStep, D>(&map_k, st, &ring->full[s], k0, kvh);
-          load_tile<kStep, D>(&map_v, st + C::kKVBytes, &ring->full[s], k0, kvh);
-        }
-        end_walk(ring, it);
       }
+      const int it = walk_keys<D, kStep>(ring, skv, &map_k, &map_v, mask, q0, q0 + kRows,
+                                         widen ? 0 : mask.key_begin(q0) / kStep * kStep,
+                                         widen ? a.Lk : mask.key_end(q0 + kRows), kvh, 0, 0);
+      if (threadIdx.x == 0) end_walk(ring, it);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -664,14 +858,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int i0 = q0 + 64 * cw;
     const int r_lo = i0 + 16 * w + lane / 4;
     int qv[2];
-    float lse_r[2], delta_r[2];
+    float lse_r[2], delta_r[2], c_r[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r_lo + 8 * hh;
-      const bool in = row < a.L;  // rows past L: zeros from TMA, dS = 0
+      const bool in = row < a.Lq;  // rows past Lq: zeros from TMA, dS = 0
       qv[hh] = mask.query_val(row);
-      lse_r[hh] = in ? a.lse[(size_t)bh * a.L + row] : 0.f;
-      delta_r[hh] = in ? a.delta[(size_t)bh * a.L + row] : 0.f;
+      lse_r[hh] = in ? a.lse[(size_t)bh * a.Lq + row] : 0.f;
+      delta_r[hh] = in ? a.delta[(size_t)bh * a.Lq + row] : 0.f;
+      c_r[hh] = Mask::kStats && in ? a.c[(size_t)bh * a.Lq + row] : 0.f;
     }
     float dq[D / 2];
 #pragma unroll
@@ -713,9 +908,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < kStep / 2; ++x) {
         const int hh = (x / 2) % 2;
         const float p = exp2_approx((sc[x] - lse_r[hh]) * kLog2e);
-        float ds = p * (dp[x] - delta_r[hh]);
-        if (Mask::kScaleInDs) ds *= a.scale;
-        sc[x] = ds;  // rounded to bf16 by acc_to_frag
+        // rounded to bf16 by acc_to_frag
+        sc[x] = pair_ds<Mask>(p, dp[x], sc[x], lse_r[hh], delta_r[hh], c_r[hh], a.scale);
       }
       uint32_t da[kStep / 16][4];
       acc_to_frag<kStep>(da, sc);
@@ -732,8 +926,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r_lo + 8 * hh;
-      if (row >= a.L) continue;
-      bf16* out = a.out0 + ((size_t)bh * a.L + row) * D + 2 * tq;
+      if (row >= a.Lq) continue;
+      bf16* out = a.out0 + ((size_t)bh * a.Lq + row) * D + 2 * tq;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         *reinterpret_cast<uint32_t*>(out + 8 * jj) =
@@ -745,21 +939,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- backward: dK, dV (summed over the n_rep q heads of each KV head) ----------
 
-template <int D>
+// R row vectors a q step: lse and delta (K4: m, dl and c).
+template <int D, int R>
 struct DkvCfg {
   static constexpr int kStages = D == 64 ? 4 : 3;
   static constexpr int kKBytes = kRows * D * 2;  // each of K and V, resident
   static constexpr int kQBytes = kStep * D * 2;  // each of Q and dO, a step
   static constexpr int kStageBytes = 2 * kQBytes;
-  static constexpr int kRowBytes = kStep * 4;  // each of lse and delta, a step
-  static constexpr int kSmem = 1024 + 2 * kKBytes + kStages * (kStageBytes + 2 * kRowBytes) +
+  static constexpr int kRowBytes = kStep * 4;  // each row vector, a step
+  static constexpr int kSmem = 1024 + 2 * kKBytes + kStages * (kStageBytes + R * kRowBytes) +
                                (int)sizeof(Ring<kStages>);
   static_assert(kSmem <= 232448, "a block has at most 227 KB of shared memory");
 };
 
 // One block: dK and dV of 128 keys of KV head bkv over the q steps (64
 // queries) of the n_rep q heads that see them, and over the steps that
-// hold a row with no allowed key.
+// hold a row with no allowed key (P = 1 on every key).
 template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -767,20 +962,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_do, const BwdArgs a,
                          const typename Mask::Params mp) {
-  using C = DkvCfg<D>;
+  constexpr int R = Mask::kStats ? 3 : 2;
+  using C = DkvCfg<D, R>;
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = align_1024(smem_raw);
   unsigned char* sv = sk + C::kKBytes;
   unsigned char* sst = sv + C::kKBytes;  // stages: Q, dO
-  float* srow = reinterpret_cast<float*>(sst + S * C::kStageBytes);  // [S][2][kStep]: lse, delta
-  Ring<S>* ring = reinterpret_cast<Ring<S>*>(srow + S * 2 * kStep);
+  float* srow = reinterpret_cast<float*>(sst + S * C::kStageBytes);  // [S][R][kStep]
+  Ring<S>* ring = reinterpret_cast<Ring<S>*>(srow + S * R * kStep);
 
   const int Hkv = a.H / a.n_rep;
   const int bkv = blockIdx.y;
   const int b = bkv / Hkv, hk = bkv % Hkv;
   const int k0 = blockIdx.x * kRows;  // the keys seen by the most rows first
-  const Mask mask(mp, b, a.L);
+  const Mask mask(mp, b, a.Lq, a.Lk);
   init_ring(ring);
 
   const int wg = threadIdx.x / 128;
@@ -793,41 +989,51 @@ __global__ void __launch_bounds__(kThreads, 1)
         load_tile<kRows, D>(&map_k, sk, &ring->resident, k0, bkv);
         load_tile<kRows, D>(&map_v, sv, &ring->resident, k0, bkv);
       }
-      const int n_steps = a.L / kStep;
-      const int s_begin = k0 / kStep;
-      const int s_end = (min(a.L, mask.query_end(k0 + kRows - 1)) + kStep - 1) / kStep;
+      const int n_steps = a.Lq / kStep;
+      const int s_begin = mask.query_begin(k0) / kStep;
+      const int s_end = (min(a.Lq, mask.query_end(k0 + kRows - 1)) + kStep - 1) / kStep;
       const bool scan = Mask::kFlagRows && mask.has_key_mask();
+      int2 ks = make_int2(0, 0);
+      if constexpr (Mask::kBounds) ks = mask.k_span(k0, k0 + kRows);
       int it = 0;
       for (int r = 0; r < a.n_rep; ++r) {
         const int bh = b * a.H + hk * a.n_rep + r;
         for (int c0 = scan ? 0 : s_begin; c0 < (scan ? n_steps : s_end); c0 += 32) {
-          unsigned flagged = 0;
-          if (scan) {  // steps outside the band that hold a row with no allowed key
-            const int st = c0 + lane;
-            bool f = false;
-            if (st < n_steps && (st < s_begin || st >= s_end)) {
-              const float4* p =
-                  reinterpret_cast<const float4*>(a.lse + (size_t)bh * a.L + st * kStep);
-              for (int x = 0; x < kStep / 4; ++x) {
-                const float4 v = p[x];
-                f |= fminf(fminf(v.x, v.y), fminf(v.z, v.w)) <= kFlagLse;
-              }
-            }
-            flagged = __ballot_sync(0xffffffffu, f);
+          const int st = c0 + lane;
+          bool walk = st >= s_begin && st < s_end && st < n_steps;
+          if constexpr (Mask::kBounds) {
+            walk = walk && mask.meets(mask.q_span(st * kStep, st * kStep + kStep), ks);
           }
+          bool flagged = false;
+          if (scan && !walk && st < n_steps) {
+            // a step outside the band that holds a row with no allowed key
+            const float4* p =
+                reinterpret_cast<const float4*>(a.lse + (size_t)bh * a.Lq + st * kStep);
+            for (int x = 0; x < kStep / 4; ++x) {
+              const float4 v = p[x];
+              flagged |= fminf(fminf(v.x, v.y), fminf(v.z, v.w)) <= kFlagLse;
+            }
+          }
+          const unsigned bits = __ballot_sync(0xffffffffu, walk || flagged);
+          // K4: such a step's dS is 0 and its P the rows' flags (K1: a full step)
+          const unsigned rows_only =
+              Mask::kStats && Mask::kFlagRows ? __ballot_sync(0xffffffffu, flagged) : 0u;
           if (lane == 0) {
-            const int c1 = min(c0 + 32, scan ? n_steps : s_end);
-            for (int st = c0; st < c1; ++st) {
-              if ((st < s_begin || st >= s_end) && !((flagged >> (st - c0)) & 1u)) continue;
-              const int q0 = st * kStep;
-              const int s = begin_stage(ring, it++, q0, C::kStageBytes + 2 * C::kRowBytes);
+            for (int x = 0; x < 32; ++x) {
+              if (!((bits >> x) & 1u)) continue;
+              const int q0 = (c0 + x) * kStep;
+              const int meta = q0 + ((rows_only >> x) & 1u ? kMetaFlag : 0);
+              const int s = begin_stage(ring, it++, meta, C::kStageBytes + R * C::kRowBytes);
               unsigned char* stq = sst + s * C::kStageBytes;
-              float* rows = srow + s * 2 * kStep;
+              float* rows = srow + s * R * kStep;
               load_tile<kStep, D>(&map_q, stq, &ring->full[s], q0, bh);
               load_tile<kStep, D>(&map_do, stq + C::kQBytes, &ring->full[s], q0, bh);
-              const size_t at = (size_t)bh * a.L + q0;
+              const size_t at = (size_t)bh * a.Lq + q0;
               bulk_load(rows, a.lse + at, C::kRowBytes, &ring->full[s]);
               bulk_load(rows + kStep, a.delta + at, C::kRowBytes, &ring->full[s]);
+              if constexpr (Mask::kStats) {
+                bulk_load(rows + 2 * kStep, a.c + at, C::kRowBytes, &ring->full[s]);
+              }
             }
           }
           __syncwarp();
@@ -847,14 +1053,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
     mbar_wait(&ring->resident, 0);
     for (int it = 0;; ++it) {
-      const int q0 = wait_stage(ring, it);
-      if (q0 < 0) break;
+      const int meta = wait_stage(ring, it);
+      if (meta < 0) break;
+      const int q0 = meta % kMetaFlag;
       const int s = it % S;
       const unsigned char* qs = sst + s * C::kStageBytes;
       const unsigned char* dos = qs + C::kQBytes;
-      const float* ls = srow + s * 2 * kStep;
+      const float* ls = srow + s * R * kStep;
       const float* dl = ls + kStep;
+      const float* cs = ls + 2 * kStep;  // kStats
       float st[kStep / 2], dpt[kStep / 2];
+      if constexpr (Mask::kStats && Mask::kFlagRows) {
+        if (meta >= kMetaFlag) {
+          // a step whose pairs with these keys are all masked, walked for its
+          // rows with no allowed key: P = 1 on their every key (0 on the
+          // others' masked pairs), dS = 0, so only dV += P^T dO
+#pragma unroll
+          for (int x = 0; x < kStep / 2; ++x) {
+            st[x] = ls[8 * (x / 4) + 2 * tq + (x & 1)] <= kFlagLse ? 1.f : 0.f;
+          }
+          uint32_t pa[kStep / 16][4];
+          acc_to_frag<kStep>(pa, st);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kStep / 16; ++kk) {
+            wgmma_rs(dv, pa[kk], mnmajor<kStep>(dos, kk), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dv);
+          fence_frag(pa);
+          if (t == 0) mbar_arrive(&ring->empty[s]);
+          continue;
+        }
+      }
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) {
@@ -884,10 +1116,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < kStep / 2; ++x) {
         const int col = 8 * (x / 4) + 2 * tq + (x & 1);  // the query q0 + col
         const float p = exp2_approx((st[x] - ls[col]) * kLog2e);
-        float ds = p * (dpt[x] - dl[col]);
-        if (Mask::kScaleInDs) ds *= a.scale;
-        st[x] = p;    // P^T, rounded to bf16 by acc_to_frag
-        dpt[x] = ds;  // dS^T
+        if constexpr (Mask::kStats) {
+          dpt[x] = pair_ds<Mask>(p, dpt[x], st[x], ls[col], dl[col], cs[col], a.scale);
+        } else {
+          float ds = p * (dpt[x] - dl[col]);
+          if (Mask::kScaleInDs) ds *= a.scale;
+          dpt[x] = ds;  // dS^T
+        }
+        st[x] = p;  // P^T, rounded to bf16 by acc_to_frag
       }
       uint32_t pa[kStep / 16][4], da[kStep / 16][4];
       acc_to_frag<kStep>(pa, st);
@@ -909,8 +1145,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int j = j_lo + 8 * hh;
-      if (j >= a.L) continue;
-      const size_t at = ((size_t)bkv * a.L + j) * D + 2 * tq;
+      if (j >= a.Lk) continue;
+      const size_t at = ((size_t)bkv * a.Lk + j) * D + 2 * tq;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         *reinterpret_cast<uint32_t*>(a.out0 + at + 8 * jj) =
@@ -948,65 +1184,76 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 inline unsigned row_tiles(int L) { return (unsigned)((L + kRows - 1) / kRows); }
 
-// The launchers: bf16 q [B, H, L, D], k, v [B, Hkv, L, D] (and dO like q,
-// lse and delta float32 [B, H, L]), every pointer on q's device, whose
-// context they bind first (autograd's worker thread may have none). Each
-// returns the launch's error.
+// Sizes of a launch: q [B, H, Lq, D], k, v [B, Hkv, Lk, D].
+struct Dims {
+  int B, H, Hkv, Lq, Lk;
+  float scale;
+};
+
+// The launchers: bf16 q, k, v (and dO like q; lse, delta and c float32
+// [B, H, Lq]), every pointer on q's device, whose context they bind first
+// (autograd's worker thread may have none). The forward writes o (bf16
+// like q; kStats: float32) and lse (kStats: m, l and cnt). Each returns the
+// launch's error.
 template <int D, class Mask>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                       int H, int Hkv, int L, float scale, const typename Mask::Params& mp,
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       float* l, float* cnt, const Dims& d, const typename Mask::Params& mp,
                        cudaStream_t s) {
   CUtensorMap mq, mk, mv;
-  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, L, B * H, kRows) ||
-      !make_map_3d(&mk, k, D, L, B * Hkv, kFwdKeys) ||
-      !make_map_3d(&mv, v, D, L, B * Hkv, kFwdKeys)) {
+  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, d.Lq, d.B * d.H, kRows) ||
+      !make_map_3d(&mk, k, D, d.Lk, d.B * d.Hkv, kFwdKeys) ||
+      !make_map_3d(&mv, v, D, d.Lk, d.B * d.Hkv, kFwdKeys)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = attn_fwd_kernel<D, Mask>;
   const cudaError_t err = allow_smem(kernel, FwdCfg<D>::kSmem);
   if (err != cudaSuccess) return err;
-  const FwdArgs a{static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-                  H, H / Hkv, L, scale};
-  kernel<<<dim3(row_tiles(L), B * H), kThreads, FwdCfg<D>::kSmem, s>>>(mq, mk, mv, a, mp);
+  const FwdArgs a{static_cast<const bf16*>(v), o, lse, l, cnt, d.H, d.H / d.Hkv, d.Lq, d.Lk,
+                  d.scale};
+  kernel<<<dim3(row_tiles(d.Lq), d.B * d.H), kThreads, FwdCfg<D>::kSmem, s>>>(mq, mk, mv, a, mp);
   return cudaGetLastError();
 }
 
 template <int D, class Mask>
 cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                          const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
-                          int L, float scale, const typename Mask::Params& mp, cudaStream_t s) {
+                          const float* lse, const float* delta, const float* c, void* dq,
+                          const Dims& d, const typename Mask::Params& mp, cudaStream_t s) {
   CUtensorMap mq, mk, mv, md;
-  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, L, B * H, kRows) ||
-      !make_map_3d(&mk, k, D, L, B * Hkv, kStep) || !make_map_3d(&mv, v, D, L, B * Hkv, kStep) ||
-      !make_map_3d(&md, dout, D, L, B * H, kRows)) {
+  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, d.Lq, d.B * d.H, kRows) ||
+      !make_map_3d(&mk, k, D, d.Lk, d.B * d.Hkv, kStep) ||
+      !make_map_3d(&mv, v, D, d.Lk, d.B * d.Hkv, kStep) ||
+      !make_map_3d(&md, dout, D, d.Lq, d.B * d.H, kRows)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = attn_bwd_dq_kernel<D, Mask>;
   const cudaError_t err = allow_smem(kernel, DqCfg<D>::kSmem);
   if (err != cudaSuccess) return err;
-  const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  static_cast<bf16*>(dq), nullptr, H, H / Hkv, L, scale};
-  kernel<<<dim3(row_tiles(L), B * H), kThreads, DqCfg<D>::kSmem, s>>>(mq, mk, mv, md, a, mp);
+  const BwdArgs a{lse, delta, c, static_cast<bf16*>(dq), nullptr, d.H, d.H / d.Hkv, d.Lq, d.Lk,
+                  d.scale};
+  kernel<<<dim3(row_tiles(d.Lq), d.B * d.H), kThreads, DqCfg<D>::kSmem, s>>>(mq, mk, mv, md, a,
+                                                                            mp);
   return cudaGetLastError();
 }
 
 template <int D, class Mask>
 cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-                            int Hkv, int L, float scale, const typename Mask::Params& mp,
+                            const float* lse, const float* delta, const float* c, void* dk,
+                            void* dv, const Dims& d, const typename Mask::Params& mp,
                             cudaStream_t s) {
+  using C = DkvCfg<D, Mask::kStats ? 3 : 2>;
   CUtensorMap mq, mk, mv, md;
-  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, L, B * H, kStep) ||
-      !make_map_3d(&mk, k, D, L, B * Hkv, kRows) || !make_map_3d(&mv, v, D, L, B * Hkv, kRows) ||
-      !make_map_3d(&md, dout, D, L, B * H, kStep)) {
+  if (!bind_device_of(q) || !make_map_3d(&mq, q, D, d.Lq, d.B * d.H, kStep) ||
+      !make_map_3d(&mk, k, D, d.Lk, d.B * d.Hkv, kRows) ||
+      !make_map_3d(&mv, v, D, d.Lk, d.B * d.Hkv, kRows) ||
+      !make_map_3d(&md, dout, D, d.Lq, d.B * d.H, kStep)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = attn_bwd_dkdv_kernel<D, Mask>;
-  const cudaError_t err = allow_smem(kernel, DkvCfg<D>::kSmem);
+  const cudaError_t err = allow_smem(kernel, C::kSmem);
   if (err != cudaSuccess) return err;
-  const BwdArgs a{static_cast<const float*>(lse), static_cast<const float*>(delta),
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, H / Hkv, L, scale};
-  kernel<<<dim3(row_tiles(L), B * Hkv), kThreads, DkvCfg<D>::kSmem, s>>>(mq, mk, mv, md, a, mp);
+  const BwdArgs a{lse, delta, c, static_cast<bf16*>(dk), static_cast<bf16*>(dv), d.H,
+                  d.H / d.Hkv, d.Lq, d.Lk, d.scale};
+  kernel<<<dim3(row_tiles(d.Lk), d.B * d.Hkv), kThreads, C::kSmem, s>>>(mq, mk, mv, md, a, mp);
   return cudaGetLastError();
 }
 

@@ -6,21 +6,25 @@ Replaces ``acco_tpu/ops/banded_attention.py`` (``_fwd_kernel``,
 ``banded_dot_product_attention``), which GPT-Neo's local layers run.
 Causal attention inside a static window ``W > 0``, computing only the key
 band, MHA only, no pad mask. ``csrc/banded_attention.cu`` says what bounds
-it on the H100 and how its design answers that. Three kernels:
+it on the H100 and how its design answers that: the bf16 kernels are the
+wgmma + TMA attention mainloop of ``csrc/hopper_attention.cuh`` (K1's and
+K5's) with a band mask policy. Three kernels:
 
-- ``banded_fwd``: O (like q) and the float32 log-sum-exp, with the JAX
-  kernel's arithmetic: the row max over the whole band, then the sum, then
-  the normalised P rounded to the activation dtype before PV;
-- ``banded_bwd_dq``: dQ, one block per q tile over its key band;
-- ``banded_bwd_dkdv``: dK, dV, one block per KV tile over the q tiles that
-  can see it (no atomics: deterministic).
+- ``banded_fwd``: O (like q) and the float32 log-sum-exp (the JAX kernel
+  takes the band's row max first and rounds the normalised P before PV;
+  the bf16 kernel rounds P against its running max, which chip_smoke.py
+  holds to the plain version's bars);
+- ``banded_bwd_dq``: dQ, one block per 128-row q tile over its key band;
+- ``banded_bwd_dkdv``: dK, dV, one block per 128-key tile over the q steps
+  that can see it (no atomics: deterministic).
 
 delta = rowsum(dO * O) is K1's hand-written ``attn_bwd_delta``
 (``ops/fused_attention.py``), so a backward launches it too.
 
 Envelope: JAX's (``supports_banded_attention``: 0 < W < L,
-128 <= L <= 8192, L % 128 == 0, at most 8 blocks of 128 keys in the band)
-except the head dim, which is 64 only, as for K1.
+128 <= L <= 8192, L % 128 == 0, head_dim % 64 == 0, at most 8 blocks of
+128 keys in the band) at the head dims the kernels are built for, 64 and
+128 (JAX's GPT-Neo presets: 125M's 64, 1.3B's and 2.7B's 128).
 
 Each wrapper checks device, dtype (bfloat16 or float32), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
@@ -42,7 +46,7 @@ from acco_tpu_torch.ops.attention import NEG_INF, allowed_mask
 
 QB = 128  # the JAX kernel's q-row block: the unit of its key band
 MAX_BAND_BLOCKS = 8  # the JAX envelope's cap on nprev + 1
-KERNEL_HEAD_DIM = 64  # the one head_dim csrc/banded_attention.cu is built for
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims csrc/banded_attention.cu is built for
 
 # Launches per kernel since the last reset_launch_counts().
 LAUNCHES = {"banded_fwd": 0, "banded_bwd_dq": 0, "banded_bwd_dkdv": 0}
@@ -69,12 +73,13 @@ def _nprev(window: int) -> int:
 
 
 def supports_banded_attention(seq_len: int, head_dim: int, window: int) -> bool:
-    """JAX's envelope, with the head dim the Hopper kernels are built for."""
+    """JAX's envelope, at the head dims the Hopper kernels are built for
+    (each a multiple of 64, as JAX requires)."""
     return (
         0 < window < seq_len
         and 128 <= seq_len <= 8192
         and seq_len % QB == 0
-        and head_dim == KERNEL_HEAD_DIM
+        and head_dim in KERNEL_HEAD_DIMS
         and _nprev(window) + 1 <= MAX_BAND_BLOCKS
     )
 

@@ -25,22 +25,32 @@ eq = (s == m), the cotangent on m split evenly over tied maxima;
 ds = p dp - w sum(p dp) + dm w, zero where masked, rounded to q's dtype;
 dq = ds K * scale, dk = ds^T Q * scale, dv = p^T do.
 
-``csrc/block_attention.cu`` computes this in four kernels:
+``csrc/block_attention.cu`` computes this in four kernels, the bf16
+forward, dK/dV and dQ on the wgmma + TMA attention mainloop of
+``csrc/hopper_attention.cuh`` (one instance a mask):
 
-- ``blk_fwd``: one block per 64-row q tile, an online-max pass over the
+- ``blk_fwd``: one block per 128-row q tile, an online-max pass over the
   KV tiles (the diag mask skips the tiles above the diagonal, the
-  positional mask skips none); it returns the final m and o, l rescaled
-  to it, and counts ``cnt = #(s == m)`` on the way (exact: the running
-  count restarts whenever the running max rises);
+  positional mask those whose spans of positions cannot meet the rows');
+  it returns the final m and o, l rescaled to it, and counts ``cnt =
+  #(s == m)`` on the way (exact: the running count restarts whenever the
+  running max rises);
 - ``blk_bwd_rowc``: per row c = (dm - sum(p dp)) / max(cnt, 1), with
   sum(p dp) = rowsum(bf16(do) * o) + dl * l (the delta trick: o = sum p
   V), so that ds = p dp + eq * c;
-- ``blk_bwd_dkdv``: one block per 64-key tile, summing its n_rep q heads
+- ``blk_bwd_dkdv``: one block per 128-key tile, summing its n_rep q heads
   itself (no atomics, deterministic);
-- ``blk_bwd_dq``: one block per 64-row q tile.
+- ``blk_bwd_dq``: one block per 128-row q tile.
 
-The backward recomputes s with the forward's products (same tiles, same
-order, same scale), so ``eq`` matches the forward's ``cnt`` bit for bit.
+Positional masks walk only the tiles whose spans of positions (each
+64-position tile's min and max, :func:`positions_with_spans`, appended to
+the positions the kernels read) can meet, and mask only the tiles whose
+spans do not cover every pair. The bf16 forward takes the max and the
+ties on the raw products Q K^T and emits m = scale * max, which is the
+backward's s = scale * (its own products, in the same order) at the
+maximum, so ``eq`` matches the forward's ``cnt`` bit for bit. Lq and Lk
+are multiples of 64: a half tile of 128 reads zeros past the end, and
+its rows are never stored.
 Numerics against JAX's kernel: P is rounded to bf16 against the running
 max rather than the final one before the PV product (as K5 does), and dV
 is the product of bf16 P and bf16 do with float32 accumulation where JAX
@@ -68,7 +78,8 @@ from acco_tpu_torch.ops import fused_attention as fa
 from acco_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
 KERNEL_HEAD_DIMS = (64, 128)  # the head dims csrc/block_attention.cu is built for
-KERNEL_TILE = 64  # Lq and Lk must be multiples of the kernels' 64-row tiles
+KERNEL_TILE = 64  # Lq and Lk must be multiples of 64 (half of the kernels' 128-row tiles)
+SPAN_TILE = 64  # positions a span covers: every tile of the kernels is a whole number of them
 MODES = {"full": 0, "diag": 1, "pos": 2}
 
 # Launches per kernel since the last reset_launch_counts().
@@ -112,6 +123,23 @@ def _library() -> ctypes.CDLL:
     return cuda_build.load("block_attention", _SIGNATURES)
 
 
+def positions_with_spans(pos: torch.Tensor) -> torch.Tensor:
+    """int32 [L + 2 L / 64] on ``pos``'s device: the positions [L] (L a
+    multiple of 64), then the (min, max) of each 64-position tile, which
+    the kernels read to skip the tiles whose pairs no position allows."""
+    pos = pos.reshape(-1).to(torch.int32).contiguous()
+    tiles = pos.view(-1, SPAN_TILE)
+    return torch.cat((pos, torch.stack((tiles.amin(1), tiles.amax(1)), 1).reshape(-1)))
+
+
+def _spanned(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """Positions as the kernels read them: ``t`` [n] gets its spans (on its
+    device); one that has them ([n + 2 n / 64]) passes."""
+    if t is None or t.numel() == n + 2 * (n // SPAN_TILE):
+        return t
+    return positions_with_spans(t)
+
+
 def _mode(diag: bool, q_pos) -> int:
     return MODES["pos"] if q_pos is not None else MODES["diag" if diag else "full"]
 
@@ -134,9 +162,12 @@ def _check_qkv(name, q, k, v, mode, q_pos, kv_pos):
         raise ValueError(f"{name}: the diag mask needs Lq == Lk, got {Lq} and {Lk}")
     if mode == MODES["pos"]:
         for arg, t, n in (("q_pos", q_pos, Lq), ("kv_pos", kv_pos, Lk)):
-            if t is None or t.shape != (n,) or t.dtype != torch.int32:
-                raise ValueError(f"{name}: {arg} must be int32 [{n}]")
+            if t is None or t.dim() != 1 or t.numel() not in (n, n + 2 * (n // SPAN_TILE)) or (
+                t.dtype != torch.int32
+            ):
+                raise ValueError(f"{name}: {arg} must be int32 [{n}] (or with its spans)")
     fa._check_cuda(name, q.dtype, q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+    return _spanned(q_pos, Lq), _spanned(kv_pos, Lk)
 
 
 def _check_rows(name, B, H, Lq, **rows):
@@ -152,7 +183,7 @@ def _check_rows(name, B, H, Lq, **rows):
 def blk_fwd(q, k, v, mode: int, q_pos, kv_pos, window: int, scale: float):
     """Kernel forward: (o [B, H, Lq, D], m, l, cnt [B, H, Lq]), float32."""
     lib = _library()
-    _check_qkv("blk_fwd", q, k, v, mode, q_pos, kv_pos)
+    q_pos, kv_pos = _check_qkv("blk_fwd", q, k, v, mode, q_pos, kv_pos)
     B, H, Lq, D = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m, l, cnt = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) for _ in range(3))
@@ -189,19 +220,21 @@ def blk_bwd_rowc(o, dout, dm, dl, l, cnt):
 
 
 def _bwd_args(name, q, k, v, mode, q_pos, kv_pos, dout, m, dl, c):
-    _check_qkv(name, q, k, v, mode, q_pos, kv_pos)
+    """The positions with their spans, after the checks."""
+    q_pos, kv_pos = _check_qkv(name, q, k, v, mode, q_pos, kv_pos)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"{name}: dout must be {q.dtype} {tuple(q.shape)}")
     B, H, Lq, _ = q.shape
     fa._check_cuda(name, q.dtype, dout=dout)
     _check_rows(name, B, H, Lq, m=m, dl=dl, c=c)
+    return q_pos, kv_pos
 
 
 def blk_bwd_dkdv(q, k, v, mode: int, q_pos, kv_pos, window: int, scale: float, dout, m, dl, c):
     """Kernel dK, dV like k and v (summed over each KV head's q heads).
     ``dout`` is the cotangent on o in q's dtype."""
     lib = _library()
-    _bwd_args("blk_bwd_dkdv", q, k, v, mode, q_pos, kv_pos, dout, m, dl, c)
+    q_pos, kv_pos = _bwd_args("blk_bwd_dkdv", q, k, v, mode, q_pos, kv_pos, dout, m, dl, c)
     B, H, Lq, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -219,7 +252,7 @@ def blk_bwd_dkdv(q, k, v, mode: int, q_pos, kv_pos, window: int, scale: float, d
 def blk_bwd_dq(q, k, v, mode: int, q_pos, kv_pos, window: int, scale: float, dout, m, dl, c):
     """Kernel dQ like q."""
     lib = _library()
-    _bwd_args("blk_bwd_dq", q, k, v, mode, q_pos, kv_pos, dout, m, dl, c)
+    q_pos, kv_pos = _bwd_args("blk_bwd_dq", q, k, v, mode, q_pos, kv_pos, dout, m, dl, c)
     B, H, Lq, D = q.shape
     dq = torch.empty_like(q)
     err = lib.acco_blk_bwd_dq(
@@ -410,9 +443,15 @@ def block_attention_partial(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q_positions is not None:
-        # host positions go over without a sync: the ring's layouts are host tensors
-        q_positions = q_positions.to(torch.int32).to(q.device, non_blocking=True)
-        kv_positions = kv_positions.to(torch.int32).to(q.device, non_blocking=True)
+        # host positions go over without a sync: the ring's layouts are host
+        # tensors; for the kernels with their spans, computed where they lie
+        spans = q.device.type != "cpu" and supports_block_attention(
+            q.shape[2], k.shape[2], q.shape[3])
+        q_positions, kv_positions = (
+            (positions_with_spans(t) if spans else t.to(torch.int32)).to(q.device,
+                                                                          non_blocking=True)
+            for t in (q_positions, kv_positions)
+        )
     if q.device.type != "cpu":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _Block.apply(

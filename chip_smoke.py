@@ -9,23 +9,27 @@ and prints no result line):
 1. device: the card's name, the device count, nvidia-smi's name and
    power limit;
 2. build: compiles csrc/fused_attention.cu (K1), banded_attention.cu
-   (K2), fused_ce.cu (K3, with hopper_gemm.cuh), flash_attention.cu (K5;
-   K1 and K5 on the attention mainloop of hopper_attention.cuh) and
-   block_attention.cu (K4) for sm_90a from the checkout (into build/),
+   (K2), fused_ce.cu (K3, with hopper_gemm.cuh), flash_attention.cu (K5)
+   and block_attention.cu (K4; the bf16 kernels of K1, K2, K4 and K5 on
+   the attention mainloop of hopper_attention.cuh) for sm_90a from the
+   checkout (into build/),
    one nvcc each, started together, and prints each nvcc's time and
    ptxas's report (registers, spills, its notes on wgmma);
 3. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bf16 unless named, and each attention backward
-   kernel (K1, K5) against a second run of itself, which must give the
-   same bits. 'auto' at head_dim 128, L 1024 must resolve to K1. K1 at
+   kernel (K1, K2, K4, K5) against a second run of itself, which must
+   give the same bits. 'auto' at head_dim 128, L 1024 must resolve to K1. K1 at
    the Llama flagship shape (B 8, H = Hkv 12, L 1024, D 64, window 0, no
    pad), at a small GQA shape with window 256 and a key pad mask, at
    GPT-Neo's global shape (scale 1.0), at Llama-3-8B's width (B 1, H 32,
    Hkv 8, L 1024, D 128), with left padding (rows with no allowed key;
    also with a window 16 wide and a run of pads, at L 320, a half tile),
    at L 320 with GQA and D 64, and in float32 at D 128; K2 at GPT-Neo's
-   local shape (W 256, scale 1.0), a small odd window (W 129) and the
-   widest band of its envelope (W 897);
+   local shape (W 256, scale 1.0), a small odd window (W 129), the widest
+   band of its envelope (W 897), GPT-Neo-2.7B's local layer (H 20, D
+   128, L 2048, W 256) and an odd window at D 128; 'fused' GPT-Neo at
+   head_dim 128 must send its local layer to K2 and agree with the plain
+   path;
    K3 (the fused lm-head + CE: forward, dp, dH, dW, the four on the
    wgmma/TMA mainloop of hopper_gemm.cuh; dp held exactly, up to one bf16
    step at a rounding edge; dp, dH and dW run twice must give the same
@@ -47,18 +51,23 @@ and prints no result line):
    Llama-3-8B at the ring path's half-chunk (H 32, Hkv 8, L 4096, D 128),
    both full and diagonal, (c) GPT-Neo-125M's positional block at a
    zig-zag hop at sp 2 (windows 0 and 256, rows fully masked), (d) small
-   float32 cases with ties planted at the row max, and a small bf16 GQA
-   case; then K3's (one fault in each of its four passes), K5's, K1's
+   cases with ties planted at the row max (float32 and bf16, dm != 0,
+   every mode), a small bf16 GQA case and (e) Lq 192 != Lk 320 (half
+   tiles); then K3's (one fault in each of its four passes), K5's, K1's
    (the mask policy, dK/dV, dQ, the RS fragments of
-   hopper_attention.cuh) and K4's bars against planted faults, each in a
-   patched copy of the kernel's source, which they must fail;
+   hopper_attention.cuh), K2's (a band one tile short) and K4's (its
+   statistics, the tie term, dl, the window, the positional walk, the
+   sum of V on a row with no key, Lq and Lk swapped) bars against planted
+   faults, each in a patched copy of the kernel's source, which they
+   must fail;
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
-   beside K1 at the same window; K3 at the main path's head (8192 rows,
-   D 768, V 50257) and at the long-context paths' head (8192 rows, D
-   4096, V 128256; before the paths, its 4.2 GB of float32 logits freed
-   after) beside the port's materialized head and CE, which no single
+   beside K1 at the same window, and at GPT-Neo-2.7B's local layer; K3
+   at the main path's head (8192 rows, D 768, V 50257) and at the
+   long-context paths' head (8192 rows, D 4096, V 128256; before the
+   paths, its 4.2 GB of float32 logits freed after) beside the port's
+   materialized head and CE, which no single
    PyTorch call replaces; K1 also at Llama-3-8B's width (D 128, L 1024)
    beside SDPA; K5 at the flagship shape beside K1 and at the
    long-context shape; K4 at (a), (b) and (c), beside SDPA on the same
@@ -145,12 +154,18 @@ NEO_GLOBAL = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False,
                   scale=1.0, qk_std=NEO_QK_STD)
 K1_SHAPES = tuple((label, shape or NEO_GLOBAL) for label, shape in K1_SHAPES)
 # K2 (MHA, no pad): GPT-Neo-125M's local layer, an odd window, the widest
-# band of the envelope (nprev(897) + 1 = 8 blocks of 128 keys)
+# band of the envelope (nprev(897) + 1 = 8 blocks of 128 keys), and
+# GPT-Neo-2.7B's local layer (config/model/gptneoLarge.yaml: hidden 2560,
+# 20 heads of 128, window 256, 2048 positions; its stated hyperparameters,
+# at batch 1)
 NEO_LOCAL = dict(B=8, H=12, L=1024, D=64, window=256)
+NEO_LARGE_LOCAL = dict(B=1, H=20, L=2048, D=128, window=256)
 BANDED_SHAPES = (
     ("gpt-neo local", NEO_LOCAL),
     ("odd window", dict(B=2, H=4, L=512, D=64, window=129)),
     ("widest band", dict(B=2, H=4, L=1024, D=64, window=897)),
+    ("gpt-neo-2.7B local, D 128", NEO_LARGE_LOCAL),
+    ("odd window, D 128", dict(B=2, H=4, L=384, D=128, window=129)),
 )
 # main paths at full width: Llama-125M (config/model/llama-125M.json),
 # GPT-Neo-125M (config/model/gpt-neo-125M.json, 6 global + 6 local layers)
@@ -205,15 +220,25 @@ FLASH_SHAPES = (
 # 768..1535 have no key left, and their rows are fully masked); (d) small,
 # float32, with ties planted at each row's max. Each shape lists its
 # variants: 'full', 'diag', or (query positions, key positions, window).
+# (e) has Lq != Lk, both half tiles of 128: its queries sit at the last Lq
+# of the Lk key positions ('rect w<window>').
 BLOCK_350M = dict(B=1, H=16, Hkv=16, L=1024, D=64)
 BLOCK_LLAMA3 = dict(B=1, H=32, Hkv=8, L=4096, D=128)
 BLOCK_NEO = dict(B=8, H=12, Hkv=12, L=1024, D=64, scale=1.0, qk_std=NEO_QK_STD)
 BLOCK_TIES = dict(B=2, H=4, Hkv=2, L=128, D=64, dtype="float32", ties=True)
+BLOCK_TIES_BF16 = {**BLOCK_TIES, "dtype": "bfloat16"}
 BLOCK_SMALL = dict(B=2, H=4, Hkv=2, L=128, D=64)
+BLOCK_RECT = dict(B=2, H=4, Hkv=2, L=192, Lk=320, D=64)
 # (query rank, key rank, global length, ranks, window) of a zig-zag hop
 ZZ_NEO = {f"hop sp2 w{w}": (1, 0, 2048, 2, w) for w in (0, NEO_WINDOW)}
 ZZ_SMALL = {"hop w0": (1, 0, 256, 2, 0), "hop w48": (1, 0, 256, 2, 48),
             "self w48": (0, 0, 256, 2, 48)}
+# a hop whose key blocks' spans of positions exclude q steps that hold
+# rows with no allowed key (L 512 a rank): dK/dV must walk those steps
+# for the rows' dV (P = 1), which their spans alone would skip
+BLOCK_MID = dict(B=1, H=4, Hkv=2, L=512, D=64)
+ZZ_MID = {"hop 2x512 w48": (1, 0, 1024, 2, 48), "hop 2x512 w0": (1, 0, 1024, 2, 0)}
+RECT = ("full", "rect w0", "rect w100")
 BLOCK_SHAPES = (
     ("(a) llama-350M preset's block at sp 16", BLOCK_350M, ("full", "diag")),
     ("(b) llama-3-8B, the card ring path's half-chunk", BLOCK_LLAMA3, ("full", "diag")),
@@ -221,7 +246,14 @@ BLOCK_SHAPES = (
     ("(d) small, planted ties, float32", BLOCK_TIES, ("full", "diag", *ZZ_SMALL)),
     ("(d) small, planted ties, float32, D 128", {**BLOCK_TIES, "D": 128},
      ("full", "diag", *ZZ_SMALL)),
+    ("(d) small, planted ties, bf16, dm != 0", BLOCK_TIES_BF16, ("full", "diag", *ZZ_SMALL)),
+    ("(d) small, planted ties, bf16, dm != 0, D 128", {**BLOCK_TIES_BF16, "D": 128},
+     ("full", "diag", *ZZ_SMALL)),
     ("small gqa, bf16", BLOCK_SMALL, ("full", "diag", *ZZ_SMALL)),
+    ("small gqa, bf16, L 512, hops whose spans skip q steps", BLOCK_MID, tuple(ZZ_MID)),
+    ("(e) Lq 192 != Lk 320, half tiles, bf16", BLOCK_RECT, RECT),
+    ("(e) Lq 192 != Lk 320, half tiles, bf16, D 128", {**BLOCK_RECT, "D": 128}, RECT),
+    ("(e) Lq 192 != Lk 320, float32", {**BLOCK_RECT, "dtype": "float32"}, RECT),
 )
 # the long-context main path: config/model/llama-3-8B.json at full width
 # (d 4096, 32 heads, 8 KV heads, vocab 128256, untied head) cut to 2
@@ -437,7 +469,10 @@ def ce_grad_terms(h, w, args) -> tuple:
 # rescale all matter; K1 at K1_NO_KEY (a narrow window, rows with no
 # allowed key, a half tile), through the mask policy, dK/dV, dQ and the
 # conversion of an accumulator into the A fragments of an RS wgmma (in
-# hopper_attention.cuh, which K5 shares)
+# hopper_attention.cuh, which K5, K2 and K4 share); K2 at its odd windows
+# (D 64 and 128); K4 (its mask policies, its statistics and its backward
+# on the mainloop) at the bf16 shapes with planted ties (every mode; dm !=
+# 0; rows with no allowed key), the small GQA shape and Lq != Lk
 PLANTED_FAULTS = {
     "K3: the forward skips the running sum's rescale": (
         "fused_ce.cu", "l[hh] *= expf(m[hh] - m_new);", "l[hh] *= 1.f;", "K3"),
@@ -458,11 +493,39 @@ PLANTED_FAULTS = {
         "flash_attention.cu", "return j <= i && qv == kv;", "return j <= i;", "K5"),
     "K5: the mask policy drops the causal diagonal": (
         "flash_attention.cu", "return j <= i && qv == kv;", "return j < i && qv == kv;", "K5"),
-    "K4: the tie term dropped": (
-        "block_attention.cu", "+ (eq ? c : 0.f)", "+ 0.f * (eq ? c : 0.f)", "K4"),
-    "K4: dl ignored": ("block_attention.cu", "p * (dp_dot + dl)", "p * (dp_dot + 0.f * dl)", "K4"),
+    "K4: the tie term (eq c) dropped": (
+        "hopper_attention.cuh", "(s == lse ? c : 0.f)", "(s == lse ? 0.f * c : 0.f)", "K4"),
+    "K4: dl ignored": (
+        "hopper_attention.cuh", "p * (dp + delta)", "p * (dp + 0.f * delta)", "K4"),
     "K4: the window edge off by one": (
         "block_attention.cu", "kp > qp - window", "kp >= qp - window", "K4"),
+    "K4: m taken in log2 units": (
+        "hopper_attention.cuh", "m[hh] * a.scale;", "m[hh] * scale2;", "K4"),
+    "K4: o normalised": (
+        "hopper_attention.cuh", "make_float2(o[4 * jj + 2 * hh],",
+        "make_float2(o[4 * jj + 2 * hh] / l[hh],", "K4"),
+    "K4: the mean of V in place of the sum on a row with no allowed key": (
+        "hopper_attention.cuh", "o[x] = cs[8 * (x / 4) + 2 * tq + (x & 1)];",
+        "o[x] = cs[8 * (x / 4) + 2 * tq + (x & 1)] / a.Lk;", "K4"),
+    "K4: the forward's K map takes Lq keys (Lq and Lk swapped)": (
+        "hopper_attention.cuh", "!make_map_3d(&mk, k, D, d.Lk, d.B * d.Hkv, kFwdKeys)",
+        "!make_map_3d(&mk, k, D, d.Lq, d.B * d.Hkv, kFwdKeys)", "K4"),
+    "K4: dK/dV skips the q steps of the rows with no allowed key": (
+        "hopper_attention.cuh",
+        "flagged |= fminf(fminf(v.x, v.y), fminf(v.z, v.w)) <= kFlagLse;", "flagged |= false;",
+        "K4"),
+    "K4: dK/dV's P on those steps from the other rows": (
+        "hopper_attention.cuh", "(x & 1)] <= kFlagLse ? 1.f : 0.f;",
+        "(x & 1)] <= kFlagLse ? 0.f : 1.f;", "K4"),
+    "K4: the positional mask skipped on a tile it does not cover": (
+        "block_attention.cu", "return ks.y <= qs.x && (window == 0 || ks.x > qs.y - window);",
+        "return ks.x <= qs.x && (window == 0 || ks.x > qs.y - window);", "K4"),
+    "K4: the positional walk skips tiles it must walk": (
+        "block_attention.cu", "return ks.x <= qs.y && (window == 0 || ks.y > qs.x - window);",
+        "return ks.x < qs.x && (window == 0 || ks.y > qs.x - window);", "K4"),
+    "K2: the band one tile short": (
+        "banded_attention.cu", "return max(0, q0 - window + 1); }",
+        "return max(0, q0 - window + 1 + 128); }", "K2"),
     "K5: the forward skips the output's rescale": (
         "hopper_attention.cuh", "o[x] *= corr[(x / 2) % 2];", "o[x] *= 1.f;", "K5"),
     "K1: the mask policy's window one key wider": (
@@ -486,8 +549,11 @@ FAULT_CHECKS = {
     "K3 chunks": lambda: ce_chunked_parity(CE_LLAMA, 11),
     "K5": lambda: flash_parity(FLASH_SMALL, 21),
     "K1": lambda: parity(K1_NO_KEY, 5),
-    "K4": lambda: (block_parity(BLOCK_TIES, 31, ("full", "diag", *ZZ_SMALL)),
-                   block_parity(BLOCK_SMALL, 32, ("full", *ZZ_SMALL))),
+    "K2": lambda: (banded_parity(BANDED_SHAPES[1][1], 4), banded_parity(BANDED_SHAPES[4][1], 7)),
+    "K4": lambda: (block_parity(BLOCK_TIES_BF16, 31, ("full", "diag", *ZZ_SMALL)),
+                   block_parity(BLOCK_SMALL, 32, ("full", *ZZ_SMALL)),
+                   block_parity(BLOCK_MID, 34, tuple(ZZ_MID)),
+                   block_parity(BLOCK_RECT, 33, RECT)),
 }
 # run in the copy: exits 0 if the check failed the fault, 3 if it passed it
 _FAULT_CHILD = """
@@ -639,13 +705,14 @@ def parity(shape: dict, seed: int) -> dict:
 
 def banded_parity(shape: dict, seed: int) -> dict:
     """Every K2 kernel against its plain version at scale 1.0 (GPT-Neo's
-    unscaled scores); returns max errors."""
+    unscaled scores), and each backward kernel against a second run of
+    itself; returns max errors."""
     import torch
 
     from acco_tpu_torch.ops import banded_attention as bd
     from acco_tpu_torch.ops import fused_attention as fa
 
-    q, k, v, dout, _ = make_inputs({**shape, "qk_std": NEO_QK_STD}, seed)
+    q, k, v, dout, _ = make_inputs({**shape, "qk_std": shape["D"] ** -0.25}, seed)
     window, scale = shape["window"], 1.0
     errs = {}
     o, lse = bd.banded_fwd(q, k, v, window, scale)
@@ -661,7 +728,56 @@ def banded_parity(shape: dict, seed: int) -> dict:
     dk_ref, dv_ref = bd.banded_bwd_dkdv_reference(*args)
     torch.cuda.synchronize()
     errs["banded_bwd_dkdv"] = max(check("dk", dk, dk_ref), check("dv", dv, dv_ref))
+    check_rerun("banded_bwd_dkdv", (dk, dv), bd.banded_bwd_dkdv(*args))
+    check_rerun("banded_bwd_dq", (dq,), (bd.banded_bwd_dq(*args),))
     return errs
+
+
+# GPT-Neo at head_dim 128 (GPT-Neo-1.3B's and 2.7B's head dim) cut to
+# two heads, one global and one local layer, window 256
+NEO_D128 = dict(vocab_size=512, hidden_size=256, intermediate_size=1024, num_layers=2,
+                num_heads=2, max_position_embeddings=1024, window_size=256,
+                attention_layers=("global", "local"))
+
+
+def neo_d128_dispatch() -> None:
+    """'fused' GPT-Neo at head_dim 128 on the card, bf16, one forward and
+    backward: its local layer goes to K2 and its global one to K1, as the
+    JAX model sends them to its banded and full kernels; its loss and
+    gradients agree with the plain attention's on the same weights
+    (the ring agreement's bars)."""
+    import torch
+
+    from acco_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+    from acco_tpu_torch.parallel.common import make_flat_loss_fn
+
+    cfg = GPTNeoConfig(**NEO_D128)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(12))
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids), "labels": ids}
+    out = {}
+    for attention in ("fused", "xla"):
+        model = GPTNeoModel(cfg, dtype=torch.bfloat16, attention=attention, device="cuda")
+        flat = model.init_flat(torch.Generator(device="cuda").manual_seed(13))
+        model.load_flat(flat)
+        reset_launch_counts()
+        loss, grads = make_flat_loss_fn(model, const_len=True)(flat, batch)
+        torch.cuda.synchronize()
+        out[attention] = (float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
+                          launch_counts())
+    (loss_f, g_f, n_f), (loss_x, g_x, _) = out["fused"], out["xla"]
+    want = {"banded_fwd": 1, "banded_bwd_dq": 1, "banded_bwd_dkdv": 1, "attn_fwd": 1,
+            "attn_bwd_dq": 1, "attn_bwd_dkdv": 1}
+    got = {k: n_f[k] for k in want}
+    rel = abs(loss_f - loss_x) / abs(loss_x)
+    g_rel = float((g_f - g_x).norm() / g_x.norm())
+    log(f"  head_dim {cfg.head_dim}: launches {got}; loss fused {loss_f:.6f} plain {loss_x:.6f} "
+        f"(relative {rel:.3e}, bar {RING_LOSS_RTOL:g}); gradients relative L2 {g_rel:.3e} "
+        f"(bar {RING_GRAD_RTOL:g})")
+    if got != want:
+        raise AssertionError(f"GPT-Neo at head_dim 128 launched {got}, expected {want}")
+    if rel > RING_LOSS_RTOL or g_rel > RING_GRAD_RTOL:
+        raise AssertionError("GPT-Neo at head_dim 128: the kernel and plain paths disagree")
 
 
 def head_parity() -> None:
@@ -838,7 +954,7 @@ def banded_timing(shape: dict) -> tuple[dict, dict]:
     from acco_tpu_torch.ops import banded_attention as bd
     from acco_tpu_torch.ops import fused_attention as fa
 
-    q, k, v, dout, _ = make_inputs({**shape, "qk_std": NEO_QK_STD}, 8)
+    q, k, v, dout, _ = make_inputs({**shape, "qk_std": shape["D"] ** -0.25}, 8)
     window, scale = shape["window"], 1.0
     B, H, L, D = (shape[x] for x in ("B", "H", "L", "D"))
     o, lse = bd.banded_fwd(q, k, v, window, scale)
@@ -1059,7 +1175,11 @@ def block_variant(shape: dict, variant: str):
 
     if variant in ("full", "diag"):
         return variant == "diag", None, None, 0
-    q_rank, kv_rank, length, ranks, window = {**ZZ_NEO, **ZZ_SMALL}[variant]
+    if variant.startswith("rect w"):  # the queries at the last Lq of the Lk positions
+        Lq, Lk = shape["L"], shape.get("Lk", shape["L"])
+        pos = torch.arange(Lk, dtype=torch.int32, device="cuda")
+        return False, pos[Lk - Lq:].contiguous(), pos, int(variant[len("rect w"):])
+    q_rank, kv_rank, length, ranks, window = {**ZZ_NEO, **ZZ_SMALL, **ZZ_MID}[variant]
     if length // ranks != shape["L"]:
         raise ValueError(f"{variant}: a chunk of {length // ranks}, shape has L {shape['L']}")
     pos = [zigzag_positions(length, ranks, r).to(torch.int32).cuda() for r in (q_rank, kv_rank)]
@@ -1069,20 +1189,22 @@ def block_variant(shape: dict, variant: str):
 def make_block_inputs(shape: dict, seed: int):
     """q, k, v in the shape's dtype and random float32 cotangents g [B, H,
     L, D], r_m, r_l [B, H, L] (std 1) for K4's three outputs, which
-    ``block_cotangents`` scales. With ``ties``, three keys of every KV head
-    are one vector u and every query leans on u, so each row that sees
-    them has its max three times."""
+    ``block_cotangents`` scales (k and v have ``Lk`` rows where the shape
+    names it, else L). With ``ties``, three keys of every KV head are one
+    vector u and every query leans on u, so each row that sees them has
+    its max three times."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, H, Hkv, L, D = (shape[x] for x in ("B", "H", "Hkv", "L", "D"))
+    Lk = shape.get("Lk", L)
     dtype = getattr(torch, shape.get("dtype", "bfloat16"))
     std = shape.get("qk_std", 1.0)
 
     def randn(*size, s=1.0):
         return torch.randn(*size, generator=g, device="cuda") * s
 
-    q, k, v = randn(B, H, L, D, s=std), randn(B, Hkv, L, D, s=std), randn(B, Hkv, L, D)
+    q, k, v = randn(B, H, L, D, s=std), randn(B, Hkv, Lk, D, s=std), randn(B, Hkv, Lk, D)
     if shape.get("ties"):
         u = randn(D, s=std)
         q = q + u
@@ -1211,6 +1333,8 @@ def block_parity(shape: dict, seed: int, variants) -> dict:
         args = (q, k, v, mode, qp, kp, window, scale, do_t, m, dl, c)
         dk, dv = bl.blk_bwd_dkdv(*args)
         dq = bl.blk_bwd_dq(*args)
+        check_rerun("blk_bwd_dkdv", (dk, dv), bl.blk_bwd_dkdv(*args))
+        check_rerun("blk_bwd_dq", (dq,), (bl.blk_bwd_dq(*args),))
         grads = block_plain(bl.block_bwd_reference, q, k, v, m_r, do, dm, dl, **kw)
         torch.cuda.synchronize()
         if f32:  # no rounding on either side: the float32 bar alone
@@ -1252,11 +1376,14 @@ def block_timing(shape: dict, variants, seed: int) -> dict:
         kw = dict(diag=diag, q_pos=qp, kv_pos=kp, window=window, scale=scale)
         mask = bl.block_mask(L, L, diag, qp, kp, window, q.device)
         pairs = B * H * (L * L if mask is None else int(mask.sum()))
-        o, m, l, cnt = bl.blk_fwd(q, k, v, mode, qp, kp, window, scale)
+        # the kernels take the positions with their spans, made once a call
+        # of block_attention_partial (the plain version: the positions)
+        qs, ks = (None, None) if qp is None else map(bl.positions_with_spans, (qp, kp))
+        o, m, l, cnt = bl.blk_fwd(q, k, v, mode, qs, ks, window, scale)
         do, dm, dl = block_cotangents(cot, l)
         do_t = do.to(q.dtype).contiguous()
         c = bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt)
-        args = (q, k, v, mode, qp, kp, window, scale, do_t, m, dl, c)
+        args = (q, k, v, mode, qs, ks, window, scale, do_t, m, dl, c)
         bwd = (q, k, v, m, do, dm, dl)
         act = B * H * L * D * q.element_size()  # q, dO or dQ
         kv = B * Hkv * L * D * k.element_size()
@@ -1269,7 +1396,7 @@ def block_timing(shape: dict, variants, seed: int) -> dict:
             "blk_bwd_dq": (2 * act + 2 * kv + 3 * row + act, 6 * D * pairs),
         }
         runs = {
-            "blk_fwd": (lambda: bl.blk_fwd(q, k, v, mode, qp, kp, window, scale),
+            "blk_fwd": (lambda: bl.blk_fwd(q, k, v, mode, qs, ks, window, scale),
                         lambda: block_plain(bl.block_fwd_reference, q, k, v, **kw)),
             "blk_bwd_rowc": (lambda: bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt),
                              lambda: bl.block_rowc_reference(o, do_t, dm, dl, l, cnt)),
@@ -1959,11 +2086,12 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> No
             f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
 
 
-# A profiled kernel's family, by its name: K5 before K1, since the
-# attention mainloop's instances (hopper_attention.cuh) are attn_*_kernel
-# for both and differ in their mask policy.
-KERNEL_FAMILIES = (("K5", r"\bflash_|SegmentMask"), ("K1", r"\battn_|WindowPadMask"),
-                   ("K2", r"\bbanded_"), ("K3", r"\bce_(fwd|bwd)"), ("K4", r"\bblk_"))
+# A profiled kernel's family, by its name: K5, K2 and K4 before K1, since
+# the attention mainloop's instances (hopper_attention.cuh) are
+# attn_*_kernel for all four and differ in their mask policy.
+KERNEL_FAMILIES = (("K5", r"\bflash_|SegmentMask"), ("K2", r"\bbanded_|BandMask"),
+                   ("K4", r"\bblk_|BlockMask"), ("K1", r"\battn_|WindowPadMask"),
+                   ("K3", r"\bce_(fwd|bwd)"))
 
 
 def kernel_family(key: str):
@@ -1976,7 +2104,7 @@ def kernel_label(key: str) -> str:
     the mask policy of an attention mainloop instance."""
     m = re.search(r"\w+_epilogue", key) or re.search(r"\w+_kernel", key) or re.search(r"\w+", key)
     label = m.group(0) if m else key
-    policy = re.search(r"SegmentMask|WindowPadMask", key)
+    policy = re.search(r"SegmentMask|WindowPadMask|BandMask|BlockMask<\d+>", key)
     return f"{label}<{policy.group(0)}>" if policy else label
 
 
@@ -2068,6 +2196,8 @@ def main() -> int:
         log(f" K2 {label}: {shape}")
         for kname, e in banded_parity(shape, seed).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
+    log(" 'fused' GPT-Neo at head_dim 128: its local layer on K2")
+    neo_d128_dispatch()
     for seed, (label, shape) in enumerate(CE_SHAPES, start=6):
         log(f" K3 {label}: {shape}")
         for kname, e in ce_parity(shape, seed).items():
@@ -2085,9 +2215,9 @@ def main() -> int:
         log(f" K4 {label}: {shape}")
         for kname, e in block_parity(shape, seed, variants).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
-    log(" K3's bars (softmax-alone Llama-125M head; the chunked backward), K5's bars "
-        "(small GQA shape with pads) and K4's (the small float32 case with ties and the "
-        "small bf16 case) against planted faults")
+    log(" K3's bars (softmax-alone Llama-125M head; the chunked backward), K5's (small GQA "
+        "shape with pads), K1's (rows with no allowed key, L 320), K2's (odd windows) and K4's "
+        "(bf16 ties, small GQA hops, Lq != Lk) against planted faults")
     planted_faults()
 
     log("== 4 timing (CUDA events)")
@@ -2099,7 +2229,10 @@ def main() -> int:
         times[kname]["llama3_width"] = r
     log(f" K2 at the GPT-Neo local shape {NEO_LOCAL}, scale 1.0")
     banded_times, banded_backward = banded_timing(NEO_LOCAL)
-    times.update(banded_times)
+    log(f" K2 at GPT-Neo-2.7B's local shape {NEO_LARGE_LOCAL}, scale 1.0")
+    banded_d128, banded_d128_bwd = banded_timing(NEO_LARGE_LOCAL)
+    for kname, r in banded_times.items():
+        times[kname] = {**r, "d128": banded_d128[kname]}
     log(f" K3 at the main path's head {CE_MAIN}")
     ce_times, ce_backward, ce_errs = ce_timing(CE_MAIN, BATCH, SEQ)
     log(f" K3 at the long-context paths' head {CE_LONG}")
@@ -2224,7 +2357,8 @@ def main() -> int:
         ]
         log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}; at Llama-3-8B's "
             f"width: {json.dumps(k1_d128_bwd)}")
-        log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}")
+        log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}; at D 128: "
+            f"{json.dumps(banded_d128_bwd)}")
         log(f"K3 backward total (dp + dH + dW) and the whole loss, Llama-125M head: "
             f"{json.dumps(ce_backward)}; long-context head: {json.dumps(long_backward)}")
         log(f"K5 backward total (delta + dK/dV + dQ), L 8192: {json.dumps(flash_backward)}; "

@@ -210,3 +210,70 @@ def test_ctypes_signatures_match_the_c_launchers():
         params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1).split(",")
         want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
         assert argtypes == want, fn
+
+
+# The kernels' rule on two spans of positions, (min, max) of a tile of
+# queries and of a tile of keys (csrc/block_attention.cu, BlockMask):
+# `meets` -- some pair may be allowed (else the walk skips the tile);
+# `covers` -- every pair is allowed (else the tile is masked element-wise).
+def _meets(qs, ks, window):
+    return ks[0] <= qs[1] and (window == 0 or ks[1] > qs[0] - window)
+
+
+def _covers(qs, ks, window):
+    return ks[1] <= qs[0] and (window == 0 or ks[0] > qs[1] - window)
+
+
+def _layouts():
+    """(query positions, key positions) of zig-zag hops and self hops at sp
+    2 and 4, a contiguous hop, and a random permutation of positions."""
+    out = []
+    for length, ranks in ((512, 2), (1024, 4)):
+        for qr, kr in ((1, 0), (0, 0), (ranks - 1, 0)):
+            out.append((zigzag_positions(length, ranks, qr), zigzag_positions(length, ranks, kr)))
+    out.append((torch.arange(256, 512), torch.arange(0, 384)))
+    g = torch.Generator().manual_seed(4)
+    out.append((torch.randperm(384, generator=g), torch.randperm(384, generator=g)[:192]))
+    return out
+
+
+def test_spans_are_each_tiles_min_and_max():
+    pos = zigzag_positions(512, 2, 1)
+    got = port.positions_with_spans(pos)
+    n = pos.numel()
+    assert got.dtype == torch.int32 and got.shape == (n + 2 * n // 64,)
+    np.testing.assert_array_equal(got[:n].numpy(), pos.numpy())
+    tiles = pos.view(-1, 64)
+    np.testing.assert_array_equal(got[n::2].numpy(), tiles.amin(1).numpy())
+    np.testing.assert_array_equal(got[n + 1::2].numpy(), tiles.amax(1).numpy())
+    # the wrappers take plain positions or positions with their spans
+    assert port._spanned(pos.to(torch.int32), n).numel() == got.numel()
+    assert port._spanned(got, n) is got
+
+
+@pytest.mark.parametrize("window", [0, 3, 48, 100, 256])
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (128, 64), (64, 128)])
+def test_tile_skip_and_mask_rule_against_the_plain_mask(window, tiles):
+    """The spans' rule never skips a tile that holds an allowed pair, and
+    never leaves unmasked a tile that holds a masked one (block_mask is
+    the plain version's mask), over the kernels' tilings: 128-row blocks
+    against 128-key tiles (the forward), 64-key steps (dQ), 128-key blocks
+    against 64-query steps (dK/dV)."""
+    tq, tk = tiles
+    for q_pos, kv_pos in _layouts():
+        allowed = port.block_mask(len(q_pos), len(kv_pos), False, q_pos, kv_pos, window)
+        qs_all = port.positions_with_spans(q_pos)[len(q_pos):].view(-1, 2)
+        ks_all = port.positions_with_spans(kv_pos)[len(kv_pos):].view(-1, 2)
+
+        def span(spans, i0, n):  # over the 64-position tiles of [i0, i0 + n)
+            s = spans[i0 // 64:(i0 + n) // 64]
+            return int(s[:, 0].min()), int(s[:, 1].max())
+
+        for i0 in range(0, len(q_pos), tq):
+            for j0 in range(0, len(kv_pos), tk):
+                block = allowed[i0:i0 + tq, j0:j0 + tk]
+                qs, ks = span(qs_all, i0, tq), span(ks_all, j0, tk)
+                if bool(block.any()):
+                    assert _meets(qs, ks, window), (i0, j0)
+                if _covers(qs, ks, window):
+                    assert bool(block.all()), (i0, j0)
