@@ -11,13 +11,17 @@ The run goes to ``cuda:0`` unless ``--device cpu`` is given, and raises
 when no card is visible. It writes nothing to disk; the summary dict is
 returned (and printed as the last line of output as JSON).
 
-Context parallelism runs under torchrun, one process per rank, each on
-``cuda:LOCAL_RANK`` over NCCL (or on the CPU over gloo):
+Data and context parallelism run under torchrun (or SLURM's srun), one
+process per rank, each on ``cuda:LOCAL_RANK`` over NCCL (or on the CPU
+over gloo):
 
+    torchrun --nproc_per_node 2 -m acco_tpu_torch --device cpu train=acco \
+        model=tiny128 data=synthetic "train.mesh_shape={dp: 2}"
     torchrun --nproc_per_node 2 -m acco_tpu_torch --device cpu train=acco \
         model=tiny128 data=synthetic "train.mesh_shape={dp: 1, sp: 2}"
 
-As in ``main.py``, sp > 1 builds the model on the ring attention
+``train=ddp`` runs the synchronous baseline on the same ranks. As in
+``main.py``, sp > 1 builds the model on the ring attention
 (``train.zigzag_cp``, default true, picks the zig-zag layout). Rank 0
 alone prints the summary.
 """
@@ -46,12 +50,14 @@ def _split_device(argv: list[str]) -> tuple[str | None, list[str]]:
     return device, rest
 
 
-def build_trainer(argv: list[str], sequence_group=None):
+def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     """Everything before the first round: device, config, model, data.
-    ``sequence_group`` hands in a sequence group (an
-    ``ops.ring_attention.SequenceGroup``) for a run that is not launched
-    with sp > 1: a one-rank group runs the context-parallel code, the ring
-    included, with no hop."""
+    For a run not launched on several ranks, ``sequence_group`` hands in a
+    sequence group (an ``ops.ring_attention.SequenceGroup``): a one-rank
+    group runs the context-parallel code, the ring included, with no hop;
+    ``data_group`` hands in a data-parallel process group: a one-rank
+    group runs the dp code (the count all-reduce and ZeRO-1's collectives
+    on process groups of their own) as an identity."""
     import dataclasses
 
     import torch
@@ -60,17 +66,19 @@ def build_trainer(argv: list[str], sequence_group=None):
     from acco_tpu_torch.data.datasets import load_text_dataset
     from acco_tpu_torch.data.tokenizer import load_tokenizer
     from acco_tpu_torch.models.registry import build_model
-    from acco_tpu_torch.parallel.mesh import init_distributed
+    from acco_tpu_torch.parallel.mesh import RankGroups, init_distributed
     from acco_tpu_torch.trainer import Trainer
-    from acco_tpu_torch.utils.platform import resolve_device
+    from acco_tpu_torch.utils.platform import default_allocator_settings, resolve_device
 
+    default_allocator_settings()
     device_arg, overrides = _split_device(argv)
     device = resolve_device(device_arg)
     cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
     check_supported(cfg.train)
     mesh = init_distributed(cfg.train.get("mesh_shape"), device)
-    if sequence_group is not None:
-        mesh = dataclasses.replace(mesh, sequence_group=sequence_group)
+    if sequence_group is not None or data_group is not None:
+        mesh = dataclasses.replace(mesh, sequence_group=sequence_group,
+                                   groups=RankGroups.around(sequence_group, data_group))
     device = mesh.device
 
     logging.basicConfig(
@@ -115,10 +123,13 @@ def main(argv: list[str] | None = None) -> dict:
     import torch.distributed as dist
 
     trainer = build_trainer(sys.argv[1:] if argv is None else argv)
+    ranks = trainer.mesh.world_size > 1
     try:
         summary = trainer.train()
+        if ranks:  # every rank past its last collective before a group goes
+            dist.barrier()
     finally:
-        if trainer.mesh.world_size > 1 and dist.is_initialized():
+        if ranks and dist.is_initialized():
             dist.destroy_process_group()
     trainer.log.info("done: %s", {k: v for k, v in summary.items() if k != "round_log"})
     return summary

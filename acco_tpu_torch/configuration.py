@@ -350,7 +350,7 @@ def check_supported(train_cfg: dict) -> None:
 
     if normalize_remat(train_cfg.get("remat", False)) is not False:
         refuse(f"remat={train_cfg.get('remat')!r}", "queue 1, item 3 (remat)")
-    # every mesh but {dp: 1, sp: N} (context parallelism) raises by its item
+    # the tp and pp axes raise by their item; {dp: N, sp: M} runs
     from acco_tpu_torch.parallel.mesh import check_mesh
 
     check_mesh(train_cfg.get("mesh_shape"))
@@ -362,10 +362,6 @@ def check_supported(train_cfg: dict) -> None:
     # would otherwise run as if it were absent
     if train_cfg.get("resume_from") is not None:
         refuse(f"resume_from={train_cfg.get('resume_from')!r}", "queue 1, item 6")
-    if train_cfg.get("microbatch_mask") is not None:
-        refuse(f"microbatch_mask={train_cfg.get('microbatch_mask')!r}", "queue 1, item 4")
-    if bool(train_cfg.get("lr_grad_accounting", False)):
-        refuse("lr_grad_accounting=True", "queue 1, item 4")
     if train_cfg.get("fault_injection") is not None:
         refuse(f"fault_injection={train_cfg.get('fault_injection')!r}", "queue 1, item 8")
     if int(train_cfg.get("profile_steps", 0) or 0) > 0:

@@ -5,6 +5,11 @@ Counterpart of ``acco_tpu/parallel/common.py``. A microbatch whose
 ``valid`` entry is 0 still runs but contributes no gradient and no count
 (heterogeneous workers). Nothing here reads a value back to the host.
 
+Data parallelism: each rank runs its own rows of the global block (its
+dp index's batch slice) and its ``valid`` column; the loss metric and
+the staged-grads verdict are reduced over the dp x sp world, the valid
+count over dp (:func:`world_mean_loss`).
+
 Context parallelism (a ``SequenceGroup``): :func:`prep_cp_leaves` shifts
 the labels on the global sequence, applies the zig-zag permutation and
 keeps this rank's chunk; the flat loss is then this rank's partial (its
@@ -194,19 +199,125 @@ def accumulate_grads(
 
 
 def world_mean_loss(
-    loss_weighted_sum: torch.Tensor, valid: torch.Tensor, group=None
+    loss_weighted_sum: torch.Tensor, valid: torch.Tensor, loss_group=None, count_group=None
 ) -> torch.Tensor:
-    """Valid-count-weighted mean loss. Under context parallelism each
-    rank's loss is a partial of its microbatches' losses: the partials sum
-    over the group, while the valid count, replicated across the sequence
-    group, is not summed (dp is 1)."""
-    total = _all_reduce(loss_weighted_sum.clone(), group)
-    return total / valid.sum().clamp(min=1.0)
+    """Valid-count-weighted mean loss over the whole mesh: ranks with
+    masked-out microbatches do not dilute it. The loss sums over
+    ``loss_group`` (dp x sp: under context parallelism each rank's loss is
+    a partial of its microbatches' losses), the valid count over
+    ``count_group`` (dp only: a microbatch is one unit however many
+    sequence shards computed it), as JAX's ``world_mean_loss``."""
+    total = _all_reduce(loss_weighted_sum.clone(), loss_group)
+    count = _all_reduce(valid.sum(), count_group)
+    return total / count.clamp(min=1.0)
 
 
 def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor, group=None) -> torch.Tensor:
     """float32 0/1 verdict on the grads a round stages: finite loss and a
-    finite grad sum on every rank of ``group`` (one scalar all-reduce), so
-    that the verdict, a replicated leaf, agrees across ranks."""
+    finite grad sum on every rank of ``group`` (dp x sp, the axes the
+    gradient is reduced over; one scalar all-reduce), so that the verdict,
+    a replicated leaf, agrees across ranks."""
     bad = _all_reduce((~torch.isfinite(grad_sum).all()).float(), group)
     return (torch.isfinite(loss) & (bad == 0)).float()
+
+
+class FlatTrainStep:
+    """What the ACCO/DPU round and the DDP step share: the model's flat
+    loss, the rank groups, ZeRO-1's geometry over dp x sp, the AdamW
+    settings, the guard and the LR accounting.
+
+    ``groups`` (a ``parallel.mesh.RankGroups``) are the ranks' process
+    groups; without them, a ``sequence_group`` alone is dp 1 over its
+    ranks, and neither is one rank with no collective. Context
+    parallelism (a ``sequence_group``) needs a ring-attention model built
+    on that group."""
+
+    def __init__(
+        self,
+        model,
+        schedule,
+        *,
+        weight_decay: float,
+        beta1: float,
+        beta2: float,
+        eps: float = 1e-8,
+        label_smoothing: float = 0.0,
+        const_len_batch: bool = False,
+        nan_guard: bool = True,
+        guard_max_grad_norm: float = 0.0,
+        fused_loss: "bool | str" = False,
+        lr_grad_accounting: bool = False,
+        sequence_group=None,
+        groups=None,
+    ):
+        from acco_tpu_torch.parallel.mesh import RankGroups
+        from acco_tpu_torch.parallel.zero1 import ShardGeometry
+
+        self.model = model
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.eps = eps
+        self.nan_guard = bool(nan_guard)
+        self.guard_max_grad_norm = float(guard_max_grad_norm or 0.0)
+        # False = the reference's schedule (one step a committed update);
+        # True advances it by the committed micro-grad count (JAX: acco.py:612)
+        self.lr_grad_accounting = bool(lr_grad_accounting)
+        on_group = getattr(model, "sequence_group", None) is sequence_group
+        if sequence_group is not None and not on_group:
+            raise ValueError("context parallelism needs a ring-attention model built on the "
+                             "same sequence group")
+        self.sequence_group = sequence_group
+        self.groups = groups if groups is not None else RankGroups.of_sequence(sequence_group)
+        g = self.groups
+        self.shard_index = 0 if g is None else g.shard_index
+        self.geom = ShardGeometry(model.n_params, 1 if g is None else g.world_size)
+        self.value_and_grad = make_flat_loss_fn(
+            model, label_smoothing, const_len_batch, fused_loss, sequence_group
+        )
+
+    def group(self, name: str):
+        """One of ``groups``' process groups (None: one rank)."""
+        return None if self.groups is None else getattr(self.groups, name)
+
+    def init_zero1(self, flat_params: torch.Tensor):
+        from acco_tpu_torch.parallel.zero1 import init_zero1_state
+
+        return init_zero1_state(flat_params.float(), self.geom, self.shard_index)
+
+    def accumulate(self, flat_params, block, grad_init=None, count_init=None):
+        return accumulate_grads(
+            self.value_and_grad, self.model, flat_params, block,
+            grad_init=grad_init, count_init=count_init,
+        )
+
+    def mean_loss(self, loss_wsum: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return world_mean_loss(loss_wsum, valid, self.group("world"), self.group("data"))
+
+    def total_count(self, count: torch.Tensor) -> torch.Tensor:
+        """The micro-grad count summed over dp, on the update's group: a
+        fresh tensor (the all-reduce runs in place)."""
+        return _all_reduce(count.clone(), self.group("comm_data"))
+
+    def sched_increment(self, total: torch.Tensor, commit) -> torch.Tensor:
+        """What a committed update adds to the schedule's counter: the
+        count with ``lr_grad_accounting``, else 1; 0 where ``commit`` (a
+        bool, or a bool tensor) says the update was not committed."""
+        inc = (total.to(torch.int32) if self.lr_grad_accounting
+               else torch.ones((), dtype=torch.int32, device=total.device))
+        if isinstance(commit, bool):
+            return inc if commit else torch.zeros_like(inc)
+        return torch.where(commit, inc, torch.zeros_like(inc))
+
+    def update(self, flat_grads, opt, total, lr, keep_state: bool = True, alloc=None):
+        """The sharded AdamW step over the comm group (see zero1)."""
+        from acco_tpu_torch.parallel.zero1 import zero1_update_shard
+
+        return zero1_update_shard(
+            flat_grads, opt, total, lr, self.geom,
+            self.weight_decay, self.beta1, self.beta2, self.eps,
+            out_dtype=self.model.dtype, with_health=self.nan_guard,
+            max_grad_norm=self.guard_max_grad_norm, group=self.group("comm_world"),
+            shard_index=self.shard_index, keep_state=keep_state, alloc=alloc,
+        )

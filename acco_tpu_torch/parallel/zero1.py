@@ -2,18 +2,21 @@
 
 Counterpart of ``acco_tpu/parallel/zero1.py``. The flat vector is padded
 to ``world_size * ceil(P / world_size)`` and each rank owns one float32
-shard with its Adam moments. Over more than one rank (the dp x sp group
-of context parallelism) the step is ``reduce_scatter_tensor`` (sum) of
-the flat gradient, AdamW on this rank's float32 shard, and
-``all_gather_into_tensor`` of the result in the parameter dtype; the sum
-in the scatter is also what adds the sequence shards' partial gradients.
-At one rank both collectives are the identity and none runs.
+shard with its Adam moments: rank ``dp_index * sp + sp_index`` owns shard
+``dp_index * sp + sp_index``, JAX's ``flat_shard_index(('dp', 'sp'))``,
+so the shards equal JAX's per-device shards element for element. Over
+more than one rank (the dp x sp group) the step is
+``reduce_scatter_tensor`` (sum) of the flat gradient, AdamW on this
+rank's float32 shard, and ``all_gather_into_tensor`` of the result in
+the parameter dtype; the sum in the scatter adds the data-parallel
+ranks' gradients and the sequence shards' partial gradients. At one rank
+both collectives are the identity and none runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.nn import functional as F
@@ -91,6 +94,9 @@ def zero1_update_shard(
     with_health: bool = False,
     max_grad_norm: float = 0.0,
     group=None,
+    shard_index: Optional[int] = None,
+    keep_state: bool = True,
+    alloc: Optional[Callable[[int, torch.dtype], torch.Tensor]] = None,
 ):
     """One sharded AdamW step: reduce-scatter (sum) over ``group`` ->
     average by the grad count -> AdamW on this rank's float32 shard ->
@@ -98,14 +104,26 @@ def zero1_update_shard(
     out_dtype, new opt shard)`` plus an :class:`UpdateHealth` when
     ``with_health`` (its two sums of squares all-reduced over the group);
     the caller applies the verdict. ``group`` None is one rank with no
-    collective; a group of one rank runs them (the identity)."""
+    collective; a group of one rank runs them (the identity).
+    ``shard_index`` (default: the rank in ``group``) must be the rank's
+    place in ``group``, whose reduce-scatter hands it that shard.
+
+    ``keep_state`` False (ACCO's speculative half-step, whose optimizer
+    state is dropped) stores no new moments or master parameters: the
+    step returns ``opt_shard`` itself, and only the new flat parameters
+    are written, as XLA drops the dead outputs in JAX. ``alloc(numel,
+    dtype)`` makes the shard-sized buffers, the returned ones and the
+    reduce-scatter's output (default: ``torch.empty`` on the gradient's
+    device); the chunks' temporaries come from ``torch.empty``."""
     if group is None and geom.world_size != 1:
         raise ValueError(f"a world of {geom.world_size} ranks needs a process group")
     import torch.distributed as dist
 
     S = opt_shard.params.numel()
+    device = flat_grads.device
+    empty = alloc or (lambda n, dtype: torch.empty(n, dtype=dtype, device=device))
     if group is not None:
-        grads = torch.empty(S, dtype=torch.float32, device=flat_grads.device)
+        grads = empty(S, torch.float32)
         dist.reduce_scatter_tensor(grads, flat_grads.float(), op=dist.ReduceOp.SUM, group=group)
         flat_grads = grads
     # AdamW runs chunk by chunk into fresh output buffers: the same
@@ -113,15 +131,22 @@ def zero1_update_shard(
     # PyTorch would hold about seven shard-sized float32 temporaries at
     # once (35 GB at 1.5e9 parameters), and the chunks hold a few of
     # CHUNK elements instead.
-    shard_index = 0 if group is None else dist.get_rank(group)
-    pad_mask = geom.shard_pad_mask(shard_index, flat_grads.device)
-    new_flat = torch.empty(S, dtype=out_dtype, device=flat_grads.device)
-    out = AdamWState(
-        params=torch.empty_like(opt_shard.params),
-        mu=torch.empty_like(opt_shard.mu),
-        nu=torch.empty_like(opt_shard.nu),
-        count=opt_shard.count + 1,
-    )
+    in_group = 0 if group is None else dist.get_rank(group)
+    if shard_index is None:
+        shard_index = in_group
+    elif shard_index != in_group:
+        raise ValueError(f"shard {shard_index} would receive the reduce-scatter's chunk "
+                         f"{in_group}: the group's ranks are not in dp x sp order")
+    pad_mask = geom.shard_pad_mask(shard_index, device)
+    if group is not None:  # the shard is written in place of the all-gather's slice
+        gathered = empty(geom.padded_size, out_dtype)
+        new_flat = gathered[shard_index * S:(shard_index + 1) * S]
+    else:
+        new_flat = empty(S, out_dtype)
+    out = opt_shard
+    if keep_state:
+        out = AdamWState(*(empty(S, torch.float32) for _ in range(3)),
+                         count=opt_shard.count + 1)
     zero = torch.zeros((), device=flat_grads.device)
     grad_ss, param_ss = zero, zero
     for lo in range(0, S, CHUNK):
@@ -133,8 +158,9 @@ def zero1_update_shard(
             grad_shard, lr=lr, weight_decay=weight_decay,
             beta1=beta1, beta2=beta2, eps=eps, pad_mask=mask,
         )
-        for dst, src in zip(out[:3], upd[:3]):
-            dst[c] = src
+        if keep_state:
+            for dst, src in zip(out[:3], upd[:3]):
+                dst[c] = src
         new_flat[c] = upd.params.to(out_dtype)
         if with_health:
             # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
@@ -145,7 +171,6 @@ def zero1_update_shard(
             grad_ss = grad_ss + g.square().sum()
             param_ss = param_ss + prm.square().sum()
     if group is not None:
-        gathered = torch.empty(geom.padded_size, dtype=out_dtype, device=new_flat.device)
         dist.all_gather_into_tensor(gathered, new_flat, group=group)
         new_flat = gathered
     if not with_health:

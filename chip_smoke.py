@@ -90,15 +90,32 @@ and prints no result line):
    and read just after, the ring paths' round-0 losses against their
    base paths' on the same weights and batch, and one GPT-Neo forward and
    backward through the windowed ring against the non-CP path (K1 + K2);
+   then the dp paths, the Llama-125M path through the data-parallel code
+   on the same one-rank NCCL group handed to ``build_trainer`` as its dp
+   group (the count all-reduce and ZeRO-1's collectives on groups of
+   their own) with ``train=acco``, ``train=dpu`` and ``train=ddp``, each
+   first loss held to the Llama-125M path's. Every ACCO and DPU path runs
+   its comm branch (the count, the sharded AdamW, the all-gather) on a
+   CUDA stream of its own, under the compute branch;
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
    gradients (tiny128, then gpt-neo-125M at L 512), and so do
    ``train.fused_loss=pallas`` (K3) against the materialized CE,
    ``train.use_pallas_attention=true`` (K5) and the one-rank ring (K4)
-   against the plain attention (tiny128);
+   against the plain attention (tiny128); and the comm stream changes
+   no bit: 6 float32 ACCO rounds of tiny128 through it equal the same
+   rounds with the comm branch on the current stream, plainly and with a
+   ~10 ms ``torch.cuda._sleep`` planted at the head of either branch,
+   while with the end-of-round wait (or the start-of-round wait) removed
+   and the sleep on the side it guards they must differ;
 7. profile: each path again under torch.profiler, for the device time
-   per kernel, K1's to K5's device time per microbatch and the device's
-   idle share.
+   per kernel, K1's to K5's device time per microbatch, the device's
+   idle share (the union of every stream's activity against the round)
+   and, from the trace's streams, the comm side's device ms and its
+   overlap share, the part of it under compute-stream activity; then
+   each ACCO and DPU path's rounds again with the comm branch on the
+   current stream, and on its own stream under a high-priority compute
+   stream, for their median round ms beside phase 5's.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -278,10 +295,11 @@ def llama3_config() -> str:
 
 
 def main_args(path: str) -> list[str]:
-    spec = MAIN_PATHS[path]
+    spec = MAIN_PATHS.get(path) or DP_PATHS[path]
     extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
     return [
-        "train=acco", f"model={spec['model']}", *extra, "data=synthetic",
+        f"train={spec.get('method', 'acco')}", f"model={spec['model']}", *extra,
+        "data=synthetic",
         f"train.batch_size={spec['batch']}", f"train.max_length={spec['seq']}",
         "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}", *spec["extra"],
     ]
@@ -1810,6 +1828,13 @@ RING_PATHS = {
         pos_windows={0: LAYERS // 2, NEO_WINDOW: LAYERS // 2},
     ),
 }
+# The dp paths (data parallelism through a one-rank NCCL dp group handed
+# to build_trainer: the count all-reduce and ZeRO-1's reduce-scatter,
+# all-gather and norm all-reduce on process groups of their own, identities
+# at one rank): the Llama-125M path's model and data with train=acco,
+# train=dpu and the ddp baseline (no seed round: 6 microbatches).
+DP_PATHS = {f"llama-125M-dp-{m}": dict(MAIN_PATHS["llama-125M"], method=m)
+            for m in ("acco", "dpu", "ddp")}
 # the kernel each JSON entry reports launches for: its own slice's path
 OWN_PATH = {**dict.fromkeys(_K1, "llama-125M"), **dict.fromkeys(_K2, "gptneo"),
             **dict.fromkeys(_K3, "llama-125M-fusedce"), **dict.fromkeys(_K5, "llama3-8B-L8192"),
@@ -1827,34 +1852,73 @@ def ring_trainer(path: str, sg, extra=()):
     return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra], sequence_group=sg)
 
 
-def main_path(path: str, sg=None) -> tuple[dict, float, int, dict]:
+def dp_trainer(path: str, group):
+    """The trainer of a dp path: its configuration and ``group`` (a
+    one-rank process group) handed in as the data-parallel group."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    return build_trainer(main_args(path), data_group=group)
+
+
+def path_spec(path: str) -> dict:
+    return MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS[path]
+
+
+def path_microbatches(path: str) -> int:
+    """Microbatches of a path's run at n_acc 1: the rounds, and the seed
+    round but under ddp."""
+    return MAIN_ROUNDS + (path_spec(path).get("method", "acco") != "ddp")
+
+
+def path_trainer(path: str, sg=None, group=None):
+    """The trainer of any path (``sg``: a ring path's sequence group;
+    ``group``: a dp path's data group)."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    if path in RING_PATHS:
+        return ring_trainer(path, sg)
+    if path in DP_PATHS:
+        return dp_trainer(path, group)
+    return build_trainer(main_args(path))
+
+
+def main_path(path: str, sg=None, group=None) -> tuple[dict, float, int, dict]:
     """The port's entry point, in-process, at the model's full width (a
-    ring path: its trainer on the one-rank group ``sg``), with every
-    launch count (and the materialized head's calls) set to 0 just before
-    the run and read just after; returns the counts, the median round ms,
-    the peak memory and the summary."""
+    ring path: its trainer on the one-rank group ``sg``; a dp path: its
+    trainer on the one-rank data group ``group``), with every launch
+    count (and the materialized head's calls) set to 0 just before the
+    run and read just after; returns the counts, the median round ms, the
+    peak memory and the summary."""
     import torch
 
     from acco_tpu_torch.__main__ import main as entry
 
-    spec = MAIN_PATHS.get(path) or RING_PATHS[path]
+    spec = path_spec(path)
+    method = spec.get("method", "acco")
     model = path
+    torch.cuda.empty_cache()  # the earlier paths' cached blocks: no fragments carried over
     torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     with HeadLogitsCalls() as head, BlockWindows() as windows:
         reset_launch_counts()
-        summary = entry(main_args(path)) if sg is None else ring_trainer(path, sg).train()
+        if path in MAIN_PATHS:
+            summary = entry(main_args(path))
+        else:
+            summary = path_trainer(path, sg, group).train()
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     rounds = summary["round_log"]
-    if len(rounds) != MAIN_ROUNDS:
-        raise AssertionError(f"expected {MAIN_ROUNDS} rounds, ran {len(rounds)}")
-    losses = [summary["seed_loss"]] + [r["loss"] for r in rounds]
+    if len(rounds) != MAIN_ROUNDS or summary["method"] != method:
+        raise AssertionError(f"expected {MAIN_ROUNDS} {method} rounds, ran {len(rounds)} "
+                             f"{summary['method']}")
+    losses = [summary["seed_loss"]] * (method != "ddp") + [r["loss"] for r in rounds]
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     real = [r["is_real_update"] for r in rounds]
-    if real != [r % 2 == 1 for r in range(MAIN_ROUNDS)]:
-        raise AssertionError(f"is_real_update does not alternate: {real}")
-    microbatches = (MAIN_ROUNDS + 1) * 1  # seed + rounds, n_acc 1
+    if real != [r % 2 == 1 or method != "acco" for r in range(MAIN_ROUNDS)]:
+        raise AssertionError(f"is_real_update of {method}: {real}")
+    microbatches = path_microbatches(path)  # n_acc 1
     if summary["fused_loss"] != spec["fused_loss"]:
         raise AssertionError(f"{model}: fused_loss resolved to {summary['fused_loss']!r}")
     if summary["attention"] != spec["attention"]:
@@ -1894,7 +1958,9 @@ def main_path(path: str, sg=None) -> tuple[dict, float, int, dict]:
         f"{PEAK_BF16_FLOPS:.3g}")
     log(f"  tokens/s {tok_s:.1f}  MFU {flops_per_token * tok_s / PEAK_BF16_FLOPS:.4f} "
         f"(vs {PEAK_BF16_FLOPS:.3g} FLOP/s bf16)")
-    log(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"  max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); max_memory_reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB; allocator retries {retries} (a "
+        f"retry frees the cached blocks after a device-wide sync)")
     log(f"  launches {launches}  materialized head calls {head.count}"
         + (f"  K4 positional launches by window {windows.counts}" if windows.counts else ""))
     return launches, med, peak, summary
@@ -1982,6 +2048,163 @@ def one_rank_group():
         dist.destroy_process_group()
 
 
+# Phase 6's stream-ordering runs: tiny128 in float32 with the plain
+# attention and CE (the kernels are not what they test), 6 ACCO rounds;
+# the planted sleep spins the card ~10 ms (2e7 cycles at ~1.98 GHz). A
+# planted fault's sleep must outlast the host's enqueueing of a round
+# (~10-25 ms): it starts at ~0.4 s and grows 4x, twice at most, until
+# the run's events show that the race it opens was taken.
+STREAM_RUN = ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+              "train.batch_size=4", f"train.nb_steps_tot={MAIN_ROUNDS}",
+              "train.use_mixed_precision=false", "train.use_pallas_attention=xla",
+              "train.fused_loss=false"]
+SLEEP_CYCLES = 20_000_000
+FAULT_SLEEP_CYCLES = 40 * SLEEP_CYCLES
+FAULT_TRIES = 3
+BRANCHES = {"comm": "_comm_branch", "compute": "_compute_branch"}
+
+
+def stream_rounds(on_current: bool, plant: str | None = None, drop: str | None = None,
+                  cycles: int = SLEEP_CYCLES):
+    """The seed round and 6 ACCO rounds of :data:`STREAM_RUN`'s trainer,
+    driven back to back with no read on the host between them (the
+    trainer's per-round read of the loss would order the rounds on the
+    host): the comm branch on its own stream, or on the current stream
+    when ``on_current``; ``plant`` ('comm' | 'compute') spins the card for
+    ``cycles`` at the head of that branch, on its stream, every round.
+
+    ``drop`` ('_fork' | '_join') removes that wait (a planted fault), and
+    the sleep is then planted in round 0 only: round 0's ``plant`` branch
+    writes what round 1's other branch reads, and without the wait the
+    reader may run first. With ``_join`` removed the comm branch's fresh
+    float buffers are filled with NaN on the current stream first, so
+    that such a read cannot meet what an earlier identical run left there.
+
+    Returns the losses and LRs, every leaf of the final state and, with
+    ``drop``, the ms by which round 1's reader ended before round 0's
+    writer (> 0: the race was taken), from events on the two streams."""
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
+    from acco_tpu_torch.parallel.common import block_from_numpy
+
+    trainer = build_trainer(STREAM_RUN)
+    step = trainer.step
+    compute = torch.cuda.current_stream()
+    if on_current:
+        step.comm_stream = compute
+    ends = {"comm": [], "compute": []}  # with ``drop``: an event after each branch
+
+    def poisoned(alloc):
+        def out(numel: int, dtype):
+            buf = alloc(numel, dtype)
+            if buf.is_floating_point():
+                with torch.cuda.stream(compute):
+                    buf.fill_(float("nan"))
+            return buf
+        return out
+
+    for branch, name in BRANCHES.items():
+        original = getattr(step, name)
+
+        def wrapped(*args, _original=original, _branch=branch):
+            if _branch == plant and (drop is None or not ends[_branch]):
+                torch.cuda._sleep(cycles)
+            if drop == "_join" and _branch == "comm":
+                args = (*args[:2], poisoned(args[2]))
+            out = _original(*args)
+            if drop is not None:
+                ends[_branch].append(torch.cuda.Event(enable_timing=True))
+                ends[_branch][-1].record()
+            return out
+
+        setattr(step, name, wrapped)
+    if drop is not None:
+        setattr(step, drop, lambda stream: None)
+    batches = infinite_batches(trainer.loader)
+    blocks = [block_from_numpy(stack_microbatches(batches, 1), trainer.device)
+              for _ in range(MAIN_ROUNDS + 1)]
+    gen = torch.Generator(device=trainer.device).manual_seed(trainer.seed)
+    state = step.init_state(trainer.model.init_flat(gen))
+    torch.cuda.synchronize()
+    state, loss = step.seed(state, blocks[0])
+    scalars = [loss]
+    for r in range(MAIN_ROUNDS):
+        state, m = step.round(state, blocks[r + 1], parity=r % 2 == 0)
+        scalars += [m.loss, m.lr]
+    torch.cuda.synchronize()
+    lead = None
+    if drop is not None:
+        reader = "compute" if plant == "comm" else "comm"
+        lead = ends[reader][1].elapsed_time(ends[plant][0])
+    leaves = [state.flat_params, state.pending_grads, state.pending_count, *state.zero1.opt,
+              state.zero1.sched_grads, state.zero1.grads_committed, *state.health]
+    return [float(x) for x in scalars], [t.clone() for t in leaves], lead
+
+
+def stream_ordering() -> None:
+    """The comm stream changes no bit: the rounds through it equal the
+    rounds with the comm branch on the current stream, plainly and with a
+    sleep planted at the head of either branch. With a wait removed and a
+    sleep on the side it guards long enough that the race it opens is
+    taken (checked with an event, not left to the host's pace), they
+    must differ."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want_losses, want, _ = stream_rounds(on_current=True)
+
+    def same(losses, leaves) -> bool:
+        return losses == want_losses and all(torch.equal(a, b) for a, b in zip(leaves, want))
+
+    for plant in (None, "comm", "compute"):
+        ok = same(*stream_rounds(on_current=False, plant=plant)[:2])
+        log(f"  comm stream, sleep planted at {plant or 'no'} branch head: "
+            f"{'bit-identical' if ok else 'DIFFERS'} to the one-stream rounds")
+        if not ok:
+            raise AssertionError("the comm stream changed the rounds' results")
+    for drop, plant in (("_join", "comm"), ("_fork", "compute")):
+        cycles = FAULT_SLEEP_CYCLES
+        for _ in range(FAULT_TRIES):
+            losses, leaves, lead = stream_rounds(on_current=False, plant=plant, drop=drop,
+                                                 cycles=cycles)
+            if lead > 0:
+                break
+            log(f"  planted fault: {drop} removed, {cycles:.2e} cycles of sleep at round 0's "
+                f"{plant} branch head: round 1's reader ended {-lead:.3f} ms after round 0's "
+                f"writer, the race not taken; again with 4x")
+            cycles *= 4
+        else:
+            raise AssertionError(f"a sleep of {cycles // 4:.2e} cycles did not open the race "
+                                 f"that a removed {drop} allows")
+        ok = same(losses, leaves)
+        log(f"  planted fault: {drop} removed, {cycles:.2e} cycles of sleep at round 0's "
+            f"{plant} branch head: round 1's reader ended {lead:.3f} ms before round 0's "
+            f"writer, the race taken: "
+            f"{'bit-identical (fault missed)' if ok else 'differs (fault caught)'}")
+        if ok:
+            raise AssertionError(f"the stream check missed a removed {drop}")
+    log(f"  one-stream losses and LRs {['%.6g' % x for x in want_losses]}")
+
+
+def dp_losses_vs(path: str, summary: dict, reference: dict) -> float:
+    """A dp path's first loss against the Llama-125M path's on the same
+    weights and batch: round 0 of acco and dpu (the first round computes
+    at the initial weights on the second block), step 0 of ddp (the first
+    block, the seed round's). A one-rank dp group runs the same
+    arithmetic, so they should agree to the bit; the bar is the ring's."""
+    method = DP_PATHS[path]["method"]
+    got = summary["round_log"][0]["loss"]
+    want = reference["seed_loss"] if method == "ddp" else reference["round_log"][0]["loss"]
+    rel = abs(got - want) / abs(want)
+    log(f"  first loss: {method} on the dp group {got:.6f}  llama-125M {want:.6f}  relative "
+        f"difference {rel:.3e} (bar {RING_LOSS_RTOL:g})")
+    if rel > RING_LOSS_RTOL:
+        raise AssertionError(f"{path}'s first loss is off the llama-125M path's")
+    return rel
+
+
 # the ring paths against the paths they share weights and data with:
 # losses in bf16 within this share of the reference (both sides round
 # the attention output to bf16; K4 merges float32 partials where K5 and
@@ -2047,35 +2270,114 @@ def neo_ring_step_agreement(sg) -> None:
         raise AssertionError("GPT-Neo's windowed ring and its non-CP path disagree")
 
 
-def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> None:
+def _union(intervals: list) -> list:
+    """Sorted, merged [start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _measure(intervals: list) -> float:
+    return sum(b - a for a, b in intervals)
+
+
+def _intersect(x: list, y: list) -> float:
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        total += max(0.0, min(x[i][1], y[j][1]) - max(x[i][0], y[j][0]))
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(prof) -> dict:
+    """Device activity by CUDA stream, from the profiler's trace (kernels,
+    copies and memsets): the compute stream is the one with the most
+    device time (the current stream the microbatches run on); every other
+    stream (the comm stream, NCCL's) is the comm side. Returns each
+    stream's busy ms, the comm side's busy ms, the part of it under
+    compute-stream activity and the union of all streams' activity."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_stream: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        by_stream.setdefault(stream, []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    if not by_stream:
+        raise AssertionError("the profiler's trace holds no device activity")
+    merged = {k: _union(v) for k, v in by_stream.items()}
+    busy = {k: _measure(v) / 1e3 for k, v in merged.items()}
+    compute = max(busy, key=busy.get)
+    comm = _union([iv for k, v in by_stream.items() if k != compute for iv in v])
+    everything = _union([iv for v in by_stream.values() for iv in v])
+    return {
+        "streams_ms": {str(k): v for k, v in sorted(busy.items(), key=lambda kv: -kv[1])},
+        "compute_stream": str(compute),
+        "compute_ms": busy[compute],
+        "comm_ms": _measure(comm) / 1e3,
+        "comm_under_compute_ms": _intersect(comm, merged[compute]) / 1e3,
+        "union_ms": _measure(everything) / 1e3,
+    }
+
+
+def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group=None) -> dict:
     """Where the device time of a main path goes: the same run again,
     under torch.profiler (after the measured run, so the profiler's own
     cost touches no reported time). Prints device ms per microbatch for
-    the top kernels, and the device's idle share of a round: 1 - device
-    ms per microbatch / the measured run's median round ms (n_acc 1). The
-    profiled run's own wall time includes the profiler's host cost."""
+    the top kernels, the device's idle share of a round (1 - the union of
+    every stream's activity per microbatch / the measured run's median
+    round ms, n_acc 1; the sum of kernel times beside it, which counts
+    overlapped time twice)
+    and the two streams: the comm side's device ms per microbatch and its
+    overlap share, the part of it that runs under compute-stream
+    activity. An ACCO or DPU path must show device work off the compute
+    stream (its comm branch). The profiled run's own wall time includes
+    the profiler's host cost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from acco_tpu_torch.__main__ import build_trainer
-
-    trainer = build_trainer(main_args(model)) if sg is None else ring_trainer(model, sg)
+    torch.cuda.empty_cache()
+    trainer = path_trainer(model, sg, group)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.train()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    microbatches = MAIN_ROUNDS + 1
+    microbatches = path_microbatches(model)
     # device-side rows only: CPU op rows also carry their kernels' time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     per_mb = busy_ms / microbatches
-    log(f"  {model}: device busy {per_mb:.2f} ms per microbatch (init + seed + "
-        f"{MAIN_ROUNDS} rounds: {busy_ms:.1f} ms in {wall_ms:.1f} ms of profiled wall "
-        f"time); idle share of a {round_ms:.2f} ms round {1 - per_mb / round_ms:.3f}")
+    st = stream_overlap(prof)
+    union_mb = st["union_ms"] / microbatches
+    share = st["comm_under_compute_ms"] / st["comm_ms"] if st["comm_ms"] else 0.0
+    log(f"  {model}: device busy {union_mb:.2f} ms per microbatch (union of streams; kernel "
+        f"sum {per_mb:.2f}; init + {microbatches} microbatches: {st['union_ms']:.1f} ms in "
+        f"{wall_ms:.1f} ms of profiled wall time); idle share of a {round_ms:.2f} ms round "
+        f"{1 - union_mb / round_ms:.3f} (by the kernel sum {1 - per_mb / round_ms:.3f})")
+    log(f"  streams: compute {st['compute_stream']} {st['compute_ms'] / microbatches:.3f} ms/"
+        f"microbatch; comm side {st['comm_ms'] / microbatches:.3f} ms/microbatch, "
+        f"{st['comm_under_compute_ms'] / microbatches:.3f} under compute-stream activity: "
+        f"overlap share {share:.3f}; busy ms by stream {st['streams_ms']}")
+    method = trainer.method
+    if method != "ddp" and st["comm_ms"] <= 0:
+        raise AssertionError(f"{model}: no device work off the compute stream (the comm branch)")
     for family in ("K1", "K2", "K3", "K5", "K4"):
         rows = [e for e in kernels if kernel_family(e.key) == family]
         ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
@@ -2084,6 +2386,29 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None) -> No
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3 / microbatches:9.3f} ms/microbatch "
             f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
+    return {"union_ms_per_microbatch": union_mb, "kernel_sum_ms_per_microbatch": per_mb,
+            "comm_ms_per_microbatch": st["comm_ms"] / microbatches, "overlap_share": share,
+            "idle_share": 1 - union_mb / round_ms}
+
+
+def stream_variant_ms(model: str, variant: str, sg=None, group=None) -> float:
+    """The median round ms of a path's rerun with its comm branch on the
+    current stream ('one'), or on its own stream under a high-priority
+    compute stream ('priority': the scheduler then hands free SMs to the
+    microbatches' kernels first), beside phase 5's run on two streams of
+    equal priority."""
+    import torch
+
+    torch.cuda.empty_cache()
+    trainer = path_trainer(model, sg, group)
+    if variant == "one":
+        trainer.step.comm_stream = torch.cuda.current_stream()
+        summary = trainer.train()
+    else:
+        with torch.cuda.stream(torch.cuda.Stream(priority=-1)):
+            summary = trainer.train()
+    torch.cuda.synchronize()
+    return statistics.median(r["ms"] for r in summary["round_log"])
 
 
 # A profiled kernel's family, by its name: K5, K2 and K4 before K1, since
@@ -2165,10 +2490,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
-        import acco_tpu_torch  # noqa: F401  (the port, from this checkout)
+        from acco_tpu_torch.utils.platform import default_allocator_settings
     except ImportError as exc:
         print(f"chip_smoke: the port is not in this checkout ({exc})", file=sys.stderr)
         return 2
+    default_allocator_settings()  # as the entry point, before CUDA is initialised
 
     log("== 1 device")
     name = torch.cuda.get_device_name(0)
@@ -2292,8 +2618,17 @@ def main() -> int:
         log(" gpt-neo-125M: one forward and backward, the windowed ring (K4) against the non-CP "
             "path (K1 + K2), K3 on both")
         neo_ring_step_agreement(sg)
+        # the dp paths: the same one-rank NCCL group, handed in as the dp group
+        for step, path in enumerate(DP_PATHS, start=len(MAIN_PATHS) + len(RING_PATHS) + 1):
+            log(f"== 5.{step} dp path {path}: {' '.join(main_args(path))}, a one-rank NCCL dp "
+                f"group handed in")
+            launches[path], round_ms[path], peaks[path], summaries[path] = main_path(
+                path, group=sg.group)
+            dp_losses_vs(path, summaries[path], summaries["llama-125M"])
         log(f"  peak memory by path: { {p: f'{b / 2**30:.2f} GiB' for p, b in peaks.items()} }")
         log("== 6 small input: the kernel path agrees with the plain path (float32)")
+        log(" the comm stream (tiny128, float32, L 128): ordering")
+        stream_ordering()
         log(" tiny128 (K1), L 128")
         small_input_agreement(
             ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
@@ -2333,10 +2668,19 @@ def main() -> int:
             runs=RING_RUNS, sg=sg,
         )
         log("== 7 where the device time goes (profiled reruns of the main paths)")
-        for model in MAIN_PATHS:
-            profile_main_path(model, round_ms[model])
-        for model in RING_PATHS:
-            profile_main_path(model, round_ms[model], sg=sg)
+        profiles = {}
+        for model in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
+            profiles[model] = profile_main_path(model, round_ms[model], sg=sg, group=sg.group)
+            if path_spec(model).get("method", "acco") == "ddp":
+                continue
+            one, prio = (stream_variant_ms(model, v, sg, sg.group) for v in ("one", "priority"))
+            profiles[model].update(round_ms=round_ms[model], one_stream_round_ms=one,
+                                   priority_round_ms=prio)
+            log(f"  {model}: median round ms, comm branch on its own stream (phase 5) "
+                f"{round_ms[model]:.2f}, on the current stream {one:.2f}, on its own stream "
+                f"under a high-priority compute stream {prio:.2f}")
+        log("  comm side, overlap share and idle share by path: "
+            f"{ {p: {k: round(v, 4) for k, v in r.items()} for p, r in profiles.items()} }")
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

@@ -57,15 +57,11 @@ def test_without_device_flag_needs_a_card(monkeypatch):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ("train=ddp", "item 4"),
         ("train.finetune=true", "item 7"),
         ("train.remat=true", "remat"),
         ("train.eval=true", "item 6"),
-        ("train.mesh_shape={dp: 2}", "multi-rank"),
         # keys JAX honours that the port has no code for yet
         ("train.resume_from=/nonexistent/ckpt", "queue 1, item 6"),
-        ("train.microbatch_mask=[1, 0]", "queue 1, item 4"),
-        ("+train.lr_grad_accounting=true", "queue 1, item 4"),
         ("train.fault_injection=nan_grads@3", "queue 1, item 8"),
         ("train.profile_steps=2", "queue 1, item 8"),
     ],
@@ -73,6 +69,49 @@ def test_without_device_flag_needs_a_card(monkeypatch):
 def test_unported_keys_raise_by_name(override, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override])
+
+
+def test_ddp_runs_on_cpu():
+    """``train=ddp`` (once refused) runs the synchronous baseline: no seed
+    round, every step an update."""
+    summary = main(["--device", "cpu", "train=ddp", *TINY, "train.nb_steps_tot=2"])
+    assert summary["method"] == "ddp" and summary["seed_loss"] is None
+    assert summary["count_grad_tot"] == 2 and summary["rounds"] == 2
+    assert all(r["is_real_update"] and abs(r["loss"]) < 100 for r in summary["round_log"])
+
+
+def test_dp_mesh_needs_its_ranks():
+    """``train.mesh_shape={dp: 2}`` (once refused) runs under torchrun; at
+    one process it raises naming the launcher (its runs on two ranks:
+    tests/test_torch_data_parallel.py)."""
+    with pytest.raises(ValueError, match=r"needs 2 processes.*torchrun --nproc_per_node 2"):
+        main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2",
+              "train.mesh_shape={dp: 2}"])
+
+
+def test_microbatch_mask_is_shape_checked():
+    """``train.microbatch_mask`` (once refused) is [n_acc][dp]: a flat list
+    raises JAX's error."""
+    with pytest.raises(ValueError, match=r"microbatch_mask must be \[n_grad_accumulation=1\]"
+                                         r"\[world_size=1\], got \(2,\)"):
+        main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2",
+              "train.microbatch_mask=[1, 0]"])
+
+
+def test_lr_grad_accounting_advances_the_schedule_by_the_count():
+    """``+train.lr_grad_accounting=true`` (once refused): ACCO's two
+    committed updates of 2 micro-grads each move the schedule's counter
+    by 4, not 2."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    steps = {}
+    for flag in ("true", "false"):
+        trainer = build_trainer(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=4",
+                                 f"+train.lr_grad_accounting={flag}"])
+        summary = trainer.train()
+        assert summary["count_grad_tot"] == 4
+        steps[flag] = int(trainer.final_state.zero1.sched_grads)
+    assert steps == {"true": 4, "false": 2}
 
 
 def test_default_save_runs_and_logs_once(caplog):

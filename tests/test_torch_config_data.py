@@ -121,7 +121,7 @@ def test_loader_blocks_match_jax(const_len):
     else:
         rows = tok(docs, truncation=True, max_length=64)["input_ids"]
     kw = dict(batch_size=4, max_length=64, pad_token_id=tok.pad_token_id, seed=11)
-    it_t = loader.infinite_batches(loader.BatchIterator(list(rows), **kw))
+    it_t = loader.infinite_batches(loader.ShardedBatchIterator(list(rows), **kw))
     it_j = jax_loader.infinite_batches(
         jax_loader.ShardedBatchIterator([{"input_ids": r} for r in rows], **kw)
     )

@@ -15,8 +15,8 @@ Tolerances are tests/test_context_parallel.py's (:67, :73): the loss at
 rtol 1e-5 / atol 1e-6, the parameters at rtol 1e-4 / atol 1e-5. The
 multi-rank ZeRO-1 step is held to the one-rank step bit for bit. Also:
 ``torchrun --nproc_per_node 2 -m acco_tpu_torch --device cpu`` end to
-end, and the refusals (dp > 1, padded batches under CP, a length the
-zig-zag layout cannot split).
+end, and the refusals (padded batches under CP, a length the zig-zag
+layout cannot split, the tp and pp axes).
 """
 
 import json
@@ -334,12 +334,25 @@ def test_one_process_makes_no_process_group(monkeypatch):
 
 @pytest.mark.parametrize(
     "mesh_shape, item",
-    [({"dp": 2}, "item 4"), ({"dp": 2, "sp": 2}, "item 4"), ({"sp": 2, "tp": 2}, "item 9"),
+    [({"dp": 2}, None), ({"dp": 2, "sp": 2}, None), ({"sp": 2, "tp": 2}, "item 9"),
      ({"pp": 2}, "item 9")],
 )
 def test_meshes_other_than_sp_raise_by_item(mesh_shape, item):
-    with pytest.raises(NotImplementedError, match=item):
-        check_mesh(mesh_shape)
+    """tp and pp raise by their item. The dp meshes (item None) run since
+    data parallelism was ported: they pass the check, and at one process
+    they ask for their ranks (tests/test_torch_data_parallel.py runs
+    them)."""
+    if item is None:
+        sizes = check_mesh(mesh_shape)
+        assert (sizes["dp"], sizes["sp"]) == (mesh_shape["dp"], mesh_shape.get("sp", 1))
+        from acco_tpu_torch.parallel.mesh import init_distributed
+
+        n = sizes["dp"] * sizes["sp"]
+        with pytest.raises(ValueError, match=f"needs {n} processes"):
+            init_distributed(mesh_shape, "cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            check_mesh(mesh_shape)
     assert check_mesh({"dp": 1, "sp": 4})["sp"] == 4
 
 

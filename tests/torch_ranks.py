@@ -34,7 +34,10 @@ def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
     ``timeout`` seconds."""
     workdir = str(workdir)
     store = os.path.join(workdir, "store")
-    code = PRELUDE.format(repo=REPO) + script + "\ndist.destroy_process_group()\n"
+    # the barrier: a rank that tears gloo down while another is still in a
+    # collective of one of several groups can abort at exit
+    code = (PRELUDE.format(repo=REPO) + script
+            + "\ndist.barrier()\ndist.destroy_process_group()\n")
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
     procs = [
         subprocess.Popen(
@@ -58,3 +61,99 @@ def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
     if failed:
         raise AssertionError("\n".join(
             f"rank {r} exited {rc}:\n{out[-3000:]}" for r, rc, out in failed))
+
+
+# Training on ranks: one rank of a {dp, sp} world runs the port's ACCO/DPU
+# rounds or DDP steps on its slice of seeded global blocks and saves what
+# it saw. ``spec.json``: family ('llama' | 'gpt_neo'), arch, dp, sp,
+# zigzag, method ('acco' | 'dpu' | 'ddp'), sched, opt, rounds, batch (the
+# rank's batch), lr_grad_accounting. ``flat.npy``: the initial [n_params]
+# parameters. ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
+# [n_acc, dp * batch, seq] and ``{i}/valid`` [n_acc, dp]. The rank takes
+# its dp index's rows and valid column, then (sp > 1) its sequence chunk.
+# Saves ``out{RANK}.npz``: per round the loss, LR, is_real_update, the
+# count consumed, the working params and this rank's optimizer shard.
+TRAIN_WORKER = """
+import json
+import numpy as np
+from acco_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from acco_tpu_torch.ops.schedules import get_schedule
+from acco_tpu_torch.parallel.acco import AccoTrainStep
+from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
+from acco_tpu_torch.parallel.ddp import DDPTrainStep
+from acco_tpu_torch.parallel.mesh import RankGroups
+
+spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
+groups, sg = RankGroups.build(spec["dp"], spec["sp"], RANK)
+kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
+if spec["family"] == "llama":
+    model = LlamaModel(LlamaConfig(**spec["arch"]), dtype=torch.float32, **kw)
+else:
+    arch = dict(spec["arch"], attention_layers=tuple(spec["arch"]["attention_layers"]))
+    model = GPTNeoModel(GPTNeoConfig(**arch), dtype=torch.float32, **kw)
+common = dict(const_len_batch=True, sequence_group=sg, groups=groups,
+              lr_grad_accounting=spec["lr_grad_accounting"], **spec["opt"])
+if spec["method"] == "ddp":
+    step = DDPTrainStep(model, get_schedule(*spec["sched"]), **common)
+else:
+    step = AccoTrainStep(model, get_schedule(*spec["sched"]), mode=spec["method"], **common)
+state = step.init_state(torch.tensor(np.load(os.path.join(WORKDIR, "flat.npy"))))
+data = np.load(os.path.join(WORKDIR, "blocks.npz"))
+rows = slice(groups.dp_index * spec["batch"], (groups.dp_index + 1) * spec["batch"])
+
+def block(i):
+    raw = {k: data[f"{i}/{k}"][:, rows] for k in ("input_ids", "attention_mask", "labels")}
+    raw["valid"] = data[f"{i}/valid"][:, groups.dp_index]
+    return prep_cp_leaves(block_from_numpy(raw, "cpu"), sg, spec["zigzag"])
+
+out = {k: [] for k in ("losses", "lrs", "real", "round_grads", "flats", "opt_params", "mu",
+                       "nu", "sched", "committed")}
+
+def record(state):
+    out["flats"].append(state.flat_params.numpy().copy())
+    for name in ("params", "mu", "nu"):
+        out["opt_params" if name == "params" else name].append(
+            getattr(state.zero1.opt, name).numpy().copy())
+    out["sched"].append(int(state.zero1.sched_grads))
+    out["committed"].append(float(state.zero1.grads_committed))
+
+if spec["method"] == "ddp":
+    record(state)
+    for r in range(spec["rounds"]):
+        state, m = step.step(state, block(r))
+        out["losses"].append(float(m.loss))
+        out["lrs"].append(float(m.lr))
+        out["real"].append(not bool(m.skipped))
+        out["round_grads"].append(float(m.grads_this_step))
+        record(state)
+else:
+    state, loss = step.seed(state, block(0))
+    out["losses"].append(float(loss))
+    record(state)
+    for r in range(spec["rounds"]):
+        state, m = step.round(state, block(r + 1), parity=r % 2 == 0)
+        out["losses"].append(float(m.loss))
+        out["lrs"].append(float(m.lr))
+        out["real"].append(bool(m.is_real_update))
+        out["round_grads"].append(float(m.round_grads))
+        record(state)
+np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **{k: np.array(v) for k, v in out.items()})
+"""
+
+
+def run_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0) -> list:
+    """:data:`TRAIN_WORKER` on ``spec['dp'] * spec['sp']`` ranks; returns
+    each rank's saved arrays."""
+    import json
+
+    import numpy as np
+
+    np.save(os.path.join(str(workdir), "flat.npy"), np.asarray(flat))
+    np.savez(os.path.join(str(workdir), "blocks.npz"),
+             **{f"{i}/{k}": v for i, b in enumerate(blocks) for k, v in b.items()})
+    with open(os.path.join(str(workdir), "spec.json"), "w") as f:
+        json.dump(spec, f)
+    ws = spec["dp"] * spec["sp"]
+    run_ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
+    return [dict(np.load(os.path.join(str(workdir), f"out{r}.npz"))) for r in range(ws)]
