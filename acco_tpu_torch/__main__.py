@@ -8,7 +8,13 @@ shared ``config/`` tree, e.g.
         data=synthetic train.max_length=128 train.batch_size=2
 
 The run goes to ``cuda:0`` unless ``--device cpu`` is given, and raises
-when no card is visible. It writes nothing to disk; the summary dict is
+when no card is visible. As ``main.py``, each run gets a run dir,
+``hydra.run.dir`` (default ``./outputs/%Y-%m-%d/%H-%M-%S``, from
+``config/config.yaml``; ``hydra.run.dir=<dir>`` overrides it), holding
+the composed ``config.yaml``, the checkpoints (``train.save``, the
+default), the TensorBoard scalars and ``results.csv``. A run resumes
+with ``train.resume_from=<run dir>/checkpoints/<run_name>`` (or a
+``step_*`` dir), evaluates with ``train.eval=true``. The summary dict is
 returned (and printed as the last line of output as JSON).
 
 Data and context parallelism run under torchrun (or SLURM's srun), one
@@ -28,6 +34,7 @@ alone prints the summary.
 
 from __future__ import annotations
 
+import datetime
 import json
 import logging
 import os
@@ -48,6 +55,45 @@ def _split_device(argv: list[str]) -> tuple[str | None, list[str]]:
         else:
             rest.append(arg)
     return device, rest
+
+
+def _split_run_dir(overrides: list[str]) -> tuple[str, list[str]]:
+    """``hydra.run.dir=<pattern>`` (or ``+hydra.run.dir=``) out of the
+    overrides, else the root config's pattern: Hydra's runtime block,
+    which ``compose_config`` leaves to the caller as JAX's does."""
+    from acco_tpu_torch.configuration import load_yaml
+
+    pattern, rest = None, []
+    for ov in overrides:
+        key, _, value = ov.partition("=")
+        if key.lstrip("+") == "hydra.run.dir":
+            pattern = value
+        else:
+            rest.append(ov)
+    if pattern is None:
+        root = load_yaml(os.path.join(REPO_ROOT, "config", "config.yaml"))
+        pattern = ((root.get("hydra") or {}).get("run") or {}).get(
+            "dir", "./outputs/%Y-%m-%d/%H-%M-%S")
+    return pattern, rest
+
+
+def _make_run_dir(pattern: str, cfg, mesh) -> str:
+    """The run dir (rank 0's clock names it, every rank takes its name)
+    with rank 0's ``config.yaml`` in it."""
+    from acco_tpu_torch.configuration import dump_yaml
+
+    run_dir = datetime.datetime.now().strftime(pattern)
+    if mesh.world_size > 1:
+        import torch.distributed as dist
+
+        name = [run_dir]
+        dist.broadcast_object_list(name, src=0)
+        run_dir = name[0]
+    if mesh.rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            f.write(dump_yaml(cfg.to_container()))
+    return run_dir
 
 
 def build_trainer(argv: list[str], sequence_group=None, data_group=None):
@@ -72,6 +118,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
 
     default_allocator_settings()
     device_arg, overrides = _split_device(argv)
+    run_dir_pattern, overrides = _split_run_dir(overrides)
     device = resolve_device(device_arg)
     cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
     check_supported(cfg.train)
@@ -86,9 +133,8 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
         format="[%(asctime)s][%(name)s][%(levelname)s] - %(message)s",
     )
     log = logging.getLogger("acco_tpu_torch")
-    if bool(cfg.train.get("save", False)):
-        log.info("train.save=True: this port writes no checkpoint, params or logs to disk "
-                 "(ROADMAP.md queue 1, item 6); the summary is returned and printed")
+    run_dir = _make_run_dir(run_dir_pattern, cfg, mesh)
+    log.info("run dir: %s", run_dir)
     use_mp = bool(cfg.train.get("use_mixed_precision", True))
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
     model = build_model(
@@ -103,8 +149,8 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     tokenizer = load_tokenizer(cfg.model.get("tokenizer"), log)
     train_texts, eval_texts = load_text_dataset(cfg.data)
     trainer = Trainer(
-        model, tokenizer, train_texts, cfg.train, log,
-        seed=int(cfg.select("seed", 12345)), device=device, mesh=mesh,
+        model, tokenizer, train_texts, eval_texts, cfg.train, log,
+        seed=int(cfg.select("seed", 12345)), device=device, mesh=mesh, run_dir=run_dir,
     )
     # train.fused_loss as the train path resolved it against the model
     # (parallel/common.make_flat_loss_fn, which logs any downgrade)

@@ -9,7 +9,8 @@ exponent-only scalars (``6e-4``), which YAML 1.1 leaves as strings.
 The machine with the card has no PyYAML, so :func:`load_yaml` reads the
 subset of YAML that ``config/`` uses, with PyYAML's YAML 1.1 scalar
 typing: block mappings and sequences, flow mappings and sequences of
-scalars, quoted and plain scalars, comments.
+scalars, quoted and plain scalars, comments; :func:`dump_yaml` writes a
+composed config (the run dir's ``config.yaml``) in a form it reads back.
 
 :func:`check_supported` rejects, by name, the keys this port cannot run
 yet, pointing at the ROADMAP item that brings each. TPU-only knobs
@@ -19,6 +20,7 @@ yet, pointing at the ROADMAP item that brings each. TPU-only knobs
 
 from __future__ import annotations
 
+import math
 import os
 import re
 from typing import Any, Iterable
@@ -192,6 +194,37 @@ def load_yaml(path: str) -> dict:
         return load_yaml_text(f.read()) or {}
 
 
+def _yaml_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, float) and not math.isfinite(value):
+        return ".nan" if value != value else (".inf" if value > 0 else "-.inf")
+    if isinstance(value, (int, float)):
+        return repr(value)
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(v) for v in value) + "]"
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{k}: {_yaml_scalar(v)}" for k, v in value.items()) + "}"
+    return "'" + str(value).replace("'", "''") + "'"
+
+
+def dump_yaml(tree: dict, indent: int = 0) -> str:
+    """A config tree as block YAML that :func:`load_yaml_text` reads back
+    to the same tree: nested dicts as block mappings, lists as flow
+    sequences, strings single-quoted."""
+    lines = []
+    for key, value in tree.items():
+        pad = " " * indent
+        if isinstance(value, dict) and value:
+            lines.append(f"{pad}{key}:")
+            lines.append(dump_yaml(value, indent + 2).rstrip("\n"))
+        else:
+            lines.append(f"{pad}{key}: {_yaml_scalar(value)}")
+    return "\n".join(lines) + "\n"
+
+
 class ConfigNode(dict):
     """A dict with attribute access, YAML-typed values, and deep merge."""
 
@@ -342,7 +375,9 @@ def compose_config(
 def check_supported(train_cfg: dict) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for the train
     keys this slice of the port does not run yet (``fused_loss`` is
-    resolved against the model: ops.losses.resolve_fused_loss)."""
+    resolved against the model: ops.losses.resolve_fused_loss; the
+    trainer names the item of ``ckpt_async`` and ``rollback``, which run
+    in a reduced form)."""
     from acco_tpu_torch.ops.attention import normalize_remat
 
     def refuse(what: str, item: str) -> None:
@@ -356,12 +391,8 @@ def check_supported(train_cfg: dict) -> None:
     check_mesh(train_cfg.get("mesh_shape"))
     if bool(train_cfg.get("finetune", False)):
         refuse("finetune=True (HF checkpoint loading)", "queue 1, item 7")
-    if bool(train_cfg.get("eval", False)):
-        refuse("eval=True", "queue 1, item 6")
     # keys JAX honours and the port has no code for: a non-default value
     # would otherwise run as if it were absent
-    if train_cfg.get("resume_from") is not None:
-        refuse(f"resume_from={train_cfg.get('resume_from')!r}", "queue 1, item 6")
     if train_cfg.get("fault_injection") is not None:
         refuse(f"fault_injection={train_cfg.get('fault_injection')!r}", "queue 1, item 8")
     if int(train_cfg.get("profile_steps", 0) or 0) > 0:

@@ -5,7 +5,8 @@ one rank's rows (``[index::num_shards]``, as JAX's list path),
 :class:`ShardedBatchIterator` yields fixed-shape
 ``[batch_size, max_length]`` int32 batches over them, padded with the
 pad id and masked through ``attention_mask`` / ``labels == -100``,
-shuffled per epoch from ``seed + epoch``, with ``iter_state`` /
+shuffled per epoch from ``seed + epoch`` (or in order, as the eval
+loader reads, with the ragged last batch kept), with ``iter_state`` /
 ``set_state`` for an exact resume, and :func:`stack_microbatches` stacks
 them into ``[n_acc, batch, seq]`` blocks with this rank's ``valid``
 [n_acc] float32 column — the layout the round consumes.
@@ -26,8 +27,10 @@ IGNORE_INDEX = -100  # label value excluded from the LM loss (HF convention)
 
 
 class ShardedBatchIterator:
-    """Iterate fixed-shape LM batches over one rank's rows of token ids
-    (``batch_size`` of them a batch, the ragged last batch dropped)."""
+    """Iterate fixed-shape LM batches over one rank's rows of token ids,
+    ``batch_size`` of them a batch: with ``shuffle`` in a per-epoch order
+    from ``seed + epoch``, else in order; with ``drop_last`` the ragged
+    last batch is dropped, else it is a shorter batch."""
 
     def __init__(
         self,
@@ -35,33 +38,42 @@ class ShardedBatchIterator:
         batch_size: int,
         max_length: int,
         pad_token_id: int,
+        shuffle: bool = True,
         seed: int = 0,
+        drop_last: bool = True,
     ) -> None:
         if len(rows) == 0:
             raise ValueError("Empty dataset shard — nothing to batch")
-        if len(rows) < batch_size:
+        if drop_last and len(rows) < batch_size:
             raise ValueError(
-                f"Dataset shard has {len(rows)} rows < batch_size {batch_size}: the loader "
-                "(which drops the ragged last batch) would yield none"
+                f"Dataset shard has {len(rows)} rows < batch_size {batch_size} with "
+                "drop_last: the loader would yield zero batches and an epoch-wrapping "
+                "consumer would spin forever"
             )
         self.rows = rows
         self.batch_size = batch_size
         self.max_length = max_length
         self.pad_token_id = pad_token_id
+        self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
         self.epoch = 0  # epoch the next __iter__ will run
         self._iter_epoch: Optional[int] = None  # epoch in progress
         self._pos = 0  # batches yielded (or skipped on resume) this epoch
         self._skip = 0  # batches to fast-forward at the next __iter__
 
     def __len__(self) -> int:
-        return len(self.rows) // self.batch_size
+        n = len(self.rows)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def iter_state(self) -> Dict[str, int]:
         """The position of the iteration in progress: the shuffle order is
         a pure function of ``seed + epoch``, so ``(epoch, batch_pos)``
-        fixes the rest of the stream. Before the first batch, a pending
-        fast-forward is the position."""
+        fixes the rest of the stream. Taken between two batches it is the
+        position of the last one consumed: after the last batch of an
+        epoch, ``(epoch, len(self))``, which replays as "skip them all,
+        the next batch opens the next epoch". Before the first batch, a
+        pending fast-forward is the position."""
         if self._iter_epoch is None:
             return {"epoch": self.epoch, "batch_pos": self._skip}
         return {"epoch": self._iter_epoch, "batch_pos": self._pos}
@@ -91,8 +103,10 @@ class ShardedBatchIterator:
         }
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.rows))
-        np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        n = len(self.rows)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
         self._iter_epoch = self.epoch
         self._pos = 0
         skip, self._skip = self._skip, 0
@@ -102,7 +116,8 @@ class ShardedBatchIterator:
                 "restored position does not fit this dataset/batch_size"
             )
         self.epoch += 1
-        for start in range(0, len(self) * self.batch_size, self.batch_size):
+        end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, end, self.batch_size):
             self._pos += 1
             if self._pos <= skip:  # resume fast-forward: the order is fixed
                 continue

@@ -1,13 +1,19 @@
-"""The training loop: the seed round, then ACCO or DPU rounds, or DDP steps,
-to the target.
+"""The training loop: the seed round (or ACCO's DPU warmup), then ACCO or
+DPU rounds, or DDP steps, to the target; eval, checkpoints, exact resume
+and the run's records.
 
-Counterpart of ``DecoupledTrainer._train`` in ``acco_tpu/trainer.py``,
-slimmed: const-len packing (or per-document truncation), a shuffled
-batch iterator, then rounds (or steps) until ``nb_steps_tot`` gradients
-are committed. Each round logs its loss, LR and ``is_real_update``;
-reading them back is the loop's one sync per round, so a round's wall
-time includes its device work on both streams (the round ends with the
-current stream waiting on the comm stream).
+Counterpart of ``DecoupledTrainer`` in ``acco_tpu/trainer.py``, slimmed:
+const-len packing (or per-document truncation), a shuffled batch
+iterator, then rounds (or steps) until ``nb_steps_tot`` gradients are
+committed. Each round's loss, LR and ``is_real_update`` stay on the
+device; the loop reads them back, with the committed count and the
+guard's counters, in one copy every ``delta_step_for_log`` grads (JAX:
+trainer.py:1350-1377), so the host runs ahead of the card in between.
+The eval, the periodic save and the watchdog decide at those boundaries.
+At ``delta_step_for_log=1`` every round is read back, and a round's
+``ms`` is its synced wall time (both streams: the round ends with the
+current stream waiting on the comm stream); the rounds themselves are
+the same bits at any cadence.
 
 Ranks: the ``mesh`` of ``parallel/mesh.py``, ``{dp: N, sp: M}``. Each
 rank reads the rows of its dp index (the raw texts sharded by dp index
@@ -21,13 +27,42 @@ hop), keeps its chunk of the sequence
 column: heterogeneous workers, whose masked microbatches run and count
 nothing.
 
-Not here yet: ACCO's DPU warmup rounds, eval, checkpoints, TensorBoard
-and ``results.csv`` (ROADMAP.md queue 1, item 6).
+The run's persistence and records, as JAX's trainer keeps them, under
+``run_dir``:
+
+- ``train.save``: a checkpoint every ``checkpoint_every_s`` (rank 0's
+  clock decides, every rank follows) and a final one with rank 0's dense
+  float32 ``params.npz``, under ``checkpoints/<run_name>/step_<grads>``
+  (``utils/checkpoint.py``), with ``ckpt_keep_last`` /
+  ``ckpt_keep_every_s`` retention and a startup GC of uncommitted step
+  dirs. The save is synchronous (``ckpt_async`` commits in the
+  background in JAX: ROADMAP.md queue 1, item 8, robustness).
+- ``train.resume_from``: a checkpoint root (its newest complete step) or
+  a ``step_*`` dir; the state, the counters and the loader's position are
+  restored, the host's parity mirror comes from ``state.round_idx``, and
+  a resumed ACCO/DPU run skips the seed round. The final parameters then
+  equal an uninterrupted run's bit for bit.
+- ``train.eval``: the eval loss every ``eval_step`` grads
+  (:meth:`Trainer.evaluate`, through ``ops.losses.model_ce`` under
+  ``torch.no_grad()``).
+- TensorBoard scalars under ``tensorboard/<run_name>/<id_run>``, the
+  ``results.csv`` row and ``grad_counts/`` (``utils/logs.py``), rank 0
+  only.
+
+ACCO with ``n_warmup_steps > 0`` first runs the seed round and that many
+DPU rounds on a DPU view of its step, then resets ``round_idx`` to 0 so
+that ACCO's first even round folds the staged grads in (JAX:
+trainer.py:1137-1160). The watchdog's rollback is not ported: with
+``rollback: true``, ``rollback_after_skipped`` consecutive guard-skipped
+rounds raise NotImplementedError (ROADMAP.md queue 1, item 8) where JAX
+would restore the newest checkpoint.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
+import os
 import time
 
 import numpy as np
@@ -41,26 +76,32 @@ from acco_tpu_torch.data.loader import (
 )
 from acco_tpu_torch.data.tokenize import pack_texts
 from acco_tpu_torch.ops.attention import resolve_attention_impl
+from acco_tpu_torch.ops.losses import IGNORE_INDEX, model_ce, real_vocab_of
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
 from acco_tpu_torch.parallel.ddp import DDPTrainStep
+from acco_tpu_torch.utils import checkpoint as ckpt
+from acco_tpu_torch.utils import logs
 
 
 class Trainer:
-    def __init__(self, model, tokenizer, train_texts, args, log=None, seed: int = 0,
-                 device="cpu", mesh=None):
+    def __init__(self, model, tokenizer, train_texts, eval_texts, args, log=None,
+                 seed: int = 0, device="cpu", mesh=None, run_dir: str = "."):
         self.log = log or logging.getLogger("acco_tpu_torch")
         self.model = model
+        self.args = args
         self.device = torch.device(device)
         self.seed = seed
         self.mesh = mesh
+        self.run_dir = str(run_dir)
         # a mesh with a sequence group (sp > 1, JAX: trainer.py:141-145, or
         # a group of one rank passed in by hand) turns context parallelism on
         self.sequence_group = None if mesh is None else mesh.sequence_group
         groups = None if mesh is None else mesh.groups
         self.dp = 1 if groups is None else groups.dp
         self.dp_index = 0 if groups is None else groups.dp_index
+        self.rank = 0 if mesh is None else mesh.rank
         self.method = str(args.get("method_name", "acco"))
         if self.method not in ("acco", "ddp", "dpu"):
             raise ValueError(f"method_name must be one of acco/ddp/dpu, got {self.method!r}")
@@ -70,11 +111,6 @@ class Trainer:
                 f"run_baseline_ddp={bool(baseline_flag)} contradicts "
                 f"method_name={self.method!r}: the flag must be True exactly for the ddp "
                 "baseline"
-            )
-        if self.method == "acco" and int(args.get("n_warmup_steps", 0)) > 0:
-            raise NotImplementedError(
-                "ACCO's DPU warmup rounds (n_warmup_steps > 0) are not ported "
-                "yet: ROADMAP.md queue 1, item 6"
             )
         self.batch_size = int(args.get("batch_size", 8))
         self.n_acc = int(args.get("n_grad_accumulation", 1))
@@ -91,11 +127,12 @@ class Trainer:
             self.nb_grad_tot,
         )
         self.nan_guard = bool(args.get("nan_guard", True))
+        self.label_smoothing = float(args.get("label_smoothing_factor", 0.0))
         common = dict(
             weight_decay=float(args.get("weight_decay", 0.0)),
             beta1=float(args.get("adam_beta1", 0.9)),
             beta2=float(args.get("adam_beta2", 0.999)),
-            label_smoothing=float(args.get("label_smoothing_factor", 0.0)),
+            label_smoothing=self.label_smoothing,
             const_len_batch=self.const_len_batch,
             nan_guard=self.nan_guard,
             guard_max_grad_norm=float(args.get("guard_max_grad_norm", 0.0) or 0.0),
@@ -108,24 +145,65 @@ class Trainer:
             self.step = DDPTrainStep(model, schedule, **common)
         else:
             self.step = AccoTrainStep(model, schedule, mode=self.method, **common)
-        # this dp index's texts, then packing (JAX: trainer.py:434-441)
-        if self.dp > 1:
-            train_texts = shard_dataset(list(train_texts), self.dp, self.dp_index)
-        if self.const_len_batch:
-            rows = pack_texts(train_texts, tokenizer, self.max_length)
-        else:
-            rows = tokenizer(list(train_texts), truncation=True,
-                             max_length=self.max_length)["input_ids"]
+        g = self.step.groups
+        self.mesh_shape = {"dp": 1 if g is None else g.dp, "sp": 1 if g is None else g.sp}
+        self.world = self.step.group("world")  # dp x sp (None: one rank)
+        self.world_size = 1 if g is None else g.world_size
+        self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
+        rows = self._rows(train_texts, tokenizer)
         self.loader = ShardedBatchIterator(
-            rows, self.batch_size, self.max_length,
-            pad_token_id=int(getattr(tokenizer, "pad_token_id", 0) or 0),
-            seed=seed,
+            rows, self.batch_size, self.max_length, pad_token_id=self.pad_token_id, seed=seed,
+        )
+        # eval rows as JAX prepares them (trainer.py:434-480): this dp
+        # index's texts, packed; in order, the ragged last batch kept.
+        # Packed rows are all max_length long, so eval drops its pad
+        # masks exactly when training does (JAX's eval_const_len).
+        self.eval_rows = self._rows(eval_texts, tokenizer) if eval_texts else []
+        self.eval_loader = (
+            ShardedBatchIterator(self.eval_rows, self.batch_size, self.max_length,
+                                 pad_token_id=self.pad_token_id, shuffle=False,
+                                 drop_last=False)
+            if len(self.eval_rows) else None
         )
         # the attention impl the model's (global) layers run at this length
         self.attention = resolve_attention_impl(
             model.attention, self.max_length, model.config.head_dim, self.device
         )
+
+        self.n_warmup = int(args.get("n_warmup_steps", 0) or 0)
+        self.do_eval = bool(args.get("eval", False)) and self.eval_loader is not None
+        self.eval_every = int(args.get("eval_step", 0) or 0)
+        self.do_save = bool(args.get("save", False))
+        self.resume_from = args.get("resume_from")
+        self.checkpoint_every_s = float(args.get("checkpoint_every_s", 1800))
+        self.keep_last = int(args.get("ckpt_keep_last", 0) or 0)
+        self.keep_every_s = float(args.get("ckpt_keep_every_s", 0.0) or 0.0)
+        self.rollback = bool(args.get("rollback", True))
+        self.rollback_after_skipped = max(1, int(args.get("rollback_after_skipped", 8)))
+        self.delta_step_for_log = int(args.get("delta_step_for_log", 10))
+        self.id_run = logs.create_id_run()
+        run_name = str(args.get("run_name", self.method))
+        self.ckpt_dir = os.path.join(self.run_dir, "checkpoints", run_name)
+        self.tensorboard_dir = os.path.join(self.run_dir, "tensorboard", run_name, self.id_run)
+        if self.rank == 0 and self.do_save and bool(args.get("ckpt_async", True)):
+            self.log.info("train.ckpt_async=True: this port saves synchronously; the "
+                          "overlapped commit is not ported yet (ROADMAP.md queue 1, item 8, "
+                          "robustness)")
+        if self.rollback and not self.nan_guard:
+            self.log.warning("rollback=True has no trigger with nan_guard=False; "
+                             "auto-rollback is effectively disabled")
         self.final_state = None
+        self.save_ms: list = []
+        self.restore_ms = None
+
+    def _rows(self, texts, tokenizer):
+        """This dp index's texts (JAX: trainer.py:434-441), packed
+        const-len or truncated per document."""
+        if self.dp > 1:
+            texts = shard_dataset(list(texts), self.dp, self.dp_index)
+        if self.const_len_batch:
+            return pack_texts(texts, tokenizer, self.max_length)
+        return tokenizer(list(texts), truncation=True, max_length=self.max_length)["input_ids"]
 
     def _valid_column(self, mask):
         """This rank's ``valid`` column [n_acc] and the valid micro-grads a
@@ -163,30 +241,76 @@ class Trainer:
                 "padded (truncation-mode) batches are not supported"
             )
 
+    def _next_block(self, batches):
+        block = stack_microbatches(batches, self.n_acc, self.valid)
+        return prep_cp_leaves(block_from_numpy(block, self.device), self.sequence_group,
+                              getattr(self.model, "zigzag", False))
+
     def train(self) -> dict:
+        """The run; its TensorBoard writer is closed however it ends."""
         t_beg = time.time()
-        batches = infinite_batches(self.loader)
-        zigzag = getattr(self.model, "zigzag", False)
+        writer = (logs.make_summary_writer(self.tensorboard_dir) if self.rank == 0
+                  else logs.NoOpWriter())
+        try:
+            return self._train(writer, t_beg)
+        finally:
+            writer.flush()
+            writer.close()
 
-        def next_block():
-            block = stack_microbatches(batches, self.n_acc, self.valid)
-            return prep_cp_leaves(block_from_numpy(block, self.device), self.sequence_group,
-                                  zigzag)
-
+    def _train(self, writer, t_beg: float) -> dict:
+        if self.rank == 0 and self.do_save:
+            ckpt.gc_incomplete(self.ckpt_dir, self.log)
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         state = self.step.init_state(self.model.init_flat(gen))
-        seed_loss = None
-        if self.method != "ddp":
-            state, seed_loss = self.step.seed(state, next_block())
-            seed_loss = float(seed_loss)
-            self.log.info("seed round: loss %.4f", seed_loss)
 
-        count_grad_tot = 0.0
-        round_idx = 0  # host mirror of state.round_idx: the parity
-        round_log = []
+        # resume (JAX: trainer.py:1061-1105)
+        meta = {"count_grad_tot": 0, "rounds_done": 0, "elapsed_s": 0.0}
+        if self.resume_from:
+            path = ckpt.resolve_resume(str(self.resume_from), self.log)
+            t0 = time.perf_counter()
+            state, meta = ckpt.restore_checkpoint(path, state, rank=self.step.shard_index,
+                                                  mesh=self.mesh_shape)
+            self.restore_ms = (time.perf_counter() - t0) * 1e3
+            self.log.info("Resumed from %s at %d grads", path, meta["count_grad_tot"])
+        count_grad_tot = float(meta["count_grad_tot"])
+        rounds_done = int(meta["rounds_done"])
+        if "loader" in meta:
+            self.loader.set_state(meta["loader"])
+        batches = infinite_batches(self.loader)
+
+        seed_loss, warmup_losses = None, []
+        if self.method != "ddp" and rounds_done == 0:
+            if self.method == "acco" and self.n_warmup > 0:
+                # ACCO's warmup (JAX: trainer.py:1137-1160): the seed round
+                # and n_warmup DPU rounds on a DPU view of the step (its
+                # geometry, loss and comm stream), then round_idx back to 0:
+                # round 0 (even) carries the staged grads into round 1's
+                # real update, so the last warmup round's grads are kept
+                warm = copy.copy(self.step)
+                warm.mode = "dpu"
+                state, loss = warm.seed(state, self._next_block(batches))
+                losses = [loss]
+                for _ in range(self.n_warmup):
+                    state, m = warm.round(state, self._next_block(batches), parity=False)
+                    losses.append(m.loss)
+                    count_grad_tot += self.grads_per_round
+                state = state._replace(round_idx=torch.zeros_like(state.round_idx))
+            else:
+                state, loss = self.step.seed(state, self._next_block(batches))
+                losses = [loss]
+            seed_loss, *warmup_losses = torch.stack(losses).float().tolist()  # one read
+            self.log.info("seed round: loss %.4f", seed_loss)
+        # host mirror of state.round_idx (ACCO's parity); DDP counts steps
+        round_idx = int(state.round_idx) if self.method != "ddp" else rounds_done
+        consec = int(state.health.consec_skipped) if self.nan_guard else 0
+
+        eval_mark = count_grad_tot
+        log_epoch, rounds_this_run = 0, 0
+        t_last_epoch = t_last_ckpt = time.time()
+        round_log, eval_log, unread = [], [], []
         while True:
             if count_grad_tot >= self.nb_grad_tot:
-                if not self.nan_guard:
+                if not (self.nan_guard and rounds_this_run > 0):
                     break
                 # guard-skipped rounds commit nothing: trust the device count
                 count_grad_tot = float(state.zero1.grads_committed)
@@ -194,38 +318,277 @@ class Trainer:
                     break
             t0 = time.perf_counter()
             if self.method == "ddp":
-                state, m = self.step.step(state, next_block())
+                state, m = self.step.step(state, self._next_block(batches))
                 real = ~m.skipped
             else:
-                state, m = self.step.round(state, next_block(), parity=round_idx % 2 == 0)
+                state, m = self.step.round(state, self._next_block(batches),
+                                           parity=round_idx % 2 == 0)
                 real = m.is_real_update
-            row = {"round": round_idx, "loss": float(m.loss), "lr": float(m.lr),
-                   "is_real_update": bool(real)}
-            row["ms"] = (time.perf_counter() - t0) * 1e3
-            round_log.append(row)
-            self.log.info(
-                "round %d: loss %.4f lr %.3e real_update %s (%.1f ms)",
-                round_idx, row["loss"], row["lr"], row["is_real_update"], row["ms"],
-            )
+            # the round's metrics stay on the device until the boundary
+            unread.append((round_idx, m, real, (time.perf_counter() - t0) * 1e3))
             if self.method != "acco":
                 count_grad_tot += self.grads_per_round
             elif round_idx % 2 == 1:  # acco: real updates land on odd rounds
                 count_grad_tot += 2 * self.grads_per_round
             round_idx += 1
+            rounds_done += 1
+            rounds_this_run += 1
 
+            # the logging boundary (JAX: trainer.py:1350-1420), every
+            # delta_step_for_log grads: the one read of the rounds since
+            # the last, the count reconciled against the device counter,
+            # progress, scalars, the watchdog; eval and save decide here
+            nb_grad_local = rounds_done * self.n_acc
+            if nb_grad_local // self.delta_step_for_log <= log_epoch:
+                continue
+            committed, consec, grad_norm, skipped_rounds = self._read_rounds(
+                unread, state, round_log)
+            count_grad_tot = committed
+            loss = round_log[-1]["loss"]
+            log_epoch, t_last_epoch = logs.print_training_evolution(
+                self.log, nb_grad_local, rounds_this_run, self.delta_step_for_log,
+                self.rank, t_beg, t_last_epoch, loss, log_epoch,
+            )
+            self._scalars(writer, count_grad_tot, loss, None, t_beg)
+            if self.nan_guard:
+                logs.log_health_to_tensorboard(
+                    writer, nb_step=int(count_grad_tot), grad_norm=grad_norm,
+                    skipped_rounds=skipped_rounds, consec_skipped=consec, rollbacks=0,
+                )
+                if consec >= self.rollback_after_skipped:
+                    self._escalate(consec)
+            # eval every eval_step grads (JAX: trainer.py:1460)
+            if self.do_eval and self.eval_every and count_grad_tot - eval_mark >= self.eval_every:
+                eval_mark = count_grad_tot
+                t_ev = time.perf_counter()
+                eval_loss = self.evaluate(state.flat_params)
+                eval_log.append({"count_grad_tot": int(count_grad_tot), "eval_loss": eval_loss,
+                                 "ms": (time.perf_counter() - t_ev) * 1e3})
+                self.log.info("eval loss %.4f at %d grads", eval_loss, int(count_grad_tot))
+                self._scalars(writer, count_grad_tot, loss, eval_loss, t_beg)
+            # the periodic save: rank 0's clock decides (JAX: trainer.py:1490)
+            if self.do_save and self._ckpt_due(time.time() - t_last_ckpt):
+                t_last_ckpt = time.time()
+                if consec > 0:
+                    self.log.warning("periodic checkpoint skipped: state is anomalous "
+                                     "(%d consecutive guard-skipped rounds)", consec)
+                else:
+                    self._save(state, count_grad_tot, rounds_done, t_beg, export_npz=False)
+
+        if unread:
+            count_grad_tot, consec, _, _ = self._read_rounds(unread, state, round_log)
+        total_time = time.time() - t_beg
+        final_loss = round_log[-1]["loss"] if round_log else seed_loss
+        checkpoint = None
+        if self.do_save:
+            # the health gate of JAX's final save (trainer.py:1560-1600)
+            if consec > 0 and ckpt.latest_checkpoint(self.ckpt_dir, self.log) is not None:
+                self.log.warning("final checkpoint skipped: state is anomalous (%d consecutive "
+                                 "guard-skipped rounds); the newest complete checkpoint is "
+                                 "preserved for recovery", consec)
+            else:
+                checkpoint = self._save(state, count_grad_tot, rounds_done, t_beg)
+        health = {"skipped_rounds": int(state.health.skipped_rounds), "rollbacks": 0}
+        if self.rank == 0:
+            self._write_results(final_loss, total_time, health)
+            logs.save_grad_acc(self.id_run, self.run_dir, self.rank,
+                               list_grad_acc=[self.n_acc] * len(round_log),
+                               list_grad_times=[round(r["ms"], 2) for r in round_log])
         self.final_state = state
         return {
-            "final_loss": round_log[-1]["loss"] if round_log else seed_loss,
-            "count_grad_tot": int(float(state.zero1.grads_committed)),
-            "rounds": len(round_log),
-            "total_time_s": time.time() - t_beg,
+            "final_loss": final_loss,
+            "count_grad_tot": int(count_grad_tot),
+            "rounds": rounds_done,
+            "total_time_s": total_time,
             "method": self.method,
             "fused_loss": self.step.value_and_grad.fused_loss,
             "attention": self.attention,
             "mesh": self.mesh.describe() if self.mesh is not None else {"dp": 1, "sp": 1},
-            "skipped_rounds": int(state.health.skipped_rounds),
+            "skipped_rounds": health["skipped_rounds"],
+            "rollbacks": 0,
             "n_params": self.model.n_params,
             "seed_loss": seed_loss,
+            "warmup_losses": warmup_losses,
             "round_log": round_log,
+            "eval_log": eval_log,
+            "eval_loss": eval_log[-1]["eval_loss"] if eval_log else None,
+            "checkpoint": checkpoint,
+            "run_dir": self.run_dir,
             "device": str(self.device),
         }
+
+    def _read_rounds(self, unread: list, state, round_log: list) -> tuple:
+        """Read the rounds dispatched since the last boundary back in one
+        copy: their loss, LR and ``is_real_update`` into ``round_log``,
+        each with its dispatch ms, the last one's plus the wait for the
+        copy (at ``delta_step_for_log`` 1 a round's ms is then its synced
+        time); returns the state's committed count, consecutive skipped
+        rounds, the last round's grad norm and the skipped rounds.
+        Empties ``unread``."""
+        t0 = time.perf_counter()
+        health, m = state.health, unread[-1][1]
+        tail = torch.stack([state.zero1.grads_committed.reshape(()).float(),
+                            health.consec_skipped.float(), m.grad_norm.float(),
+                            health.skipped_rounds.float()])
+        values = torch.cat([torch.stack([r[1].loss.float() for r in unread]),
+                            torch.stack([r[1].lr.float() for r in unread]),
+                            torch.stack([r[2].float() for r in unread]), tail]).tolist()
+        n = len(unread)
+        for i, (idx, _, _, ms) in enumerate(unread):
+            row = {"round": idx, "loss": values[i], "lr": values[n + i],
+                   "is_real_update": values[2 * n + i] > 0.5, "ms": ms}
+            round_log.append(row)
+            self.log.info("round %d: loss %.4f lr %.3e real_update %s (%.1f ms)",
+                          idx, row["loss"], row["lr"], row["is_real_update"], row["ms"])
+        round_log[-1]["ms"] += (time.perf_counter() - t0) * 1e3
+        unread.clear()
+        committed, consec, grad_norm, skipped = values[3 * n:]
+        return committed, int(consec), grad_norm, int(skipped)
+
+    def _escalate(self, consec: int) -> None:
+        """The watchdog's escalation (JAX: trainer.py:1430-1455): JAX rolls
+        back to the newest checkpoint, or aborts with rollback=False."""
+        if self.rollback:
+            raise NotImplementedError(
+                f"watchdog: {consec} consecutive guard-skipped rounds "
+                f"(rollback_after_skipped={self.rollback_after_skipped}); the rollback to the "
+                "newest checkpoint is not ported yet: ROADMAP.md queue 1, item 8 (robustness)"
+            )
+        raise RuntimeError(
+            f"watchdog: {consec} consecutive anomalous rounds and rollback=False — aborting "
+            "(the guard froze params/optimizer at the last healthy commit; checkpoints on "
+            "disk are unchanged)"
+        )
+
+    def _scalars(self, writer, count_grad_tot: float, loss: float, eval_loss, t_beg: float):
+        logs.log_to_tensorboard(
+            writer, nb_step=int(count_grad_tot),
+            nb_samples=int(count_grad_tot) * self.batch_size, rank=self.rank, loss=loss,
+            eval_loss=eval_loss, t0=t_beg, delta_step_for_log=1, epoch=-1,
+        )
+
+    # -- eval ---------------------------------------------------------------
+
+    def evaluate(self, flat_params: torch.Tensor) -> float:
+        """Mean eval loss over the eval batches (JAX: trainer.py:1963): per
+        batch the global token-weighted mean, the masked nll sum and the
+        target count each summed over dp x sp, through ``model_ce`` (K3's
+        forward alone under fused_loss='pallas'); the batch count is the
+        least whole-batch count of any rank. The loss form is the train
+        path's verdict; the chunked loss, which has no nll-sum form
+        (``num_valid``), gives its mean times the count. Runs under
+        ``no_grad``."""
+        if self.eval_loader is None:
+            return float("nan")
+        n_batches = torch.tensor(len(self.eval_rows) // self.batch_size, device=self.device)
+        if self.world is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(n_batches, op=dist.ReduceOp.MIN, group=self.world)
+        model, fused = self.model, self.step.value_and_grad.fused_loss
+        real_vocab = real_vocab_of(model)
+        cp = self.sequence_group is not None
+        model.load_flat(flat_params)
+        losses = []
+        it = iter(self.eval_loader)
+        with torch.no_grad():
+            for _ in range(int(n_batches)):
+                batch = next(it)
+                blk = block_from_numpy({**batch, "valid": np.ones(1, np.float32)}, self.device)
+                blk = prep_cp_leaves(blk, self.sequence_group, getattr(model, "zigzag", False))
+                if cp:  # labels shifted on the global sequence (JAX: :1888-1901)
+                    am, shift, count = None, False, (blk.labels != IGNORE_INDEX).sum()
+                else:  # dense (JAX: :1930-1944)
+                    am = None if self.const_len_batch else blk.attention_mask
+                    shift, count = True, (blk.labels[:, 1:] != IGNORE_INDEX).sum()
+                count = count.float()
+                kw = dict(label_smoothing=self.label_smoothing, real_vocab=real_vocab, shift=shift)
+                if fused == "chunk":
+                    nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
+                                       **kw) * count
+                else:
+                    nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
+                                       num_valid=torch.ones((), device=self.device), **kw)
+                sums = torch.stack([nll_sum.float(), count])
+                if self.world is not None:
+                    import torch.distributed as dist
+
+                    dist.all_reduce(sums, group=self.world)
+                losses.append(float(sums[0] / sums[1].clamp(min=1.0)))
+        return float(np.mean(losses)) if losses else float("nan")
+
+    # -- persistence --------------------------------------------------------
+
+    def _ckpt_due(self, elapsed: float) -> bool:
+        """The time-based checkpoint trigger: rank 0's clock decides and
+        every rank follows (JAX: trainer.py:2019)."""
+        due = elapsed > self.checkpoint_every_s
+        if self.world is not None and self.world_size > 1:
+            import torch.distributed as dist
+
+            flag = torch.tensor([float(due)], device=self.device)
+            dist.broadcast(flag, src=dist.get_global_rank(self.world, 0), group=self.world)
+            due = bool(flag.item())
+        return due
+
+    def _save(self, state, count_grad_tot: float, rounds_done: int, t_beg: float,
+              export_npz: bool = True) -> str:
+        """Every rank writes its state; a final save adds rank 0's dense
+        float32 ``params.npz`` trimmed to ``n_params`` (JAX: trainer.py:2158,
+        :2224); rank 0 commits and applies the retention."""
+        t0 = time.perf_counter()
+        count = int(count_grad_tot)
+        meta = {
+            "count_grad_tot": count,
+            "rounds_done": rounds_done,
+            "elapsed_s": time.time() - t_beg,
+            "method": self.method,
+            "id_run": self.id_run,
+            # the position of the last consumed block (the loader is read
+            # in the round loop, with no prefetch ahead of it); each rank
+            # also keeps its own in its state file
+            "loader": self.loader.iter_state(),
+            "mesh": dict(self.mesh_shape),
+            "n_params": self.model.n_params,
+            "padded_size": self.step.geom.padded_size,
+            "saved_at_unix": time.time(),
+        }
+        extra = None
+        if self.rank == 0 and export_npz:
+            flat = (state.flat_params[: self.model.n_params].detach()
+                    .to(torch.device("cpu"), torch.float32).numpy())
+
+            def extra(path: str) -> None:
+                np.savez(os.path.join(path, "params.npz"), flat_params=flat)
+
+        path = ckpt.save_checkpoint(self.ckpt_dir, count, state, meta,
+                                    rank=self.step.shard_index, group=self.world,
+                                    extra_files=extra,
+                                    rank_meta={"loader": meta["loader"]})
+        if self.rank == 0:
+            ckpt.apply_retention(self.ckpt_dir, self.keep_last, self.keep_every_s, self.log)
+            self.log.info("checkpoint -> %s", path)
+        self.save_ms.append((time.perf_counter() - t0) * 1e3)
+        return path
+
+    def _write_results(self, final_loss, total_time: float, extra: dict) -> None:
+        """The ``results.csv`` row (JAX: trainer.py:2261), health columns
+        folded in."""
+        args = self.args.to_container() if hasattr(self.args, "to_container") else dict(self.args)
+        row = logs.create_dict_result(
+            args, self.dp, node_count(), logs.platform_name(self.device), total_time,
+            self.id_run, float("nan") if final_loss is None else final_loss,
+        )
+        row.update(extra)
+        logs.save_result(os.path.join(self.run_dir, "results.csv"), row)
+
+
+def node_count() -> int:
+    """Nodes of the run, as JAX's ``initialize_distributed`` counts them:
+    SLURM's host list, else torchrun's ``GROUP_WORLD_SIZE`` (its node
+    count), else 1."""
+    if "SLURM_JOB_NODELIST" in os.environ:
+        from acco_tpu_torch.utils.hostlist import expand_hostlist
+
+        return len(expand_hostlist(os.environ["SLURM_JOB_NODELIST"]))
+    return int(os.environ.get("GROUP_WORLD_SIZE", "1"))

@@ -115,7 +115,30 @@ and prints no result line):
    overlap share, the part of it under compute-stream activity; then
    each ACCO and DPU path's rounds again with the comm branch on the
    current stream, and on its own stream under a high-priority compute
-   stream, for their median round ms beside phase 5's.
+   stream, for their median round ms beside phase 5's;
+8. resume: Llama-125M at full width (``train=acco train.n_warmup_steps=2
+   train.eval=true train.eval_step=4``, a constant LR, a temporary run
+   dir, deleted after): run A to 10 grads, run B to 6 (mid-epoch, on an
+   ACCO commit) with its final save, run C from B's checkpoint root to 10
+   must equal A bit for bit (every state leaf, the round and eval
+   losses), and two planted faults (the loader position dropped, the
+   pending grads zeroed) must differ; a truncated ``rank_0.pt`` in a
+   newer step must be skipped by ``latest_checkpoint``; the eval on A's
+   params through K1 and K3's forward (``train.fused_loss=pallas``) must
+   launch ``ce_fwd`` once and ``attn_fwd`` once a layer per batch and no
+   backward kernel, and agree with the plain attention and materialized
+   CE; ``acco_tpu_torch.perplexity_eval.compute`` on B's ``params.npz``
+   through K1 against the plain attention; it prints the checkpoint's
+   bytes, the save and restore ms, the eval's ms a batch and the
+   perplexity beside nvidia-smi's line; then the logging cadence: the
+   Llama-125M and Llama-125M-fusedce paths again, 20 rounds read back
+   once every 10 grads (``train.delta_step_for_log=10``, the default),
+   their mean round ms between the two boundaries beside phase 5's
+   synced median. Phases 5-7 run with ``train.save=false``, their run
+   dirs in a temporary directory, and read every round back
+   (``delta_step_for_log=1``: a round's ms is its synced time, as
+   PERF.md section 2 defines it); phase 8's runs A, B and C read back
+   every 2 grads, where their evals fall.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -294,7 +317,24 @@ def llama3_config() -> str:
     return path
 
 
-def main_args(path: str) -> list[str]:
+@functools.cache
+def run_root() -> str:
+    """A temporary directory, removed at exit, for the run dirs of the
+    trainers the script builds."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    atexit.register(shutil.rmtree, tmp, True)
+    return tmp
+
+
+def run_flags(cadence: int = 1) -> list[str]:
+    """Phases 5-7's runs write no checkpoint (a long path's would be ~27
+    GB), keep their records in the temporary run dir and read their
+    rounds back every ``cadence`` grads (1: each round's ms is synced)."""
+    return ["train.save=false", f"hydra.run.dir={run_root()}/runs",
+            f"+train.delta_step_for_log={cadence}"]
+
+
+def main_args(path: str, cadence: int = 1) -> list[str]:
     spec = MAIN_PATHS.get(path) or DP_PATHS[path]
     extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
     return [
@@ -302,6 +342,7 @@ def main_args(path: str) -> list[str]:
         "data=synthetic",
         f"train.batch_size={spec['batch']}", f"train.max_length={spec['seq']}",
         "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}", *spec["extra"],
+        *run_flags(cadence),
     ]
 
 # Tolerances on the card, bf16 (kernel vs its plain version, same inputs):
@@ -2004,6 +2045,7 @@ def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENT
         reset_launch_counts()
         trainer = build_trainer([
             *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false", *extra,
+            *run_flags(),
         ], sequence_group=group)
         summary = trainer.train()
         out.append((summary, trainer.final_state, launch_counts()))
@@ -2089,7 +2131,7 @@ def stream_rounds(on_current: bool, plant: str | None = None, drop: str | None =
     from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
     from acco_tpu_torch.parallel.common import block_from_numpy
 
-    trainer = build_trainer(STREAM_RUN)
+    trainer = build_trainer([*STREAM_RUN, *run_flags()])
     step = trainer.step
     compute = torch.cuda.current_stream()
     if on_current:
@@ -2433,6 +2475,265 @@ def kernel_label(key: str) -> str:
     return f"{label}<{policy.group(0)}>" if policy else label
 
 
+# Phase 8: a run that stops and goes on, at Llama-125M's full width (12
+# layers, d 768, seq 1024, batch 8, bf16, K1): ACCO with 2 DPU warmup
+# rounds, the eval every 4 grads, a constant LR (a cosine's shape depends
+# on nb_steps_tot, which sets runs A and B apart). A goes uninterrupted to
+# RESUME_N2 grads; B stops at RESUME_N1 (the warmup's 2 grads and two ACCO
+# commits: mid-epoch, on a commit, its pending grads in flight) with its
+# final save; C resumes from B's checkpoint root to RESUME_N2 and must end
+# bit-equal to A. Bars of the eval and the perplexity, bf16, kernel path
+# against the plain attention and the materialized CE on the same params:
+# relative 2e-3 (the per-token differences of bf16 rounding, averaged
+# over ~65k tokens, sit far below it; a wrong kernel moves the mean by
+# far more)
+RESUME_N1, RESUME_N2, RESUME_EVAL_STEP, RESUME_CADENCE = 6, 10, 4, 2
+EVAL_RTOL = PPL_RTOL = 2e-3
+PPL_SAMPLES, PPL_LEN = 64, 256
+# (d) the logging cadence: 20 rounds read back every 10 grads; the mean
+# round ms between the boundaries at 10 and 20 grads (rounds 11-20, the
+# host free to run ahead of the card in between)
+CADENCE, CADENCE_ROUNDS = 10, 20
+CADENCE_PATHS = ("llama-125M", "llama-125M-fusedce")
+
+
+def resume_args(run_dir: str, nb: int, *extra: str) -> list[str]:
+    return [*main_args("llama-125M", RESUME_CADENCE), "train.n_warmup_steps=2", "train.eval=true",
+            f"train.eval_step={RESUME_EVAL_STEP}", "train.scheduler_name=constant",
+            f"train.nb_steps_tot={nb}", f"hydra.run.dir={run_dir}", *extra]
+
+
+def resume_run(run_dir: str, nb: int, *extra: str):
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+
+    trainer = build_trainer(resume_args(run_dir, nb, *extra))
+    summary = trainer.train()
+    torch.cuda.synchronize()
+    return trainer, summary
+
+
+@contextlib.contextmanager
+def resume_fault(fault: str):
+    """A fault planted in the resume: 'loader' drops the restored loader
+    position, 'pending' zeroes the restored pending grads."""
+    import torch
+
+    from acco_tpu_torch.data.loader import ShardedBatchIterator
+    from acco_tpu_torch.utils import checkpoint as ckpt
+
+    if fault == "loader":
+        owner, name = ShardedBatchIterator, "set_state"
+        patched = lambda self, state: None  # noqa: E731
+    else:
+        owner, name = ckpt, "restore_checkpoint"
+        original = ckpt.restore_checkpoint
+
+        def patched(*args, **kwargs):
+            state, meta = original(*args, **kwargs)
+            return state._replace(pending_grads=torch.zeros_like(state.pending_grads)), meta
+    saved = getattr(owner, name)
+    setattr(owner, name, patched)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def state_leaves(state, prefix: str = "") -> dict:
+    out = {}
+    for name, value in zip(state._fields, state):
+        if isinstance(value, tuple):
+            out.update(state_leaves(value, f"{prefix}{name}/"))
+        else:
+            out[prefix + name] = value
+    return out
+
+
+def resumed_differences(resumed, summary: dict, reference, ref_summary: dict) -> list:
+    """What of a resumed run differs from the uninterrupted one: state
+    leaves (bit for bit), round losses, eval losses at the same counts."""
+    import torch
+
+    got, want = state_leaves(resumed.final_state), state_leaves(reference.final_state)
+    diffs = [k for k in want if not torch.equal(got[k], want[k])]
+    rounds = summary["round_log"]
+    if [r["loss"] for r in rounds] != [r["loss"] for r in ref_summary["round_log"][-len(rounds):]]:
+        diffs.append("round losses")
+    ref_evals = {e["count_grad_tot"]: e["eval_loss"] for e in ref_summary["eval_log"]}
+    if any(ref_evals.get(e["count_grad_tot"]) != e["eval_loss"] for e in summary["eval_log"]):
+        diffs.append("eval losses")
+    return diffs
+
+
+def cadence_ms(path: str) -> float:
+    """(d) A main path's ``CADENCE_ROUNDS`` rounds through the entry point
+    at ``delta_step_for_log=CADENCE``: the mean round ms between its two
+    boundaries (the rows' dispatch ms, the boundary round's with the wait
+    for the read back)."""
+    import torch
+
+    from acco_tpu_torch.__main__ import main as entry
+
+    torch.cuda.empty_cache()
+    summary = entry([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}"])
+    rounds = summary["round_log"]
+    if len(rounds) != CADENCE_ROUNDS or summary["count_grad_tot"] != CADENCE_ROUNDS:
+        raise AssertionError(f"{path}: {len(rounds)} rounds to {summary['count_grad_tot']} "
+                             f"grads, expected {CADENCE_ROUNDS}")
+    losses = [r["loss"] for r in rounds]
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"{path}: non-finite loss at cadence {CADENCE}: {losses}")
+    return statistics.fmean(r["ms"] for r in rounds[CADENCE:])
+
+
+def resume_phase(smi: str, round_ms: dict) -> dict:
+    """(a) exact resume with two planted faults and a torn newer step, (b)
+    the eval through K1 and K3's forward alone, (c) perplexity on B's
+    params.npz through K1, (d) the cadence's mean round ms beside phase
+    5's synced median (``round_ms``); returns the eval's launches."""
+    import torch
+
+    from acco_tpu_torch import perplexity_eval as ppl
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.data.datasets import load_text_dataset
+    from acco_tpu_torch.data.tokenizer import load_tokenizer
+    from acco_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        log(f" (a) exact resume: {' '.join(resume_args('<run dir>', RESUME_N2))}")
+        a, sa = resume_run(f"{tmp}/a", RESUME_N2)
+        log(f"  A: {RESUME_N2} grads uninterrupted; seed {sa['seed_loss']:.6f}, warmup "
+            f"{['%.6f' % x for x in sa['warmup_losses']]}, rounds "
+            f"{['%.6f' % r['loss'] for r in sa['round_log']]}, evals "
+            f"{[(e['count_grad_tot'], round(e['eval_loss'], 6)) for e in sa['eval_log']]}")
+        b, sb = resume_run(f"{tmp}/b", RESUME_N1, "train.save=true")
+        step = sb["checkpoint"]
+        with open(os.path.join(step, "meta.json")) as f:
+            meta = json.load(f)
+        pos = meta["loader"]
+        if not (pos["epoch"] == 0 and 0 < pos["batch_pos"] < len(b.loader)):
+            raise AssertionError(f"B's save is not mid-epoch: {pos}, {len(b.loader)} a epoch")
+        if sb["round_log"][-1]["is_real_update"] is not True:
+            raise AssertionError("B did not stop on an ACCO commit")
+        n_bytes = sum(os.path.getsize(os.path.join(d, n))
+                      for d, _, names in os.walk(step) for n in names)
+        save_ms = b.save_ms[-1]
+        log(f"  B: stopped at {RESUME_N1} grads, saved {step} at loader {pos} "
+            f"({len(b.loader)} batches an epoch): {n_bytes} bytes in {save_ms:.1f} ms")
+        torn = os.path.join(b.ckpt_dir, f"step_{RESUME_N1 + 1}")
+        shutil.copytree(step, torn)
+        rank0 = os.path.join(torn, "state", "rank_0.pt")
+        with open(rank0, "r+b") as f:
+            f.truncate(os.path.getsize(rank0) // 2)
+        if ckpt.latest_checkpoint(b.ckpt_dir) != step:
+            raise AssertionError("latest_checkpoint did not skip the truncated newer step")
+        log(f"  a truncated rank_0.pt in a newer {os.path.basename(torn)}: latest_checkpoint "
+            f"falls back to {os.path.basename(step)}")
+        del b
+        resume = f"train.resume_from={os.path.dirname(step)}"
+        c, sc = resume_run(f"{tmp}/c", RESUME_N2, resume)
+        restore_ms = c.restore_ms
+        diffs = resumed_differences(c, sc, a, sa)
+        log(f"  C: resumed in {restore_ms:.1f} ms (torch.load of the rank file, leaves to the "
+            f"card), {len(sc['round_log'])} rounds, evals "
+            f"{[(e['count_grad_tot'], round(e['eval_loss'], 6)) for e in sc['eval_log']]}: "
+            f"{'bit-equal to A' if not diffs else 'DIFFERS from A in ' + str(diffs)}")
+        if diffs:
+            raise AssertionError(f"the resumed run differs from the uninterrupted one: {diffs}")
+        del c
+        for fault in ("loader", "pending"):
+            with resume_fault(fault):
+                d, sd = resume_run(f"{tmp}/{fault}", RESUME_N2, resume)
+            diffs = resumed_differences(d, sd, a, sa)
+            del d
+            what = ("the loader position dropped" if fault == "loader"
+                    else "pending_grads zeroed")
+            log(f"  planted fault, {what}: "
+                f"{'differs (caught) in ' + str(diffs) if diffs else 'bit-equal (MISSED)'}")
+            if not diffs:
+                raise AssertionError(f"the resume check missed the planted fault {fault!r}")
+        flat = a.final_state.flat_params
+        del a
+        torch.cuda.empty_cache()
+
+        log(" (b) the eval on A's final params: K1 and K3's forward (fused_loss=pallas) "
+            "against the plain attention and the materialized CE")
+        kern = build_trainer([*main_args("llama-125M-fusedce"), "train.eval=true",
+                              f"hydra.run.dir={tmp}/k"])
+        plain = build_trainer([*main_args("llama-125M"), "train.use_pallas_attention=xla",
+                               "train.fused_loss=false", "train.eval=true",
+                               f"hydra.run.dir={tmp}/p"])
+        n_batches = len(kern.eval_rows) // kern.batch_size
+        with HeadLogitsCalls() as head:
+            reset_launch_counts()
+            loss_k = kern.evaluate(flat)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        want = {**dict.fromkeys(_K2 + _K5 + _K4, 0), "attn_fwd": LAYERS * n_batches,
+                **dict.fromkeys(_K1[1:], 0), "ce_fwd": n_batches, **dict.fromkeys(_K3[1:], 0)}
+        log(f"  {n_batches} eval batches of {kern.batch_size} x {kern.max_length}: launches "
+            f"{ {k: v for k, v in counts.items() if v} }, materialized head calls {head.count}")
+        if counts != want or head.count:
+            raise AssertionError(f"the eval's launches {counts} (head {head.count}), expected "
+                                 f"{want}")
+        reset_launch_counts()
+        loss_p = plain.evaluate(flat)
+        torch.cuda.synchronize()
+        if any(launch_counts().values()):
+            raise AssertionError(f"the plain eval launched kernels: {launch_counts()}")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"  eval loss: kernels {loss_k:.6f}  plain {loss_p:.6f}  relative difference "
+            f"{rel:.3e} (bar {EVAL_RTOL:g})")
+        if rel > EVAL_RTOL:
+            raise AssertionError("the kernels' eval loss is off the plain one")
+        t0 = time.perf_counter()
+        kern.evaluate(flat)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        del kern, plain, flat
+        torch.cuda.empty_cache()
+
+        log(f" (c) perplexity of B's params.npz, {PPL_SAMPLES} samples of <= {PPL_LEN} "
+            "tokens: K1 against the plain attention")
+        device = torch.device("cuda", 0)
+        model_k, model_cfg = ppl.build("llama-125M", device=device)
+        model_p, _ = ppl.build("llama-125M", device=device, attention="xla")
+        params = torch.from_numpy(ckpt.load_flat_params(step, model_k.n_params))
+        texts = load_text_dataset({"path": "synthetic"}, test_size=0.01)[0][:PPL_SAMPLES]
+        tok = load_tokenizer(model_cfg.get("tokenizer"))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ppl_k = ppl.compute(model_k, params, tok, texts, max_length=PPL_LEN)
+        torch.cuda.synchronize()
+        ppl_ms = (time.perf_counter() - t0) * 1e3
+        ppl_launches = launch_counts()["attn_fwd"]
+        ppl_p = ppl.compute(model_p, params, tok, texts, max_length=PPL_LEN)
+        want_ppl = ppl_p["mean_perplexity"]
+        rel_ppl = abs(ppl_k["mean_perplexity"] - want_ppl) / want_ppl
+        log(f"  mean perplexity: K1 {ppl_k['mean_perplexity']:.6f} ({ppl_launches} attn_fwd "
+            f"launches, {ppl_ms:.1f} ms)  plain {ppl_p['mean_perplexity']:.6f}  relative "
+            f"difference {rel_ppl:.3e} (bar {PPL_RTOL:g})")
+        if ppl_launches != LAYERS * -(-PPL_SAMPLES // 8) or rel_ppl > PPL_RTOL:
+            raise AssertionError("the perplexity through K1 is off the plain one, or K1 did not "
+                                 "run")
+        log(f"  phase 8 on {smi}: checkpoint {n_bytes} bytes, save {save_ms:.1f} ms, restore "
+            f"{restore_ms:.1f} ms, eval {eval_ms:.2f} ms a batch of 8 x 1024 (K1 + K3 forward), "
+            f"perplexity {ppl_k['mean_perplexity']:.4f}")
+
+        log(f" (d) the logging cadence: {CADENCE_ROUNDS} rounds read back every {CADENCE} "
+            f"grads, the mean round ms of rounds {CADENCE + 1}-{CADENCE_ROUNDS}")
+        for path in CADENCE_PATHS:
+            mean = cadence_ms(path)
+            log(f"  {path} on {smi}: mean round ms at delta_step_for_log={CADENCE} {mean:.3f}; "
+                f"phase 5's synced median (delta_step_for_log=1) {round_ms[path]:.3f}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, True)
+
+
 def build_all() -> None:
     """The four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2681,6 +2982,9 @@ def main() -> int:
                 f"under a high-priority compute stream {prio:.2f}")
         log("  comm side, overlap share and idle share by path: "
             f"{ {p: {k: round(v, 4) for k, v in r.items()} for p, r in profiles.items()} }")
+
+        log("== 8 resume, eval and perplexity (Llama-125M, full width)")
+        launches["llama-125M-fusedce-eval"] = resume_phase(smi, round_ms)
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

@@ -33,6 +33,9 @@ from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import block_from_numpy
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 ARCH = dict(
     vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,

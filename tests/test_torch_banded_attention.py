@@ -26,6 +26,9 @@ from acco_tpu_torch.models import gpt_neo as port_gpt_neo
 from acco_tpu_torch.models.convert import params_from_jax
 from acco_tpu_torch.ops import banded_attention as port
 from acco_tpu_torch.ops import fused_attention as port_fused
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 B, H, D = 1, 2, 64
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)

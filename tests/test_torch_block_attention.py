@@ -29,6 +29,9 @@ import torch
 from acco_tpu.ops.block_attention import block_attention_partial as jax_block
 from acco_tpu_torch.ops import block_attention as port
 from acco_tpu_torch.ops.ring_attention import zigzag_positions
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 B, H, L, D = 2, 4, 32, 64
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)

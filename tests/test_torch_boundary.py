@@ -8,6 +8,9 @@ import glob
 import os
 
 import pytest
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(

@@ -22,6 +22,9 @@ from acco_tpu.data import tokenize as jax_tokenize
 from acco_tpu_torch import configuration
 from acco_tpu_torch.data import datasets, loader, tokenize
 from acco_tpu_torch.data.tokenizer import ByteTokenizer
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(REPO, "config")

@@ -46,7 +46,10 @@ from acco_tpu_torch.parallel import zero1
 from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import block_from_numpy
 from acco_tpu_torch.parallel.mesh import Mesh, check_mesh
+import torch_ranks
 from torch_ranks import REPO, run_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 SP, N_ACC, BATCH, SEQ, ROUNDS = 2, 2, 2, 32, 4
 ARCH = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
@@ -268,7 +271,8 @@ def test_torchrun_cli_runs_cp_on_cpu(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "acco_tpu_torch", "--device", "cpu", "train=acco", "model=tiny128",
          "data=synthetic", "train.max_length=128", "train.batch_size=2",
-         "train.nb_steps_tot=4", "train.mesh_shape={dp: 1, sp: 2}"],
+         "train.nb_steps_tot=4", "train.mesh_shape={dp: 1, sp: 2}",
+         f"hydra.run.dir={tmp_path}"],
         cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp_path)},
     )
@@ -283,9 +287,9 @@ def test_torchrun_cli_runs_cp_on_cpu(tmp_path):
     assert all(abs(x) < 100 for x in losses)
 
 
-def _cp_trainer(**overrides):
+def _cp_trainer(run_dir, **overrides):
     """A Trainer on a two-rank sequence group, constructed on this process
-    (the checks run before any collective)."""
+    (the checks run before any collective), its records under ``run_dir``."""
     from acco_tpu_torch.configuration import ConfigNode
     from acco_tpu_torch.data.tokenizer import load_tokenizer
     from acco_tpu_torch.trainer import Trainer
@@ -296,7 +300,8 @@ def _cp_trainer(**overrides):
     args = ConfigNode.wrap(dict(dict(method_name="acco", batch_size=2, max_length=32,
                                      nb_steps_tot=2, const_len_batch=True), **overrides))
     mesh = Mesh(dp=1, sp=2, rank=0, device=torch.device("cpu"), sequence_group=sg)
-    return Trainer(model, load_tokenizer("byte"), ["a b c d " * 40] * 8, args, mesh=mesh)
+    return Trainer(model, load_tokenizer("byte"), ["a b c d " * 40] * 8, None, args, mesh=mesh,
+                   run_dir=str(run_dir))
 
 
 @pytest.mark.parametrize(
@@ -307,13 +312,13 @@ def _cp_trainer(**overrides):
         pytest.param(dict(max_length=33), "divide evenly over the sp axis", id="sp-length"),
     ],
 )
-def test_cp_refusals(overrides, match):
+def test_cp_refusals(overrides, match, tmp_path):
     with pytest.raises(ValueError, match=match):
-        _cp_trainer(**overrides)
+        _cp_trainer(tmp_path, **overrides)
 
 
-def test_cp_trainer_takes_the_ring():
-    trainer = _cp_trainer()
+def test_cp_trainer_takes_the_ring(tmp_path):
+    trainer = _cp_trainer(tmp_path)
     assert trainer.attention == "ring" and trainer.sequence_group.size == 2
 
 

@@ -50,7 +50,10 @@ from acco_tpu_torch.parallel.common import make_flat_loss_fn
 from acco_tpu_torch.parallel.mesh import Mesh, RankGroups
 from acco_tpu_torch.utils import hostlist
 from test_acco import B1, B2, EPS, LR, WD, _Sim
+import torch_ranks
 from torch_ranks import REPO, run_ranks, run_training
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 N_ACC, BATCH, SEQ, ROUNDS = 2, 2, 32, 4
 ARCH = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
@@ -256,9 +259,9 @@ def test_rounds_match_the_simulator(dp, method, tmp_path):
 TEXTS = [f"document {i} " + "word " * (i % 37) for i in range(240)]
 
 
-def _trainer(dp, dp_index, mask=None, n_acc=N_ACC):
+def _trainer(dp, dp_index, run_dir, mask=None, n_acc=N_ACC):
     """A Trainer for dp index ``dp_index`` of ``dp``, built on this process
-    (its construction runs no collective)."""
+    (its construction runs no collective), its records under ``run_dir``."""
     from acco_tpu_torch.configuration import ConfigNode
     from acco_tpu_torch.trainer import Trainer
 
@@ -267,18 +270,19 @@ def _trainer(dp, dp_index, mask=None, n_acc=N_ACC):
                                 microbatch_mask=mask))
     groups = RankGroups(dp=dp, sp=1, dp_index=dp_index, sp_index=0)
     mesh = Mesh(dp=dp, sp=1, rank=dp_index, device=torch.device("cpu"), groups=groups)
-    return Trainer(_port_model("llama"), load_tokenizer("byte"), TEXTS, args, seed=7, mesh=mesh)
+    return Trainer(_port_model("llama"), load_tokenizer("byte"), TEXTS, None, args, seed=7,
+                   mesh=mesh, run_dir=str(run_dir))
 
 
 @pytest.mark.parametrize("dp, dp_index", [(2, 0), (2, 1), (3, 2)])
-def test_rank_blocks_match_jax_loader(dp, dp_index):
+def test_rank_blocks_match_jax_loader(dp, dp_index, tmp_path):
     """The trainer's blocks for one dp index, bit for bit: JAX's list
     ``shard_dataset`` of the raw texts, packing, ``ShardedBatchIterator``
     and ``stack_microbatches``; then the position saved after 5 blocks
     restores the same stream in a fresh iterator on both sides."""
     from acco_tpu_torch.data import loader
 
-    trainer = _trainer(dp, dp_index)
+    trainer = _trainer(dp, dp_index, tmp_path)
     tok = load_tokenizer("byte")
     texts = jax_loader.shard_dataset(TEXTS, dp, dp_index)
     rows = jax_tokenize.pack_const_len(tok(texts)["input_ids"], tok.eos_token_id, SEQ)
@@ -302,19 +306,19 @@ def test_rank_blocks_match_jax_loader(dp, dp_index):
     same(loader.infinite_batches(resumed_t), loader.infinite_batches(resumed_j))
 
 
-def test_microbatch_mask_column_and_errors():
+def test_microbatch_mask_column_and_errors(tmp_path):
     """Each rank's ``valid`` is its dp index's column of the mask; the
     round's count is the mask's sum; JAX's shape and all-zero errors."""
     mask = [[1, 0], [1, 1]]
     for d in range(2):
-        trainer = _trainer(2, d, mask=mask)
+        trainer = _trainer(2, d, tmp_path, mask=mask)
         np.testing.assert_array_equal(trainer.valid, np.asarray(mask, np.float32)[:, d])
         assert trainer.grads_per_round == 3.0
-    assert _trainer(2, 0).grads_per_round == 2 * N_ACC
+    assert _trainer(2, 0, tmp_path).grads_per_round == 2 * N_ACC
     with pytest.raises(ValueError, match=r"\[n_grad_accumulation=2\]\[world_size=2\], got \(2,\)"):
-        _trainer(2, 0, mask=[1, 0])
+        _trainer(2, 0, tmp_path, mask=[1, 0])
     with pytest.raises(ValueError, match="masks out every microbatch"):
-        _trainer(2, 1, mask=[[0, 0], [0, 0]])
+        _trainer(2, 1, tmp_path, mask=[[0, 0], [0, 0]])
 
 
 LAYOUT_WORKER = """
@@ -389,7 +393,7 @@ def test_torchrun_cli_runs_dp_on_cpu(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "acco_tpu_torch", "--device", "cpu", "train=acco", "model=tiny128",
          "data=synthetic", "train.max_length=128", "train.batch_size=2",
-         "train.nb_steps_tot=8", "train.mesh_shape={dp: 2}"],
+         "train.nb_steps_tot=8", "train.mesh_shape={dp: 2}", f"hydra.run.dir={tmp_path}"],
         cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp_path)},
     )
@@ -404,7 +408,7 @@ def test_torchrun_cli_runs_dp_on_cpu(tmp_path):
     assert all(abs(x) < 100 for x in losses)
 
 
-def test_comm_stream_only_on_a_card():
+def test_comm_stream_only_on_a_card(tmp_path):
     """On the CPU (and gloo) the comm branch runs in line, with no stream,
     whatever stream a caller hands in, and so does the trainer's step."""
     from acco_tpu_torch.ops.schedules import get_schedule
@@ -414,4 +418,4 @@ def test_comm_stream_only_on_a_card():
     for stream in (None, object()):
         step = AccoTrainStep(model, get_schedule(*SCHED), comm_stream=stream, **OPT)
         assert step.comm_stream is None
-    assert _trainer(1, 0).step.comm_stream is None
+    assert _trainer(1, 0, tmp_path).step.comm_stream is None

@@ -37,7 +37,10 @@ from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.common import block_from_numpy
 from acco_tpu_torch.parallel.ddp import DDPTrainStep
+import torch_ranks
 from torch_ranks import REPO, run_training
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 N_ACC, BATCH, SEQ = 2, 2, 32
 ARCH = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=2,
@@ -201,7 +204,7 @@ def test_torchrun_cli_runs_ddp_on_cpu(tmp_path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
          "-m", "acco_tpu_torch", "--device", "cpu", "train=ddp", "model=tiny128",
          "data=synthetic", "train.max_length=128", "train.batch_size=2",
-         "train.nb_steps_tot=6", "train.mesh_shape={dp: 2}"],
+         "train.nb_steps_tot=6", "train.mesh_shape={dp: 2}", f"hydra.run.dir={tmp_path}"],
         cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp_path)},
     )

@@ -28,6 +28,9 @@ from acco_tpu.ops.attention import repeat_kv as jax_repeat_kv
 from acco_tpu_torch.ops import attention as port_attention
 from acco_tpu_torch.ops import flash_attention as port
 from acco_tpu_torch.ops import fused_attention as k1
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

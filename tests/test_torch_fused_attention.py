@@ -25,6 +25,9 @@ from acco_tpu.ops.attention import resolve_attention_impl as jax_resolve
 from acco_tpu.ops.fused_attention import fused_dot_product_attention as jax_fused
 from acco_tpu_torch.ops import attention as port_attention
 from acco_tpu_torch.ops import fused_attention as port
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 B, H, L, D = 2, 4, 128, 64
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)

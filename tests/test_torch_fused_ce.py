@@ -30,6 +30,9 @@ from acco_tpu_torch.models.convert import params_from_jax
 from acco_tpu_torch.ops import fused_ce as port
 from acco_tpu_torch.ops import losses as port_losses
 from acco_tpu_torch.ops.losses import IGNORE_INDEX
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 B, L, D, V = 2, 33, 128, 277  # deliberately unaligned rows and vocab
 LOSS_TOL = dict(rtol=1e-5)

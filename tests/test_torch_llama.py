@@ -32,6 +32,9 @@ from acco_tpu_torch.models.convert import params_from_jax, params_to_jax
 from acco_tpu_torch.models.layers import lm_logits
 from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel, param_layout
 from acco_tpu_torch.parallel.common import make_flat_loss_fn
+import torch_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY128 = os.path.join(REPO, "config", "model", "tiny128.json")

@@ -26,7 +26,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from acco_tpu.ops import ring_attention as jax_ring
 from acco_tpu.ops.attention import attention_mask_bias, dot_product_attention
 from acco_tpu_torch.ops import ring_attention as port
+import torch_ranks
 from torch_ranks import run_ranks
+
+torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
 B, H, L, D = 2, 4, 64, 8
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -15,6 +15,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PRELUDE = """
@@ -26,6 +28,28 @@ RANK, WS, STORE, WORKDIR = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method="file://" + STORE, rank=RANK, world_size=WS)
 """
+
+
+@pytest.fixture(autouse=True)
+def torch_settings(monkeypatch):
+    """One intra-op thread for the test (the suite runs several workers on
+    a few cores), and every global torch setting a test may change (the
+    thread count, the default dtype, the TF32 flags, the deterministic
+    flag) and ``PYTORCH_CUDA_ALLOC_CONF``, which the entry point fills
+    in, as they were after it. A test module takes it by importing it."""
+    import torch
+
+    saved = (torch.get_num_threads(), torch.get_default_dtype(),
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.are_deterministic_algorithms_enabled())
+    monkeypatch.delenv("PYTORCH_CUDA_ALLOC_CONF", raising=False)
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved[0])
+    torch.set_default_dtype(saved[1])
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[2:4]
+    if torch.are_deterministic_algorithms_enabled() != saved[4]:  # its first call takes ~2 s
+        torch.use_deterministic_algorithms(saved[4])
 
 
 def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
