@@ -30,6 +30,14 @@ over gloo):
 ``main.py``, sp > 1 builds the model on the ring attention
 (``train.zigzag_cp``, default true, picks the zig-zag layout). Rank 0
 alone prints the summary.
+
+``train.finetune=true`` (``train=acco-ft``, ``ddp-ft``, ``dpu-ft``) reads
+``model.config_path`` as a local HF checkpoint directory, or a hub name
+under ``$ACCO_MODELS_ROOT`` (``models/hf_loader.py``): the model comes
+from its ``config.json`` and training starts from its weights (a resume
+still takes precedence); a missing checkpoint raises. ``train.remat``
+(false, true, dots, dots+probs) rematerialises each layer in the
+backward (``models/layers.wrap_remat``).
 """
 
 from __future__ import annotations
@@ -111,6 +119,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     from acco_tpu_torch.configuration import check_supported, compose_config
     from acco_tpu_torch.data.datasets import load_text_dataset
     from acco_tpu_torch.data.tokenizer import load_tokenizer
+    from acco_tpu_torch.models.hf_loader import from_pretrained
     from acco_tpu_torch.models.registry import build_model
     from acco_tpu_torch.parallel.mesh import RankGroups, init_distributed
     from acco_tpu_torch.trainer import Trainer
@@ -137,20 +146,27 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     log.info("run dir: %s", run_dir)
     use_mp = bool(cfg.train.get("use_mixed_precision", True))
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
-    model = build_model(
-        cfg.model,
-        repo_root=REPO_ROOT,
+    model_kw = dict(
         dtype=torch.bfloat16 if use_mp else torch.float32,
         attention="ring" if use_cp else cfg.train.get("use_pallas_attention", "auto"),
         device=device,
         sequence_group=mesh.sequence_group,
         zigzag=use_cp and bool(cfg.train.get("zigzag_cp", True)),
+        remat=cfg.train.get("remat", False),
     )
+    initial_params = None
+    if bool(cfg.train.get("finetune", False)):
+        # the model group names a local pretrained checkpoint (JAX: main.py:95-112)
+        model, initial_params = from_pretrained(cfg.model.config_path, **model_kw)
+        log.info("finetune: %d parameters from %s", model.n_params, cfg.model.config_path)
+    else:
+        model = build_model(cfg.model, repo_root=REPO_ROOT, **model_kw)
     tokenizer = load_tokenizer(cfg.model.get("tokenizer"), log)
-    train_texts, eval_texts = load_text_dataset(cfg.data)
+    train_texts, eval_texts = load_text_dataset(cfg.data, log=log)
     trainer = Trainer(
         model, tokenizer, train_texts, eval_texts, cfg.train, log,
         seed=int(cfg.select("seed", 12345)), device=device, mesh=mesh, run_dir=run_dir,
+        initial_params=initial_params,
     )
     # train.fused_loss as the train path resolved it against the model
     # (parallel/common.make_flat_loss_fn, which logs any downgrade)

@@ -383,14 +383,11 @@ def check_supported(train_cfg: dict) -> None:
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
-    if normalize_remat(train_cfg.get("remat", False)) is not False:
-        refuse(f"remat={train_cfg.get('remat')!r}", "queue 1, item 3 (remat)")
+    normalize_remat(train_cfg.get("remat", False))  # a misspelt mode raises here
     # the tp and pp axes raise by their item; {dp: N, sp: M} runs
     from acco_tpu_torch.parallel.mesh import check_mesh
 
     check_mesh(train_cfg.get("mesh_shape"))
-    if bool(train_cfg.get("finetune", False)):
-        refuse("finetune=True (HF checkpoint loading)", "queue 1, item 7")
     # keys JAX honours and the port has no code for: a non-default value
     # would otherwise run as if it were absent
     if train_cfg.get("fault_injection") is not None:

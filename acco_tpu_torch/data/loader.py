@@ -7,7 +7,10 @@ one rank's rows (``[index::num_shards]``, as JAX's list path),
 pad id and masked through ``attention_mask`` / ``labels == -100``,
 shuffled per epoch from ``seed + epoch`` (or in order, as the eval
 loader reads, with the ragged last batch kept), with ``iter_state`` /
-``set_state`` for an exact resume, and :func:`stack_microbatches` stacks
+``set_state`` for an exact resume. Rows that come as a
+``native.FlatTokenDataset`` are collated by its C++ loop (JAX:
+loader.py:137-147), the same batches as the Python loop here.
+:func:`stack_microbatches` stacks
 them into ``[n_acc, batch, seq]`` blocks with this rank's ``valid``
 [n_acc] float32 column — the layout the round consumes.
 
@@ -117,12 +120,16 @@ class ShardedBatchIterator:
             )
         self.epoch += 1
         end = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        native = hasattr(self.rows, "collate")  # a FlatTokenDataset
         for start in range(0, end, self.batch_size):
             self._pos += 1
             if self._pos <= skip:  # resume fast-forward: the order is fixed
                 continue
             idx = order[start : start + self.batch_size]
-            yield self._collate([self.rows[int(i)] for i in idx])
+            if native:
+                yield self.rows.collate(idx, self.max_length, self.pad_token_id)
+            else:
+                yield self._collate([self.rows[int(i)] for i in idx])
 
 
 def infinite_batches(loader: ShardedBatchIterator) -> Iterator[Dict[str, np.ndarray]]:
@@ -131,8 +138,11 @@ def infinite_batches(loader: ShardedBatchIterator) -> Iterator[Dict[str, np.ndar
         yield from loader
 
 
-def shard_dataset(rows, num_shards: int, index: int) -> list:
-    """Rank ``index``'s rows of ``num_shards``: ``rows[index::num_shards]``."""
+def shard_dataset(rows, num_shards: int, index: int):
+    """Rank ``index``'s rows of ``num_shards``: ``rows[index::num_shards]``
+    (a dataset with a ``shard`` method shards itself)."""
+    if hasattr(rows, "shard"):
+        return rows.shard(num_shards=num_shards, index=index)
     return [rows[i] for i in range(index, len(rows), num_shards)]
 
 

@@ -27,10 +27,3 @@ def pack_const_len(
     concat = np.concatenate(chunks) if chunks else np.zeros((0,), np.int32)
     n_rows = len(concat) // context_length
     return concat[: n_rows * context_length].reshape(n_rows, context_length)
-
-
-def pack_texts(texts: Sequence[str], tokenizer, context_length: int) -> np.ndarray:
-    """Tokenize every text and pack the whole corpus at once (one dropped
-    remainder in total, as the JAX trainer's native packing path does)."""
-    ids = tokenizer(list(texts), truncation=False)["input_ids"]
-    return pack_const_len(ids, int(tokenizer.eos_token_id), context_length)

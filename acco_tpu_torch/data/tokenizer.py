@@ -63,6 +63,10 @@ def load_tokenizer(name_or_path: str, log=None):
         from transformers import AutoTokenizer
 
         tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+        # a model checkpoint directory with no tokenizer files can give a
+        # tokenizer with no vocabulary, which encodes every text to nothing
+        if not tok("a b")["input_ids"]:
+            raise ValueError("the tokenizer encodes text to no ids (no vocabulary)")
         if tok.pad_token is None:
             tok.pad_token = tok.eos_token
         return tok

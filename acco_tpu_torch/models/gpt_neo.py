@@ -23,6 +23,9 @@ the chunk's absolute positions (contiguous or zig-zag), and every layer
 runs ``windowed_ring_attention`` with its window (0 or W), whose blocks
 are K4's positional variant on the card.
 
+``remat`` runs each layer, the context-parallel one included, through
+``layers.wrap_remat`` (JAX: gpt_neo.py:305-317, :737-746).
+
 ``attention='auto'`` resolves as for Llama (``ops/attention.py``): K1's
 envelope on the card, the plain path on the CPU. The JAX package has one
 more plan, banded local layers beside einsum global layers, which it takes
@@ -47,11 +50,13 @@ from acco_tpu_torch.models.layers import (
     lm_logits,
     merge_heads,
     split_heads,
+    wrap_remat,
 )
 from acco_tpu_torch.ops.attention import (
     attention_mask_bias,
     dot_product_attention,
     normalize_attention_impl,
+    normalize_remat,
     resolve_attention_impl,
 )
 from acco_tpu_torch.ops.banded_attention import (
@@ -144,6 +149,7 @@ class GPTNeoModel(FlatParamModel):
         zigzag: bool = False,
         tensor_axis: Optional[str] = None,
         vocab_pad_to: Optional[int] = None,
+        remat=False,
     ):
         for value, what in (
             (tensor_axis, "tensor_axis (tensor parallelism)"),
@@ -165,6 +171,7 @@ class GPTNeoModel(FlatParamModel):
         self.attention = attention
         self.sequence_group = sequence_group
         self.zigzag = bool(zigzag)
+        self.remat = normalize_remat(remat)
 
     @staticmethod
     def init_fill(path: str):
@@ -192,7 +199,7 @@ class GPTNeoModel(FlatParamModel):
     def _attention_fn(self, L: int, attention_mask, device):
         """``attend(q, k, v, window) -> [B, H, L, D]`` for this forward."""
         cfg = self.config
-        impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device)
+        impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device, self.remat)
         if impl == "xla":
             biases = {
                 w: attention_mask_bias(L, w, attention_mask, device)
@@ -259,17 +266,22 @@ class GPTNeoModel(FlatParamModel):
             wpe = self.wpe[:L]
         else:
             wpe = self.wpe[positions.to(input_ids.device, non_blocking=True)]
-        eps = cfg.layer_norm_epsilon
-        D = cfg.hidden_size
         x = F.embedding(input_ids, self.wte) + wpe[None, :, :]
+        layer = wrap_remat(self._layer, self.remat)
         for blk, window in zip(self.layers, cfg.layer_windows):
-            h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, eps)
-            q, k, v = (h @ blk.w_qkv.reshape(D, 3 * D)).split(D, dim=-1)
-            ctx = attend(
-                split_heads(q, cfg.num_heads), split_heads(k, cfg.num_heads),
-                split_heads(v, cfg.num_heads), window,
-            )
-            x = x + merge_heads(ctx) @ blk.wo + blk.wo_bias
-            h = layer_norm(x, blk.ln2_scale, blk.ln2_bias, eps)
-            x = x + gelu_new(h @ blk.w_fc + blk.b_fc) @ blk.w_proj + blk.b_proj
-        return layer_norm(x, self.lnf_scale, self.lnf_bias, eps)
+            x = layer(x, blk, attend, window)
+        return layer_norm(x, self.lnf_scale, self.lnf_bias, cfg.layer_norm_epsilon)
+
+    def _layer(self, x, blk, attend, window: int) -> torch.Tensor:
+        """One block: attention with this layer's window, then the MLP."""
+        cfg = self.config
+        eps, D = cfg.layer_norm_epsilon, cfg.hidden_size
+        h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, eps)
+        q, k, v = (h @ blk.w_qkv.reshape(D, 3 * D)).split(D, dim=-1)
+        ctx = attend(
+            split_heads(q, cfg.num_heads), split_heads(k, cfg.num_heads),
+            split_heads(v, cfg.num_heads), window,
+        )
+        x = x + merge_heads(ctx) @ blk.wo + blk.wo_bias
+        h = layer_norm(x, blk.ln2_scale, blk.ln2_bias, eps)
+        return x + gelu_new(h @ blk.w_fc + blk.b_fc) @ blk.w_proj + blk.b_proj

@@ -2,14 +2,72 @@
 
 Counterpart of ``acco_tpu/models/layers.py``: norm statistics in float32,
 GPT-Neo's ``gelu_new``, the half-rotation (HF/NeoX) RoPE, head split/merge
-in the JAX package's [B, H, L, D] layout, and the tied head's float32
-logits (:func:`lm_logits`) that both model families share.
+in the JAX package's [B, H, L, D] layout, the tied head's float32
+logits (:func:`lm_logits`) that both model families share, and the
+layers' rematerialisation (:func:`wrap_remat`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.nn import functional as F
+
+
+def _remat_saved_ops(remat) -> list:
+    """The dispatcher ops whose outputs a selective remat mode keeps: the
+    matmuls with no batch dims (JAX's ``dots_with_no_batch_dims_saveable``:
+    ``aten.mm``/``addmm``; the attention scores' batched products are
+    recomputed) and the attention kernels' forward ops (O and LSE, JAX's
+    ``attn_out``/``attn_lse``); with 'dots+probs' also the plain path's
+    activation-dtype probabilities (``attn_probs``)."""
+    # importing the ops modules registers their ops
+    from acco_tpu_torch.ops import attention, banded_attention, flash_attention  # noqa: F401
+    from acco_tpu_torch.ops import fused_attention  # noqa: F401
+
+    ours = torch.ops.acco_tpu_torch
+    ops = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           ours.attn_fwd.default, ours.flash_fwd.default, ours.banded_fwd.default]
+    if remat == "dots+probs":
+        ops.append(ours.attn_probs.default)
+    return ops
+
+
+def wrap_remat(block, remat):
+    """``block`` under the configured rematerialisation, as JAX's
+    ``wrap_remat`` (acco_tpu/models/layers.py:29-82):
+
+    - ``False``: ``block`` itself, every activation stored;
+    - ``True``: ``torch.utils.checkpoint`` of the whole block, which the
+      backward reruns, attention kernels included (``jax.checkpoint``);
+    - ``'dots'``: a selective checkpoint that keeps the outputs of the
+      matmuls with no batch dims and the attention kernels' O and LSE
+      and recomputes the rest (norms, RoPE, activations, the plain
+      path's scores and softmax): the forward kernels of K1, K2 and K5
+      are not launched again;
+    - ``'dots+probs'``: ``'dots'`` plus the plain path's probabilities.
+
+    Spellings go through ``ops.attention.normalize_remat``. Outside
+    autograd (eval, ``no_grad``) the block runs as it is."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    from acco_tpu_torch.ops.attention import normalize_remat
+
+    remat = normalize_remat(remat)
+    if remat is False:
+        return block
+    kw = {}
+    if remat != True:  # noqa: E712 — 'dots' and 'dots+probs' (strings)
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _remat_saved_ops(remat))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def normal_init(

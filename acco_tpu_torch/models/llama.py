@@ -13,6 +13,11 @@ absolute positions (contiguous: rank * chunk length on; zig-zag:
 ``zigzag_positions``), the position check is on the global length, and
 every layer runs the ring (``ops/ring_attention.py``). Pad masks are
 refused: the ring serves const-len packed sequences.
+
+``remat`` (False | True | 'dots' | 'dots+probs') runs each layer, the
+context-parallel one included, through ``layers.wrap_remat`` (JAX:
+llama.py:300-304, :562-567) and moves 'auto''s flash threshold
+(``ops.attention.resolve_attention_impl``).
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ from acco_tpu_torch.models.layers import (
     rms_norm,
     rope_angles,
     split_heads,
+    wrap_remat,
 )
 from acco_tpu_torch.ops.attention import (
     attention_mask_bias,
     dot_product_attention,
     normalize_attention_impl,
+    normalize_remat,
     resolve_attention_impl,
 )
 from acco_tpu_torch.ops.flash_attention import flash_dot_product_attention
@@ -102,6 +109,7 @@ class LlamaModel(FlatParamModel):
         device="cpu",
         sequence_group: Optional[SequenceGroup] = None,
         zigzag: bool = False,
+        remat=False,
     ):
         if (normalize_attention_impl(attention) == "ring") != (sequence_group is not None):
             raise ValueError("attention='ring' requires a sequence group, and a sequence "
@@ -111,6 +119,7 @@ class LlamaModel(FlatParamModel):
         self.attention = attention
         self.sequence_group = sequence_group
         self.zigzag = bool(zigzag)
+        self.remat = normalize_remat(remat)
 
     @staticmethod
     def attr_name(path: str) -> str:
@@ -144,7 +153,7 @@ class LlamaModel(FlatParamModel):
         cfg = self.config
         L = input_ids.shape[1]  # ring: this rank's chunk length
         device = input_ids.device
-        impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device)
+        impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device, self.remat)
         sg = self.sequence_group
         global_len = L
         if impl == "ring":
@@ -167,27 +176,33 @@ class LlamaModel(FlatParamModel):
         else:
             offset = sg.rank * L if impl == "ring" else 0
             cos, sin = rope_angles(L, cfg.head_dim, cfg.rope_theta, device, offset=offset)
-        eps = cfg.rms_norm_eps
+        layer = wrap_remat(self._layer, self.remat)
         for blk in self.layers:
-            h = rms_norm(x, blk.attn_norm, eps)
-            q = split_heads(h @ blk.wq, cfg.num_heads)
-            k = split_heads(h @ blk.wk, cfg.num_kv_heads)
-            v = split_heads(h @ blk.wv, cfg.num_kv_heads)
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            if impl == "fused":
-                ctx = fused_dot_product_attention(
-                    q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
-                )
-            elif impl == "flash":  # the pad mask as segment ids (JAX's flash path)
-                ctx = flash_dot_product_attention(
-                    q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
-                )
-            elif impl == "ring":
-                ring = zigzag_ring_attention if self.zigzag else ring_attention
-                ctx = ring(q, k, v, sg)
-            else:
-                ctx = dot_product_attention(q, k, v, bias)
-            x = x + merge_heads(ctx) @ blk.wo
-            h = rms_norm(x, blk.mlp_norm, eps)
-            x = x + (F.silu(h @ blk.w_gate) * (h @ blk.w_up)) @ blk.w_down
-        return rms_norm(x, self.final_norm, eps)
+            x = layer(x, blk, cos, sin, attention_mask, bias, impl)
+        return rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+
+    def _layer(self, x, blk, cos, sin, attention_mask, bias, impl: str) -> torch.Tensor:
+        """One decoder layer: attention, then the SwiGLU MLP."""
+        cfg = self.config
+        eps = cfg.rms_norm_eps
+        h = rms_norm(x, blk.attn_norm, eps)
+        q = split_heads(h @ blk.wq, cfg.num_heads)
+        k = split_heads(h @ blk.wk, cfg.num_kv_heads)
+        v = split_heads(h @ blk.wv, cfg.num_kv_heads)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if impl == "fused":
+            ctx = fused_dot_product_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
+            )
+        elif impl == "flash":  # the pad mask as segment ids (JAX's flash path)
+            ctx = flash_dot_product_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
+            )
+        elif impl == "ring":
+            ring = zigzag_ring_attention if self.zigzag else ring_attention
+            ctx = ring(q, k, v, self.sequence_group)
+        else:
+            ctx = dot_product_attention(q, k, v, bias)
+        x = x + merge_heads(ctx) @ blk.wo
+        h = rms_norm(x, blk.mlp_norm, eps)
+        return x + (F.silu(h @ blk.w_gate) * (h @ blk.w_up)) @ blk.w_down

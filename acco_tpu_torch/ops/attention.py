@@ -6,17 +6,22 @@ Counterpart of ``acco_tpu/ops/attention.py`` for the training path:
   float32 bias whose masked value is -1e9 (not -inf), runs the softmax in
   float32 and casts the probabilities to the activation dtype before the
   PV product — the JAX einsum path's numerics.
+  The probabilities' cast goes through the ``attn_probs`` op, so that
+  ``remat='dots+probs'`` (``models/layers.wrap_remat``) can save them, as
+  JAX names them ``attn_probs``.
 - :func:`resolve_attention_impl` maps the config's
   ``use_pallas_attention`` onto 'xla' (this module's plain path), 'fused'
   (K1, ops/fused_attention.py) or 'flash' (K5, ops/flash_attention.py,
   the Hopper kernel of JAX's bundled TPU flash kernel). On CUDA, 'auto'
-  takes JAX's TPU policy for flash without remat (which the port does
-  not run yet): 'flash' from L 2048 on, L a multiple of 512, where K5
-  takes the head dim; below that 'fused' where K1 takes the shape, else
-  'xla'. On the CPU 'auto' is the plain path, as the JAX resolver is off
-  the TPU; 'fused' and 'flash' on the CPU run their kernels' plain
-  versions. 'ring' (context parallelism, ops/ring_attention.py) is asked
-  for by name and passes through.
+  takes JAX's TPU threshold for flash (acco_tpu/ops/attention.py:126):
+  'flash' from L 2048 without remat and from L 4096 with it, L a
+  multiple of 512, where K5 takes the head dim; below that 'fused' where
+  K1 takes the shape, else 'xla' (the port's own choice below the
+  threshold: JAX's TPU policy takes 'xla' for L past 1024 there). On the
+  CPU 'auto' is the plain path, as the JAX resolver is off the TPU;
+  'fused' and 'flash' on the CPU run their kernels' plain versions.
+  'ring' (context parallelism, ops/ring_attention.py) is asked for by
+  name and passes through.
 """
 
 from __future__ import annotations
@@ -87,8 +92,31 @@ def dot_product_attention(
         scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores * scale + bias
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = attn_probs(torch.softmax(scores, dim=-1), q.dtype)
     return torch.matmul(probs, v)
+
+
+def _attn_probs(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p.to(dtype, copy=True)
+
+
+# the softmax probabilities cast to the activation dtype, as a named op
+# (JAX's checkpoint_name(probs, "attn_probs")) that the 'dots+probs' remat
+# policy saves; always a fresh tensor
+attn_probs = torch.library.custom_op("acco_tpu_torch::attn_probs", _attn_probs,
+                                     mutates_args=(),
+                                     schema="(Tensor p, ScalarType dtype) -> Tensor")
+
+
+def _attn_probs_setup(ctx, inputs, output):
+    ctx.in_dtype = inputs[0].dtype
+
+
+def _attn_probs_backward(ctx, grad):
+    return grad.to(ctx.in_dtype), None
+
+
+attn_probs.register_autograd(_attn_probs_backward, setup_context=_attn_probs_setup)
 
 
 def normalize_remat(value) -> "bool | str":
@@ -122,19 +150,21 @@ def normalize_attention_impl(impl) -> str:
     raise ValueError(f"attention impl must be auto/flash/fused/xla/ring, got {impl!r}")
 
 
-def resolve_attention_impl(impl, seq_len: int, head_dim: int, device) -> str:
-    """'xla', 'fused' or 'flash' for this shape on this device (see module
-    doc); 'ring' stays 'ring'."""
+def resolve_attention_impl(impl, seq_len: int, head_dim: int, device, remat=False) -> str:
+    """'xla', 'fused' or 'flash' for this shape on this device, under the
+    model's ``remat`` (see module doc); 'ring' stays 'ring'."""
     from acco_tpu_torch.ops.flash_attention import supports_flash_attention
     from acco_tpu_torch.ops.fused_attention import supports_fused_attention
 
     impl = normalize_attention_impl(impl)
+    remat = normalize_remat(remat)
     if impl != "auto":
         return impl
     if torch.device(device).type != "cuda":
         return "xla"
+    threshold = 2048 if remat is False else 4096
     if (
-        seq_len >= 2048
+        seq_len >= threshold
         and seq_len % 512 == 0
         and supports_flash_attention(seq_len, head_dim)
     ):

@@ -200,12 +200,29 @@ def banded_bwd_dkdv_reference(q, k, v, dout, lse, delta, window: int, scale: flo
 # -- autograd and the public function ---------------------------------------
 
 
+def _banded_fwd_any(q, k, v, window, scale):
+    """(O, lse): the plain version on the CPU, else the kernel (which
+    launches or raises)."""
+    if q.device.type == "cpu":
+        return banded_reference(q, k, v, window, scale)
+    return banded_fwd(q, k, v, window, scale)
+
+
+# the forward as a dispatcher op that the 'dots' remat policy saves (JAX
+# names the banded kernel's outputs as the full kernel's); no shape-only
+# version: a meta tensor also reaches the kernel wrapper
+banded_fwd_op = torch.library.custom_op(
+    "acco_tpu_torch::banded_fwd", _banded_fwd_any, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int window, float scale) -> (Tensor, Tensor)")
+banded_fwd_op.register_fake(_banded_fwd_any)
+
+
 class BandedAttention(torch.autograd.Function):
     """The kernel forward with delta + dQ + dK/dV kernels as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int, scale: float):
-        o, lse = banded_fwd(q, k, v, window, scale)
+        o, lse = banded_fwd_op(q, k, v, window, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.window, ctx.scale = window, scale
         return o

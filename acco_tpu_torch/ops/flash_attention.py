@@ -29,6 +29,11 @@ activation dtype before its products. dK/dV belong to the repeated heads
 and are summed over each KV head's q heads, which is what autograd
 through JAX's ``repeat_kv`` gives.
 
+The kernel's forward is launched through a dispatcher op,
+``acco_tpu_torch::flash_fwd`` (:func:`flash_fwd_op`), so that the
+``remat='dots'`` policy (``models/layers.wrap_remat``) saves its O and
+LSE instead of launching it again in the backward's recompute.
+
 Each wrapper checks device, dtype (bfloat16 or float32), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch returned a CUDA error, and adds one
@@ -253,12 +258,28 @@ def flash_bwd_dq_reference(q, k, v, seg, dout, lse, delta, scale: float):
 # -- autograd and the public function ---------------------------------------
 
 
+def _flash_fwd_any(q, k, v, seg, scale):
+    """(O, lse): the plain version on the CPU, else the kernel (which
+    launches or raises)."""
+    if q.device.type == "cpu":
+        return flash_reference(q, k, v, seg, scale)
+    return flash_fwd(q, k, v, seg, scale)
+
+
+# the forward as a dispatcher op that a remat policy can save; it has no
+# shape-only version: a meta tensor also reaches the kernel wrapper
+flash_fwd_op = torch.library.custom_op(
+    "acco_tpu_torch::flash_fwd", _flash_fwd_any, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? seg, float scale) -> (Tensor, Tensor)")
+flash_fwd_op.register_fake(_flash_fwd_any)
+
+
 class FlashAttention(torch.autograd.Function):
     """The kernel forward with the three-kernel backward as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, scale: float):
-        o, lse = flash_fwd(q, k, v, seg, scale)
+        o, lse = flash_fwd_op(q, k, v, seg, scale)
         ctx.save_for_backward(q, k, v, seg, o, lse)
         ctx.scale = scale
         return o

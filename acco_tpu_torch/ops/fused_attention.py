@@ -25,6 +25,14 @@ A row whose keys are all padding (left padding) is normalised over all L
 keys, as the TPU kernel's whole-row softmax does: the kernel gives it the
 mean of V and lse -1e9, and its backward P = 1 on every key.
 
+The forward reaches its kernel (or, on the CPU, its plain version)
+through a dispatcher op, ``acco_tpu_torch::attn_fwd`` (:func:`attn_fwd_op`):
+a ctypes launch inside an autograd Function is invisible to a selective
+checkpoint policy, which sees only dispatcher ops, so under
+``remat='dots'`` the backward's recompute would launch the forward
+kernel again. As an op its O and LSE are saved instead, as JAX names
+them ``attn_out`` and ``attn_lse`` (acco_tpu/ops/fused_attention.py:216-223).
+
 Each wrapper checks device, dtype (bfloat16 or float32), shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream, raises if the launch returned a CUDA error, and adds one
@@ -280,12 +288,29 @@ def attn_bwd_dq_reference(q, k, v, pad_mask, dout, lse, delta, window: int, scal
 # -- autograd and the public function ---------------------------------------
 
 
+def _attn_fwd_any(q, k, v, pad_mask, window, scale):
+    """(O, lse): the plain version on the CPU, else the kernel (which
+    launches or raises)."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, pad_mask, window, scale)
+    return attn_fwd(q, k, v, pad_mask, window, scale)
+
+
+# the forward as a dispatcher op that a remat policy can save; it has no
+# shape-only version: a meta tensor also reaches the kernel wrapper
+attn_fwd_op = torch.library.custom_op(
+    "acco_tpu_torch::attn_fwd", _attn_fwd_any, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? pad_mask, int window, float scale)"
+           " -> (Tensor, Tensor)")
+attn_fwd_op.register_fake(_attn_fwd_any)
+
+
 class FusedAttention(torch.autograd.Function):
     """The kernel forward with the three-kernel backward as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, window: int, scale: float):
-        o, lse = attn_fwd(q, k, v, pad_mask, window, scale)
+        o, lse = attn_fwd_op(q, k, v, pad_mask, window, scale)
         ctx.save_for_backward(q, k, v, pad_mask, o, lse)
         ctx.window, ctx.scale = window, scale
         return o
@@ -311,7 +336,7 @@ class PlainFusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, window: int, scale: float):
-        o, lse = attention_reference(q, k, v, pad_mask, window, scale)
+        o, lse = attn_fwd_op(q, k, v, pad_mask, window, scale)
         ctx.save_for_backward(q, k, v, pad_mask, o, lse)
         ctx.window, ctx.scale = window, scale
         return o

@@ -7,17 +7,23 @@ their mean. The model is built from ``config/model/<name>.yaml`` and
 takes its weights from a checkpoint's portable ``params.npz``
 (``utils/checkpoint.load_flat_params``: a final save of this port or of
 the JAX package; a checkpoint root resolves to its newest complete
-step), or is freshly initialised from a seed without one. ::
+step), or is freshly initialised from a seed without one. With
+``--hf-checkpoint`` (a local HF checkpoint directory, or a hub name under
+``$ACCO_MODELS_ROOT``) the model and its weights come from that
+checkpoint (``models/hf_loader.from_pretrained``; JAX:
+perplexity_eval.py:143-146) and its tokenizer from the same directory
+where it holds one. ::
 
     python -m acco_tpu_torch.perplexity_eval --model llama-125M \\
         --checkpoint outputs/.../checkpoints/acco
+    python -m acco_tpu_torch.perplexity_eval --hf-checkpoint /models/gpt-neo-125M
     python -m acco_tpu_torch.perplexity_eval --device cpu --model tiny128 \\
         --n-samples 8 --max-length 128
 
 It runs on ``cuda:0`` unless ``--device cpu`` is given. The texts are the
-synthetic corpus's train split (HF hub datasets: ROADMAP.md queue 1,
-item 2). ``--hf-checkpoint`` (HF loading, item 7) and ``--engine serve``
-(serving, item 11) are not ported yet and raise.
+train split of ``--data`` (``synthetic``, or a dataset that
+``data/datasets.py`` loads). ``--engine serve`` (serving, ROADMAP.md
+queue 1, item 11) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -100,8 +106,9 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--model", default="gptneo", help="config/model/<name>.yaml")
     parser.add_argument("--checkpoint", default=None,
                         help="a step_N dir or a checkpoint root (its newest complete step)")
-    parser.add_argument("--hf-checkpoint", default=None, help="not ported yet")
-    parser.add_argument("--data", default="synthetic", help="'synthetic' (hub data: not yet)")
+    parser.add_argument("--hf-checkpoint", default=None,
+                        help="a local HF checkpoint dir (or a hub name under ACCO_MODELS_ROOT)")
+    parser.add_argument("--data", default="synthetic", help="'synthetic' or a dataset path")
     parser.add_argument("--n-samples", type=int, default=100)
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--max-length", type=int, default=256)
@@ -112,11 +119,6 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--seed", type=int, default=0, help="init seed without --checkpoint")
     args = parser.parse_args(argv)
 
-    if args.hf_checkpoint:
-        raise NotImplementedError(
-            "--hf-checkpoint (HF checkpoint loading) is not ported yet: ROADMAP.md queue 1, "
-            "item 7"
-        )
     if args.engine == "serve":
         raise NotImplementedError(
             "--engine serve (the serving path) is not ported yet: ROADMAP.md queue 1, item 11"
@@ -127,13 +129,20 @@ def main(argv: list[str] | None = None) -> dict:
     from acco_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(args.device)
-    model, model_cfg = build(args.model, device=device)
-    tokenizer = load_tokenizer(model_cfg.get("tokenizer"))
-    if args.checkpoint:
-        step_dir = resolve_serving_checkpoint(args.checkpoint)
-        flat = torch.from_numpy(load_flat_params(step_dir, model.n_params))
+    if args.hf_checkpoint:
+        from acco_tpu_torch.models.hf_loader import from_pretrained, resolve_pretrained_dir
+
+        ckpt_dir = resolve_pretrained_dir(args.hf_checkpoint)
+        model, flat = from_pretrained(ckpt_dir, device=device)
+        tokenizer = load_tokenizer(ckpt_dir)
     else:
-        flat = model.init_flat(torch.Generator(device=device).manual_seed(args.seed))
+        model, model_cfg = build(args.model, device=device)
+        tokenizer = load_tokenizer(model_cfg.get("tokenizer"))
+        if args.checkpoint:
+            step_dir = resolve_serving_checkpoint(args.checkpoint)
+            flat = torch.from_numpy(load_flat_params(step_dir, model.n_params))
+        else:
+            flat = model.init_flat(torch.Generator(device=device).manual_seed(args.seed))
     train_texts, _ = load_text_dataset({"path": args.data}, test_size=0.01)
     texts = train_texts[: args.n_samples]
     result = compute(model, flat, tokenizer, texts, batch_size=args.batch_size,

@@ -5,10 +5,18 @@ and the run's records.
 Counterpart of ``DecoupledTrainer`` in ``acco_tpu/trainer.py``, slimmed:
 const-len packing (or per-document truncation), a shuffled batch
 iterator, then rounds (or steps) until ``nb_steps_tot`` gradients are
-committed. Each round's loss, LR and ``is_real_update`` stay on the
-device; the loop reads them back, with the committed count and the
-guard's counters, in one copy every ``delta_step_for_log`` grads (JAX:
-trainer.py:1350-1377), so the host runs ahead of the card in between.
+committed. Each round's block comes from a ``data/prefetch.py``
+source: with ``prefetch`` (the default, at ``prefetch_depth`` 2) a
+worker thread collates it, pins it and copies it to the card on a copy
+stream of its own while the rounds before it run (JAX: trainer.py:205-209,
+:1110-1120); ``prefetch: false`` makes the same blocks on the loop's
+thread, with blocking copies. The packed or truncated rows are a
+``native.FlatTokenDataset`` whose batches a C++ loop collates
+(``native_data: false`` keeps the Python lists). Each round's loss, LR
+and ``is_real_update`` stay on the device; the loop reads them back,
+with the committed count and the guard's counters, in one copy every
+``delta_step_for_log`` grads (JAX: trainer.py:1350-1377), so the host
+runs ahead of the card in between.
 The eval, the periodic save and the watchdog decide at those boundaries.
 At ``delta_step_for_log=1`` every round is read back, and a round's
 ``ms`` is its synced wall time (both streams: the round ends with the
@@ -68,18 +76,13 @@ import time
 import numpy as np
 import torch
 
-from acco_tpu_torch.data.loader import (
-    ShardedBatchIterator,
-    infinite_batches,
-    shard_dataset,
-    stack_microbatches,
-)
-from acco_tpu_torch.data.tokenize import pack_texts
+from acco_tpu_torch.data.loader import ShardedBatchIterator, shard_dataset
+from acco_tpu_torch.data.prefetch import AsyncPrefetcher, block_copier, block_source
 from acco_tpu_torch.ops.attention import resolve_attention_impl
 from acco_tpu_torch.ops.losses import IGNORE_INDEX, model_ce, real_vocab_of
 from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
-from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
+from acco_tpu_torch.parallel.common import prep_cp_leaves
 from acco_tpu_torch.parallel.ddp import DDPTrainStep
 from acco_tpu_torch.utils import checkpoint as ckpt
 from acco_tpu_torch.utils import logs
@@ -87,7 +90,8 @@ from acco_tpu_torch.utils import logs
 
 class Trainer:
     def __init__(self, model, tokenizer, train_texts, eval_texts, args, log=None,
-                 seed: int = 0, device="cpu", mesh=None, run_dir: str = "."):
+                 seed: int = 0, device="cpu", mesh=None, run_dir: str = ".",
+                 initial_params=None):
         self.log = log or logging.getLogger("acco_tpu_torch")
         self.model = model
         self.args = args
@@ -95,6 +99,9 @@ class Trainer:
         self.seed = seed
         self.mesh = mesh
         self.run_dir = str(run_dir)
+        # a pretrained start (finetune, JAX: trainer.py:126-128): this flat
+        # vector replaces the random init; a resume still takes precedence
+        self.initial_params = initial_params
         # a mesh with a sequence group (sp > 1, JAX: trainer.py:141-145, or
         # a group of one rank passed in by hand) turns context parallelism on
         self.sequence_group = None if mesh is None else mesh.sequence_group
@@ -117,6 +124,9 @@ class Trainer:
         self.max_length = int(args.get("max_length", 1024))
         self.nb_grad_tot = int(args.get("nb_steps_tot", 1000))
         self.const_len_batch = bool(args.get("const_len_batch", True))
+        self.prefetch = bool(args.get("prefetch", True))
+        self.prefetch_depth = int(args.get("prefetch_depth", 2))
+        self.native_data = bool(args.get("native_data", True))
         if self.sequence_group is not None:
             self._check_cp(self.sequence_group.size)
         self.valid, self.grads_per_round = self._valid_column(args.get("microbatch_mask"))
@@ -150,6 +160,7 @@ class Trainer:
         self.world = self.step.group("world")  # dp x sp (None: one rank)
         self.world_size = 1 if g is None else g.world_size
         self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
+        self.eos_token_id = int(tokenizer.eos_token_id)
         rows = self._rows(train_texts, tokenizer)
         self.loader = ShardedBatchIterator(
             rows, self.batch_size, self.max_length, pad_token_id=self.pad_token_id, seed=seed,
@@ -167,7 +178,8 @@ class Trainer:
         )
         # the attention impl the model's (global) layers run at this length
         self.attention = resolve_attention_impl(
-            model.attention, self.max_length, model.config.head_dim, self.device
+            model.attention, self.max_length, model.config.head_dim, self.device,
+            getattr(model, "remat", False),
         )
 
         self.n_warmup = int(args.get("n_warmup_steps", 0) or 0)
@@ -195,15 +207,36 @@ class Trainer:
         self.final_state = None
         self.save_ms: list = []
         self.restore_ms = None
+        self.source = None  # the round loop's block source (train() closes it)
 
     def _rows(self, texts, tokenizer):
         """This dp index's texts (JAX: trainer.py:434-441), packed
-        const-len or truncated per document."""
+        const-len over the whole corpus (one remainder dropped in all) or
+        truncated per document, as a ``FlatTokenDataset`` (JAX:
+        ``_native_pack``, ``_maybe_flatten``, trainer.py:699-757), or as
+        Python rows with ``native_data: false``."""
+        from acco_tpu_torch.data.tokenize import pack_const_len
+        from acco_tpu_torch.native import FlatTokenDataset
+
         if self.dp > 1:
             texts = shard_dataset(list(texts), self.dp, self.dp_index)
+        # tokenized in chunks, as JAX's native path does: the packing
+        # still runs over the whole corpus at once
+        ids: list = []
+        texts = list(texts)
+        kw = {"truncation": False} if self.const_len_batch else {
+            "truncation": True, "max_length": self.max_length}
+        for lo in range(0, len(texts), 4096):
+            ids.extend(tokenizer(texts[lo : lo + 4096], **kw)["input_ids"])
+        if not self.native_data:
+            if self.const_len_batch:
+                return pack_const_len(ids, self.eos_token_id, self.max_length)
+            return ids
+        docs = FlatTokenDataset.from_rows(ids)
         if self.const_len_batch:
-            return pack_texts(texts, tokenizer, self.max_length)
-        return tokenizer(list(texts), truncation=True, max_length=self.max_length)["input_ids"]
+            return FlatTokenDataset.from_packed(
+                docs.pack_const_len(self.max_length, self.eos_token_id))
+        return docs
 
     def _valid_column(self, mask):
         """This rank's ``valid`` column [n_acc] and the valid micro-grads a
@@ -241,27 +274,38 @@ class Trainer:
                 "padded (truncation-mode) batches are not supported"
             )
 
-    def _next_block(self, batches):
-        block = stack_microbatches(batches, self.n_acc, self.valid)
-        return prep_cp_leaves(block_from_numpy(block, self.device), self.sequence_group,
-                              getattr(self.model, "zigzag", False))
+    def _next_block(self):
+        """The next block from the source, on the device and ready for the
+        current stream, with this rank's sequence chunk cut
+        (``prep_cp_leaves``, after the copy's wait)."""
+        block = self.source.next_block()
+        return prep_cp_leaves(block, self.sequence_group, getattr(self.model, "zigzag", False))
 
     def train(self) -> dict:
-        """The run; its TensorBoard writer is closed however it ends."""
+        """The run; its TensorBoard writer and its block source (the
+        prefetch worker, JAX: trainer.py:991) are closed however it
+        ends."""
         t_beg = time.time()
         writer = (logs.make_summary_writer(self.tensorboard_dir) if self.rank == 0
                   else logs.NoOpWriter())
         try:
             return self._train(writer, t_beg)
         finally:
+            if self.source is not None:  # kept, closed: its iter_state stays readable
+                self.source.close()
             writer.flush()
             writer.close()
 
     def _train(self, writer, t_beg: float) -> dict:
         if self.rank == 0 and self.do_save:
             ckpt.gc_incomplete(self.ckpt_dir, self.log)
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        state = self.step.init_state(self.model.init_flat(gen))
+        if self.initial_params is not None:
+            flat0 = self.initial_params.to(device=self.device, dtype=self.model.dtype)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            flat0 = self.model.init_flat(gen)
+        state = self.step.init_state(flat0)
+        del flat0  # the state holds its own (padded) copy
 
         # resume (JAX: trainer.py:1061-1105)
         meta = {"count_grad_tot": 0, "rounds_done": 0, "elapsed_s": 0.0}
@@ -276,7 +320,10 @@ class Trainer:
         rounds_done = int(meta["rounds_done"])
         if "loader" in meta:
             self.loader.set_state(meta["loader"])
-        batches = infinite_batches(self.loader)
+        # made after the restore, so the worker starts at the restored
+        # position (JAX: trainer.py:1110-1120)
+        self.source = block_source(self.loader, self.n_acc, self.device,
+                                   self.prefetch_depth, self.prefetch, self.valid)
 
         seed_loss, warmup_losses = None, []
         if self.method != "ddp" and rounds_done == 0:
@@ -288,15 +335,15 @@ class Trainer:
                 # real update, so the last warmup round's grads are kept
                 warm = copy.copy(self.step)
                 warm.mode = "dpu"
-                state, loss = warm.seed(state, self._next_block(batches))
+                state, loss = warm.seed(state, self._next_block())
                 losses = [loss]
                 for _ in range(self.n_warmup):
-                    state, m = warm.round(state, self._next_block(batches), parity=False)
+                    state, m = warm.round(state, self._next_block(), parity=False)
                     losses.append(m.loss)
                     count_grad_tot += self.grads_per_round
                 state = state._replace(round_idx=torch.zeros_like(state.round_idx))
             else:
-                state, loss = self.step.seed(state, self._next_block(batches))
+                state, loss = self.step.seed(state, self._next_block())
                 losses = [loss]
             seed_loss, *warmup_losses = torch.stack(losses).float().tolist()  # one read
             self.log.info("seed round: loss %.4f", seed_loss)
@@ -318,10 +365,10 @@ class Trainer:
                     break
             t0 = time.perf_counter()
             if self.method == "ddp":
-                state, m = self.step.step(state, self._next_block(batches))
+                state, m = self.step.step(state, self._next_block())
                 real = ~m.skipped
             else:
-                state, m = self.step.round(state, self._next_block(batches),
+                state, m = self.step.round(state, self._next_block(),
                                            parity=round_idx % 2 == 0)
                 real = m.is_real_update
             # the round's metrics stay on the device until the boundary
@@ -415,6 +462,8 @@ class Trainer:
             "checkpoint": checkpoint,
             "run_dir": self.run_dir,
             "device": str(self.device),
+            "prefetch": self.prefetch,
+            "block_wait_ms": self.source.median_wait_ms(),
         }
 
     def _read_rounds(self, unread: list, state, round_log: list) -> tuple:
@@ -490,11 +539,8 @@ class Trainer:
         cp = self.sequence_group is not None
         model.load_flat(flat_params)
         losses = []
-        it = iter(self.eval_loader)
         with torch.no_grad():
-            for _ in range(int(n_batches)):
-                batch = next(it)
-                blk = block_from_numpy({**batch, "valid": np.ones(1, np.float32)}, self.device)
+            for blk in self._eval_blocks(int(n_batches)):
                 blk = prep_cp_leaves(blk, self.sequence_group, getattr(model, "zigzag", False))
                 if cp:  # labels shifted on the global sequence (JAX: :1888-1901)
                     am, shift, count = None, False, (blk.labels != IGNORE_INDEX).sum()
@@ -516,6 +562,24 @@ class Trainer:
                     dist.all_reduce(sums, group=self.world)
                 losses.append(float(sums[0] / sums[1].clamp(min=1.0)))
         return float(np.mean(losses)) if losses else float("nan")
+
+    def _eval_blocks(self, n_batches: int):
+        """The first ``n_batches`` eval batches as one-microbatch blocks on
+        the device, prefetched as the round's blocks are (JAX:
+        trainer.py:1996-2015): the eval's per-batch read gives the worker
+        a batch's time to collate and copy the next."""
+        it = iter(self.eval_loader)
+        host = ({**next(it), "valid": np.ones(1, np.float32)} for _ in range(n_batches))
+        put, take = block_copier(self.device, self.prefetch)
+        if not self.prefetch:
+            yield from map(put, host)
+            return
+        worker = AsyncPrefetcher(map(put, host), depth=self.prefetch_depth)
+        try:
+            for item in worker:
+                yield item if take is None else take(item)
+        finally:
+            worker.close()
 
     # -- persistence --------------------------------------------------------
 
@@ -544,10 +608,10 @@ class Trainer:
             "elapsed_s": time.time() - t_beg,
             "method": self.method,
             "id_run": self.id_run,
-            # the position of the last consumed block (the loader is read
-            # in the round loop, with no prefetch ahead of it); each rank
-            # also keeps its own in its state file
-            "loader": self.loader.iter_state(),
+            # the position of the last consumed block (blocks the worker
+            # has prefetched are collated again on resume); each rank also
+            # keeps its own in its state file
+            "loader": self.source.iter_state(),
             "mesh": dict(self.mesh_shape),
             "n_params": self.model.n_params,
             "padded_size": self.step.geom.padded_size,

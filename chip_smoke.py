@@ -138,7 +138,35 @@ and prints no result line):
    dirs in a temporary directory, and read every round back
    (``delta_step_for_log=1``: a round's ms is its synced time, as
    PERF.md section 2 defines it); phase 8's runs A, B and C read back
-   every 2 grads, where their evals fall.
+   every 2 grads, where their evals fall. Phases 5-8 run with the
+   prefetch on, the train config's default (phase 8's A/B/C at depth 2);
+9. the input pipeline, remat and finetuning: (a) the cadence runs of
+   phase 8 (d) again with ``train.prefetch=false``: their round losses
+   and final params bit-equal to the prefetched runs', the mean round ms
+   of rounds 11-20, the idle share from a profiled rerun and the
+   consumer's wait for its block, each prefetched and not; then the copy
+   stream's ordering: a block whose copy sleeps ~0.4 s on the copy stream
+   read right after the consumer takes it must equal the host block, and
+   with the wait on the copy's event removed (a planted fault) the read
+   must run first (events show the race taken; the sleep grows 4x if
+   not) and differ; (b) resume with the prefetch on: phase 8 (a); (c)
+   the long-context path with ``train.remat=dots`` (K5's forward once a
+   layer, its O and LSE saved) and ``true`` (twice), their peak memory
+   and median round beside phase 5's remat-off run; tiny128 in float32
+   through K1 under each mode against remat off (the loss and
+   gradients, and K1's forward launches), and 'dots+probs' on the plain
+   path; (d) GPT-Neo-125M and Llama-125M at full width, random init from
+   the seed, written as HF checkpoint directories (``config.json``,
+   ``model.safetensors`` in HF's names, bf16, the tied head omitted) and
+   finetuned through the entry point's trainer (``train=acco-ft``:
+   truncated rows with pad masks, max_length 512, batch 4, n_acc 2, the
+   eval on): the loaded flat vector bit-equal to the one written, K1's
+   launches with a pad mask counted, each first loss equal to the same
+   model's from the architecture file with ``params_from_jax`` of the
+   written params; ``acco_tpu_torch.perplexity_eval --hf-checkpoint``
+   through K1 against the plain attention; GPT-Neo-2.7B's preset (D 128,
+   bf16, random init, forward only) through K1 + K2 against the plain
+   path; (e) the native collate built with g++ and called on these paths.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -335,7 +363,7 @@ def run_flags(cadence: int = 1) -> list[str]:
 
 
 def main_args(path: str, cadence: int = 1) -> list[str]:
-    spec = MAIN_PATHS.get(path) or DP_PATHS[path]
+    spec = MAIN_PATHS.get(path) or DP_PATHS.get(path) or REMAT_PATHS[path]
     extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
     return [
         f"train={spec.get('method', 'acco')}", f"model={spec['model']}", *extra,
@@ -1876,6 +1904,16 @@ RING_PATHS = {
 # train=dpu and the ddp baseline (no seed round: 6 microbatches).
 DP_PATHS = {f"llama-125M-dp-{m}": dict(MAIN_PATHS["llama-125M"], method=m)
             for m in ("acco", "dpu", "ddp")}
+# Phase 9's remat paths: the long-context path with train.remat 'dots'
+# (K5's O and LSE saved: its forward launched once a layer) and true (the
+# whole layer recomputed: K5's forward twice a layer)
+REMAT_PATHS = {
+    f"llama3-8B-L8192-remat-{mode}": dict(
+        MAIN_PATHS["llama3-8B-L8192"], extra=[f"train.remat={mode}"],
+        per_microbatch={**MAIN_PATHS["llama3-8B-L8192"]["per_microbatch"],
+                        "flash_fwd": LLAMA3_LAYERS * (2 if mode == "true" else 1)})
+    for mode in ("dots", "true")
+}
 # the kernel each JSON entry reports launches for: its own slice's path
 OWN_PATH = {**dict.fromkeys(_K1, "llama-125M"), **dict.fromkeys(_K2, "gptneo"),
             **dict.fromkeys(_K3, "llama-125M-fusedce"), **dict.fromkeys(_K5, "llama3-8B-L8192"),
@@ -1902,7 +1940,8 @@ def dp_trainer(path: str, group):
 
 
 def path_spec(path: str) -> dict:
-    return MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS[path]
+    return (MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS.get(path)
+            or REMAT_PATHS[path])
 
 
 def path_microbatches(path: str) -> int:
@@ -2567,17 +2606,19 @@ def resumed_differences(resumed, summary: dict, reference, ref_summary: dict) ->
     return diffs
 
 
-def cadence_ms(path: str) -> float:
-    """(d) A main path's ``CADENCE_ROUNDS`` rounds through the entry point
-    at ``delta_step_for_log=CADENCE``: the mean round ms between its two
-    boundaries (the rows' dispatch ms, the boundary round's with the wait
-    for the read back)."""
+def cadence_ms(path: str, *extra: str) -> tuple[float, dict, object]:
+    """(d) A main path's ``CADENCE_ROUNDS`` rounds through the entry point's
+    trainer at ``delta_step_for_log=CADENCE``: the mean round ms between
+    its two boundaries (the rows' dispatch ms, the boundary round's with
+    the wait for the read back), the summary and the final flat params."""
     import torch
 
-    from acco_tpu_torch.__main__ import main as entry
+    from acco_tpu_torch.__main__ import build_trainer
 
     torch.cuda.empty_cache()
-    summary = entry([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}"])
+    trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
+                             *extra])
+    summary = trainer.train()
     rounds = summary["round_log"]
     if len(rounds) != CADENCE_ROUNDS or summary["count_grad_tot"] != CADENCE_ROUNDS:
         raise AssertionError(f"{path}: {len(rounds)} rounds to {summary['count_grad_tot']} "
@@ -2585,14 +2626,17 @@ def cadence_ms(path: str) -> float:
     losses = [r["loss"] for r in rounds]
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
         raise AssertionError(f"{path}: non-finite loss at cadence {CADENCE}: {losses}")
-    return statistics.fmean(r["ms"] for r in rounds[CADENCE:])
+    return (statistics.fmean(r["ms"] for r in rounds[CADENCE:]), summary,
+            trainer.final_state.flat_params)
 
 
-def resume_phase(smi: str, round_ms: dict) -> dict:
-    """(a) exact resume with two planted faults and a torn newer step, (b)
-    the eval through K1 and K3's forward alone, (c) perplexity on B's
-    params.npz through K1, (d) the cadence's mean round ms beside phase
-    5's synced median (``round_ms``); returns the eval's launches."""
+def resume_phase(smi: str, round_ms: dict) -> tuple[dict, dict]:
+    """(a) exact resume with two planted faults and a torn newer step (the
+    prefetch on, at depth 2), (b) the eval through K1 and K3's forward
+    alone, (c) perplexity on B's params.npz through K1, (d) the cadence's
+    mean round ms beside phase 5's synced median (``round_ms``); returns
+    the eval's launches and (d)'s runs (mean ms, summary, final flat
+    params) by path."""
     import torch
 
     from acco_tpu_torch import perplexity_eval as ppl
@@ -2605,6 +2649,8 @@ def resume_phase(smi: str, round_ms: dict) -> dict:
     try:
         log(f" (a) exact resume: {' '.join(resume_args('<run dir>', RESUME_N2))}")
         a, sa = resume_run(f"{tmp}/a", RESUME_N2)
+        if not (sa["prefetch"] and a.prefetch_depth == 2):
+            raise AssertionError("phase 8 runs with the prefetch on at depth 2")
         log(f"  A: {RESUME_N2} grads uninterrupted; seed {sa['seed_loss']:.6f}, warmup "
             f"{['%.6f' % x for x in sa['warmup_losses']]}, rounds "
             f"{['%.6f' % r['loss'] for r in sa['round_log']]}, evals "
@@ -2725,13 +2771,531 @@ def resume_phase(smi: str, round_ms: dict) -> dict:
 
         log(f" (d) the logging cadence: {CADENCE_ROUNDS} rounds read back every {CADENCE} "
             f"grads, the mean round ms of rounds {CADENCE + 1}-{CADENCE_ROUNDS}")
+        cadence = {}
         for path in CADENCE_PATHS:
-            mean = cadence_ms(path)
-            log(f"  {path} on {smi}: mean round ms at delta_step_for_log={CADENCE} {mean:.3f}; "
-                f"phase 5's synced median (delta_step_for_log=1) {round_ms[path]:.3f}")
-        return counts
+            cadence[path] = cadence_ms(path)
+            log(f"  {path} on {smi}: mean round ms at delta_step_for_log={CADENCE} "
+                f"{cadence[path][0]:.3f}; phase 5's synced median (delta_step_for_log=1) "
+                f"{round_ms[path]:.3f}")
+        return counts, cadence
     finally:
         shutil.rmtree(tmp, True)
+
+
+# Phase 9: the input pipeline off the round, remat, finetuning from a
+# local HF checkpoint. (a) Llama-125M and its fusedce cell for 20 rounds at
+# delta_step_for_log=10 with the prefetch off, against phase 8 (d)'s runs
+# with it on (the default): bit-equal losses and final params, the mean
+# round ms of rounds 11-20, the idle share from a profiled rerun and the
+# consumer's wait for its block; then the copy's planted fault. (c) the
+# long-context path under remat 'dots' and true, and tiny128 in float32
+# through K1 under each mode against remat off. (d) GPT-Neo-125M and
+# Llama-125M written as HF checkpoint directories and finetuned
+# (train=acco-ft), their perplexity, and GPT-Neo-2.7B's preset scored
+# through K1 + K2. (e) the native collate ran on every path.
+PREFETCH_FAULT_ROWS = 64
+FT_NB = 8  # grads: a seed round and 4 ACCO rounds of n_acc 2 at batch 4 x 512
+FT_FAMILIES = {"gptneo": "gpt-neo-125M.json", "llama-125M": "llama-125M.json"}
+NEO_LARGE_SCORE = dict(B=2, L=2048)
+REMAT_F32 = ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4", "train.use_mixed_precision=false", "train.fused_loss=false"]
+
+
+def profile_cadence(path: str, mean_ms: float, *extra: str) -> float:
+    """The idle share of a path at ``delta_step_for_log=CADENCE``: its run
+    again under torch.profiler, 1 - the union of every stream's activity
+    per microbatch / ``mean_ms`` (the unprofiled run's mean round ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acco_tpu_torch.__main__ import build_trainer
+
+    torch.cuda.empty_cache()
+    trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
+                             *extra])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train()
+        torch.cuda.synchronize()
+    union = stream_overlap(prof)["union_ms"] / (CADENCE_ROUNDS + 1)
+    return 1 - union / mean_ms
+
+
+def prefetch_fault_run(wait: bool, cycles: int, seed: int):
+    """One block through the prefetch worker and a copy stream that sleeps
+    ``cycles`` before its copies: read (cloned) on the current stream as
+    soon as the consumer has it, with the copy's event waited on
+    (``wait``) or not (the planted fault). Returns whether the read equals
+    the host block and the ms by which the read ended before the copy
+    (> 0: the race was taken)."""
+    import numpy as np
+    import torch
+
+    from acco_tpu_torch.data.loader import ShardedBatchIterator
+    from acco_tpu_torch.data.prefetch import PinnedBlockCopy, PrefetchingBlockSource
+    from acco_tpu_torch.native import FlatTokenDataset
+
+    device = torch.device("cuda", 0)
+    rows = np.random.default_rng(seed).integers(0, VOCAB, (PREFETCH_FAULT_ROWS, SEQ))
+
+    def loader():
+        return ShardedBatchIterator(FlatTokenDataset.from_packed(rows.astype(np.int32)), BATCH,
+                                    SEQ, pad_token_id=0, seed=seed)
+
+    class SleepyCopy(PinnedBlockCopy):
+        def put(self, host):
+            if self.stream is None:
+                torch.cuda.set_device(self.device)
+                self.stream = torch.cuda.Stream(device=self.device)
+            with torch.cuda.stream(self.stream):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                torch.cuda._sleep(cycles)
+            out, ready = super().put(host)
+            with torch.cuda.stream(self.stream):
+                copied = torch.cuda.Event(enable_timing=True)
+                copied.record()
+            return out, ready, start, copied
+
+    copy = SleepyCopy(device)
+    marks = {}
+
+    def take(item):
+        out, ready, marks["start"], marks["copied"] = item
+        return copy.take((out, ready)) if wait else out
+
+    want = PrefetchingBlockSource(loader(), 1, dict, prefetch=False).next_block()
+    source = PrefetchingBlockSource(loader(), 1, copy.put, depth=2, take_block=take)
+    try:
+        got = [t.clone() for t in source.next_block()]
+        read = torch.cuda.Event(enable_timing=True)
+        read.record()
+        torch.cuda.synchronize()
+    finally:
+        source.close()
+    same = all(np.array_equal(g.cpu().numpy(), want[k].astype(g.cpu().numpy().dtype))
+               for g, k in zip(got, ("input_ids", "attention_mask", "labels", "valid")))
+    lead = marks["start"].elapsed_time(marks["copied"]) - marks["start"].elapsed_time(read)
+    return same, lead
+
+
+def prefetch_fault() -> None:
+    """The copy's ordering: with the event waited on, a read of a block
+    whose copy sleeps ~0.4 s first sees the host's values; with the wait
+    removed the read must run before the copy (the events show the race
+    taken, the sleep growing 4x if not) and see other values. Each run has
+    its own data, so stale memory of an earlier one cannot match."""
+    same, lead = prefetch_fault_run(True, FAULT_SLEEP_CYCLES, seed=91)
+    log(f"  the consumer waits on the copy's event: read {-lead:.3f} ms after the sleeping "
+        f"copy ended: {'equal to the host block' if same else 'DIFFERS from the host block'}")
+    if not same or lead > 0:
+        raise AssertionError("a block read after the copy's event differs from the host block")
+    cycles = FAULT_SLEEP_CYCLES
+    for attempt in range(FAULT_TRIES):
+        same, lead = prefetch_fault_run(False, cycles, seed=92 + attempt)
+        if lead > 0:
+            break
+        log(f"  planted fault, the wait removed: the read ended {-lead:.3f} ms after the copy, "
+            f"the race not taken; again with 4x")
+        cycles *= 4
+    else:
+        raise AssertionError("the copy's sleep did not open the race a removed wait allows")
+    log(f"  planted fault, the wait removed, {cycles:.2e} cycles of sleep on the copy stream: "
+        f"the read ended {lead:.3f} ms before the copy: "
+        f"{'equal (fault MISSED)' if same else 'differs (fault caught)'}")
+    if same:
+        raise AssertionError("the prefetch check missed a removed wait on the copy's event")
+
+
+def remat_agreement() -> None:
+    """tiny128, float32, one microbatch through K1 (and the plain path for
+    'dots+probs'): the loss and gradients of each remat mode against remat
+    off, and K1's forward launches (True reruns it, the selective modes
+    save its O and LSE)."""
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
+    from acco_tpu_torch.parallel.common import block_from_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for attention, modes in (("fused", ("true", "dots", "dots+probs")), ("xla", ("dots+probs",))):
+        out = {}
+        for mode in ("false", *modes):
+            trainer = build_trainer([*REMAT_F32, f"train.use_pallas_attention={attention}",
+                                     f"train.remat={mode}", *run_flags()])
+            flat = trainer.model.init_flat(torch.Generator(device=trainer.device).manual_seed(7))
+            block = block_from_numpy(stack_microbatches(infinite_batches(trainer.loader), 1),
+                                     trainer.device)
+            reset_launch_counts()
+            loss, grads = trainer.step.value_and_grad(flat, {
+                "input_ids": block.input_ids[0], "attention_mask": block.attention_mask[0],
+                "labels": block.labels[0]})
+            torch.cuda.synchronize()
+            out[mode] = (loss, torch.cat([g.reshape(-1) for g in grads]),
+                         launch_counts()["attn_fwd"])
+        loss0, g0, n0 = out["false"]
+        for mode in modes:
+            loss, g, n = out[mode]
+            bits = bool(torch.equal(loss, loss0) and torch.equal(g, g0))
+            rel = float((g - g0).abs().max() / g0.abs().max())
+            grads = "bit-equal" if bits else f"max diff {rel:.3e} of max|g|"
+            log(f"  tiny128 float32 {attention}, remat {mode}: loss {float(loss):.8f} (off "
+                f"{float(loss0):.8f}), gradients {grads}; attn_fwd launches {n} (off {n0})")
+            want_n = 2 * n0 if (mode == "true" and attention == "fused") else n0
+            if n != want_n or (not bits and (abs(float(loss - loss0)) > 1e-6 * abs(float(loss0))
+                                              or rel > 1e-5)):
+                raise AssertionError(f"remat {mode} on tiny128 ({attention}) is off remat off")
+
+
+def remat_microbatch_peak(mode: str) -> tuple[int, tuple]:
+    """The long-context path's trainer under ``train.remat=mode``: one
+    microbatch's forward and backward at the initial weights, and its
+    peak allocation above what was live before it (the activations, the
+    gradients, K3's buffers). Returns that and (the loss, the live bytes)."""
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
+    from acco_tpu_torch.parallel.common import block_from_numpy
+
+    torch.cuda.empty_cache()
+    trainer = build_trainer([*main_args("llama3-8B-L8192"), f"train.remat={mode}"])
+    device = trainer.device
+    flat = trainer.model.init_flat(torch.Generator(device=device).manual_seed(trainer.seed))
+    block = block_from_numpy(stack_microbatches(infinite_batches(trainer.loader), 1), device)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = trainer.step.value_and_grad(flat, {
+        "input_ids": block.input_ids[0], "attention_mask": block.attention_mask[0],
+        "labels": block.labels[0]})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    loss = float(loss)
+    del trainer, flat, block, grads
+    torch.cuda.empty_cache()
+    return peak, (loss, live)
+
+
+def write_hf_checkpoint(path: str, config, flat) -> None:
+    """The model's bf16 parameters as an HF checkpoint directory, in HF's
+    names: ``config.json`` and ``model.safetensors`` (written here, without
+    the safetensors package: an 8-byte little-endian header length, the
+    JSON header, the raw bytes), the tied head omitted."""
+    import numpy as np
+    import torch
+
+    from acco_tpu_torch.models.convert import params_to_jax
+    from acco_tpu_torch.models.llama import LlamaConfig
+
+    tree = params_to_jax(flat, config)
+    lay, N = tree["layers"], config.num_layers
+    tensors = {}
+    if isinstance(config, LlamaConfig):
+        hf = {"model_type": "llama", "vocab_size": config.vocab_size,
+              "hidden_size": config.hidden_size, "intermediate_size": config.intermediate_size,
+              "num_hidden_layers": N, "num_attention_heads": config.num_heads,
+              "num_key_value_heads": config.num_kv_heads,
+              "max_position_embeddings": config.max_position_embeddings,
+              "rope_theta": config.rope_theta, "rms_norm_eps": config.rms_norm_eps,
+              "tie_word_embeddings": config.tie_word_embeddings,
+              "bos_token_id": config.bos_token_id, "eos_token_id": config.eos_token_id}
+        tensors["model.embed_tokens.weight"] = tree["wte"]
+        tensors["model.norm.weight"] = tree["final_norm"]
+        for i in range(N):
+            pre = f"model.layers.{i}."
+            tensors[pre + "input_layernorm.weight"] = lay["attn_norm"][i]
+            tensors[pre + "post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+            for ours, theirs in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                                 ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                                 ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                                 ("w_down", "mlp.down_proj")):
+                tensors[pre + theirs + ".weight"] = lay[ours][i].T
+        if not config.tie_word_embeddings:
+            tensors["lm_head.weight"] = tree["lm_head"].T
+    else:
+        hf = {"model_type": "gpt_neo", "vocab_size": config.vocab_size,
+              "hidden_size": config.hidden_size, "num_layers": N, "num_heads": config.num_heads,
+              "max_position_embeddings": config.max_position_embeddings,
+              "window_size": config.window_size,
+              "attention_layers": list(config.attention_layers),
+              "attention_types": [[list(config.attention_layers), 1]],
+              "intermediate_size": config.intermediate_size,
+              "activation_function": config.activation_function,
+              "layer_norm_epsilon": config.layer_norm_epsilon, "tie_word_embeddings": True,
+              "bos_token_id": config.bos_token_id, "eos_token_id": config.eos_token_id}
+        tensors["transformer.wte.weight"] = tree["wte"]
+        tensors["transformer.wpe.weight"] = tree["wpe"]
+        tensors["transformer.ln_f.weight"] = tree["lnf_scale"]
+        tensors["transformer.ln_f.bias"] = tree["lnf_bias"]
+        for i in range(N):
+            pre = f"transformer.h.{i}."
+            att = pre + "attn.attention."
+            for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+                tensors[att + proj + ".weight"] = lay["w_qkv"][i][:, j, :].T
+            tensors[att + "out_proj.weight"] = lay["wo"][i].T
+            tensors[att + "out_proj.bias"] = lay["wo_bias"][i]
+            for ours, theirs in (("ln1_scale", "ln_1.weight"), ("ln1_bias", "ln_1.bias"),
+                                 ("ln2_scale", "ln_2.weight"), ("ln2_bias", "ln_2.bias"),
+                                 ("b_fc", "mlp.c_fc.bias"), ("b_proj", "mlp.c_proj.bias")):
+                tensors[pre + theirs] = lay[ours][i]
+            tensors[pre + "mlp.c_fc.weight"] = lay["w_fc"][i].T
+            tensors[pre + "mlp.c_proj.weight"] = lay["w_proj"][i].T
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, arr in tensors.items():
+        blob = (torch.from_numpy(np.ascontiguousarray(arr)).bfloat16().view(torch.uint8)
+                .numpy().tobytes())
+        header[name] = {"dtype": "BF16", "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+
+
+class PadMaskedK1:
+    """Counts K1's forward launches that carry a pad mask while the
+    context is open."""
+
+    def __enter__(self):
+        from acco_tpu_torch.ops import fused_attention as fa
+
+        self.module, self.original, self.count = fa, fa.attn_fwd, 0
+
+        def counted(q, k, v, pad_mask, window, scale):
+            self.count += pad_mask is not None
+            return self.original(q, k, v, pad_mask, window, scale)
+
+        fa.attn_fwd = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.attn_fwd = self.original
+
+
+def finetune_run(model: str, ckpt: str, tmp: str, *extra: str):
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+
+    torch.cuda.empty_cache()
+    trainer = build_trainer(["train=acco-ft", f"model={model}", f"model.config_path={ckpt}",
+                             "data=synthetic", f"train.nb_steps_tot={FT_NB}",
+                             "train.eval_step=4", "+train.delta_step_for_log=2",
+                             "train.save=false", f"hydra.run.dir={tmp}/run", *extra])
+    return trainer
+
+
+def finetune_phase(tmp: str) -> dict:
+    """(d) Each model at full width, random init from the seed, written as
+    an HF checkpoint directory and finetuned through the entry point's
+    trainer (``train=acco-ft``: truncated rows with pad masks, max_length
+    512, batch 4, n_acc 2, the eval on): the loaded flat vector bit-equal
+    to the one written, K1's launches with a pad mask counted, the first
+    loss equal to the same model's built from those params by
+    ``params_from_jax``; the perplexity eval on the directory through the
+    kernels against the plain attention; GPT-Neo-2.7B's preset (D 128)
+    scored through K1 + K2 against the plain path. Returns the finetune
+    runs' and the scoring's launches."""
+    import torch
+
+    from acco_tpu_torch import perplexity_eval as ppl
+    from acco_tpu_torch.data.datasets import load_text_dataset
+    from acco_tpu_torch.data.tokenizer import load_tokenizer
+    from acco_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from acco_tpu_torch.models.hf_loader import from_pretrained
+    from acco_tpu_torch.models.registry import build_model, model_config
+
+    device = torch.device("cuda", 0)
+    launches = {}
+    for model, arch in FT_FAMILIES.items():
+        _, config = model_config(f"/config/model/{arch}", REPO)
+        base = build_model({"config_path": f"/config/model/{arch}"}, REPO, device=device)
+        flat = base.init_flat(torch.Generator(device=device).manual_seed(17))
+        ckpt = os.path.join(tmp, f"hf-{model}")
+        t0 = time.perf_counter()
+        write_hf_checkpoint(ckpt, config, flat)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        del base
+        trainer = finetune_run(model, ckpt, tmp)
+        loaded = trainer.initial_params
+        if not torch.equal(loaded.to(device), flat.float()):
+            raise AssertionError(f"{model}: the loaded flat vector differs from the one written")
+        with PadMaskedK1() as masked:
+            reset_launch_counts()
+            summary = trainer.train()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        rounds = summary["round_log"]
+        mbs = 2 * (1 + len(rounds))
+        losses = [summary["seed_loss"]] + [r["loss"] for r in rounds]
+        layers = config.num_layers
+        log(f"  {model}: {os.path.getsize(os.path.join(ckpt, 'model.safetensors'))} bytes "
+            f"written in {write_ms:.1f} ms, loaded bit-equal; {mbs} microbatches of 4 x 512 "
+            f"with pad masks, losses {['%.4f' % x for x in losses]}, evals "
+            f"{[(e['count_grad_tot'], round(e['eval_loss'], 4)) for e in summary['eval_log']]}; "
+            f"launches { {k: v for k, v in counts.items() if v} }, K1 forwards with a pad mask "
+            f"{masked.count}")
+        if (summary["count_grad_tot"] != FT_NB or not summary["eval_log"]
+                or not all(map(lambda x: x == x and abs(x) != float("inf"), losses))
+                or counts["attn_bwd_dq"] != layers * mbs or counts["banded_fwd"]
+                or masked.count != counts["attn_fwd"] or masked.count < layers * mbs):
+            raise AssertionError(f"{model}: the finetune run is off: {summary['count_grad_tot']} "
+                                 f"grads, launches {counts}, masked {masked.count}")
+        launches[f"{model}-finetune"] = counts
+        ref = finetune_run(model, f"/config/model/{arch}", f"{tmp}/ref",
+                           "train.finetune=false", "train.nb_steps_tot=2")
+        ref.initial_params = params_from_jax(params_to_jax(flat, config), config)
+        seed = ref.train()["seed_loss"]
+        log(f"  {model}: first loss {summary['seed_loss']!r}; the same model from the "
+            f"architecture file with params_from_jax of the written params {seed!r}")
+        if seed != summary["seed_loss"]:
+            raise AssertionError("the finetune run's first loss is off the same model's "
+                                 "built from its params")
+        del ref
+        if model == "gptneo":
+            texts = load_text_dataset({"path": "synthetic"}, test_size=0.01)[0][:16]
+            tok = load_tokenizer(ckpt)
+            log(f"  the checkpoint's tokenizer: {type(tok).__name__}, 'a b' -> "
+                f"{tok('a b')['input_ids']}")
+            reset_launch_counts()
+            got = ppl.main(["--hf-checkpoint", ckpt, "--n-samples", "16", "--max-length", "256"])
+            n_k1 = launch_counts()["attn_fwd"]
+            plain, pflat = from_pretrained(ckpt, device=device, attention="xla")
+            want = ppl.compute(plain, pflat, tok, texts, max_length=256)
+            rel = abs(got["mean_perplexity"] - want["mean_perplexity"]) / want["mean_perplexity"]
+            log(f"  perplexity_eval --hf-checkpoint: {got['mean_perplexity']:.6f} through K1 "
+                f"({n_k1} attn_fwd launches), plain {want['mean_perplexity']:.6f}, relative "
+                f"difference {rel:.3e} (bar {PPL_RTOL:g})")
+            if rel > PPL_RTOL or n_k1 != layers * 2 or not want["mean_perplexity"] > 1.0:
+                raise AssertionError("the perplexity eval of the checkpoint is off the plain one")
+            del plain, pflat
+        del trainer, loaded, flat
+        torch.cuda.empty_cache()
+
+    log(f" GPT-Neo-2.7B's preset (config_path EleutherAI/gpt-neo-2.7B, D 128), random init, bf16, "
+        f"forward only at {NEO_LARGE_SCORE}: K1 + K2 against the plain path")
+    spec = {"config_path": "EleutherAI/gpt-neo-2.7B"}
+    kern = build_model(spec, REPO, device=device, attention="fused")
+    flat = kern.init_flat(torch.Generator(device=device).manual_seed(19))
+    kern.load_flat(flat)
+    ids = torch.randint(0, VOCAB, (NEO_LARGE_SCORE["B"], NEO_LARGE_SCORE["L"]),
+                        generator=torch.Generator(device=device).manual_seed(20), device=device)
+    losses = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for name in ("kernels", "plain"):
+            model = kern if name == "kernels" else build_model(spec, REPO, device=device,
+                                                               attention="xla")
+            model.load_flat(flat)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = model.apply(ids)
+            losses[name] = float(torch.nn.functional.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in launch_counts().items() if v}
+            log(f"  {name}: loss {losses[name]:.6f} in {ms:.1f} ms, launches {counts}, "
+                f"{kern.n_params} params, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if name == "kernels":
+                launches["gpt-neo-2.7B-score"] = launch_counts()
+                if counts != {"attn_fwd": 16, "banded_fwd": 16}:
+                    raise AssertionError(f"GPT-Neo-2.7B did not run K1 + K2 a layer each: {counts}")
+            del logits
+    rel = abs(losses["kernels"] - losses["plain"]) / losses["plain"]
+    log(f"  relative difference {rel:.3e} (bar {PPL_RTOL:g})")
+    if rel > PPL_RTOL:
+        raise AssertionError("GPT-Neo-2.7B through K1 + K2 is off the plain path")
+    del kern, model, flat
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
+    """Phase 9; returns its paths' launches."""
+    import torch
+
+    from acco_tpu_torch import native
+
+    launches = {}
+    native.reset_call_counts()
+    log(f" (a) the prefetch: {CADENCE_ROUNDS} rounds at delta_step_for_log={CADENCE}, prefetch "
+        f"on (phase 8 (d)'s runs) and off")
+    for path in CADENCE_PATHS:
+        # on (phase 8 (d)), off, on, off: the two settings in turns
+        runs = {"on": [cadence[path]], "off": []}
+        for setting in ("off", "on", "off"):
+            runs[setting].append(cadence_ms(path, f"train.prefetch={setting == 'on'}"))
+        _, s_ref, flat_ref = runs["on"][0]
+        for setting, (_, s, flat) in [(k, r) for k in runs for r in runs[k]]:
+            same = ([r["loss"] for r in s["round_log"]] == [r["loss"] for r in s_ref["round_log"]]
+                    and s["seed_loss"] == s_ref["seed_loss"] and torch.equal(flat, flat_ref))
+            if not same or s["prefetch"] != (setting == "on"):
+                raise AssertionError(f"{path}: a run with the prefetch {setting} differs from "
+                                     "the first prefetched one")
+        mean = {k: [r[0] for r in runs[k]] for k in runs}
+        wait = {k: [r[1]["block_wait_ms"] for r in runs[k]] for k in runs}
+        idle = {"on": profile_cadence(path, statistics.fmean(mean["on"])),
+                "off": profile_cadence(path, statistics.fmean(mean["off"]),
+                                       "train.prefetch=false")}
+        for k in ("on", "off"):
+            log(f"  {path} on {smi}, prefetch {k}: mean round ms (rounds {CADENCE + 1}-"
+                f"{CADENCE_ROUNDS}) {['%.3f' % m for m in mean[k]]}, mean "
+                f"{statistics.fmean(mean[k]):.3f}; median block wait "
+                f"{['%.3f' % w for w in wait[k]]} ms; idle share (profiled rerun) {idle[k]:.3f}")
+        log(f"  {path}: losses and final params of the four runs bit-equal; phase 5's synced "
+            f"median (prefetch on) {round_ms[path]:.3f}")
+        del runs, flat_ref
+    cadence.clear()
+    torch.cuda.empty_cache()
+    log(" the copy stream's event: a planted fault")
+    prefetch_fault()
+    log(" (b) resume with the prefetch on at depth 2: phase 8 (a) (above)")
+
+    log(" (c) remat: the long-context path under train.remat dots and true (off: phase 5)")
+    base = "llama3-8B-L8192"
+    log(f"  remat off (phase 5): peak {peaks[base] / 2**30:.2f} GiB, median round "
+        f"{round_ms[base]:.2f} ms, flash_fwd {LLAMA3_LAYERS} a microbatch")
+    log("  one microbatch's forward and backward (value_and_grad) at the initial weights: "
+        "its allocation above what was live before it")
+    for mode in ("false", "dots", "true"):
+        peak, loss = remat_microbatch_peak(mode)
+        log(f"  remat {mode} on {smi}: {peak / 2**30:.2f} GiB above the live "
+            f"{loss[1] / 2**30:.2f} GiB, loss {loss[0]!r}")
+    for path in REMAT_PATHS:
+        log(f"  {path}: {' '.join(main_args(path))}")
+        launches[path], med, peak, _ = main_path(path)
+        log(f"  {path} on {smi}: peak allocated {peak / 2**30:.2f} GiB, reserved "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, median round {med:.2f} ms, "
+            f"flash_fwd {launches[path]['flash_fwd'] // path_microbatches(path)} a microbatch")
+        torch.cuda.empty_cache()
+    remat_agreement()
+
+    log(" (d) finetuning from a local HF checkpoint")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        launches.update(finetune_phase(tmp))
+    finally:
+        shutil.rmtree(tmp, True)
+
+    log(" (e) the native collate")
+    calls = dict(native.CALLS)
+    built = (f"g++ built it in this process in {native.BUILD_INFO['seconds']:.2f} s"
+             if native.BUILD_INFO else "an earlier build of the same source")
+    log(f"  available: {native.native_available()} ({native._so_path()}: {built}); calls in "
+        f"this phase {calls}")
+    if not native.native_available() or not calls["collate_batch"] or not calls["pack_const_len"]:
+        raise AssertionError("the paths did not run the native collate")
+    return launches
 
 
 def build_all() -> None:
@@ -2984,7 +3548,10 @@ def main() -> int:
             f"{ {p: {k: round(v, 4) for k, v in r.items()} for p, r in profiles.items()} }")
 
         log("== 8 resume, eval and perplexity (Llama-125M, full width)")
-        launches["llama-125M-fusedce-eval"] = resume_phase(smi, round_ms)
+        launches["llama-125M-fusedce-eval"], cadence = resume_phase(smi, round_ms)
+
+        log("== 9 the input pipeline, remat, finetuning from a local HF checkpoint")
+        launches.update(phase_9(smi, cadence, round_ms, peaks))
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

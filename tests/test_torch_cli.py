@@ -71,9 +71,21 @@ def test_without_device_flag_needs_a_card(monkeypatch, tmp_path):
     ],
 )
 def test_unported_keys_raise_by_name(override, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override,
-              f"hydra.run.dir={tmp_path}"])
+    """Keys the port has no code for raise NotImplementedError naming their
+    item. Two were refused so until they were ported: ``remat`` (item 3)
+    now runs, and ``finetune`` (item 7) now reads ``model.config_path`` as
+    a checkpoint, which tiny128's architecture file is not: it raises
+    naming the missing download."""
+    argv = ["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override,
+            f"hydra.run.dir={tmp_path}"]
+    if override == "train.remat=true":
+        assert main(argv)["count_grad_tot"] == 2
+    elif override == "train.finetune=true":
+        with pytest.raises(FileNotFoundError, match="no network egress"):
+            main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            main(argv)
 
 
 def test_ddp_runs_on_cpu(tmp_path):
@@ -232,3 +244,36 @@ def test_cli_saves_evaluates_and_resumes(tmp_path):
     assert second["count_grad_tot"] == 10 and second["rounds"] == 8
     assert [e["count_grad_tot"] for e in second["eval_log"]] == [8, 10]
     assert second["checkpoint"].endswith("step_10")
+
+
+@pytest.mark.parametrize("remat", ["dots", "true", "dots+probs"])
+def test_remat_runs_from_the_cli(remat, tmp_path):
+    """``train.remat`` (once refused) runs: the rounds' losses equal remat
+    off's (float32, the plain path: recomputed activations are the same
+    bits on the CPU)."""
+    argv = ["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=4",
+            "train.use_mixed_precision=false"]
+    off = main([*argv, f"hydra.run.dir={tmp_path / 'off'}"])
+    on = main([*argv, f"train.remat={remat}", f"hydra.run.dir={tmp_path / 'on'}"])
+    assert [r["loss"] for r in on["round_log"]] == [r["loss"] for r in off["round_log"]]
+    assert on["seed_loss"] == off["seed_loss"]
+
+
+def test_prefetch_off_from_the_cli_gives_the_same_rounds(tmp_path):
+    """``train.prefetch=false`` builds each block on the loop's thread: the
+    same rounds as the prefetching default."""
+    argv = ["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=4"]
+    on = main([*argv, f"hydra.run.dir={tmp_path / 'on'}"])
+    off = main([*argv, "train.prefetch=false", f"hydra.run.dir={tmp_path / 'off'}"])
+    assert on["prefetch"] is True and off["prefetch"] is False
+    assert [r["loss"] for r in on["round_log"]] == [r["loss"] for r in off["round_log"]]
+
+
+def test_finetune_without_its_checkpoint_fails_loudly(tmp_path):
+    """``train=acco-ft`` (``finetune: True``, once refused) reads
+    ``model.config_path`` as a checkpoint: a hub name that is not under
+    ``ACCO_MODELS_ROOT`` raises naming the missing download, and never
+    trains from a random init (its runs: tests/test_torch_hf_loader.py)."""
+    with pytest.raises(FileNotFoundError, match="no network egress"):
+        main(["--device", "cpu", "train=acco-ft", "model=gptneo", "model.tokenizer=byte",
+              "data=synthetic", f"hydra.run.dir={tmp_path}"])

@@ -321,7 +321,9 @@ def test_perplexity_matches_jax():
 
 
 def test_perplexity_cli_refusals():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    # --hf-checkpoint is ported (HF loading): a checkpoint that is not
+    # there raises, naming the missing download
+    with pytest.raises(FileNotFoundError, match="no network egress"):
         port_ppl.main(["--device", "cpu", "--hf-checkpoint", "/models/x"])
     with pytest.raises(NotImplementedError, match="queue 1, item 11"):
         port_ppl.main(["--device", "cpu", "--engine", "serve"])

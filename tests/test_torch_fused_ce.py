@@ -203,7 +203,8 @@ def test_flat_loss_fn_matches_jax(family, fused, monkeypatch):
     batch_j = {"input_ids": jnp.asarray(ids), "attention_mask": jnp.ones_like(ids),
                "labels": jnp.asarray(ids)}
     f_j = jax_make_flat_loss_fn(jmodel, unravel, flat_j.size, 0.05, fused_loss=fused)
-    l_j, g_j = jax.value_and_grad(f_j)(flat_j, batch_j)
+    # jitted: the interpreted kernel runs as compiled XLA, not op by op
+    l_j, g_j = jax.jit(jax.value_and_grad(f_j))(flat_j, batch_j)
 
     ids_t = torch.tensor(ids, dtype=torch.long)
     value_and_grad = make_flat_loss_fn(model, 0.05, fused_loss=fused)

@@ -122,7 +122,9 @@ def _loss_and_grads_jax(model, params, ids, mask=None):
         logits = model.apply(p, jnp.asarray(ids), None if mask is None else jnp.asarray(mask))
         return jax_causal_lm_loss(logits, jnp.asarray(ids))
 
-    value, grads = jax.value_and_grad(loss)(params)
+    # jitted: the interpreted Pallas kernels then run as compiled XLA, not
+    # op by op from Python (the same function; half the time alone)
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
     return float(value), np.asarray(ravel_pytree(grads)[0])
 
 
@@ -142,7 +144,7 @@ def test_logits_and_gradients_match_jax(setup, calls, monkeypatch, attention):
     params, ids = setup
     monkeypatch.setenv("ACCO_FUSED_ATTN_INTERPRET", "1")
     model_j = _jax_model(attention)
-    logits_j = np.asarray(model_j.apply(params, jnp.asarray(ids)))
+    logits_j = np.asarray(jax.jit(model_j.apply)(params, jnp.asarray(ids)))
     loss_j, grads_j = _loss_and_grads_jax(model_j, params, ids)
 
     model_t, flat = _port_model(params, attention)

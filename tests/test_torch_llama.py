@@ -139,11 +139,15 @@ def test_flash_route_matches_jax(jax_setup):
     model_j = JaxLlamaModel(cfg_j, param_dtype=jnp.float32, attention="flash")
     ids_j = jnp.asarray(ids)
     with pltpu.force_tpu_interpret_mode():
-        logits_j, vjp = jax.vjp(lambda p: model_j.apply(p, ids_j), params)
-        value_j, dlogits = jax.value_and_grad(
-            lambda lg: jax_causal_lm_loss(lg, ids_j)
-        )(logits_j)
-        flat_grad_j, _ = ravel_pytree(vjp(dlogits)[0])
+        # jitted: the interpreted kernel runs as compiled XLA, not op by
+        # op from Python; the loss's gradient through the logits' VJP
+        @jax.jit
+        def logits_loss_grads(p):
+            logits, vjp = jax.vjp(lambda q: model_j.apply(q, ids_j), p)
+            value, dlogits = jax.value_and_grad(lambda lg: jax_causal_lm_loss(lg, ids_j))(logits)
+            return logits, value, ravel_pytree(vjp(dlogits)[0])[0]
+
+        logits_j, value_j, flat_grad_j = logits_loss_grads(params)
         logits_j, flat_grad_j = np.asarray(logits_j), np.asarray(flat_grad_j)
 
     cfg = LlamaConfig.from_json(TINY128)

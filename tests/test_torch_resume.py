@@ -209,7 +209,7 @@ for tag, t in (("a", a), ("c", c)):
                 f"{tag}_mu": s.zero1.opt.mu.numpy(), f"{tag}_master": s.zero1.opt.params.numpy()})
 out["a_losses"] = [r["loss"] for r in sa["round_log"][-len(sc["round_log"]):]]
 out["c_losses"] = [r["loss"] for r in sc["round_log"]]
-out["loader"] = json.dumps(b.loader.iter_state())
+out["loader"] = json.dumps(b.source.iter_state())
 out["refused"] = refused
 np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **out)
 """
