@@ -38,6 +38,13 @@ from its ``config.json`` and training starts from its weights (a resume
 still takes precedence); a missing checkpoint raises. ``train.remat``
 (false, true, dots, dots+probs) rematerialises each layer in the
 backward (``models/layers.wrap_remat``).
+
+SIGTERM or SIGINT (``train.handle_signals``, the default) stops the run
+at the next round boundary with a final checkpoint; the summary says
+``"interrupted": true`` and a warning names the ``train.resume_from``
+that goes on. ``train.fault_injection`` (e.g. ``nan_grads@3``) runs a
+drill; ``train.profile_steps=N`` writes a profiler trace of N rounds
+under ``<run dir>/profile/`` (the summary's ``profile``).
 """
 
 from __future__ import annotations
@@ -193,6 +200,18 @@ def main(argv: list[str] | None = None) -> dict:
     finally:
         if ranks and dist.is_initialized():
             dist.destroy_process_group()
+    if summary.get("interrupted"):
+        nb = int(trainer.nb_grad_tot)
+        if trainer.do_save:
+            # the final checkpoint is committed and drained: the stop is
+            # resumable (JAX: main.py:159-177)
+            trainer.log.warning("training interrupted by a shutdown request at %d/%d grads; "
+                                "resume with train.resume_from=%s", summary["count_grad_tot"],
+                                nb, trainer.ckpt_dir)
+        else:
+            trainer.log.warning("training interrupted by a shutdown request at %d/%d grads "
+                                "with train.save=False: NO checkpoint was written — this "
+                                "progress is lost", summary["count_grad_tot"], nb)
     trainer.log.info("done: %s", {k: v for k, v in summary.items() if k != "round_log"})
     return summary
 

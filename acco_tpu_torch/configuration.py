@@ -373,24 +373,18 @@ def compose_config(
 
 
 def check_supported(train_cfg: dict) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for the train
-    keys this slice of the port does not run yet (``fused_loss`` is
-    resolved against the model: ops.losses.resolve_fused_loss; the
-    trainer names the item of ``ckpt_async`` and ``rollback``, which run
-    in a reduced form)."""
+    """Raise, before any data is read, for train keys the port cannot run
+    as given: a misspelt ``remat`` mode, and a mesh with the tp or pp
+    axes, which raise NotImplementedError naming their ROADMAP item
+    (``fused_loss`` is resolved against the model:
+    ops.losses.resolve_fused_loss), and a malformed ``fault_injection``
+    spec."""
     from acco_tpu_torch.ops.attention import normalize_remat
+    from acco_tpu_torch.resilience.faults import parse_fault_specs
 
-    def refuse(what: str, item: str) -> None:
-        raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
+    parse_fault_specs(train_cfg.get("fault_injection"))
     normalize_remat(train_cfg.get("remat", False))  # a misspelt mode raises here
     # the tp and pp axes raise by their item; {dp: N, sp: M} runs
     from acco_tpu_torch.parallel.mesh import check_mesh
 
     check_mesh(train_cfg.get("mesh_shape"))
-    # keys JAX honours and the port has no code for: a non-default value
-    # would otherwise run as if it were absent
-    if train_cfg.get("fault_injection") is not None:
-        refuse(f"fault_injection={train_cfg.get('fault_injection')!r}", "queue 1, item 8")
-    if int(train_cfg.get("profile_steps", 0) or 0) > 0:
-        refuse(f"profile_steps={train_cfg.get('profile_steps')!r}", "queue 1, item 8")

@@ -215,6 +215,8 @@ class PrefetchingBlockSource:
 
     ``last_wait_ms`` is how long the consumer waited for its last block
     (about 0 when the worker ran ahead), ``wait_ms`` every block's wait.
+    ``copier``: the :class:`PinnedBlockCopy` behind ``put_block``, whose
+    stream :attr:`copy_stream` names (the profile reader's copy side).
     """
 
     def __init__(
@@ -226,8 +228,10 @@ class PrefetchingBlockSource:
         prefetch: bool = True,
         valid: Optional[np.ndarray] = None,
         take_block: Optional[Callable[[Any], Any]] = None,
+        copier: Optional["PinnedBlockCopy"] = None,
     ) -> None:
         self._loader = loader
+        self._copier = copier
         self._n_acc = int(n_acc)
         self._valid = valid
         self._put_block = put_block
@@ -270,6 +274,12 @@ class PrefetchingBlockSource:
         self.wait_ms.append(self.last_wait_ms)
         return block
 
+    @property
+    def copy_stream(self):
+        """The worker's copy stream (None before its first block, off a
+        card, or with the prefetch off)."""
+        return None if self._copier is None else self._copier.stream
+
     def median_wait_ms(self) -> float:
         """The median of the consumer's waits for its blocks (the first
         block's includes the worker's start)."""
@@ -293,18 +303,18 @@ class PrefetchingBlockSource:
 
 
 def block_copier(device, prefetch: bool = True):
-    """``(put, take)`` that bring a numpy block to ``device`` as a
+    """``(put, take, copier)`` that bring a numpy block to ``device`` as a
     ``MicrobatchBlock``: on a card with the prefetch on, pinned copies on a
-    copy stream (:class:`PinnedBlockCopy`; ``put`` on the worker, ``take``
-    on the consumer); otherwise ``block_from_numpy`` and no ``take``
-    (None)."""
+    copy stream (``copier``, a :class:`PinnedBlockCopy`; ``put`` on the
+    worker, ``take`` on the consumer); otherwise ``block_from_numpy`` and
+    no ``take`` or ``copier`` (None)."""
     from acco_tpu_torch.parallel.common import block_from_numpy
 
     device = torch.device(device)
     if prefetch and device.type == "cuda":
         pinned = PinnedBlockCopy(device)
-        return pinned.put, lambda item: MicrobatchBlock(*pinned.take(item))
-    return (lambda block: block_from_numpy(block, device)), None
+        return pinned.put, lambda item: MicrobatchBlock(*pinned.take(item)), pinned
+    return (lambda block: block_from_numpy(block, device)), None, None
 
 
 def block_source(loader, n_acc: int, device, depth: int = 2, prefetch: bool = True,
@@ -312,6 +322,6 @@ def block_source(loader, n_acc: int, device, depth: int = 2, prefetch: bool = Tr
     """The trainer's source of ``MicrobatchBlock``s on ``device``
     (:func:`block_copier`'s, on the worker with the prefetch on; on the
     caller, with blocking copies, with it off)."""
-    put, take = block_copier(device, prefetch)
+    put, take, copier = block_copier(device, prefetch)
     return PrefetchingBlockSource(loader, n_acc, put, depth=depth, prefetch=prefetch,
-                                  valid=valid, take_block=take)
+                                  valid=valid, take_block=take, copier=copier)

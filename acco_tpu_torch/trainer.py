@@ -40,11 +40,13 @@ The run's persistence and records, as JAX's trainer keeps them, under
 
 - ``train.save``: a checkpoint every ``checkpoint_every_s`` (rank 0's
   clock decides, every rank follows) and a final one with rank 0's dense
-  float32 ``params.npz``, under ``checkpoints/<run_name>/step_<grads>``
-  (``utils/checkpoint.py``), with ``ckpt_keep_last`` /
+  float32 ``params.npz``, under ``checkpoints/<run_name>/step_<grads>``,
+  through ``resilience/manager.py``: the loop blocks only for the
+  device-to-host snapshot into pinned buffers, and with ``ckpt_async``
+  (the default) the commit runs on a background thread under the next
+  rounds (``ckpt_async: false`` commits inline); ``ckpt_keep_last`` /
   ``ckpt_keep_every_s`` retention and a startup GC of uncommitted step
-  dirs. The save is synchronous (``ckpt_async`` commits in the
-  background in JAX: ROADMAP.md queue 1, item 8, robustness).
+  dirs. ``train()`` returns once the last commit is on disk.
 - ``train.resume_from``: a checkpoint root (its newest complete step) or
   a ``step_*`` dir; the state, the counters and the loader's position are
   restored, the host's parity mirror comes from ``state.round_idx``, and
@@ -57,13 +59,35 @@ The run's persistence and records, as JAX's trainer keeps them, under
   ``results.csv`` row and ``grad_counts/`` (``utils/logs.py``), rank 0
   only.
 
+A run that survives (JAX: trainer.py:976-1016, :2029-2143):
+
+- ``handle_signals`` (default true): SIGTERM/SIGINT latch a stop
+  (``resilience/preemption.py``); the loop stops at the next round
+  boundary — at one rank at once, on several ranks at the first
+  ``preempt_sync_rounds`` boundary after any rank latched, agreed by a
+  MAX all-reduce — saves, and returns with ``interrupted`` in the
+  summary.
+- The watchdog (``resilience/watchdog.py``) classifies each boundary's
+  grad norm and skips from the values the boundary already reads back;
+  ``rollback_after_skipped`` consecutive guard-skipped rounds restore the
+  newest complete checkpoint with ``rollback: true`` (at most
+  ``rollback_max`` times; a RuntimeError without a checkpoint) and fence
+  the data window: the loader goes on from the last consumed block, not
+  from the checkpoint's position. ``rollback: false`` aborts.
+- ``fault_injection`` (``resilience/faults.py``) poisons the block or the
+  state between rounds, for drills.
+- Telemetry (``telemetry/``): the rank-0 span tracer
+  (``telemetry.enabled``; ``trace_<id_run>.json`` in the run dir), the
+  declared metrics, the per-round attribution closed at each boundary
+  (the summary's ``attribution``), and ``profile_steps`` steady-state
+  rounds under ``torch.profiler`` (``profile/``, the summary's
+  ``profile``). The tracer, the metrics and the attribution read nothing
+  of the device; the profiled window synchronizes at its two ends.
+
 ACCO with ``n_warmup_steps > 0`` first runs the seed round and that many
 DPU rounds on a DPU view of its step, then resets ``round_idx`` to 0 so
 that ACCO's first even round folds the staged grads in (JAX:
-trainer.py:1137-1160). The watchdog's rollback is not ported: with
-``rollback: true``, ``rollback_after_skipped`` consecutive guard-skipped
-rounds raise NotImplementedError (ROADMAP.md queue 1, item 8) where JAX
-would restore the newest checkpoint.
+trainer.py:1137-1160).
 """
 
 from __future__ import annotations
@@ -84,6 +108,16 @@ from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import prep_cp_leaves
 from acco_tpu_torch.parallel.ddp import DDPTrainStep
+from acco_tpu_torch.resilience import (
+    CheckpointManager,
+    FaultInjector,
+    ShutdownHandler,
+    TrainingHealthMonitor,
+)
+from acco_tpu_torch.telemetry import metrics
+from acco_tpu_torch.telemetry.attribution import StepAttribution, attribution_report
+from acco_tpu_torch.telemetry.profile import RoundProfiler
+from acco_tpu_torch.telemetry.trace import Tracer
 from acco_tpu_torch.utils import checkpoint as ckpt
 from acco_tpu_torch.utils import logs
 
@@ -91,7 +125,7 @@ from acco_tpu_torch.utils import logs
 class Trainer:
     def __init__(self, model, tokenizer, train_texts, eval_texts, args, log=None,
                  seed: int = 0, device="cpu", mesh=None, run_dir: str = ".",
-                 initial_params=None):
+                 initial_params=None, shutdown_handler=None):
         self.log = log or logging.getLogger("acco_tpu_torch")
         self.model = model
         self.args = args
@@ -192,18 +226,43 @@ class Trainer:
         self.keep_every_s = float(args.get("ckpt_keep_every_s", 0.0) or 0.0)
         self.rollback = bool(args.get("rollback", True))
         self.rollback_after_skipped = max(1, int(args.get("rollback_after_skipped", 8)))
+        self.rollback_max = int(args.get("rollback_max", 2))
         self.delta_step_for_log = int(args.get("delta_step_for_log", 10))
         self.id_run = logs.create_id_run()
         run_name = str(args.get("run_name", self.method))
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints", run_name)
         self.tensorboard_dir = os.path.join(self.run_dir, "tensorboard", run_name, self.id_run)
-        if self.rank == 0 and self.do_save and bool(args.get("ckpt_async", True)):
-            self.log.info("train.ckpt_async=True: this port saves synchronously; the "
-                          "overlapped commit is not ported yet (ROADMAP.md queue 1, item 8, "
-                          "robustness)")
         if self.rollback and not self.nan_guard:
             self.log.warning("rollback=True has no trigger with nan_guard=False; "
                              "auto-rollback is effectively disabled")
+        # a drill's spec fails here, before any round, when it is malformed
+        self.fault_injector = FaultInjector.from_config(args.get("fault_injection"), log=self.log)
+        # telemetry (JAX: trainer.py:478-500): host clocks only, either way
+        tel = args.get("telemetry") or {}
+        self.telemetry_enabled = bool(tel.get("enabled", True))
+        self.tracer = Tracer(enabled=self.telemetry_enabled and self.rank == 0,
+                             process_name=f"acco-{self.method}",
+                             max_events=int(tel.get("max_trace_events", 200_000)))
+        self.trace_path = os.path.join(self.run_dir, f"trace_{self.id_run}.json")
+        self.overlap_divergence_pct = float(tel.get("overlap_divergence_pct", 25.0))
+        self.profile_steps = int(args.get("profile_steps", 0) or 0)
+        # the overlapped save (JAX: trainer.py:511-523); the startup GC runs
+        # in train(), on rank 0, when this run saves
+        self.ckpt_manager = CheckpointManager(
+            self.ckpt_dir, async_save=bool(args.get("ckpt_async", True)),
+            keep_last=self.keep_last, keep_every_s=self.keep_every_s,
+            rank=self.step.shard_index, world_size=self.world_size, log=self.log, gc_on_init=False, tracer=self.tracer,
+        )
+        # an injected handler (tests, drills); else a SIGTERM/SIGINT latch
+        # installed for the duration of train() (JAX: trainer.py:524-535)
+        self._shutdown = shutdown_handler
+        self.handle_signals = bool(args.get("handle_signals", True))
+        self.preempt_sync_rounds = max(1, int(args.get("preempt_sync_rounds", 8)))
+        self.monitor = None
+        self.rollbacks = 0
+        self.rollback_log: list = []  # each rollback's step dir, fence and count
+        self.attribution = None
+        self.profiler = None
         self.final_state = None
         self.save_ms: list = []
         self.restore_ms = None
@@ -282,23 +341,44 @@ class Trainer:
         return prep_cp_leaves(block, self.sequence_group, getattr(self.model, "zigzag", False))
 
     def train(self) -> dict:
-        """The run; its TensorBoard writer and its block source (the
-        prefetch worker, JAX: trainer.py:991) are closed however it
-        ends."""
+        """The run; its TensorBoard writer, its block source (the prefetch
+        worker, JAX: trainer.py:991), its in-flight checkpoint and its
+        signal handlers are closed, drained and restored however it ends
+        (JAX: trainer.py:966-1016)."""
         t_beg = time.time()
         writer = (logs.make_summary_writer(self.tensorboard_dir) if self.rank == 0
                   else logs.NoOpWriter())
+        own_handler = False
+        if self._shutdown is None and self.handle_signals:
+            # made per train() and dropped after: a latch this run consumed
+            # must not stop a later one at once
+            self._shutdown = ShutdownHandler(log=self.log)
+            own_handler = True
+        installed = (self._shutdown.install()
+                     if self._shutdown is not None and self.handle_signals else False)
+        ok = False
         try:
-            return self._train(writer, t_beg)
+            summary = self._train(writer, t_beg)
+            ok = True
+            return summary
         finally:
             if self.source is not None:  # kept, closed: its iter_state stays readable
                 self.source.close()
+            # the last commit on disk; its error raised here unless the run
+            # is already unwinding another one
+            self.ckpt_manager.close(raise_errors=ok)
+            if self.profiler is not None:
+                self.profiler.finish()
+            if installed:
+                self._shutdown.uninstall()
+            if own_handler:
+                self._shutdown = None
             writer.flush()
             writer.close()
 
     def _train(self, writer, t_beg: float) -> dict:
         if self.rank == 0 and self.do_save:
-            ckpt.gc_incomplete(self.ckpt_dir, self.log)
+            self.ckpt_manager.gc_incomplete()
         if self.initial_params is not None:
             flat0 = self.initial_params.to(device=self.device, dtype=self.model.dtype)
         else:
@@ -310,7 +390,9 @@ class Trainer:
         # resume (JAX: trainer.py:1061-1105)
         meta = {"count_grad_tot": 0, "rounds_done": 0, "elapsed_s": 0.0}
         if self.resume_from:
-            path = ckpt.resolve_resume(str(self.resume_from), self.log)
+            self.ckpt_manager.wait()
+            path = self._agreed_path(lambda: ckpt.resolve_resume(str(self.resume_from),
+                                                                 self.log))
             t0 = time.perf_counter()
             state, meta = ckpt.restore_checkpoint(path, state, rank=self.step.shard_index,
                                                   mesh=self.mesh_shape)
@@ -322,8 +404,7 @@ class Trainer:
             self.loader.set_state(meta["loader"])
         # made after the restore, so the worker starts at the restored
         # position (JAX: trainer.py:1110-1120)
-        self.source = block_source(self.loader, self.n_acc, self.device,
-                                   self.prefetch_depth, self.prefetch, self.valid)
+        self.source = self._block_source()
 
         seed_loss, warmup_losses = None, []
         if self.method != "ddp" and rounds_done == 0:
@@ -347,14 +428,32 @@ class Trainer:
                 losses = [loss]
             seed_loss, *warmup_losses = torch.stack(losses).float().tolist()  # one read
             self.log.info("seed round: loss %.4f", seed_loss)
-        # host mirror of state.round_idx (ACCO's parity); DDP counts steps
-        round_idx = int(state.round_idx) if self.method != "ddp" else rounds_done
-        consec = int(state.health.consec_skipped) if self.nan_guard else 0
+        # host mirror of state.round_idx (ACCO's parity); DDP counts steps;
+        # the watchdog anchored to the (resumed) skip counter (JAX: :1200-1213)
+        round_idx, skipped_before, consec = self._host_counters(state, rounds_done)
+        self.monitor = TrainingHealthMonitor(escalate_after=self.rollback_after_skipped,
+                                             log=self.log)
+        self.monitor.last_skipped_rounds = skipped_before
+        self.rollbacks, self.rollback_log = 0, []
+        attrib = self.attribution = StepAttribution()
+        tracer = self.tracer
+        injector = self.fault_injector
+        # profile_steps rounds after ACCO's two first rounds (even, odd)
+        # or DPU's/DDP's first, whose kernels build at first use
+        self.profiler = RoundProfiler(
+            self.profile_steps, 2 if self.method == "acco" else 1,
+            os.path.join(self.run_dir, "profile"), self.device, rank=self.rank,
+            name=f"rounds_{self.id_run}", log=self.log)
 
         eval_mark = count_grad_tot
         log_epoch, rounds_this_run = 0, 0
         t_last_epoch = t_last_ckpt = time.time()
         round_log, eval_log, unread = [], [], []
+        round_wall_ms: list = []
+        window_mark = 0  # round_wall_ms index of the open attribution window
+        interrupted = False
+        t_last_round = time.perf_counter()
+        last_round_end_us = None
         while True:
             if count_grad_tot >= self.nb_grad_tot:
                 if not (self.nan_guard and rounds_this_run > 0):
@@ -363,16 +462,25 @@ class Trainer:
                 count_grad_tot = float(state.zero1.grads_committed)
                 if count_grad_tot >= self.nb_grad_tot:
                     break
+            self.profiler.before_round(rounds_this_run, self._profile_streams)
+            ts_round = tracer.now_us()
             t0 = time.perf_counter()
+            block = self._next_block()
+            t_fetch = time.perf_counter()
+            ts_fetch = tracer.now_us()
+            if injector is not None and injector.pending:
+                # a drill: poison the block or the state between rounds
+                state, block = injector.apply(rounds_this_run, state, block)
             if self.method == "ddp":
-                state, m = self.step.step(state, self._next_block())
+                state, m = self.step.step(state, block)
                 real = ~m.skipped
             else:
-                state, m = self.step.round(state, self._next_block(),
-                                           parity=round_idx % 2 == 0)
+                state, m = self.step.round(state, block, parity=round_idx % 2 == 0)
                 real = m.is_real_update
+            del block
+            t_end = time.perf_counter()
             # the round's metrics stay on the device until the boundary
-            unread.append((round_idx, m, real, (time.perf_counter() - t0) * 1e3))
+            unread.append((round_idx, m, real, (t_end - t0) * 1e3))
             if self.method != "acco":
                 count_grad_tot += self.grads_per_round
             elif round_idx % 2 == 1:  # acco: real updates land on odd rounds
@@ -380,67 +488,182 @@ class Trainer:
             round_idx += 1
             rounds_done += 1
             rounds_this_run += 1
+            self.profiler.after_round(rounds_this_run)
+            # per-round telemetry from host clocks around work the loop
+            # does anyway (JAX: trainer.py:1295-1336): no device read
+            dispatch_ms = (t_end - t_fetch) * 1e3
+            wall_ms = (t_end - t_last_round) * 1e3
+            t_last_round = t_end
+            round_wall_ms.append(wall_ms)
+            attrib.note("loader", self.source.last_wait_ms)
+            attrib.note("host_stall", dispatch_ms)
+            metrics.emit("train_rounds_total", 1)
+            metrics.emit("train_round_wall_ms", wall_ms)
+            metrics.emit("train_dispatch_ms", dispatch_ms)
+            metrics.emit("train_loader_wait_ms", self.source.last_wait_ms)
+            metrics.emit("loader_blocks_total", 1)
+            metrics.emit("loader_block_wait_ms", self.source.last_wait_ms)
+            if tracer.enabled:
+                end_us = tracer.now_us()
+                # the round span tiles the clock edge to edge, so boundary
+                # work recorded in between nests inside the next one
+                start_us = last_round_end_us if last_round_end_us is not None else ts_round
+                tracer.complete_event("train/round", (end_us - start_us) / 1e3, cat="train",
+                                      ts_us=start_us, args={"round": rounds_done})
+                tracer.complete_event("loader/next_block", (ts_fetch - ts_round) / 1e3,
+                                      cat="train", ts_us=ts_round)
+                tracer.complete_event("train/dispatch", dispatch_ms, cat="train",
+                                      ts_us=ts_fetch)
+                last_round_end_us = end_us
 
             # the logging boundary (JAX: trainer.py:1350-1420), every
             # delta_step_for_log grads: the one read of the rounds since
             # the last, the count reconciled against the device counter,
             # progress, scalars, the watchdog; eval and save decide here
             nb_grad_local = rounds_done * self.n_acc
-            if nb_grad_local // self.delta_step_for_log <= log_epoch:
-                continue
-            committed, consec, grad_norm, skipped_rounds = self._read_rounds(
-                unread, state, round_log)
-            count_grad_tot = committed
-            loss = round_log[-1]["loss"]
-            log_epoch, t_last_epoch = logs.print_training_evolution(
-                self.log, nb_grad_local, rounds_this_run, self.delta_step_for_log,
-                self.rank, t_beg, t_last_epoch, loss, log_epoch,
-            )
-            self._scalars(writer, count_grad_tot, loss, None, t_beg)
-            if self.nan_guard:
-                logs.log_health_to_tensorboard(
-                    writer, nb_step=int(count_grad_tot), grad_norm=grad_norm,
-                    skipped_rounds=skipped_rounds, consec_skipped=consec, rollbacks=0,
+            if nb_grad_local // self.delta_step_for_log > log_epoch:
+                t_sync = time.perf_counter()
+                committed, consec, grad_norm, skipped_rounds = self._read_rounds(
+                    unread, state, round_log)
+                sync_ms = (time.perf_counter() - t_sync) * 1e3
+                metrics.emit("train_log_sync_ms", sync_ms)
+                tracer.complete_event("train/log_boundary_sync", sync_ms, cat="train")
+                attrib.note("host_stall", sync_ms)
+                # that read is the sync fence: close the attribution window
+                n_since = len(round_wall_ms) - window_mark
+                if n_since > 0:
+                    attrib.boundary(n_since, sum(round_wall_ms[window_mark:]))
+                    window_mark = len(round_wall_ms)
+                count_grad_tot = committed
+                loss = round_log[-1]["loss"]
+                metrics.emit("train_loss", loss)
+                metrics.emit("train_grads_committed", committed)
+                log_epoch, t_last_epoch = logs.print_training_evolution(
+                    self.log, nb_grad_local, rounds_this_run, self.delta_step_for_log,
+                    self.rank, t_beg, t_last_epoch, loss, log_epoch,
                 )
-                if consec >= self.rollback_after_skipped:
-                    self._escalate(consec)
-            # eval every eval_step grads (JAX: trainer.py:1460)
-            if self.do_eval and self.eval_every and count_grad_tot - eval_mark >= self.eval_every:
-                eval_mark = count_grad_tot
-                t_ev = time.perf_counter()
-                eval_loss = self.evaluate(state.flat_params)
-                eval_log.append({"count_grad_tot": int(count_grad_tot), "eval_loss": eval_loss,
-                                 "ms": (time.perf_counter() - t_ev) * 1e3})
-                self.log.info("eval loss %.4f at %d grads", eval_loss, int(count_grad_tot))
-                self._scalars(writer, count_grad_tot, loss, eval_loss, t_beg)
-            # the periodic save: rank 0's clock decides (JAX: trainer.py:1490)
-            if self.do_save and self._ckpt_due(time.time() - t_last_ckpt):
-                t_last_ckpt = time.time()
-                if consec > 0:
-                    self.log.warning("periodic checkpoint skipped: state is anomalous "
-                                     "(%d consecutive guard-skipped rounds)", consec)
-                else:
-                    self._save(state, count_grad_tot, rounds_done, t_beg, export_npz=False)
+                self._scalars(writer, count_grad_tot, loss, None, t_beg)
+                if self.nan_guard:
+                    metrics.emit("train_grad_norm", grad_norm)
+                    verdict = self.monitor.observe(grad_norm=grad_norm, loss=loss,
+                                                   skipped_rounds=skipped_rounds,
+                                                   consec_skipped=consec)
+                    logs.log_health_to_tensorboard(
+                        writer, nb_step=int(count_grad_tot), grad_norm=grad_norm,
+                        skipped_rounds=skipped_rounds, consec_skipped=consec,
+                        rollbacks=self.rollbacks,
+                    )
+                    if verdict.escalate:
+                        if not self.rollback:
+                            raise RuntimeError(
+                                f"watchdog: {consec} consecutive anomalous rounds and "
+                                "rollback=False — aborting (the guard froze params/optimizer "
+                                "at the last healthy commit; checkpoints on disk are "
+                                "unchanged)"
+                            )
+                        state, meta = self._rollback(state)
+                        count_grad_tot = float(meta["count_grad_tot"])
+                        rounds_done = int(meta["rounds_done"])
+                        eval_mark = count_grad_tot
+                        round_idx, _, consec = self._host_counters(state, rounds_done)
+                        # the cadence re-anchored to the restored rounds
+                        log_epoch = rounds_done * self.n_acc // self.delta_step_for_log
+                        logs.log_telemetry_to_tensorboard(writer, int(count_grad_tot))
+                        continue
+                logs.log_telemetry_to_tensorboard(writer, int(count_grad_tot))
+                # eval every eval_step grads (JAX: trainer.py:1460)
+                if (self.do_eval and self.eval_every
+                        and count_grad_tot - eval_mark >= self.eval_every):
+                    eval_mark = count_grad_tot
+                    t_ev = time.perf_counter()
+                    eval_loss = self.evaluate(state.flat_params)
+                    eval_ms = (time.perf_counter() - t_ev) * 1e3
+                    metrics.emit("train_eval_ms", eval_ms)
+                    tracer.complete_event("train/eval", eval_ms, cat="train")
+                    attrib.note("host_stall", eval_ms)
+                    eval_log.append({"count_grad_tot": int(count_grad_tot),
+                                     "eval_loss": eval_loss, "ms": eval_ms})
+                    self.log.info("eval loss %.4f at %d grads", eval_loss, int(count_grad_tot))
+                    self._scalars(writer, count_grad_tot, loss, eval_loss, t_beg)
+                # the periodic save: rank 0's clock decides (JAX: trainer.py:1490)
+                if self.do_save and self._ckpt_due(time.time() - t_last_ckpt):
+                    t_last_ckpt = time.time()
+                    if consec > 0:
+                        self.log.warning("periodic checkpoint skipped: state is anomalous "
+                                         "(%d consecutive guard-skipped rounds)", consec)
+                    else:
+                        self._save(state, count_grad_tot, rounds_done, t_beg,
+                                   export_npz=False)
 
+            # preemption-safe shutdown (JAX: trainer.py:1521-1535): stop
+            # between rounds, then the normal end: read-back, final save
+            if self._preempted(rounds_this_run):
+                interrupted = True
+                self.log.warning("shutdown requested: stopping at round boundary (%d grads "
+                                 "dispatched) and checkpointing%s", int(count_grad_tot),
+                                 "" if self.do_save else " — save=False, so NOT saving")
+                break
+
+        self.profiler.finish()
         if unread:
+            t_sync = time.perf_counter()
             count_grad_tot, consec, _, _ = self._read_rounds(unread, state, round_log)
+            # the final read is the last fence: close the window it drained
+            attrib.note("host_stall", (time.perf_counter() - t_sync) * 1e3)
+        n_since = len(round_wall_ms) - window_mark
+        if n_since > 0:
+            attrib.boundary(n_since, sum(round_wall_ms[window_mark:]))
         total_time = time.time() - t_beg
         final_loss = round_log[-1]["loss"] if round_log else seed_loss
         checkpoint = None
         if self.do_save:
             # the health gate of JAX's final save (trainer.py:1560-1600)
+            self.ckpt_manager.wait()
             if consec > 0 and ckpt.latest_checkpoint(self.ckpt_dir, self.log) is not None:
                 self.log.warning("final checkpoint skipped: state is anomalous (%d consecutive "
                                  "guard-skipped rounds); the newest complete checkpoint is "
                                  "preserved for recovery", consec)
             else:
+                if consec > 0:
+                    self.log.warning("final checkpoint saved DESPITE %d consecutive "
+                                     "guard-skipped rounds: nothing is on disk yet", consec)
                 checkpoint = self._save(state, count_grad_tot, rounds_done, t_beg)
-        health = {"skipped_rounds": int(state.health.skipped_rounds), "rollbacks": 0}
+        # the commit durable before the run is declared over (JAX: :1601)
+        self.ckpt_manager.wait()
+        health = logs.health_columns(self.monitor.summary(), int(state.health.skipped_rounds),
+                                     self.rollbacks)
+        report = attribution_report(attrib.summary(), None,
+                                    divergence_pct=self.overlap_divergence_pct, log=self.log)
+        if report is not None:
+            b = report["buckets_ms"]
+            metrics.emit_many({
+                "train_measured_round_ms": report["round_wall_ms"],
+                "attrib_loader_ms": b["loader_ms"], "attrib_ckpt_ms": b["ckpt_ms"],
+                "attrib_host_stall_ms": b["host_stall_ms"], "attrib_compute_ms": b["compute_ms"],
+                "attrib_exposed_comm_ms": b["exposed_comm_ms"],
+            })
+            self.log.info("step attribution over %d rounds (%d windows): round wall %.2f ms = "
+                          "loader %.2f + ckpt %.2f + host %.2f + device %.2f (clamped %.2f ms)",
+                          report["rounds"], report["windows"], report["round_wall_ms"],
+                          b["loader_ms"], b["ckpt_ms"], b["host_stall_ms"], b["compute_ms"],
+                          report["clamped_ms"])
+        profile = self.profiler.summary
+        if profile is not None and profile.get("measured_overlap_pct") is not None:
+            metrics.emit("measured_overlap_pct", profile["measured_overlap_pct"])
         if self.rank == 0:
             self._write_results(final_loss, total_time, health)
             logs.save_grad_acc(self.id_run, self.run_dir, self.rank,
                                list_grad_acc=[self.n_acc] * len(round_log),
                                list_grad_times=[round(r["ms"], 2) for r in round_log])
+        trace = None
+        if tracer.enabled:
+            try:
+                trace = tracer.write(self.trace_path, other_data={
+                    "attribution": report, "method": self.method,
+                    "world_size": self.world_size, "id_run": self.id_run})
+                self.log.info("telemetry trace -> %s", trace)
+            except OSError as exc:
+                self.log.warning("trace write failed: %s", exc)
         self.final_state = state
         return {
             "final_loss": final_loss,
@@ -451,8 +674,11 @@ class Trainer:
             "fused_loss": self.step.value_and_grad.fused_loss,
             "attention": self.attention,
             "mesh": self.mesh.describe() if self.mesh is not None else {"dp": 1, "sp": 1},
+            # stopped by a shutdown request before nb_steps_tot; the final
+            # checkpoint makes it resumable through train.resume_from
+            "interrupted": interrupted,
             "skipped_rounds": health["skipped_rounds"],
-            "rollbacks": 0,
+            "rollbacks": self.rollbacks,
             "n_params": self.model.n_params,
             "seed_loss": seed_loss,
             "warmup_losses": warmup_losses,
@@ -460,11 +686,37 @@ class Trainer:
             "eval_log": eval_log,
             "eval_loss": eval_log[-1]["eval_loss"] if eval_log else None,
             "checkpoint": checkpoint,
+            "ckpt_async": self.ckpt_manager.async_save,
             "run_dir": self.run_dir,
             "device": str(self.device),
             "prefetch": self.prefetch,
             "block_wait_ms": self.source.median_wait_ms(),
+            "attribution": report,
+            "trace": trace,
+            "profile": profile,
         }
+
+    def _block_source(self):
+        return block_source(self.loader, self.n_acc, self.device, self.prefetch_depth,
+                            self.prefetch, self.valid)
+
+    def _host_counters(self, state, rounds_done: int) -> tuple:
+        """The host's round index (``state.round_idx`` for ACCO/DPU, the
+        step count for DDP), the state's skipped and consecutive skipped
+        rounds, in one read."""
+        leaves = [state.health.skipped_rounds, state.health.consec_skipped]
+        if self.method != "ddp":
+            leaves.append(state.round_idx)
+        vals = torch.stack([t.reshape(()).to(torch.int64) for t in leaves]).tolist()
+        return (vals[2] if self.method != "ddp" else rounds_done), vals[0], vals[1]
+
+    def _profile_streams(self) -> dict:
+        """The streams :class:`RoundProfiler` probes, by role."""
+        if self.device.type != "cuda":
+            return {}
+        return {"compute": torch.cuda.current_stream(self.device),
+                "comm": getattr(self.step, "comm_stream", None),
+                "copy": self.source.copy_stream if self.source is not None else None}
 
     def _read_rounds(self, unread: list, state, round_log: list) -> tuple:
         """Read the rounds dispatched since the last boundary back in one
@@ -494,20 +746,94 @@ class Trainer:
         committed, consec, grad_norm, skipped = values[3 * n:]
         return committed, int(consec), grad_norm, int(skipped)
 
-    def _escalate(self, consec: int) -> None:
-        """The watchdog's escalation (JAX: trainer.py:1430-1455): JAX rolls
-        back to the newest checkpoint, or aborts with rollback=False."""
-        if self.rollback:
-            raise NotImplementedError(
-                f"watchdog: {consec} consecutive guard-skipped rounds "
-                f"(rollback_after_skipped={self.rollback_after_skipped}); the rollback to the "
-                "newest checkpoint is not ported yet: ROADMAP.md queue 1, item 8 (robustness)"
+    def _agreed_path(self, choose) -> str:
+        """``choose()``'s checkpoint path on rank 0, broadcast to every
+        rank of the world group, so that no two ranks restore different
+        steps (one rank alone: its own choice). An error on rank 0 is
+        raised on every rank."""
+        if self.world is None or self.world_size == 1:
+            return choose()
+        import torch.distributed as dist
+
+        box = [None]
+        if self.rank == 0:
+            try:
+                box[0] = ("ok", choose())
+            except Exception as exc:  # noqa: BLE001 — raised on every rank below
+                box[0] = ("error", exc)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.world, 0),
+                                   group=self.world)
+        kind, value = box[0]
+        if kind == "error":
+            raise value
+        return value
+
+    def _rollback(self, state):
+        """The watchdog's rollback (JAX: trainer.py:2058-2143): restore the
+        newest complete checkpoint in place and fence the poisoned data
+        window — the loader goes on from the last CONSUMED block, not from
+        the checkpoint's position, so the batches between the checkpoint
+        and the anomaly are skipped and the same poisoned batch is never
+        replayed into the same state. More than ``rollback_max`` rollbacks
+        raise. Returns ``(state, meta)``."""
+        self.rollbacks += 1
+        if self.rollbacks > self.rollback_max:
+            raise RuntimeError(
+                f"watchdog: {self.rollbacks - 1} auto-rollbacks already performed "
+                f"(rollback_max={self.rollback_max}) and training is anomalous again — the "
+                "corruption is not recoverable by rewinding state past the bad data window; "
+                "inspect the checkpoints and data shard"
             )
-        raise RuntimeError(
-            f"watchdog: {consec} consecutive anomalous rounds and rollback=False — aborting "
-            "(the guard froze params/optimizer at the last healthy commit; checkpoints on "
-            "disk are unchanged)"
-        )
+        # the fence before closing the source: the last consumed block's
+        # exact-resume position
+        fence = dict(self.source.iter_state())
+        self.source.close()
+        self.ckpt_manager.wait()  # the commit may still be writing that step
+
+        def newest() -> str:
+            path = ckpt.latest_checkpoint(self.ckpt_dir, log=self.log)
+            if path is None:
+                raise RuntimeError(
+                    f"watchdog: {self.rollback_after_skipped} consecutive anomalous rounds "
+                    f"and no complete checkpoint under {self.ckpt_dir!r} to roll back to — "
+                    "the guard has been holding params at their last healthy values, but "
+                    "recovery needs save=True (or rollback=False to disable escalation)"
+                )
+            return path
+
+        path = self._agreed_path(newest)
+        state, meta = ckpt.restore_checkpoint(path, state, rank=self.step.shard_index,
+                                              mesh=self.mesh_shape, in_place=True)
+        self.loader.set_state(fence)
+        self.source = self._block_source()
+        self.monitor.note_rollback()
+        self.rollback_log.append({"path": path, "fence": fence,
+                                  "count_grad_tot": int(meta["count_grad_tot"])})
+        # the monitor's skip baseline rewound with the state
+        _, self.monitor.last_skipped_rounds, _ = self._host_counters(state, 0)
+        self.log.warning("watchdog: rolled back to %s (%d grads); data window fenced to "
+                         "epoch=%s batch_pos=%s — the poisoned batches will not be replayed",
+                         path, int(meta["count_grad_tot"]), fence.get("epoch"),
+                         fence.get("batch_pos"))
+        return state, meta
+
+    def _preempted(self, rounds_this_run: int) -> bool:
+        """The stop decision (JAX: trainer.py:2029-2056): at one rank the
+        local latch; on several, the flags MAX-reduced over the world
+        group every ``preempt_sync_rounds`` rounds on the loop's thread
+        (a per-round read would serialize the dispatch), so every rank
+        stops at the same boundary. A rank without a handler takes part
+        with a flag of 0."""
+        local = self._shutdown is not None and self._shutdown.should_stop()
+        if self.world is None or self.world_size == 1:
+            return local
+        if rounds_this_run % self.preempt_sync_rounds != 0:
+            return False
+        import torch.distributed as dist
+
+        flag = torch.tensor([float(local)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.world)
+        return bool(flag.item())
 
     def _scalars(self, writer, count_grad_tot: float, loss: float, eval_loss, t_beg: float):
         logs.log_to_tensorboard(
@@ -570,7 +896,7 @@ class Trainer:
         a batch's time to collate and copy the next."""
         it = iter(self.eval_loader)
         host = ({**next(it), "valid": np.ones(1, np.float32)} for _ in range(n_batches))
-        put, take = block_copier(self.device, self.prefetch)
+        put, take, _ = block_copier(self.device, self.prefetch)
         if not self.prefetch:
             yield from map(put, host)
             return
@@ -597,11 +923,16 @@ class Trainer:
 
     def _save(self, state, count_grad_tot: float, rounds_done: int, t_beg: float,
               export_npz: bool = True) -> str:
-        """Every rank writes its state; a final save adds rank 0's dense
-        float32 ``params.npz`` trimmed to ``n_params`` (JAX: trainer.py:2158,
-        :2224); rank 0 commits and applies the retention."""
+        """Every rank snapshots its state and commits it through the
+        manager (JAX: trainer.py:2144-2200): the loop waits for the
+        device-to-host copy only (after ACCO's comm stream too, which
+        writes the shard), and with ``ckpt_async`` the rank file, rank 0's
+        ``params.npz`` (a final save's: the dense float32 params from the
+        snapshot, trimmed to ``n_params``), ``meta.json`` and the retention
+        follow on the commit thread. ``save_ms`` records the loop's stall."""
         t0 = time.perf_counter()
         count = int(count_grad_tot)
+        loader = self.source.iter_state()
         meta = {
             "count_grad_tot": count,
             "rounds_done": rounds_done,
@@ -611,7 +942,7 @@ class Trainer:
             # the position of the last consumed block (blocks the worker
             # has prefetched are collated again on resume); each rank also
             # keeps its own in its state file
-            "loader": self.source.iter_state(),
+            "loader": loader,
             "mesh": dict(self.mesh_shape),
             "n_params": self.model.n_params,
             "padded_size": self.step.geom.padded_size,
@@ -619,20 +950,24 @@ class Trainer:
         }
         extra = None
         if self.rank == 0 and export_npz:
-            flat = (state.flat_params[: self.model.n_params].detach()
-                    .to(torch.device("cpu"), torch.float32).numpy())
+            n_params = self.model.n_params
 
-            def extra(path: str) -> None:
+            def extra(path: str, host: dict) -> None:
+                flat = host["flat_params"][:n_params].to(torch.float32).numpy()
                 np.savez(os.path.join(path, "params.npz"), flat_params=flat)
 
-        path = ckpt.save_checkpoint(self.ckpt_dir, count, state, meta,
-                                    rank=self.step.shard_index, group=self.world,
-                                    extra_files=extra,
-                                    rank_meta={"loader": meta["loader"]})
+        comm_stream = getattr(self.step, "comm_stream", None)
+        path = self.ckpt_manager.save(count, state, meta, extra_files=extra,
+                                      rank_meta={"loader": loader},
+                                      streams=() if comm_stream is None else (comm_stream,))
+        stall_ms = (time.perf_counter() - t0) * 1e3
         if self.rank == 0:
-            ckpt.apply_retention(self.ckpt_dir, self.keep_last, self.keep_every_s, self.log)
-            self.log.info("checkpoint -> %s", path)
-        self.save_ms.append((time.perf_counter() - t0) * 1e3)
+            self.log.info("checkpoint -> %s (loop stall %.1f ms%s)", path, stall_ms,
+                          ", committing in the background" if self.ckpt_manager.in_flight
+                          else "")
+        self.save_ms.append(stall_ms)
+        if self.attribution is not None:
+            self.attribution.note("ckpt", stall_ms)
         return path
 
     def _write_results(self, final_loss, total_time: float, extra: dict) -> None:

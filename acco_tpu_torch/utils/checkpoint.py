@@ -16,15 +16,21 @@ plain dict of host tensors, keyed by the state's field path
 (``zero1/opt/mu``), with the rank's own entries of the meta (its
 loader's position: ranks hold shards of their own length, so their
 epochs need not turn together; ``meta.json`` records rank 0's, as JAX's
-does). After a barrier over the world group, rank 0 writes
-``meta.json`` LAST and atomically (tmp + rename), with a manifest of
-every file's size (:func:`finalize_meta`): its presence marks the
-checkpoint committed, and a torn write is detectable without loading
-anything (:func:`validate_checkpoint`). :func:`latest_checkpoint` walks
-the step dirs newest first and returns the newest that validates.
+does). Rank 0 waits until every rank's file is on disk (a file gate, no
+collective: the commit may run on a thread of its own while the loop's
+thread uses the process group), then writes ``meta.json`` LAST and
+atomically (tmp + rename), with a manifest of every file's size
+(:func:`finalize_meta`): its presence marks the checkpoint committed,
+and a torn write is detectable without loading anything
+(:func:`validate_checkpoint`). :func:`latest_checkpoint` walks the step
+dirs newest first and returns the newest that validates.
 
-The save is synchronous. JAX's ``ckpt_async`` commits on a background
-thread; that changes when the commit happens, not what it holds.
+A save is split at its seam, as JAX's ``resilience/manager.py`` splits
+it: :func:`snapshot` copies the state into host buffers (pinned, and
+reused from one save to the next, on a card) on a copy stream of its
+own, and the caller waits only for that copy; :func:`commit` writes the
+files from the snapshot, on the caller's thread or on a background one
+(``resilience/manager.py``). :func:`save_checkpoint` runs both in turn.
 
 A JAX step dir holds an Orbax ``state/`` tree and no ``rank_*.pt``: it
 validates (the completeness contract is the same), but only its
@@ -41,7 +47,8 @@ import logging
 import os
 import re
 import shutil
-from typing import Any, Iterator, Optional
+import time
+from typing import Any, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -87,25 +94,20 @@ def state_to_host(state, prefix: str = "") -> dict:
     """``{field path: host tensor}`` for a NamedTuple train state: every
     leaf copied to the CPU (a copy even of a CPU leaf, so the dict does
     not alias a buffer a later round may reuse)."""
-    out = {}
-    for name, value in zip(state._fields, state):
-        key = prefix + name
-        if _is_state(value):
-            out.update(state_to_host(value, key + "/"))
-        else:
-            out[key] = value.detach().to(torch.device("cpu"), copy=True)
-    return out
+    return {key: value.to(torch.device("cpu"), copy=True)
+            for key, value in state_leaves(state, prefix).items()}
 
 
-def state_from_host(template, tensors: dict, prefix: str = ""):
+def state_from_host(template, tensors: dict, prefix: str = "", in_place: bool = False):
     """The inverse of :func:`state_to_host` onto ``template``'s structure,
     devices, shapes and dtypes; a leaf that is missing or differs in
-    shape or dtype raises."""
+    shape or dtype raises. ``in_place`` copies into the template's own
+    tensors (no second device copy of the state) and returns it."""
     fields = []
     for name, tmpl in zip(template._fields, template):
         key = prefix + name
         if _is_state(tmpl):
-            fields.append(state_from_host(tmpl, tensors, key + "/"))
+            fields.append(state_from_host(tmpl, tensors, key + "/", in_place))
             continue
         if key not in tensors:
             raise ValueError(
@@ -118,15 +120,153 @@ def state_from_host(template, tensors: dict, prefix: str = ""):
                 f"checkpoint leaf {key!r} is {tuple(saved.shape)} {saved.dtype}, the run "
                 f"needs {tuple(tmpl.shape)} {tmpl.dtype}"
             )
-        fields.append(saved.to(tmpl.device))
+        fields.append(tmpl.copy_(saved) if in_place else saved.to(tmpl.device))
     return type(template)(*fields)
 
 
-def _barrier(group) -> None:
-    if group is not None:
-        import torch.distributed as dist
+class SnapshotBuffers:
+    """Host buffers for :func:`snapshot`, one per state leaf, made at the
+    first save and reused by every later one (a leaf whose shape or dtype
+    changed gets a new buffer). Pinned where the leaf is on a card, so
+    that the device-to-host copies run asynchronously, at the link's
+    rate; plain CPU tensors for CPU leaves. ``alloc_ms`` is the time the
+    last :meth:`take` spent allocating (0 once every buffer exists)."""
 
-        dist.barrier(group=group)
+    def __init__(self) -> None:
+        self._buffers: dict = {}
+        self.alloc_ms = 0.0
+        self.nbytes = 0
+
+    def take(self, leaves: dict) -> dict:
+        t0 = time.perf_counter()
+        made = False
+        for key, value in leaves.items():
+            buf = self._buffers.get(key)
+            if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
+                self._buffers[key] = torch.empty(value.shape, dtype=value.dtype,
+                                                 pin_memory=value.is_cuda)
+                made = True
+        self.alloc_ms = (time.perf_counter() - t0) * 1e3 if made else 0.0
+        self.nbytes = sum(b.numel() * b.element_size() for b in self._buffers.values())
+        return {key: self._buffers[key] for key in leaves}
+
+
+def state_leaves(state, prefix: str = "") -> dict:
+    """``{field path: tensor}`` for a NamedTuple train state (the
+    tensors themselves, detached, no copy)."""
+    out = {}
+    for name, value in zip(state._fields, state):
+        key = prefix + name
+        if _is_state(value):
+            out.update(state_leaves(value, key + "/"))
+        else:
+            out[key] = value.detach()
+    return out
+
+
+class Snapshot(NamedTuple):
+    """A state copied to host buffers: ``host`` (field path -> host
+    tensor) and ``done``, the CUDA event after the copies (None when the
+    state was on the CPU: the copies were done on return)."""
+
+    host: dict
+    done: Any
+
+    def wait(self) -> None:
+        """Block the calling thread until the copies are done."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
+def snapshot(state, buffers: Optional[SnapshotBuffers] = None, *, copy_stream=None,
+             streams=(), wait: bool = True) -> Snapshot:
+    """Copy ``state`` into host buffers (``buffers``' reused ones, else
+    new ones). On a card the copies run on ``copy_stream`` (by default a
+    new stream), which first waits for the current stream and for each
+    of ``streams`` (ACCO's comm stream, which writes the shard) — events
+    recorded now, so the copies see every write enqueued before the
+    call — and an event is recorded after them. With ``wait`` (the
+    default) the caller blocks on that event before returning: once it
+    returns no later round can write into what is being saved, since the
+    copies are done. Without it the caller must call
+    :meth:`Snapshot.wait` before anything on another stream may reuse
+    the state's memory (the state's tensors are not marked as in use by
+    the copy stream)."""
+    leaves = state_leaves(state)
+    host = (buffers or SnapshotBuffers()).take(leaves)
+    cuda = [t for t in leaves.values() if t.is_cuda]
+    if not cuda:
+        for key, value in leaves.items():
+            host[key].copy_(value)
+        return Snapshot(host, None)
+    device = cuda[0].device
+    if copy_stream is None:
+        copy_stream = torch.cuda.Stream(device)
+    for stream in (torch.cuda.current_stream(device), *streams):
+        ready = torch.cuda.Event()
+        ready.record(stream)
+        copy_stream.wait_event(ready)
+    with torch.cuda.stream(copy_stream):
+        for key, value in leaves.items():
+            host[key].copy_(value, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(copy_stream)
+    snap = Snapshot(host, done)
+    if wait:
+        snap.wait()
+    return snap
+
+
+# how long rank 0's commit waits for the other ranks' files (their
+# snapshots are taken at the same boundary; their writes may lag by a
+# whole commit when their disks are slower)
+GATE_TIMEOUT_S = 600.0
+
+
+def wait_for_rank_files(path: str, world_size: int, timeout: float = GATE_TIMEOUT_S,
+                        poll_s: float = 0.05) -> None:
+    """Block until ``rank_0.pt`` .. ``rank_<world_size - 1>.pt`` all exist
+    under ``path/state`` (each appears by an atomic rename, so existing
+    means complete); raise TimeoutError naming the missing ranks after
+    ``timeout`` seconds. The commit's gate before ``meta.json``: files,
+    not a collective, so a commit thread never touches the process
+    group the loop's thread is using."""
+    state_dir = os.path.join(path, "state")
+    deadline = time.monotonic() + timeout
+    while True:
+        missing = [r for r in range(world_size)
+                   if not os.path.exists(os.path.join(state_dir, f"rank_{r}.pt"))]
+        if not missing:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"checkpoint {path}: no state file from rank(s) {missing} after {timeout:.0f} s; "
+                "meta.json not written (the step stays uncommitted)"
+            )
+        time.sleep(poll_s)
+
+
+def commit(path: str, snap: Snapshot, meta: dict, *, rank: int = 0, world_size: int = 1,
+           extra_files=None, rank_meta: Optional[dict] = None) -> str:
+    """Write a snapshot as this rank's part of ``path`` (a ``step_*``
+    dir): its rank file (``torch.save`` to a tmp, then an atomic rename),
+    then, on rank 0, ``extra_files(path)`` (built from the snapshot, e.g.
+    the ``params.npz`` export), the file gate over every rank's file and
+    ``meta.json`` last. Waits for the snapshot's copies first. Runs on
+    any thread; issues no collective."""
+    snap.wait()
+    state_dir = os.path.join(path, "state")
+    os.makedirs(state_dir, exist_ok=True)
+    final = os.path.join(state_dir, f"rank_{rank}.pt")
+    tmp = final + ".tmp"
+    torch.save({"rank": rank, "state": snap.host, "meta": dict(rank_meta or {})}, tmp)
+    os.replace(tmp, final)
+    if rank == 0:
+        if extra_files is not None:
+            extra_files(path)
+        wait_for_rank_files(path, world_size)
+        finalize_meta(path, meta)
+    return path
 
 
 def save_checkpoint(
@@ -136,32 +276,17 @@ def save_checkpoint(
     meta: dict,
     *,
     rank: int = 0,
-    group=None,
+    world_size: int = 1,
     extra_files=None,
     rank_meta: Optional[dict] = None,
 ) -> str:
-    """Write this rank's ``state`` (and ``rank_meta``, the entries of the
-    meta that are this rank's own) under ``ckpt_dir/step_<step>/state/
-    rank_<rank>.pt`` and, on rank 0, ``extra_files(path)`` (the
-    ``params.npz`` export); then, after a barrier over ``group`` (the
-    world group; None at one rank), rank 0 commits ``meta`` (with the
-    manifest), and a second barrier holds every rank until the commit is
-    on disk. Every rank must call this; returns the step dir."""
+    """A synchronous save: :func:`snapshot` then :func:`commit` of this
+    rank's ``state`` (and ``rank_meta``) under ``ckpt_dir/step_<step>``;
+    rank 0 commits ``meta`` once all ``world_size`` rank files exist.
+    Every rank must call this; returns the step dir."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
-    state_dir = os.path.join(path, "state")
-    os.makedirs(state_dir, exist_ok=True)
-    host = state_to_host(state)
-    final = os.path.join(state_dir, f"rank_{rank}.pt")
-    tmp = final + ".tmp"
-    torch.save({"rank": rank, "state": host, "meta": dict(rank_meta or {})}, tmp)
-    os.replace(tmp, final)
-    if rank == 0 and extra_files is not None:
-        extra_files(path)
-    _barrier(group)  # every rank's file is on disk before the commit
-    if rank == 0:
-        finalize_meta(path, meta)
-    _barrier(group)  # no rank goes on (to a restore, say) before the commit
-    return path
+    return commit(path, snapshot(state), meta, rank=rank, world_size=world_size,
+                  extra_files=extra_files, rank_meta=rank_meta)
 
 
 def checkpoint_candidates(ckpt_dir: str) -> Iterator[str]:
@@ -255,10 +380,11 @@ def _rank_files(state_dir: str) -> list:
 
 
 def restore_checkpoint(path: str, template: Any, *, rank: int = 0,
-                       mesh: Optional[dict] = None) -> tuple[Any, dict]:
+                       mesh: Optional[dict] = None, in_place: bool = False) -> tuple[Any, dict]:
     """``(state, meta)`` from a ``step_*`` dir: this rank's file onto
-    ``template``'s structure and devices (e.g. ``step.init_state(...)``),
-    and ``meta.json`` with the rank's own entries over it.
+    ``template``'s structure and devices (e.g. ``step.init_state(...)``;
+    with ``in_place``, into its tensors), and ``meta.json`` with the
+    rank's own entries over it.
     ``mesh`` (``{'dp': N, 'sp': M}``) must equal the mesh that saved the
     checkpoint, as JAX restores onto a mesh of the same shape only; a
     JAX step dir (an Orbax ``state/`` tree, no ``rank_*.pt``) raises."""
@@ -280,7 +406,7 @@ def restore_checkpoint(path: str, template: Any, *, rank: int = 0,
     saved = torch.load(os.path.join(state_dir, f"rank_{rank}.pt"), map_location="cpu",
                        weights_only=True)
     meta.update(saved.get("meta", {}))
-    return state_from_host(template, saved["state"]), meta
+    return state_from_host(template, saved["state"], in_place=in_place), meta
 
 
 # -- retention and startup GC (acco_tpu/resilience/manager.py) --------------

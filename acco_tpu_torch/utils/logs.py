@@ -10,7 +10,10 @@ writing goes through ``torch.utils.tensorboard`` and degrades to
 :class:`NoOpWriter` where the ``tensorboard`` package is missing (the
 card's machine has none), so training never depends on it. The
 ``device`` column is the platform as the JAX package names it: ``gpu``
-on a card, ``cpu`` on the CPU (:func:`platform_name`).
+on a card, ``cpu`` on the CPU (:func:`platform_name`). The watchdog's
+columns (:func:`health_columns`, ``rollbacks`` among them) and the
+declared metrics' ``telemetry/*`` scalars
+(:func:`log_telemetry_to_tensorboard`) are the port's additions.
 """
 
 from __future__ import annotations
@@ -195,6 +198,29 @@ def log_health_to_tensorboard(
     writer.add_scalar("health/skipped_rounds", int(skipped_rounds), nb_step)
     writer.add_scalar("health/consec_skipped", int(consec_skipped), nb_step)
     writer.add_scalar("health/rollbacks", int(rollbacks), nb_step)
+
+
+def health_columns(monitor_summary: Dict[str, Any], skipped_rounds: int,
+                   rollbacks: int) -> Dict[str, Any]:
+    """The watchdog's ``results.csv`` columns, as JAX's trainer folds
+    them into its row: the monitor's counters (spikes, drift episodes),
+    the device's lifetime ``skipped_rounds`` and the run's ``rollbacks``."""
+    row = dict(monitor_summary)
+    row["skipped_rounds"] = int(skipped_rounds)
+    row["rollbacks"] = int(rollbacks)
+    return row
+
+
+def log_telemetry_to_tensorboard(writer, nb_step: int, registry=None) -> None:
+    """Every emitted metric of ``registry`` (the port's global one by
+    default) as a ``telemetry/<name>`` scalar at ``nb_step``: one number
+    each, histograms at their p50 (``MetricsRegistry.to_tensorboard``);
+    nothing for a :class:`NoOpWriter`."""
+    if isinstance(writer, NoOpWriter):
+        return
+    if registry is None:
+        from acco_tpu_torch.telemetry.metrics import REGISTRY as registry
+    registry.to_tensorboard(writer, nb_step)
 
 
 def log_to_tensorboard(

@@ -111,8 +111,11 @@ and prints no result line):
 7. profile: each path again under torch.profiler, for the device time
    per kernel, K1's to K5's device time per microbatch, the device's
    idle share (the union of every stream's activity against the round)
-   and, from the trace's streams, the comm side's device ms and its
-   overlap share, the part of it under compute-stream activity; then
+   and, from the trace's streams read by the package's reader
+   (``acco_tpu_torch/telemetry/profile.py``: streams named by probe
+   kernels), the comm side's device ms (the comm stream and NCCL's) and
+   its overlap share, the part of it under compute-stream activity, with
+   the prefetch copy stream on its own line, out of the comm side; then
    each ACCO and DPU path's rounds again with the comm branch on the
    current stream, and on its own stream under a high-priority compute
    stream, for their median round ms beside phase 5's;
@@ -166,7 +169,31 @@ and prints no result line):
    written params; ``acco_tpu_torch.perplexity_eval --hf-checkpoint``
    through K1 against the plain attention; GPT-Neo-2.7B's preset (D 128,
    bf16, random init, forward only) through K1 + K2 against the plain
-   path; (e) the native collate built with g++ and called on these paths.
+   path; (e) the native collate built with g++ and called on these paths;
+10. a run that survives (Llama-125M at full width, ACCO unless named,
+   through the entry point's trainer, K1's launches counted on every
+   run): (a) 20 rounds read back every 10 grads with a save at every
+   boundary, ``train.ckpt_async`` true and false, beside the same run
+   without saves: the loop's stall a save (the async snapshot against
+   the sync save), the first save's pinned-buffer allocation, the mean
+   round of rounds 11-20; the async and sync checkpoints of each step
+   tensor-equal and their meta equal (timestamps and run ids apart); a
+   run resumed from the async step bit-equal to the uninterrupted one;
+   a planted fault (the loop not waiting on the snapshot, the copy
+   stream asleep before its copies) whose saved tensors must differ; (b)
+   SIGTERM sent from a thread after 5 rounds: ``interrupted``, a
+   committed checkpoint at a round boundary, the resumed run bit-equal
+   to the uninterrupted one; (c) ``nan_grads@3`` for acco, dpu and ddp
+   (one skipped round, the target reached, a finite loss);
+   ``corrupt_params`` with saves on: the watchdog's rollback, whose
+   final state must equal a run resumed from the same checkpoint with
+   the loader at the fence, and differ from it with the fence dropped
+   (a planted fault); (d) telemetry on and off under torch.profiler:
+   equal counts of synchronizing CUDA runtime calls, the mean rounds
+   (and again unprofiled), the trace valid and the attribution's
+   buckets within 5% of the round wall; (e) ``train.profile_steps=4`` on
+   Llama-125M and llama3-8B-L8192: the summary's ``profile`` beside
+   phase 7's overlap share.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -177,7 +204,9 @@ from __future__ import annotations
 import atexit
 import contextlib
 import functools
+import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -432,7 +461,26 @@ DP_EDGE_RTOL = 2 ** -12
 MASS_RTOL = 2 ** -22
 
 
+def free_device_cache() -> None:
+    """Collect unreachable objects, then return the allocator's cached
+    blocks: a finished trainer caught in a reference cycle (the first one
+    of a process is: torch keeps the frames of a lazy import made during
+    its first round, the trainer's among them) would otherwise hold its
+    device state until Python's cyclic collector happens to run."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") carries the seconds
+    since the script started."""
+    if msg.startswith("== "):
+        msg = f"{msg}  [t+{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1976,7 +2024,7 @@ def main_path(path: str, sg=None, group=None) -> tuple[dict, float, int, dict]:
     spec = path_spec(path)
     method = spec.get("method", "acco")
     model = path
-    torch.cuda.empty_cache()  # the earlier paths' cached blocks: no fragments carried over
+    free_device_cache()  # the earlier paths' cached blocks: no fragments carried over
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     with HeadLogitsCalls() as head, BlockWindows() as windows:
@@ -2335,7 +2383,7 @@ def neo_ring_step_agreement(sg) -> None:
         out.append((float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
                     launch_counts()))
         del trainer, flat, grads
-        torch.cuda.empty_cache()
+        free_device_cache()
     (loss_r, g_r, n_r), (loss_d, g_d, n_d) = out
     rel = abs(loss_r - loss_d) / abs(loss_d)
     g_rel = float((g_r - g_d).norm() / g_d.norm())
@@ -2351,67 +2399,23 @@ def neo_ring_step_agreement(sg) -> None:
         raise AssertionError("GPT-Neo's windowed ring and its non-CP path disagree")
 
 
-def _union(intervals: list) -> list:
-    """Sorted, merged [start, end) intervals."""
-    out = []
-    for a, b in sorted(intervals):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return out
+def stream_overlap(prof, rounds: int = 1) -> dict:
+    """Device activity by side, from the profiler's trace, through the
+    package's reader (``acco_tpu_torch/telemetry/profile.py``
+    ``read_trace``): the compute stream and the comm side (the comm
+    stream, NCCL's streams) named by the probes launched on them, the
+    prefetch copy stream (and any other) on its own line; each side's
+    busy ms, the comm side's ms under compute-stream activity and the
+    union of all streams' activity, per round of ``rounds``."""
+    from acco_tpu_torch.telemetry.profile import load_events, read_trace
 
-
-def _measure(intervals: list) -> float:
-    return sum(b - a for a, b in intervals)
-
-
-def _intersect(x: list, y: list) -> float:
-    """Length of the intersection of two merged interval lists."""
-    i = j = 0
-    total = 0.0
-    while i < len(x) and j < len(y):
-        total += max(0.0, min(x[i][1], y[j][1]) - max(x[i][0], y[j][0]))
-        if x[i][1] < y[j][1]:
-            i += 1
-        else:
-            j += 1
-    return total
-
-
-def stream_overlap(prof) -> dict:
-    """Device activity by CUDA stream, from the profiler's trace (kernels,
-    copies and memsets): the compute stream is the one with the most
-    device time (the current stream the microbatches run on); every other
-    stream (the comm stream, NCCL's) is the comm side. Returns each
-    stream's busy ms, the comm side's busy ms, the part of it under
-    compute-stream activity and the union of all streams' activity."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    by_stream: dict = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        stream = (e.get("args") or {}).get("stream", e.get("tid"))
-        by_stream.setdefault(stream, []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    if not by_stream:
+        st = read_trace(load_events(path), rounds=rounds)
+    if st.get("device") != "cuda":
         raise AssertionError("the profiler's trace holds no device activity")
-    merged = {k: _union(v) for k, v in by_stream.items()}
-    busy = {k: _measure(v) / 1e3 for k, v in merged.items()}
-    compute = max(busy, key=busy.get)
-    comm = _union([iv for k, v in by_stream.items() if k != compute for iv in v])
-    everything = _union([iv for v in by_stream.values() for iv in v])
-    return {
-        "streams_ms": {str(k): v for k, v in sorted(busy.items(), key=lambda kv: -kv[1])},
-        "compute_stream": str(compute),
-        "compute_ms": busy[compute],
-        "comm_ms": _measure(comm) / 1e3,
-        "comm_under_compute_ms": _intersect(comm, merged[compute]) / 1e3,
-        "union_ms": _measure(everything) / 1e3,
-    }
+    return st
 
 
 def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group=None) -> dict:
@@ -2431,13 +2435,21 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.empty_cache()
+    from acco_tpu_torch.telemetry.profile import probe_streams
+
+    free_device_cache()
     trainer = path_trainer(model, sg, group)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the probes name the streams in the trace (the copy stream is
+        # made by the prefetch worker at its first block)
+        probes = probe_streams({"compute": torch.cuda.current_stream(),
+                                "comm": getattr(trainer.step, "comm_stream", None)})
         t0 = time.perf_counter()
         trainer.train()
+        probes += probe_streams({"copy": trainer.source.copy_stream})
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    del probes
     microbatches = path_microbatches(model)
     # device-side rows only: CPU op rows also carry their kernels' time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2452,10 +2464,12 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group
         f"sum {per_mb:.2f}; init + {microbatches} microbatches: {st['union_ms']:.1f} ms in "
         f"{wall_ms:.1f} ms of profiled wall time); idle share of a {round_ms:.2f} ms round "
         f"{1 - union_mb / round_ms:.3f} (by the kernel sum {1 - per_mb / round_ms:.3f})")
-    log(f"  streams: compute {st['compute_stream']} {st['compute_ms'] / microbatches:.3f} ms/"
-        f"microbatch; comm side {st['comm_ms'] / microbatches:.3f} ms/microbatch, "
+    log(f"  streams: compute {st['compute_ms'] / microbatches:.3f} ms/microbatch; comm side "
+        f"(comm stream, NCCL) {st['comm_ms'] / microbatches:.3f} ms/microbatch, "
         f"{st['comm_under_compute_ms'] / microbatches:.3f} under compute-stream activity: "
-        f"overlap share {share:.3f}; busy ms by stream {st['streams_ms']}")
+        f"overlap share {share:.3f}; copy side (the prefetch copy stream, not comm) "
+        f"{st['copy_ms'] / microbatches:.3f} ms/microbatch; busy ms by role:stream "
+        f"{ {k: round(v, 3) for k, v in st['streams_ms'].items()} }")
     method = trainer.method
     if method != "ddp" and st["comm_ms"] <= 0:
         raise AssertionError(f"{model}: no device work off the compute stream (the comm branch)")
@@ -2469,6 +2483,7 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group
             f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
     return {"union_ms_per_microbatch": union_mb, "kernel_sum_ms_per_microbatch": per_mb,
             "comm_ms_per_microbatch": st["comm_ms"] / microbatches, "overlap_share": share,
+            "copy_ms_per_microbatch": st["copy_ms"] / microbatches,
             "idle_share": 1 - union_mb / round_ms}
 
 
@@ -2480,7 +2495,7 @@ def stream_variant_ms(model: str, variant: str, sg=None, group=None) -> float:
     equal priority."""
     import torch
 
-    torch.cuda.empty_cache()
+    free_device_cache()
     trainer = path_trainer(model, sg, group)
     if variant == "one":
         trainer.step.comm_stream = torch.cuda.current_stream()
@@ -2615,7 +2630,7 @@ def cadence_ms(path: str, *extra: str) -> tuple[float, dict, object]:
 
     from acco_tpu_torch.__main__ import build_trainer
 
-    torch.cuda.empty_cache()
+    free_device_cache()
     trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
                              *extra])
     summary = trainer.train()
@@ -2703,7 +2718,7 @@ def resume_phase(smi: str, round_ms: dict) -> tuple[dict, dict]:
                 raise AssertionError(f"the resume check missed the planted fault {fault!r}")
         flat = a.final_state.flat_params
         del a
-        torch.cuda.empty_cache()
+        free_device_cache()
 
         log(" (b) the eval on A's final params: K1 and K3's forward (fused_loss=pallas) "
             "against the plain attention and the materialized CE")
@@ -2740,7 +2755,7 @@ def resume_phase(smi: str, round_ms: dict) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         eval_ms = (time.perf_counter() - t0) * 1e3 / n_batches
         del kern, plain, flat
-        torch.cuda.empty_cache()
+        free_device_cache()
 
         log(f" (c) perplexity of B's params.npz, {PPL_SAMPLES} samples of <= {PPL_LEN} "
             "tokens: K1 against the plain attention")
@@ -2810,7 +2825,7 @@ def profile_cadence(path: str, mean_ms: float, *extra: str) -> float:
 
     from acco_tpu_torch.__main__ import build_trainer
 
-    torch.cuda.empty_cache()
+    free_device_cache()
     trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
                              *extra])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2958,7 +2973,7 @@ def remat_microbatch_peak(mode: str) -> tuple[int, tuple]:
     from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
     from acco_tpu_torch.parallel.common import block_from_numpy
 
-    torch.cuda.empty_cache()
+    free_device_cache()
     trainer = build_trainer([*main_args("llama3-8B-L8192"), f"train.remat={mode}"])
     device = trainer.device
     flat = trainer.model.init_flat(torch.Generator(device=device).manual_seed(trainer.seed))
@@ -2973,7 +2988,7 @@ def remat_microbatch_peak(mode: str) -> tuple[int, tuple]:
     peak = torch.cuda.max_memory_allocated() - live
     loss = float(loss)
     del trainer, flat, block, grads
-    torch.cuda.empty_cache()
+    free_device_cache()
     return peak, (loss, live)
 
 
@@ -3086,7 +3101,7 @@ def finetune_run(model: str, ckpt: str, tmp: str, *extra: str):
 
     from acco_tpu_torch.__main__ import build_trainer
 
-    torch.cuda.empty_cache()
+    free_device_cache()
     trainer = build_trainer(["train=acco-ft", f"model={model}", f"model.config_path={ckpt}",
                              "data=synthetic", f"train.nb_steps_tot={FT_NB}",
                              "train.eval_step=4", "+train.delta_step_for_log=2",
@@ -3179,7 +3194,7 @@ def finetune_phase(tmp: str) -> dict:
                 raise AssertionError("the perplexity eval of the checkpoint is off the plain one")
             del plain, pflat
         del trainer, loaded, flat
-        torch.cuda.empty_cache()
+        free_device_cache()
 
     log(f" GPT-Neo-2.7B's preset (config_path EleutherAI/gpt-neo-2.7B, D 128), random init, bf16, "
         f"forward only at {NEO_LARGE_SCORE}: K1 + K2 against the plain path")
@@ -3216,7 +3231,7 @@ def finetune_phase(tmp: str) -> dict:
     if rel > PPL_RTOL:
         raise AssertionError("GPT-Neo-2.7B through K1 + K2 is off the plain path")
     del kern, model, flat
-    torch.cuda.empty_cache()
+    free_device_cache()
     return launches
 
 
@@ -3256,7 +3271,7 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
             f"median (prefetch on) {round_ms[path]:.3f}")
         del runs, flat_ref
     cadence.clear()
-    torch.cuda.empty_cache()
+    free_device_cache()
     log(" the copy stream's event: a planted fault")
     prefetch_fault()
     log(" (b) resume with the prefetch on at depth 2: phase 8 (a) (above)")
@@ -3277,7 +3292,7 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
         log(f"  {path} on {smi}: peak allocated {peak / 2**30:.2f} GiB, reserved "
             f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, median round {med:.2f} ms, "
             f"flash_fwd {launches[path]['flash_fwd'] // path_microbatches(path)} a microbatch")
-        torch.cuda.empty_cache()
+        free_device_cache()
     remat_agreement()
 
     log(" (d) finetuning from a local HF checkpoint")
@@ -3295,6 +3310,357 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
         f"this phase {calls}")
     if not native.native_available() or not calls["collate_batch"] or not calls["pack_const_len"]:
         raise AssertionError("the paths did not run the native collate")
+    return launches
+
+
+# Phase 10: a run that survives. Llama-125M at full width (ACCO unless
+# named), 20 rounds read back every 10 grads (the default cadence) unless
+# named; each run's launches counted (K1 on every one).
+P10_PATH = "llama-125M"
+P10_ROUNDS = 20
+P10_META_VOLATILE = ("saved_at_unix", "elapsed_s", "id_run")
+
+
+def p10_args(run: str, nb: int = P10_ROUNDS, *extra: str) -> list[str]:
+    return [*main_args(P10_PATH, CADENCE), f"train.nb_steps_tot={nb}",
+            f"hydra.run.dir={run_root()}/p10/{run}", *extra]
+
+
+def p10_run(run: str, launches: dict, *extra: str, nb: int = P10_ROUNDS, setup=None,
+            during=None):
+    """A phase-10 run through the entry point's trainer (``setup(trainer)``
+    before ``train()``; ``during(trainer)`` a context around it), its
+    launches counted under ``p10-<run>``; returns the trainer and summary."""
+    import torch
+
+    from acco_tpu_torch.__main__ import build_trainer
+
+    free_device_cache()
+    trainer = build_trainer(p10_args(run, nb, *extra))
+    if setup is not None:
+        setup(trainer)
+    reset_launch_counts()
+    with (during(trainer) if during is not None else contextlib.nullcontext()):
+        summary = trainer.train()
+    torch.cuda.synchronize()
+    launches[f"p10-{run}"] = launch_counts()
+    if launches[f"p10-{run}"]["attn_fwd"] <= 0:
+        raise AssertionError(f"phase 10 {run}: K1 was not launched")
+    losses = [r["loss"] for r in summary["round_log"]]
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses[-1:])):
+        raise AssertionError(f"phase 10 {run}: non-finite final loss {losses[-1:]}")
+    return trainer, summary
+
+
+def p10_mean(summary: dict) -> float:
+    return statistics.fmean(r["ms"] for r in summary["round_log"][CADENCE:])
+
+
+def rank_file(step: str) -> dict:
+    import torch
+
+    return torch.load(os.path.join(step, "state", "rank_0.pt"), map_location="cpu",
+                      weights_only=True)
+
+
+def checkpoint_differences(a: str, b: str) -> list:
+    """The leaves (and meta keys, timestamps and run ids apart) in which
+    two step dirs differ."""
+    import torch
+
+    sa, sb = rank_file(a)["state"], rank_file(b)["state"]
+    diffs = [k for k in sb if k not in sa or not torch.equal(sa[k], sb[k])]
+    metas = []
+    for step in (a, b):
+        with open(os.path.join(step, "meta.json")) as f:
+            meta = json.load(f)
+        metas.append({k: v for k, v in meta.items() if k not in P10_META_VOLATILE})
+    if metas[0] != metas[1]:
+        diffs.append("meta " + str({k for k in metas[0].keys() | metas[1].keys()
+                                    if metas[0].get(k) != metas[1].get(k)}))
+    return diffs
+
+
+def final_state_differences(a, b) -> list:
+    import torch
+
+    got, want = state_leaves(a.final_state), state_leaves(b.final_state)
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+class RacingSnapshot:
+    """A planted fault in the overlapped save: the copy stream sleeps
+    ``cycles`` before the device-to-host copies (enqueued once the host
+    buffers exist, so the first save's allocation does not use up the
+    sleep), and the loop does not wait on the snapshot's event, so the
+    next rounds reuse (and write) the memory being copied. The commit
+    still waits for the copies."""
+
+    def __init__(self, cycles: int) -> None:
+        self.cycles = cycles
+
+    def __call__(self, trainer) -> None:
+        import torch
+
+        manager = trainer.ckpt_manager
+        manager.copy_stream = torch.cuda.Stream()
+        take = manager.buffers.take
+
+        def take_then_sleep(leaves):
+            host = take(leaves)
+            with torch.cuda.stream(manager.copy_stream):
+                torch.cuda._sleep(self.cycles)
+            return host
+
+        manager.buffers.take = take_then_sleep
+        manager._wait_snapshot = lambda snap: None
+
+
+@contextlib.contextmanager
+def sigterm_after_rounds(n: int):
+    """A timer thread that sends this process SIGTERM once the trainer's
+    ``train_rounds_total`` counter has grown by ``n``."""
+    import signal
+    import threading
+
+    from acco_tpu_torch.telemetry import metrics
+
+    start = metrics.REGISTRY.value("train_rounds_total")
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            if metrics.REGISTRY.value("train_rounds_total") - start >= n:
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.001)
+
+    thread = threading.Thread(target=watch, name="p10-sigterm", daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+@contextlib.contextmanager
+def runtime_sync_counts(out: dict):
+    """``out``: the count of synchronizing CUDA runtime calls in the
+    profiled block, by name, from the trace's ``cuda_runtime`` events
+    (``cudaMemcpy`` is the blocking copy; ``cudaMemcpyAsync`` is not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acco_tpu_torch.telemetry.profile import load_events
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = load_events(path)
+    for name in SYNC_CALLS:
+        out[name] = sum(1 for e in events
+                        if e.get("cat") == "cuda_runtime" and e.get("name") == name)
+
+
+def phase_10(smi: str, profiles: dict) -> dict:
+    """A run that survives (Llama-125M, full width): (a) the overlapped
+    save against the synchronous one and no save, their checkpoints and a
+    resume from the async one, and the racing snapshot (a planted fault);
+    (b) SIGTERM from a timer thread, then resume; (c) the drills:
+    nan_grads for acco, dpu, ddp, corrupt_params with its rollback held to
+    a resume with the loader at the fence, and the fence dropped (a
+    planted fault); (d) telemetry on and off under torch.profiler: the
+    synchronizing runtime calls a round, the trace and the attribution;
+    (e) profile_steps=4 on Llama-125M and llama3-8B-L8192 beside phase 7.
+    Returns the launches by run."""
+    import torch
+
+    from acco_tpu_torch.data.loader import ShardedBatchIterator
+    from acco_tpu_torch.telemetry.trace import validate_trace
+    from acco_tpu_torch.utils import checkpoint as ckpt
+
+    launches: dict = {}
+    save = ["train.save=true", "train.checkpoint_every_s=0", "train.ckpt_keep_last=0"]
+    log(f" (a) the overlapped save: {' '.join(p10_args('<run>'))} {' '.join(save)}")
+    plain, s_plain = p10_run("nosave", launches)
+    runs = {}
+    for mode in ("true", "false"):
+        t, s = p10_run(f"save-{mode}", launches, *save, f"train.ckpt_async={mode}")
+        snaps = t.ckpt_manager.snapshot_log
+        runs[mode] = (t, s)
+        log(f"  ckpt_async={mode}: loop stall a save {[round(x, 1) for x in t.save_ms]} ms "
+            f"(snapshot {[round(x['ms'], 1) for x in snaps]} ms, of it pinned-buffer "
+            f"allocation {[round(x['alloc_ms'], 1) for x in snaps]} ms, {snaps[0]['bytes']} "
+            f"bytes), commit {[round(x, 1) for x in t.ckpt_manager.commit_log]} ms; mean round "
+            f"of rounds {CADENCE + 1}-{P10_ROUNDS} {p10_mean(s):.3f} ms (no save: "
+            f"{p10_mean(s_plain):.3f})")
+        if final_state_differences(t, plain):
+            raise AssertionError(f"ckpt_async={mode}: saving changed the run's state")
+    (ta, sa), (ts, ss) = runs["true"], runs["false"]
+    steps = {os.path.basename(p) for p in ckpt.checkpoint_candidates(ta.ckpt_dir)}
+    for step in sorted(steps):
+        diffs = checkpoint_differences(os.path.join(ta.ckpt_dir, step),
+                                       os.path.join(ts.ckpt_dir, step))
+        log(f"  {step}: async against sync checkpoint: "
+            f"{'tensor-equal, meta equal' if not diffs else 'DIFFERS in ' + str(diffs)}")
+        if diffs:
+            raise AssertionError(f"async and sync checkpoints of {step} differ: {diffs}")
+    first = os.path.join(ta.ckpt_dir, f"step_{CADENCE}")
+    r, sr = p10_run("resume-async", launches, f"train.resume_from={first}")
+    diffs = final_state_differences(r, plain)
+    log(f"  resumed from the async {os.path.basename(first)}: "
+        f"{'bit-equal to the uninterrupted run' if not diffs else 'DIFFERS in ' + str(diffs)}")
+    if diffs or [x["loss"] for x in sr["round_log"]] != [
+            x["loss"] for x in s_plain["round_log"][CADENCE:]]:
+        raise AssertionError(f"the run resumed from the async checkpoint differs: {diffs}")
+    # at the two boundary saves (the final one adds params.npz), net of the
+    # first save's one-time pinned allocation: the loop's wait for the
+    # snapshot (async) against the whole save (sync)
+    snaps_a, snaps_s = ta.ckpt_manager.snapshot_log, ts.ckpt_manager.snapshot_log
+    stall_async = statistics.fmean(x["ms"] - x["alloc_ms"] for x in snaps_a[:2])
+    stall_sync = statistics.fmean(ms - x["alloc_ms"] for ms, x in zip(ts.save_ms[:2], snaps_s))
+    alloc_ms = snaps_a[0]["alloc_ms"]
+    del r, ta
+    cycles = FAULT_SLEEP_CYCLES
+    for attempt in range(FAULT_TRIES):
+        f, _ = p10_run(f"racing-{attempt}", launches, *save, "train.ckpt_async=true",
+                       setup=RacingSnapshot(cycles))
+        diffs = checkpoint_differences(os.path.join(f.ckpt_dir, f"step_{CADENCE}"),
+                                       os.path.join(ts.ckpt_dir, f"step_{CADENCE}"))
+        del f
+        log(f"  planted fault, the loop not waiting on the snapshot (copy stream asleep "
+            f"{cycles} cycles): {'caught, the saved tensors differ in ' + str(diffs) if diffs else 'NOT caught'}")
+        if diffs:
+            break
+        cycles *= 4
+    else:
+        raise AssertionError("the racing snapshot was not caught")
+    del ts, runs
+
+    log(" (b) SIGTERM from a timer thread after 5 rounds")
+    t, st = p10_run("sigterm", launches, "train.save=true",
+                    during=lambda trainer: sigterm_after_rounds(5))
+    if not st["interrupted"] or st["count_grad_tot"] >= P10_ROUNDS:
+        raise AssertionError(f"SIGTERM did not interrupt the run: {st['interrupted']}, "
+                             f"{st['count_grad_tot']} grads")
+    if ckpt.validate_checkpoint(st["checkpoint"]) is not None:
+        raise AssertionError(f"the interrupted run's checkpoint is not committed")
+    with open(os.path.join(st["checkpoint"], "meta.json")) as fh:
+        meta = json.load(fh)
+    r, sr = p10_run("sigterm-resume", launches, f"train.resume_from={t.ckpt_dir}")
+    diffs = final_state_differences(r, plain)
+    log(f"  interrupted at round boundary {meta['rounds_done']} ({st['count_grad_tot']} grads, "
+        f"{os.path.basename(st['checkpoint'])} committed); resumed to {sr['count_grad_tot']}: "
+        f"{'bit-equal to the uninterrupted run' if not diffs else 'DIFFERS in ' + str(diffs)}")
+    if diffs:
+        raise AssertionError(f"the run resumed after SIGTERM differs: {diffs}")
+    del t, r, plain  # no trainer of this phase stays alive into (e)'s long cell
+
+    log(" (c) drills")
+    for method in ("acco", "dpu", "ddp"):
+        s = p10_run(f"nan-{method}", launches, f"train={method}", "+train.delta_step_for_log=2",
+                    "train.fault_injection=nan_grads@3", nb=8)[1]
+        log(f"  nan_grads@3, {method}: skipped {s['skipped_rounds']}, {s['count_grad_tot']} "
+            f"grads, final loss {s['final_loss']:.6f}")
+        if not (s["skipped_rounds"] == 1 and s["count_grad_tot"] >= 8
+                and math.isfinite(s["final_loss"])):
+            raise AssertionError(f"nan_grads@3 on {method}: {s['skipped_rounds']} skipped, "
+                                 f"{s['count_grad_tot']} grads, loss {s['final_loss']}")
+    drill = ["+train.delta_step_for_log=4", "train.rollback_after_skipped=2"]
+    rb, srb = p10_run("rollback", launches, *drill, *save,
+                      "train.fault_injection=[{kind: corrupt_params, round: 5, n: 64}]", nb=12)
+    if srb["rollbacks"] != 1 or srb["count_grad_tot"] < 12:
+        raise AssertionError(f"corrupt_params: {srb['rollbacks']} rollbacks, "
+                             f"{srb['count_grad_tot']} grads")
+    event = rb.rollback_log[0]
+    fence = event["fence"]
+    original = ShardedBatchIterator.set_state
+    results = {}
+    for label, patched in (("fence", lambda self, state: original(self, fence)),
+                           ("no fence", original)):
+        ShardedBatchIterator.set_state = patched
+        try:
+            o, _ = p10_run(f"rollback-oracle-{label.replace(' ', '')}", launches, *drill,
+                           f"train.resume_from={event['path']}", nb=12)
+        finally:
+            ShardedBatchIterator.set_state = original
+        results[label] = final_state_differences(o, rb)
+        del o
+    log(f"  corrupt_params@5: rolled back once to {os.path.basename(event['path'])} "
+        f"({event['count_grad_tot']} grads), fence {fence}; against a resume from it with the "
+        f"loader at the fence: {'bit-equal' if not results['fence'] else 'DIFFERS in ' + str(results['fence'])}; "
+        f"planted fault, the fence dropped: "
+        f"{'caught, differs in ' + str(results['no fence']) if results['no fence'] else 'NOT caught'}")
+    if results["fence"] or not results["no fence"]:
+        raise AssertionError(f"rollback oracle: {results}")
+    del rb
+
+    log(" (d) telemetry on and off under torch.profiler: synchronizing runtime calls")
+    tel = {}
+    for enabled in ("true", "false"):
+        counts: dict = {}
+        s = p10_run(f"telemetry-{enabled}", launches, f"train.telemetry.enabled={enabled}",
+                    during=lambda trainer, c=counts: runtime_sync_counts(c))[1]
+        tel[enabled] = (counts, p10_mean(s), s)
+        log(f"  telemetry.enabled={enabled}: sync calls {counts} "
+            f"({sum(counts.values()) / P10_ROUNDS:.2f} a round); mean round of rounds "
+            f"{CADENCE + 1}-{P10_ROUNDS} {p10_mean(s):.3f} ms (profiled)")
+    if tel["true"][0] != tel["false"][0]:
+        raise AssertionError(f"telemetry changes the sync calls: {tel['true'][0]} against "
+                             f"{tel['false'][0]}")
+    means = {"true": [], "false": []}
+    for i, enabled in enumerate(("false", "true", "true", "false")):  # unprofiled, in turns
+        s = p10_run(f"telemetry-{enabled}-unprofiled-{i}", launches,
+                    f"train.telemetry.enabled={enabled}")[1]
+        means[enabled].append(p10_mean(s))
+    log(f"  unprofiled, in turns off, on, on, off: mean round of rounds {CADENCE + 1}-"
+        f"{P10_ROUNDS} off {[round(x, 3) for x in means['false']]} ms, on "
+        f"{[round(x, 3) for x in means['true']]} ms")
+    means = {k: statistics.fmean(v) for k, v in means.items()}
+    on = tel["true"][2]
+    with open(on["trace"]) as fh:
+        problems = validate_trace(json.load(fh))
+    report = on["attribution"]
+    gap = abs(report["bucket_sum_ms"] - report["round_wall_ms"]) / report["round_wall_ms"]
+    log(f"  trace {os.path.basename(on['trace'])}: validate_trace "
+        f"{'passes' if not problems else problems[:3]}; attribution {report['buckets_ms']} sums "
+        f"to {report['bucket_sum_ms']} of the {report['round_wall_ms']} ms round wall "
+        f"({100 * gap:.2f}% apart)")
+    if problems or gap > 0.05 or tel["false"][2]["trace"] is not None:
+        raise AssertionError(f"telemetry: trace problems {problems[:3]}, bucket gap {gap}")
+
+    log(" (e) profile_steps=4 (rounds 3-6 of ACCO under torch.profiler, in the program)")
+    for path in ("llama-125M", "llama3-8B-L8192"):
+        free_device_cache()
+        from acco_tpu_torch.__main__ import build_trainer
+
+        trainer = build_trainer([*main_args(path), "train.profile_steps=4"])
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        reset_launch_counts()
+        summary = trainer.train()
+        torch.cuda.synchronize()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        launches[f"p10-profile-{path}"] = launch_counts()
+        prof = summary["profile"]
+        del trainer
+        phase7 = profiles.get(path, {}).get("overlap_share")
+        log(f"  {path}: profile {json.dumps({k: v for k, v in prof.items() if k != 'trace'})}; "
+            f"rounds ms {[round(r['ms'], 1) for r in summary['round_log']]}, allocator retries "
+            f"{retries}; phase 7's overlap share {phase7}")
+        if not (prof.get("device") == "cuda" and prof["rounds"] == 4 and prof["comm_ms"] > 0
+                and prof["copy_ms"] > 0 and 0 <= prof["measured_overlap_pct"] <= 100):
+            raise AssertionError(f"{path}: profile_steps summary {prof}")
+    log(f"  phase 10 on {smi}: the loop's wait a boundary save async {stall_async:.1f} ms "
+        f"(the snapshot), sync {stall_sync:.1f} ms; the first save's pinned allocation "
+        f"{alloc_ms:.1f} ms; rounds {CADENCE + 1}-{P10_ROUNDS} no save "
+        f"{p10_mean(s_plain):.3f}, async {p10_mean(sa):.3f}, sync {p10_mean(ss):.3f} ms; "
+        f"telemetry off {means['false']:.3f}, on {means['true']:.3f} ms")
     return launches
 
 
@@ -3552,6 +3918,9 @@ def main() -> int:
 
         log("== 9 the input pipeline, remat, finetuning from a local HF checkpoint")
         launches.update(phase_9(smi, cadence, round_ms, peaks))
+
+        log("== 10 a run that survives: the overlapped save, SIGTERM, drills, telemetry")
+        launches.update(phase_10(smi, profiles))
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

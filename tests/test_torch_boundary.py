@@ -47,3 +47,16 @@ def test_scan_sees_the_package():
     for path in ("acco_tpu_torch/ops/fused_attention.py", "acco_tpu_torch/ops/block_attention.py",
                  "acco_tpu_torch/ops/ring_attention.py", "acco_tpu_torch/parallel/mesh.py"):
         assert path in FILES
+
+
+@pytest.mark.parametrize("subpackage, modules", [
+    ("telemetry", ("__init__", "metrics", "trace", "attribution", "profile")),
+    ("resilience", ("__init__", "preemption", "watchdog", "manager", "faults")),
+])
+def test_scan_sees_the_robustness_subpackages(subpackage, modules):
+    """The scan covers the telemetry and resilience subpackages, the
+    copies of JAX's framework-free modules among them: every module of
+    each is scanned, none is missed by the glob."""
+    found = {os.path.splitext(os.path.basename(p))[0] for p in FILES
+             if p.startswith(f"acco_tpu_torch/{subpackage}/")}
+    assert found == set(modules)

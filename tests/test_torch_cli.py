@@ -1,7 +1,7 @@
 """``python -m acco_tpu_torch``: a few CPU rounds end to end, the device
 rule, ``train.fused_loss=pallas`` and its downgrade, the flash route
-(``train.use_pallas_attention=true``), the keys this slice refuses by
-name, context parallelism's preconditions at one process (its runs on
+(``train.use_pallas_attention=true``), the keys once refused by name
+(now run), context parallelism's preconditions at one process (its runs on
 two ranks: tests/test_torch_context_parallel.py), and a run that saves,
 evaluates and warms up, then a second command that resumes it. Every
 run writes into its test's temporary directory (``hydra.run.dir``)."""
@@ -65,27 +65,36 @@ def test_without_device_flag_needs_a_card(monkeypatch, tmp_path):
     [
         ("train.finetune=true", "item 7"),
         ("train.remat=true", "remat"),
-        # keys JAX honours that the port has no code for yet
+        # keys JAX honours that the port once had no code for (item 8)
         ("train.fault_injection=nan_grads@3", "queue 1, item 8"),
         ("train.profile_steps=2", "queue 1, item 8"),
     ],
 )
 def test_unported_keys_raise_by_name(override, item, tmp_path):
-    """Keys the port has no code for raise NotImplementedError naming their
-    item. Two were refused so until they were ported: ``remat`` (item 3)
-    now runs, and ``finetune`` (item 7) now reads ``model.config_path`` as
-    a checkpoint, which tiny128's architecture file is not: it raises
-    naming the missing download."""
+    """Keys the port once refused, naming their item, each now runs with
+    JAX's meaning: ``remat`` (item 3) trains; ``finetune`` (item 7) reads
+    ``model.config_path`` as a checkpoint, which tiny128's architecture
+    file is not, and raises naming the missing download;
+    ``fault_injection`` (item 8) fires its drill (one guard-skipped round,
+    the target reached); ``profile_steps`` (item 8) writes a profiler
+    trace of that many rounds, marked as a CPU run."""
     argv = ["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2", override,
             f"hydra.run.dir={tmp_path}"]
-    if override == "train.remat=true":
-        assert main(argv)["count_grad_tot"] == 2
-    elif override == "train.finetune=true":
+    if override == "train.finetune=true":
         with pytest.raises(FileNotFoundError, match="no network egress"):
             main(argv)
+        return
+    nb = 2 if override == "train.remat=true" else 6  # past the fault's round, the profiled
+    argv[argv.index("train.nb_steps_tot=2")] = f"train.nb_steps_tot={nb}"  # rounds' skip
+    summary = main(argv)
+    assert summary["count_grad_tot"] >= nb
+    if "fault" in override:
+        assert summary["skipped_rounds"] == 1 and summary["rollbacks"] == 0
+    elif "profile" in override:
+        prof = summary["profile"]
+        assert prof["device"] == "cpu" and prof["rounds"] == 2 and os.path.exists(prof["trace"])
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
+        assert summary["skipped_rounds"] == 0
 
 
 def test_ddp_runs_on_cpu(tmp_path):
@@ -134,23 +143,26 @@ def test_lr_grad_accounting_advances_the_schedule_by_the_count(tmp_path):
 
 
 def test_default_save_runs_and_logs_once(caplog, tmp_path):
-    """``train.save`` defaults to true: the default command commits a
-    checkpoint (its final save, with ``params.npz``) under the run dir's
-    ``checkpoints/<run_name>``, and says once that the save is
-    synchronous (``ckpt_async``, the default, names its ROADMAP item)."""
+    """``train.save`` defaults to true and ``train.ckpt_async`` to true:
+    the default command commits a checkpoint (its final save, with
+    ``params.npz``) under the run dir's ``checkpoints/<run_name>`` through
+    the overlapped save — the loop stalls once, for the snapshot, and
+    the commit is on disk when the run returns — and logs the checkpoint
+    once; nothing says that the save is synchronous any more."""
     from acco_tpu_torch.utils.checkpoint import latest_checkpoint, validate_checkpoint
 
     caplog.set_level(logging.INFO, logger="acco_tpu_torch")
     summary = main(["--device", "cpu", "train=acco", *TINY, "train.nb_steps_tot=2",
                     f"hydra.run.dir={tmp_path}"])
-    assert summary["count_grad_tot"] == 2
+    assert summary["count_grad_tot"] == 2 and summary["ckpt_async"] is True
     step = latest_checkpoint(str(tmp_path / "checkpoints" / "acco"))
     assert step == summary["checkpoint"] == str(tmp_path / "checkpoints" / "acco" / "step_2")
     assert validate_checkpoint(step) is None
     assert sorted(os.listdir(step)) == ["meta.json", "params.npz", "state"]
-    notices = [r for r in caplog.records if "saves synchronously" in r.message]
+    assert not [r for r in caplog.records if "saves synchronously" in r.message]
+    notices = [r for r in caplog.records if r.message.startswith("checkpoint -> ")]
     assert len(notices) == 1 and notices[0].name == "acco_tpu_torch"
-    assert "queue 1, item 8" in notices[0].message
+    assert "committing in the background" in notices[0].message
 
 
 @pytest.mark.parametrize(

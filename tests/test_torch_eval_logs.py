@@ -286,7 +286,8 @@ def test_trainer_records(tmp_path, monkeypatch):
     with open(tmp_path / "results.csv") as f:
         rows = list(csv.DictReader(f))
     want = jax_logs.create_dict_result(args.to_container(), 1, 1, "cpu", 0.0, "x", 0.0)
-    assert set(rows[0]) == set(want) | {"skipped_rounds", "rollbacks", "provenance"}
+    assert set(rows[0]) == set(want) | {"skipped_rounds", "grad_norm_spikes", "grad_norm_drifts",
+                                        "rollbacks", "provenance"}
     assert rows[0]["device"] == "cpu" and rows[0]["provenance"] == "measured"
     assert float(rows[0]["Loss_final"]) == summary["final_loss"]
     (counts,) = os.listdir(tmp_path / "grad_counts")

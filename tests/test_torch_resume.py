@@ -14,9 +14,10 @@ ACCO's DPU warmup of the port's ``Trainer``.
   rank's optimizer shard and loader position restored), where a dp-1
   checkpoint is refused as another mesh.
 - The cadence: rounds read back every round and every 10 grads leave
-  the same state and the same logged values; the watchdog raises (or, with
-  ``rollback: false``, aborts) at the boundary that reads
-  ``rollback_after_skipped`` consecutive skips.
+  the same state and the same logged values; the watchdog escalates at the
+  boundary that reads ``rollback_after_skipped`` consecutive skips: a
+  rollback with nothing saved raises, ``rollback: false`` aborts (the
+  rollback itself: tests/test_torch_robustness.py).
 - The DPU warmup: the port's ``acco`` run with ``n_warmup_steps=2``
   against the JAX steps that ``acco_tpu/trainer.py:1137-1160`` runs (the
   DPU seed and 2 DPU rounds, ``round_idx`` reset, ACCO rounds) from the
@@ -159,15 +160,19 @@ def test_cadence_leaves_the_rounds_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("rollback, error, match", [
-    (True, NotImplementedError, r"rollback .*not ported yet: ROADMAP.md queue 1, item 8 "
-                                r"\(robustness\)"),
+    pytest.param(True, RuntimeError, "no complete checkpoint .* recovery needs save=True",
+                 id="True-NotImplementedError-rollback .*not ported yet: ROADMAP.md queue 1, "
+                    "item 8 \\(robustness\\)"),
     (False, RuntimeError, "rollback=False — aborting"),
 ])
 def test_watchdog_escalation_raises(tmp_path, rollback, error, match):
     """A grad-norm cap no round meets: every round is guard-skipped, and at
     the boundary that reads ``rollback_after_skipped`` (2) consecutive
-    skips the port raises where JAX would roll back (rollback: true) or
-    aborts as JAX does (rollback: false); nothing runs on in silence."""
+    skips the watchdog escalates. With ``rollback: true`` it rolls back,
+    and with ``save`` off there is no checkpoint to roll back to: a
+    RuntimeError, as JAX's ``test_escalation_without_checkpoint_raises``
+    (the case once raised NotImplementedError, and keeps that id);
+    ``rollback: false`` aborts as JAX does. Nothing runs on in silence."""
     trainer = _trainer("dpu", 8, tmp_path, guard_max_grad_norm=1e-12, rollback=rollback,
                        rollback_after_skipped=2, delta_step_for_log=1)
     with pytest.raises(error, match=match):
