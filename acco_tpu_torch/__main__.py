@@ -111,8 +111,11 @@ def _make_run_dir(pattern: str, cfg, mesh) -> str:
     return run_dir
 
 
-def build_trainer(argv: list[str], sequence_group=None, data_group=None):
+def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: bool = False):
     """Everything before the first round: device, config, model, data.
+    ``eager``: the rounds as eager PyTorch calls instead of the captured
+    programs (``compile/graphs.py``), for comparisons; no config key
+    selects it.
     For a run not launched on several ranks, ``sequence_group`` hands in a
     sequence group (an ``ops.ring_attention.SequenceGroup``): a one-rank
     group runs the context-parallel code, the ring included, with no hop;
@@ -173,7 +176,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     trainer = Trainer(
         model, tokenizer, train_texts, eval_texts, cfg.train, log,
         seed=int(cfg.select("seed", 12345)), device=device, mesh=mesh, run_dir=run_dir,
-        initial_params=initial_params,
+        initial_params=initial_params, eager=eager,
     )
     # train.fused_loss as the train path resolved it against the model
     # (parallel/common.make_flat_loss_fn, which logs any downgrade)
@@ -186,12 +189,13 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None):
     return trainer
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None, eager: bool = False) -> dict:
     """Train as the command line asks; returns the summary dict (on every
-    rank) and ends the process group this run started."""
+    rank) and ends the process group this run started (``eager``: see
+    :func:`build_trainer`)."""
     import torch.distributed as dist
 
-    trainer = build_trainer(sys.argv[1:] if argv is None else argv)
+    trainer = build_trainer(sys.argv[1:] if argv is None else argv, eager=eager)
     ranks = trainer.mesh.world_size > 1
     try:
         summary = trainer.train()

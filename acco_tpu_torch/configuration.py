@@ -14,8 +14,13 @@ composed config (the run dir's ``config.yaml``) in a form it reads back.
 
 :func:`check_supported` rejects, by name, the keys this port cannot run
 yet, pointing at the ROADMAP item that brings each. TPU-only knobs
-(``scan_unroll``, ``compile_cache_dir``, ``comm_impl``, ``prefetch*``,
-``warmup_compile``) are read and ignored.
+(``scan_unroll``, ``comm_impl``) are read and ignored. ``warmup_compile``
+takes JAX's meaning and default (true: the kernel libraries built in the
+background from the trainer's constructor on and every round program
+captured before the first round; ``compile/``). ``compile_cache_dir``
+is read and ignored: a CUDA graph cannot outlive its process, and the
+kernel libraries are already kept in ``build/`` by the hash of their
+sources and flags (``compile/cache.py``).
 """
 
 from __future__ import annotations

@@ -242,6 +242,7 @@ class PrefetchingBlockSource:
         self._consumed_state: Dict[str, int] = dict(loader.iter_state())
         self.last_wait_ms = 0.0
         self.wait_ms: list = []
+        self._cuda_calls = threading.Lock()
         self._prefetch = bool(prefetch) and depth > 0
         if self._prefetch:
             self._worker: Optional[AsyncPrefetcher] = AsyncPrefetcher(self._produce(),
@@ -258,7 +259,16 @@ class PrefetchingBlockSource:
             # the position after this block's batches: once the consumer
             # takes the block, its resume point
             state = dict(self._loader.iter_state())
-            yield self._put_block(stacked), state
+            with self._cuda_calls:
+                item = self._put_block(stacked)
+            yield item, state
+
+    def quiet(self):
+        """A context in which the worker makes no CUDA runtime call (it
+        waits before its next block's pinned buffers and copies): a CUDA
+        graph capture forbids another thread's unsafe calls while it
+        runs (``compile/graphs.py``)."""
+        return self._cuda_calls
 
     def next_block(self) -> Any:
         t0 = time.perf_counter()

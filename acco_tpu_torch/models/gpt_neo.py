@@ -69,6 +69,7 @@ from acco_tpu_torch.ops.ring_attention import (
     windowed_ring_attention,
     zigzag_positions,
 )
+from acco_tpu_torch.utils.platform import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,7 +266,9 @@ class GPTNeoModel(FlatParamModel):
             attend = self._attention_fn(L, attention_mask, input_ids.device)
             wpe = self.wpe[:L]
         else:
-            wpe = self.wpe[positions.to(input_ids.device, non_blocking=True)]
+            # the layout's host positions, on the card once (no copy in a
+            # captured round)
+            wpe = self.wpe[device_constant(positions, input_ids.device)]
         x = F.embedding(input_ids, self.wte) + wpe[None, :, :]
         layer = wrap_remat(self._layer, self.remat)
         for blk, window in zip(self.layers, cfg.layer_windows):

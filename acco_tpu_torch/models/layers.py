@@ -65,7 +65,9 @@ def wrap_remat(block, remat):
     def run(*args):
         if not torch.is_grad_enabled():
             return block(*args)
-        return checkpoint(block, *args, use_reentrant=False, **kw)
+        # no random draws in a layer (no dropout): the recompute needs no
+        # RNG state, whose fetch a captured round (compile/graphs.py) refuses
+        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return run
 

@@ -443,13 +443,18 @@ def block_attention_partial(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q_positions is not None:
-        # host positions go over without a sync: the ring's layouts are host
-        # tensors; for the kernels with their spans, computed where they lie
+        # the ring's layouts are host tensors: on the card each goes over
+        # once and stays (utils.platform.device_constant: no copy inside a
+        # captured round); for the kernels with their spans, computed on
+        # the host
+        from acco_tpu_torch.utils.platform import device_constant
+
         spans = q.device.type != "cpu" and supports_block_attention(
             q.shape[2], k.shape[2], q.shape[3])
         q_positions, kv_positions = (
-            (positions_with_spans(t) if spans else t.to(torch.int32)).to(q.device,
-                                                                          non_blocking=True)
+            device_constant(positions_with_spans(t) if spans else t.to(torch.int32), q.device)
+            if t.device.type == "cpu" else
+            (positions_with_spans(t) if spans else t.to(torch.int32))
             for t in (q_positions, kv_positions)
         )
     if q.device.type != "cpu":

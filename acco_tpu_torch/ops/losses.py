@@ -228,7 +228,7 @@ def chunked_causal_lm_loss(
     for c in range(n_chunks):
         s, n = checkpoint(
             _chunk_terms, h_in[:, c * lc:(c + 1) * lc], targets[:, c * lc:(c + 1) * lc],
-            lm_head, label_smoothing, use_reentrant=False,
+            lm_head, label_smoothing, use_reentrant=False, preserve_rng_state=False,
         )
         total, valid = total + s, valid + n
     return total / valid.clamp(min=1.0)

@@ -52,7 +52,15 @@ comm stream reuses, after the next round's fork. The state's buffers
 that the comm stream reads are held by the caller until the round has
 enqueued its join, which orders their next user on the current stream
 after the comm stream's reads. A speculative round stores no new
-optimizer state (``keep_state``). The comm branch's collectives run on process groups of their own
+optimizer state (``keep_state``).
+
+``into`` (a state of the same shapes, the other buffer set of a
+captured round, ``compile/graphs.py``): the round writes its new flat
+parameters, optimizer shard and pending gradients into those buffers
+instead of fresh ones; its inputs stay unwritten. ``branch_probe``
+(None, or ``probe(role)``), called at the head of each branch on its
+stream, lets the profile reader name the streams of a graph's replay
+(``telemetry/profile.py``). The comm branch's collectives run on process groups of their own
 (``RankGroups.comm_data``, ``comm_world``): on NCCL a communicator has
 one stream, and sharing one with the compute branch's collectives (the
 ring's hops, the loss metric, the verdict) would queue them behind each
@@ -144,6 +152,7 @@ class AccoTrainStep(FlatTrainStep):
             raise ValueError(f"mode must be 'acco' or 'dpu', got {mode!r}")
         super().__init__(model, schedule, **kwargs)
         self.mode = mode
+        self.branch_probe = None
         device = next(model.parameters()).device
         if device.type == "cuda":
             self.comm_stream = (comm_stream if comm_stream is not None
@@ -166,12 +175,16 @@ class AccoTrainStep(FlatTrainStep):
             health=init_health(device),
         )
 
-    def seed(self, state: AccoState, block: MicrobatchBlock):
+    def seed(self, state: AccoState, block: MicrobatchBlock, in_place: bool = False):
         """Compute-only round that fills the pending buffers before round 0.
         In ACCO mode round 0 (even) accumulates on top of these grads, so
         they also join round 1's real update; in DPU mode they are
-        committed once, by round 0."""
-        grad_sum, count, loss_wsum = self.accumulate(state.flat_params, block)
+        committed once, by round 0. ``in_place``: the grads are summed
+        into the state's own ``pending_grads`` (the live buffer set of the
+        captured rounds, ``compile/graphs.py``), which the seed does not
+        read."""
+        grad0 = state.pending_grads.zero_() if in_place else None
+        grad_sum, count, loss_wsum = self.accumulate(state.flat_params, block, grad_init=grad0)
         loss = self.mean_loss(loss_wsum, block.valid)
         health = state.health
         if self.nan_guard:
@@ -181,15 +194,23 @@ class AccoTrainStep(FlatTrainStep):
             pending_grads=grad_sum, pending_count=count.reshape(1), health=health
         ), loss
 
-    def _comm_branch(self, state: AccoState, commit: bool, alloc=None) -> _CommOut:
+    def _comm_branch(self, state: AccoState, commit: bool, alloc=None, into=None) -> _CommOut:
         """Consume ``pending_grads``: the count over dp, the sharded AdamW,
         the guard's selects and the commit. Reads the state, writes only
-        buffers it makes (its outputs through ``alloc``)."""
+        buffers it makes (its outputs through ``alloc``) or is handed
+        (``into``'s flat parameters and optimizer shard)."""
+        if self.branch_probe is not None:
+            self.branch_probe("comm")
         raw_total = self.total_count(state.pending_count[0])
         total = raw_total.clamp(min=1.0)
         lr = self.schedule(state.zero1.sched_grads)
+        # into: the new flat parameters and shard, and the reduce-scatter's
+        # output in the new shard's nu (dead until its chunk is written, each
+        # chunk read before: no third shard-sized buffer in the graph's pool)
         upd = self.update(state.pending_grads, state.zero1.opt, total, lr,
-                          keep_state=commit, alloc=alloc)
+                          keep_state=commit, alloc=alloc,
+                          into=None if into is None else (into.flat_params, into.zero1.opt,
+                                                          into.zero1.opt.nu))
         if self.nan_guard:
             new_flat, new_opt, uh = upd
             ok, grad_norm = uh.ok, uh.grad_norm
@@ -217,14 +238,24 @@ class AccoTrainStep(FlatTrainStep):
         )
         return _CommOut(raw_total, lr, new_flat, zero1, ok, grad_norm, is_real)
 
-    def _compute_branch(self, state: AccoState, block: MicrobatchBlock, speculative: bool):
+    def _compute_branch(self, state: AccoState, block: MicrobatchBlock, speculative: bool,
+                        into=None):
         """Grads at the current working params. Even ACCO rounds carry in
         the staged grads unless the guard judged them poisoned; odd and DPU
         rounds start from zero (a copy: accumulate_grads adds into it in
-        place)."""
+        place; ``into.pending_grads`` when given)."""
+        if self.branch_probe is not None:
+            self.branch_probe("compute")
         grad0 = count0 = None
+        if into is not None:
+            grad0 = into.pending_grads
+            if speculative:
+                grad0.copy_(state.pending_grads)
+            else:
+                grad0.zero_()
         if speculative:
-            grad0, count0 = state.pending_grads.clone(), state.pending_count[0]
+            grad0 = state.pending_grads.clone() if grad0 is None else grad0
+            count0 = state.pending_count[0]
             if self.nan_guard:
                 pok = state.health.pending_ok > 0
                 grad0 = _where(pok, grad0, torch.zeros((), device=grad0.device), into_new=True)
@@ -247,20 +278,22 @@ class AccoTrainStep(FlatTrainStep):
         done.record(stream)
         torch.cuda.current_stream(stream.device).wait_event(done)
 
-    def round(self, state: AccoState, block: MicrobatchBlock, parity: bool):
+    def round(self, state: AccoState, block: MicrobatchBlock, parity: bool, into=None):
         """One round; ``parity`` is True for an even round. The caller
         keeps it consistent with ``state.round_idx`` (the host knows it,
-        so the round never reads the counter back)."""
+        so the round never reads the counter back). ``into``: see the
+        module's doc."""
         speculative = self.mode == "acco" and bool(parity)
         stream = self.comm_stream
         if stream is None:
-            comm = self._comm_branch(state, not speculative)
+            comm = self._comm_branch(state, not speculative, into=into)
         else:
             alloc = _allocator(torch.cuda.current_stream(stream.device), stream)
             self._fork(stream)
             with torch.cuda.stream(stream):
-                comm = self._comm_branch(state, not speculative, alloc)
-        grad_sum, count, loss, pending_ok = self._compute_branch(state, block, speculative)
+                comm = self._comm_branch(state, not speculative, alloc, into)
+        grad_sum, count, loss, pending_ok = self._compute_branch(state, block, speculative,
+                                                                 into)
         if stream is not None:
             self._join(stream)
 

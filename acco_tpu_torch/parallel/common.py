@@ -310,8 +310,11 @@ class FlatTrainStep:
             return inc if commit else torch.zeros_like(inc)
         return torch.where(commit, inc, torch.zeros_like(inc))
 
-    def update(self, flat_grads, opt, total, lr, keep_state: bool = True, alloc=None):
-        """The sharded AdamW step over the comm group (see zero1)."""
+    def update(self, flat_grads, opt, total, lr, keep_state: bool = True, alloc=None,
+               into=None, in_place: bool = False):
+        """The sharded AdamW step over the comm group (see zero1; ``into``:
+        the buffers its new flat parameters and optimizer shard go to;
+        ``in_place``: over the old ones)."""
         from acco_tpu_torch.parallel.zero1 import zero1_update_shard
 
         return zero1_update_shard(
@@ -319,5 +322,6 @@ class FlatTrainStep:
             self.weight_decay, self.beta1, self.beta2, self.eps,
             out_dtype=self.model.dtype, with_health=self.nan_guard,
             max_grad_norm=self.guard_max_grad_norm, group=self.group("comm_world"),
-            shard_index=self.shard_index, keep_state=keep_state, alloc=alloc,
+            shard_index=self.shard_index, keep_state=keep_state, alloc=alloc, into=into,
+            in_place=in_place,
         )

@@ -47,27 +47,42 @@ class StepMetrics(NamedTuple):
 class DDPTrainStep(FlatTrainStep):
     """DDP steps for one model, on one rank or on the ranks of ``groups``."""
 
+    branch_probe = None  # see parallel/acco.py: DDP has the compute branch alone
+
     def init_state(self, flat_params: torch.Tensor) -> DDPState:
         """State from an [n_params] flat parameter vector (any float dtype)."""
         flat = self.geom.pad_flat(flat_params.to(self.model.dtype))
         return DDPState(flat_params=flat, zero1=self.init_zero1(flat_params),
                         health=init_health(flat.device))
 
-    def step(self, state: DDPState, block: MicrobatchBlock):
+    def step(self, state: DDPState, block: MicrobatchBlock, in_place: bool = False):
+        """One step. ``in_place``: the new flat parameters and optimizer
+        shard are written over the state's own (zero1's in-place step: the
+        guard's verdict first, then ``where(ok, new, old)``), so that a
+        captured step carries one buffer set (``compile/graphs.py``); the
+        same bits as the step into new buffers."""
+        if self.branch_probe is not None:
+            self.branch_probe("compute")
         grad_sum, count, loss_wsum = self.accumulate(state.flat_params, block)
         raw_total = self.total_count(count)
         total = raw_total.clamp(min=1.0)
         lr = self.schedule(state.zero1.sched_grads)
-        upd = self.update(grad_sum, state.zero1.opt, total, lr)
+        upd = self.update(grad_sum, state.zero1.opt, total, lr, in_place=in_place,
+                          into=(state.flat_params, None) if in_place else None)
         loss = self.mean_loss(loss_wsum, block.valid)
         if self.nan_guard:
             new_flat, new_opt, uh = upd
             ok = uh.ok
             skipped = ~ok
-            new_flat = torch.where(ok, new_flat, state.flat_params, out=new_flat)
-            new_opt = AdamWState(*(
-                torch.where(ok, new, old, out=new) for new, old in zip(new_opt, state.zero1.opt)
-            ))
+            if in_place:  # selected chunk by chunk already; the count here
+                new_opt = new_opt._replace(count=torch.where(ok, new_opt.count,
+                                                             state.zero1.opt.count))
+            else:
+                new_flat = torch.where(ok, new_flat, state.flat_params, out=new_flat)
+                new_opt = AdamWState(*(
+                    torch.where(ok, new, old, out=new)
+                    for new, old in zip(new_opt, state.zero1.opt)
+                ))
             sched_inc = self.sched_increment(total, ok)
             committed = torch.where(ok, raw_total, torch.zeros_like(raw_total))
             grad_norm = uh.grad_norm

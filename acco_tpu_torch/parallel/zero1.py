@@ -97,6 +97,8 @@ def zero1_update_shard(
     shard_index: Optional[int] = None,
     keep_state: bool = True,
     alloc: Optional[Callable[[int, torch.dtype], torch.Tensor]] = None,
+    into: Optional[tuple] = None,
+    in_place: bool = False,
 ):
     """One sharded AdamW step: reduce-scatter (sum) over ``group`` ->
     average by the grad count -> AdamW on this rank's float32 shard ->
@@ -114,7 +116,21 @@ def zero1_update_shard(
     are written, as XLA drops the dead outputs in JAX. ``alloc(numel,
     dtype)`` makes the shard-sized buffers, the returned ones and the
     reduce-scatter's output (default: ``torch.empty`` on the gradient's
-    device); the chunks' temporaries come from ``torch.empty``."""
+    device); the chunks' temporaries come from ``torch.empty``.
+    ``into`` ``(flat [padded_size] out_dtype, AdamWState[, scatter])``:
+    buffers of the caller's that the returned flat parameters and (with
+    ``keep_state``) the new moments and master parameters are written
+    into instead (a captured round's next buffer set, ``compile/graphs.py``),
+    and the reduce-scatter's [S] float32 output, which may be one of the
+    new shard's buffers: each chunk of it is read before that chunk of
+    the shard is written. None may be an input. ``in_place`` (``into`` the flat parameters
+    the gradients came from, ``(flat, None)``): the step writes its new
+    flat parameters and optimizer shard over the old ones, where the
+    update is healthy (with ``with_health`` a first pass over the chunks
+    computes the verdict and writes nothing; the second writes
+    ``where(ok, new, old)``, the same bits as a step into new buffers
+    followed by the caller's select). A captured DDP step carries one
+    buffer set so (``compile/graphs.py``)."""
     if group is None and geom.world_size != 1:
         raise ValueError(f"a world of {geom.world_size} ranks needs a process group")
     import torch.distributed as dist
@@ -123,7 +139,7 @@ def zero1_update_shard(
     device = flat_grads.device
     empty = alloc or (lambda n, dtype: torch.empty(n, dtype=dtype, device=device))
     if group is not None:
-        grads = empty(S, torch.float32)
+        grads = into[2] if into is not None and len(into) > 2 else empty(S, torch.float32)
         dist.reduce_scatter_tensor(grads, flat_grads.float(), op=dist.ReduceOp.SUM, group=group)
         flat_grads = grads
     # AdamW runs chunk by chunk into fresh output buffers: the same
@@ -138,18 +154,24 @@ def zero1_update_shard(
         raise ValueError(f"shard {shard_index} would receive the reduce-scatter's chunk "
                          f"{in_group}: the group's ranks are not in dp x sp order")
     pad_mask = geom.shard_pad_mask(shard_index, device)
+    into_flat, into_opt = into[:2] if into is not None else (None, None)
     if group is not None:  # the shard is written in place of the all-gather's slice
-        gathered = empty(geom.padded_size, out_dtype)
+        gathered = into_flat if into_flat is not None else empty(geom.padded_size, out_dtype)
         new_flat = gathered[shard_index * S:(shard_index + 1) * S]
     else:
-        new_flat = empty(S, out_dtype)
+        new_flat = into_flat if into_flat is not None else empty(S, out_dtype)
     out = opt_shard
-    if keep_state:
-        out = AdamWState(*(empty(S, torch.float32) for _ in range(3)),
-                         count=opt_shard.count + 1)
+    if in_place:
+        if not keep_state:
+            raise ValueError("an in-place step keeps its state")
+        out = opt_shard._replace(count=opt_shard.count + 1)
+    elif keep_state:
+        bufs = (into_opt[:3] if into_opt is not None
+                else [empty(S, torch.float32) for _ in range(3)])
+        out = AdamWState(*bufs, count=opt_shard.count + 1)
     zero = torch.zeros((), device=flat_grads.device)
-    grad_ss, param_ss = zero, zero
-    for lo in range(0, S, CHUNK):
+
+    def chunk(lo: int):
         c = slice(lo, min(lo + CHUNK, S))
         grad_shard = flat_grads[c].float() / grad_divisor.float()
         mask = None if pad_mask is None else pad_mask[c]
@@ -158,28 +180,51 @@ def zero1_update_shard(
             grad_shard, lr=lr, weight_decay=weight_decay,
             beta1=beta1, beta2=beta2, eps=eps, pad_mask=mask,
         )
+        return c, grad_shard, mask, upd
+
+    def add_health(sums, grad_shard, mask, prm):
+        # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
+        g = grad_shard
+        if mask is not None:
+            real = mask > 0
+            g, prm = torch.where(real, g, zero), torch.where(real, prm, zero)
+        return sums[0] + g.square().sum(), sums[1] + prm.square().sum()
+
+    def verdict(grad_ss, param_ss):
+        if group is not None:  # the shards partition the vector: one [2] all-reduce
+            sums = torch.stack([grad_ss, param_ss])
+            dist.all_reduce(sums, group=group)
+            grad_ss, param_ss = sums[0], sums[1]
+        ok = torch.isfinite(grad_ss) & torch.isfinite(param_ss)
+        if max_grad_norm and max_grad_norm > 0:
+            ok = ok & (grad_ss <= float(max_grad_norm) ** 2)
+        return grad_ss, ok
+
+    sums, ok = (zero, zero), None
+    if in_place and with_health:  # the verdict first: the writes below are final
+        for lo in range(0, S, CHUNK):
+            _, grad_shard, mask, upd = chunk(lo)
+            sums = add_health(sums, grad_shard, mask, upd.params)
+        grad_ss, ok = verdict(*sums)
+    for lo in range(0, S, CHUNK):
+        c, grad_shard, mask, upd = chunk(lo)
+        if in_place:
+            for dst, src in zip(out[:3], upd[:3]):
+                dst[c] = src if ok is None else torch.where(ok, src, dst[c])
+            new = upd.params.to(out_dtype)
+            new_flat[c] = new if ok is None else torch.where(ok, new, new_flat[c])
+            continue
         if keep_state:
             for dst, src in zip(out[:3], upd[:3]):
                 dst[c] = src
         new_flat[c] = upd.params.to(out_dtype)
         if with_health:
-            # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
-            g, prm = grad_shard, upd.params
-            if mask is not None:
-                real = mask > 0
-                g, prm = torch.where(real, g, zero), torch.where(real, prm, zero)
-            grad_ss = grad_ss + g.square().sum()
-            param_ss = param_ss + prm.square().sum()
+            sums = add_health(sums, grad_shard, mask, upd.params)
     if group is not None:
         dist.all_gather_into_tensor(gathered, new_flat, group=group)
         new_flat = gathered
     if not with_health:
         return new_flat, out
-    if group is not None:  # the shards partition the vector: one [2] all-reduce
-        sums = torch.stack([grad_ss, param_ss])
-        dist.all_reduce(sums, group=group)
-        grad_ss, param_ss = sums[0], sums[1]
-    ok = torch.isfinite(grad_ss) & torch.isfinite(param_ss)
-    if max_grad_norm and max_grad_norm > 0:
-        ok = ok & (grad_ss <= float(max_grad_norm) ** 2)
+    if ok is None:
+        grad_ss, ok = verdict(*sums)
     return new_flat, out, UpdateHealth(ok=ok, grad_norm=grad_ss.sqrt())

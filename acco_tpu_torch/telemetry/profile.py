@@ -30,6 +30,20 @@ activity and its share (``measured_overlap_pct``), the union of every
 stream's activity, and the device's idle share, 1 - union / the window's
 wall time (the wall time includes the profiler's own host cost).
 
+A captured round (``compile/graphs.py``) replays as one graph launch,
+and its kernels report streams of the graph's own, which no eager probe
+named (on an H100 with CUDA 12.8: mostly the comm branch on the
+launching stream and the compute branch on a stream of each graph's
+own, but not always). Under ``profile_steps`` the graph therefore
+carries probes of its own: one spin kernel at the head of the compute
+branch, two in a row at the head of the comm branch
+(``compile.graphs.spin_probe``). A spin kernel that carries a
+``cudaGraphLaunch``'s correlation is a graph's; on each stream it opens
+a segment of its branch's side, which holds the stream's later events
+up to the next graph probe (:func:`graph_sides`). These segments come
+before the streams' names; ``streams_ms`` marks such a stream
+``graph:<stream>``.
+
 On the CPU there is no device activity: the summary says so
 (``{"device": "cpu", ...}``) and invents no share.
 """
@@ -139,6 +153,42 @@ def stream_roles(events: list) -> Dict[Any, str]:
     return roles
 
 
+def graph_sides(events: list) -> Dict[int, str]:
+    """Index in ``events`` of each device event that a graph's probe
+    names -> its side (see the module's doc): on each stream, in time
+    order, a spin kernel of a graph launch (its correlation a
+    ``cudaGraphLaunch``'s) alone opens a compute segment, two in a row a
+    comm segment, and every later event of that stream belongs to the
+    open segment. A replay's branch may run on any of the graph's
+    streams, and one stream may carry both branches in turn."""
+    graph_corr = {_args(e).get("correlation") for e in events
+                  if e.get("cat") == "cuda_runtime" and "GraphLaunch" in str(e.get("name", ""))}
+    on_stream: Dict[Any, list] = {}
+    for i, e in enumerate(events):
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
+            spin = ("spin_kernel" in str(e.get("name", ""))
+                    and _args(e).get("correlation") in graph_corr)
+            on_stream.setdefault(_args(e).get("stream", e.get("tid")), []).append(
+                (float(e["ts"]), i, spin))
+    sides: Dict[int, str] = {}
+    for seq in on_stream.values():
+        seq.sort()
+        side, j = None, 0
+        while j < len(seq):
+            _, i, spin = seq[j]
+            if spin:
+                pair = j + 1 < len(seq) and seq[j + 1][2]
+                side = "comm" if pair else "compute"
+                if pair:
+                    sides[i] = side
+                    j += 1
+                    i = seq[j][1]
+            if side is not None:
+                sides[i] = side
+            j += 1
+    return sides
+
+
 def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -> dict:
     """The device's activity in a Chrome trace's ``events`` by side, per
     round (``rounds`` rounds in the window): ``compute_ms`` (the stream
@@ -148,18 +198,22 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
     ``comm_under_compute_ms`` and its share ``measured_overlap_pct``,
     ``copy_ms`` (the stream probed as 'copy' and unprobed streams with
     copies only: the prefetch copies, a snapshot's), ``union_ms`` (every
-    stream) and, given
+    stream), ``kernels``, ``kernel_launch_calls`` and ``graph_launches``
+    a round and, given
     the window's ``wall_ms``, ``idle_share``. ``streams_ms``: each
     stream's busy ms a round with its role. A trace with no device
     activity gives ``{"device": "cpu"}``."""
     by_stream: Dict[Any, list] = {}
     nccl = set()
-    for e in events:
+    device = []  # (index, stream, interval) of each device event
+    for i, e in enumerate(events):
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
         stream = _args(e).get("stream", e.get("tid"))
         beg = float(e["ts"])
-        by_stream.setdefault(stream, []).append((beg, beg + float(e.get("dur", 0))))
+        iv = (beg, beg + float(e.get("dur", 0)))
+        by_stream.setdefault(stream, []).append(iv)
+        device.append((i, stream, iv))
         if e.get("cat") == "kernel" and "nccl" in str(e.get("name", "")).lower():
             nccl.add(stream)
     if not by_stream:
@@ -167,6 +221,7 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
     merged = {k: _union(v) for k, v in by_stream.items()}
     busy = {k: _measure(v) / 1e3 for k, v in merged.items()}
     roles = stream_roles(events)
+    graph = graph_sides(events)
     compute = [k for k, r in roles.items() if r == "compute" and k in merged]
     if not compute:
         compute = [max(busy, key=busy.get)]
@@ -183,13 +238,21 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
             side[k] = "comm"  # another stream that computes: the comm side
         else:
             side[k] = "copy"  # the copy stream(s): copies only
+    replayed = {stream for i, stream, _ in device if i in graph}
 
     def union_of(which: str) -> list:
-        return _union([iv for k, v in merged.items() if side[k] == which for iv in v])
+        # an event a graph's probe names takes its segment's side, any other
+        # its stream's
+        return _union([iv for i, k, iv in device if graph.get(i, side[k]) == which])
 
     comp, comm, copy = union_of("compute"), union_of("comm"), union_of("copy")
     everything = _union([iv for v in merged.values() for iv in v])
     n = max(1, int(rounds))
+    # the host's launches: kernel launch calls and graph launches (a
+    # captured round is one), and the kernels the device ran
+    calls = [str(e.get("name", "")) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"]
+    n_kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
     comm_ms = _measure(comm) / 1e3
     under_ms = _intersect(comm, comp) / 1e3
     union_ms = _measure(everything) / 1e3
@@ -202,8 +265,11 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
         "measured_overlap_pct": 100.0 * under_ms / comm_ms if comm_ms > 0 else None,
         "copy_ms": _measure(copy) / 1e3 / n,
         "union_ms": union_ms / n,
-        "streams_ms": {f"{side[k]}:{k}": busy[k] / n
+        "streams_ms": {f"{'graph' if k in replayed else side[k]}:{k}": busy[k] / n
                        for k in sorted(busy, key=lambda k: -busy[k])},
+        "kernels": n_kernels / n,
+        "kernel_launch_calls": sum("LaunchKernel" in c for c in calls) / n,
+        "graph_launches": sum("GraphLaunch" in c for c in calls) / n,
     }
     if wall_ms is not None and wall_ms > 0:
         out["wall_ms"] = wall_ms / n

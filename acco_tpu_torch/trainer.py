@@ -79,10 +79,25 @@ A run that survives (JAX: trainer.py:976-1016, :2029-2143):
 - Telemetry (``telemetry/``): the rank-0 span tracer
   (``telemetry.enabled``; ``trace_<id_run>.json`` in the run dir), the
   declared metrics, the per-round attribution closed at each boundary
-  (the summary's ``attribution``), and ``profile_steps`` steady-state
+  (the summary's ``attribution``; a window's wall runs from one
+  boundary's read to the next), and ``profile_steps`` steady-state
   rounds under ``torch.profiler`` (``profile/``, the summary's
   ``profile``). The tracer, the metrics and the attribution read nothing
   of the device; the profiled window synchronizes at its two ends.
+
+The rounds as programs (``compile/``, JAX: the jitted round programs
+and ``compile/warmup.py``): on a card every steady-state round of acco,
+dpu and ddp is a CUDA graph captured once and replayed
+(``compile/graphs.py``), over two buffer sets that carry the state with
+no per-round copy, a static block and per-round metric slots; the eval
+step too. ``warmup_compile`` (default true) builds the run's kernel
+libraries on threads from the constructor on, beside tokenization, and
+captures every program before the first round; false builds at first
+use and captures each program after its first round. The seed round and
+ACCO's DPU warm-up rounds run once each and uncaptured. On the CPU the
+same buffer-set code runs uncaptured. ``eager=True`` (a Python argument
+of :class:`Trainer`, never a config key) runs the rounds as before, for
+comparisons.
 
 ACCO with ``n_warmup_steps > 0`` first runs the seed round and that many
 DPU rounds on a DPU view of its step, then resets ``round_idx`` to 0 so
@@ -100,6 +115,9 @@ import time
 import numpy as np
 import torch
 
+from acco_tpu_torch.compile.cache import cache_stats, libraries_for
+from acco_tpu_torch.compile.graphs import EvalPrograms, RoundPrograms
+from acco_tpu_torch.compile.warmup import CompileWarmup, WarmupReport
 from acco_tpu_torch.data.loader import ShardedBatchIterator, shard_dataset
 from acco_tpu_torch.data.prefetch import AsyncPrefetcher, block_copier, block_source
 from acco_tpu_torch.ops.attention import resolve_attention_impl
@@ -125,8 +143,13 @@ from acco_tpu_torch.utils import logs
 class Trainer:
     def __init__(self, model, tokenizer, train_texts, eval_texts, args, log=None,
                  seed: int = 0, device="cpu", mesh=None, run_dir: str = ".",
-                 initial_params=None, shutdown_handler=None):
+                 initial_params=None, shutdown_handler=None, eager: bool = False):
+        self._t_init = time.perf_counter()
         self.log = log or logging.getLogger("acco_tpu_torch")
+        # eager=True: the rounds as eager PyTorch calls, for comparisons
+        # (never from the config); else the buffer-set programs, captured
+        # on a card (compile/graphs.py)
+        self.eager = bool(eager)
         self.model = model
         self.args = args
         self.device = torch.device(device)
@@ -195,6 +218,20 @@ class Trainer:
         self.world_size = 1 if g is None else g.world_size
         self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
         self.eos_token_id = int(tokenizer.eos_token_id)
+        # the attention impl the model's (global) layers run at this length
+        self.attention = resolve_attention_impl(
+            model.attention, self.max_length, model.config.head_dim, self.device,
+            getattr(model, "remat", False),
+        )
+        # the kernel libraries built in the background from here on, beside
+        # the data section (JAX: trainer.py:423-431)
+        self.warmup_compile = bool(args.get("warmup_compile", True))
+        self.libraries = libraries_for(
+            self.attention, self.step.value_and_grad.fused_loss,
+            local_layers="local" in tuple(getattr(model.config, "attention_layers", ())),
+            const_len=self.const_len_batch)
+        self._warmup = (CompileWarmup(self.libraries, log=self.log)
+                        if self.warmup_compile and self.device.type == "cuda" else None)
         rows = self._rows(train_texts, tokenizer)
         self.loader = ShardedBatchIterator(
             rows, self.batch_size, self.max_length, pad_token_id=self.pad_token_id, seed=seed,
@@ -209,11 +246,6 @@ class Trainer:
                                  pad_token_id=self.pad_token_id, shuffle=False,
                                  drop_last=False)
             if len(self.eval_rows) else None
-        )
-        # the attention impl the model's (global) layers run at this length
-        self.attention = resolve_attention_impl(
-            model.attention, self.max_length, model.config.head_dim, self.device,
-            getattr(model, "remat", False),
         )
 
         self.n_warmup = int(args.get("n_warmup_steps", 0) or 0)
@@ -267,6 +299,10 @@ class Trainer:
         self.save_ms: list = []
         self.restore_ms = None
         self.source = None  # the round loop's block source (train() closes it)
+        self.programs = None  # the round programs (compile/graphs.py), eager: None
+        self.eval_programs = None
+        self.compile_report = None
+        self._report = None
 
     def _rows(self, texts, tokenizer):
         """This dp index's texts (JAX: trainer.py:434-441), packed
@@ -364,6 +400,12 @@ class Trainer:
         finally:
             if self.source is not None:  # kept, closed: its iter_state stays readable
                 self.source.close()
+            # the graphs' memory back to the allocator; the final state stays
+            if self.programs is not None:
+                self.compile_report = self._compile_report()
+                self.programs.release()
+            if self.eval_programs is not None:
+                self.eval_programs.release()
             # the last commit on disk; its error raised here unless the run
             # is already unwinding another one
             self.ckpt_manager.close(raise_errors=ok)
@@ -402,6 +444,8 @@ class Trainer:
         rounds_done = int(meta["rounds_done"])
         if "loader" in meta:
             self.loader.set_state(meta["loader"])
+        # the background builds joined, the buffer sets made
+        state = self._compile(state)
         # made after the restore, so the worker starts at the restored
         # position (JAX: trainer.py:1110-1120)
         self.source = self._block_source()
@@ -416,21 +460,32 @@ class Trainer:
                 # real update, so the last warmup round's grads are kept
                 warm = copy.copy(self.step)
                 warm.mode = "dpu"
-                state, loss = warm.seed(state, self._next_block())
+                state, loss = warm.seed(state, self._next_block(),
+                                        in_place=self.programs is not None)
                 losses = [loss]
                 for _ in range(self.n_warmup):
-                    state, m = warm.round(state, self._next_block(), parity=False)
+                    if self.programs is not None:  # over the buffer sets, uncaptured
+                        self.programs.adopt(state)
+                        state, m, _ = self.programs.run_uncaptured(warm, self._next_block(),
+                                                                   False)
+                    else:
+                        state, m = warm.round(state, self._next_block(), parity=False)
                     losses.append(m.loss)
                     count_grad_tot += self.grads_per_round
                 state = state._replace(round_idx=torch.zeros_like(state.round_idx))
             else:
-                state, loss = self.step.seed(state, self._next_block())
+                state, loss = self.step.seed(state, self._next_block(),
+                                             in_place=self.programs is not None)
                 losses = [loss]
             seed_loss, *warmup_losses = torch.stack(losses).float().tolist()  # one read
             self.log.info("seed round: loss %.4f", seed_loss)
+            if self.programs is not None:  # into the live buffers
+                self.programs.adopt(state)
+                state = self.programs.state
         # host mirror of state.round_idx (ACCO's parity); DDP counts steps;
         # the watchdog anchored to the (resumed) skip counter (JAX: :1200-1213)
         round_idx, skipped_before, consec = self._host_counters(state, rounds_done)
+        self._capture_programs(round_idx % 2 == 0)
         self.monitor = TrainingHealthMonitor(escalate_after=self.rollback_after_skipped,
                                              log=self.log)
         self.monitor.last_skipped_rounds = skipped_before
@@ -440,8 +495,11 @@ class Trainer:
         injector = self.fault_injector
         # profile_steps rounds after ACCO's two first rounds (even, odd)
         # or DPU's/DDP's first, whose kernels build at first use
+        skip = 2 if self.method == "acco" else 1
+        if self.programs is not None and self.programs.capture_on and not self.warmup_compile:
+            skip = 4 if self.method == "acco" else 2  # past the lazy captures
         self.profiler = RoundProfiler(
-            self.profile_steps, 2 if self.method == "acco" else 1,
+            self.profile_steps, skip,
             os.path.join(self.run_dir, "profile"), self.device, rank=self.rank,
             name=f"rounds_{self.id_run}", log=self.log)
 
@@ -451,7 +509,12 @@ class Trainer:
         round_log, eval_log, unread = [], [], []
         round_wall_ms: list = []
         window_mark = 0  # round_wall_ms index of the open attribution window
+        # the open window's start: a window's wall runs fence to fence, so
+        # that it holds its closing read, which the host may wait on for
+        # many rounds of device work when it runs ahead (captured rounds)
+        t_window = time.perf_counter()
         interrupted = False
+        t_first_round = None  # the first round read back: the startup's end
         t_last_round = time.perf_counter()
         last_round_end_us = None
         while True:
@@ -470,8 +533,15 @@ class Trainer:
             ts_fetch = tracer.now_us()
             if injector is not None and injector.pending:
                 # a drill: poison the block or the state between rounds
+                # (a poisoned state is written into the live buffers)
                 state, block = injector.apply(rounds_this_run, state, block)
-            if self.method == "ddp":
+                if self.programs is not None:
+                    self.programs.adopt(state)
+                    state = self.programs.state
+            if self.programs is not None:
+                state, m, real = self.programs.run(block, round_idx % 2 == 0,
+                                                   quiet=self.source.quiet)
+            elif self.method == "ddp":
                 state, m = self.step.step(state, block)
                 real = ~m.skipped
             else:
@@ -525,6 +595,8 @@ class Trainer:
                 t_sync = time.perf_counter()
                 committed, consec, grad_norm, skipped_rounds = self._read_rounds(
                     unread, state, round_log)
+                if t_first_round is None:
+                    t_first_round = time.perf_counter()
                 sync_ms = (time.perf_counter() - t_sync) * 1e3
                 metrics.emit("train_log_sync_ms", sync_ms)
                 tracer.complete_event("train/log_boundary_sync", sync_ms, cat="train")
@@ -532,8 +604,9 @@ class Trainer:
                 # that read is the sync fence: close the attribution window
                 n_since = len(round_wall_ms) - window_mark
                 if n_since > 0:
-                    attrib.boundary(n_since, sum(round_wall_ms[window_mark:]))
-                    window_mark = len(round_wall_ms)
+                    t_fence = time.perf_counter()
+                    attrib.boundary(n_since, (t_fence - t_window) * 1e3)
+                    window_mark, t_window = len(round_wall_ms), t_fence
                 count_grad_tot = committed
                 loss = round_log[-1]["loss"]
                 metrics.emit("train_loss", loss)
@@ -608,11 +681,13 @@ class Trainer:
         if unread:
             t_sync = time.perf_counter()
             count_grad_tot, consec, _, _ = self._read_rounds(unread, state, round_log)
+            if t_first_round is None:
+                t_first_round = time.perf_counter()
             # the final read is the last fence: close the window it drained
             attrib.note("host_stall", (time.perf_counter() - t_sync) * 1e3)
         n_since = len(round_wall_ms) - window_mark
         if n_since > 0:
-            attrib.boundary(n_since, sum(round_wall_ms[window_mark:]))
+            attrib.boundary(n_since, (time.perf_counter() - t_window) * 1e3)
         total_time = time.time() - t_beg
         final_loss = round_log[-1]["loss"] if round_log else seed_loss
         checkpoint = None
@@ -694,7 +769,80 @@ class Trainer:
             "attribution": report,
             "trace": trace,
             "profile": profile,
+            # the round programs: captured (a card), buffer sets uncaptured
+            # (the CPU) or eager; the builds and captures, and the time from
+            # the constructor to the first round read back
+            "rounds_as": ("eager" if self.programs is None else
+                          "captured" if self.programs.capture_on else "buffer_sets"),
+            "compile_report": self._compile_report() if self._report is not None else None,
+            "init_to_first_round_s": (None if t_first_round is None
+                                      else t_first_round - self._t_init),
         }
+
+    def _compile(self, state):
+        """Join the background builds (JAX: ``join_warmup``,
+        trainer.py:890-935) and make the round programs around ``state``
+        (the buffer sets; the eval step's, when this run evaluates).
+        Returns the live state."""
+        t0 = time.perf_counter()
+        self._report = self._warmup.join() if self._warmup is not None else WarmupReport()
+        if not self.eager:
+            cuda = self.device.type == "cuda"
+            self.programs = RoundPrograms(
+                self.step, state, self._block_shapes(self.n_acc), capture=cuda,
+                probe=self.profile_steps > 0 and self.rank == 0)
+            state = self.programs.state
+            if self.do_eval and self.eval_every:
+                one = self._block_shapes(1)
+                self.eval_programs = EvalPrograms(
+                    self._eval_sums, (one[0][1:], one[1][1:], one[2][1:], (1,)), self.device,
+                    capture=cuda)
+        self._warmup_join_ms = (time.perf_counter() - t0) * 1e3
+        return state
+
+    def _capture_programs(self, parity: bool) -> None:
+        """With ``warmup_compile`` on a card: every program of the round
+        cycle that starts with a round of ``parity``, and the eval step's,
+        warmed up and captured before the first round, the block source's
+        worker held off the CUDA runtime (a capture forbids another
+        thread's unsafe calls). Then ``train_warmup_join_ms`` (the builds'
+        join and the captures), the span ``compile/warmup_join`` and the
+        report into ``compile_report``."""
+        t0 = time.perf_counter()
+        programs = self.programs
+        if programs is not None and programs.capture_on and self.warmup_compile:
+            with self.source.quiet():
+                programs.prepare(parity)
+                if self.eval_programs is not None:
+                    self.eval_programs.prepare([s[0] for s in programs.sets])
+        join_ms = self._warmup_join_ms = self._warmup_join_ms + (time.perf_counter() - t0) * 1e3
+        metrics.emit("train_warmup_join_ms", join_ms)
+        self.tracer.complete_event("compile/warmup_join", join_ms, cat="compile")
+        self.compile_report = self._compile_report()
+        for name, r in self.compile_report["programs"].items():
+            self.log.info("capture[%s]: warm-up %.0f ms, capture %.0f ms", name,
+                          r["warmup_ms"] or 0.0, r["capture_ms"] or 0.0)
+
+    def _compile_report(self) -> dict:
+        """The summary's ``compile_report``: the builds, each program's
+        warm-up and capture ms (those captured so far), the warm-up's
+        launches, the build cache's counters."""
+        records = {**(self.programs.records if self.programs is not None else {}),
+                   **(self.eval_programs.records if self.eval_programs is not None else {})}
+        out = {**self._report.as_dict(),
+               "programs": {n: dict(vars(r)) for n, r in records.items()}}
+        if self.programs is not None:  # not counted as the rounds' launches
+            out["warmup_launches"] = dict(self.programs.warmup_launches)
+        out.update(warmup_compile=self.warmup_compile, libraries_for=list(self.libraries),
+                   cache=cache_stats(), warmup_join_ms=self._warmup_join_ms)
+        return out
+
+    def _block_shapes(self, n_acc: int) -> tuple:
+        """The shapes of a round's block after this rank's sequence cut,
+        in ``MicrobatchBlock``'s order."""
+        sp = 1 if self.sequence_group is None else self.sequence_group.size
+        tokens = (n_acc, self.batch_size, self.max_length // sp)
+        return tokens, tokens, tokens, (n_acc,)
 
     def _block_source(self):
         return block_source(self.loader, self.n_acc, self.device, self.prefetch_depth,
@@ -847,12 +995,9 @@ class Trainer:
     def evaluate(self, flat_params: torch.Tensor) -> float:
         """Mean eval loss over the eval batches (JAX: trainer.py:1963): per
         batch the global token-weighted mean, the masked nll sum and the
-        target count each summed over dp x sp, through ``model_ce`` (K3's
-        forward alone under fused_loss='pallas'); the batch count is the
-        least whole-batch count of any rank. The loss form is the train
-        path's verdict; the chunked loss, which has no nll-sum form
-        (``num_valid``), gives its mean times the count. Runs under
-        ``no_grad``."""
+        target count each summed over dp x sp (:meth:`_eval_sums`, a
+        captured program on a card unless ``eager``); the batch count is
+        the least whole-batch count of any rank. Runs under ``no_grad``."""
         if self.eval_loader is None:
             return float("nan")
         n_batches = torch.tensor(len(self.eval_rows) // self.batch_size, device=self.device)
@@ -860,34 +1005,51 @@ class Trainer:
             import torch.distributed as dist
 
             dist.all_reduce(n_batches, op=dist.ReduceOp.MIN, group=self.world)
-        model, fused = self.model, self.step.value_and_grad.fused_loss
-        real_vocab = real_vocab_of(model)
-        cp = self.sequence_group is not None
-        model.load_flat(flat_params)
+        model = self.model
+        step = self.eval_programs
+        if step is not None and step.capture_on:
+            # captured before the eval's worker starts, the round source's
+            # worker held off the CUDA runtime (see _compile)
+            with self.source.quiet():
+                step.prepare([flat_params])
         losses = []
         with torch.no_grad():
             for blk in self._eval_blocks(int(n_batches)):
                 blk = prep_cp_leaves(blk, self.sequence_group, getattr(model, "zigzag", False))
-                if cp:  # labels shifted on the global sequence (JAX: :1888-1901)
-                    am, shift, count = None, False, (blk.labels != IGNORE_INDEX).sum()
-                else:  # dense (JAX: :1930-1944)
-                    am = None if self.const_len_batch else blk.attention_mask
-                    shift, count = True, (blk.labels[:, 1:] != IGNORE_INDEX).sum()
-                count = count.float()
-                kw = dict(label_smoothing=self.label_smoothing, real_vocab=real_vocab, shift=shift)
-                if fused == "chunk":
-                    nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
-                                       **kw) * count
-                else:
-                    nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
-                                       num_valid=torch.ones((), device=self.device), **kw)
-                sums = torch.stack([nll_sum.float(), count])
-                if self.world is not None:
-                    import torch.distributed as dist
-
-                    dist.all_reduce(sums, group=self.world)
+                sums = (self._eval_sums(flat_params, blk) if step is None
+                        else step(flat_params, blk))
                 losses.append(float(sums[0] / sums[1].clamp(min=1.0)))
         return float(np.mean(losses)) if losses else float("nan")
+
+    def _eval_sums(self, flat_params: torch.Tensor, blk) -> torch.Tensor:
+        """One eval batch (its sequence cut made): ``[nll sum, target
+        count]`` summed over dp x sp, through ``model_ce`` (K3's forward
+        alone under fused_loss='pallas'). The loss form is the train
+        path's verdict; the chunked loss, which has no nll-sum form
+        (``num_valid``), gives its mean times the count."""
+        model, fused = self.model, self.step.value_and_grad.fused_loss
+        model.load_flat(flat_params)
+        with torch.no_grad():
+            if self.sequence_group is not None:  # labels shifted globally (JAX: :1888-1901)
+                am, shift, count = None, False, (blk.labels != IGNORE_INDEX).sum()
+            else:  # dense (JAX: :1930-1944)
+                am = None if self.const_len_batch else blk.attention_mask
+                shift, count = True, (blk.labels[:, 1:] != IGNORE_INDEX).sum()
+            count = count.float()
+            kw = dict(label_smoothing=self.label_smoothing, real_vocab=real_vocab_of(model),
+                      shift=shift)
+            if fused == "chunk":
+                nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
+                                   **kw) * count
+            else:
+                nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
+                                   num_valid=torch.ones((), device=self.device), **kw)
+            sums = torch.stack([nll_sum.float(), count])
+            if self.world is not None:
+                import torch.distributed as dist
+
+                dist.all_reduce(sums, group=self.world)
+        return sums
 
     def _eval_blocks(self, n_batches: int):
         """The first ``n_batches`` eval batches as one-microbatch blocks on

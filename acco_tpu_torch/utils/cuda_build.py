@@ -13,10 +13,10 @@ import time: the CPU tests import every module on a machine without
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,10 +28,15 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# name -> {"path", "seconds", "log"}: what the last build of each library
-# did (``log`` holds nvcc's and ptxas's output: registers, spills).
+# name -> {"path", "seconds", "log", "cached"}: what the last build of each
+# library did (``log`` holds nvcc's and ptxas's output: registers, spills;
+# ``cached``: the library was already in ``build/``, nothing ran).
 BUILD_INFO: dict[str, dict] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
+# one build of a library at a time (the compile warmup's threads and a
+# first use may ask for the same one)
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -51,15 +56,21 @@ def find_nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
-    of the headers beside it) exists."""
+    of the headers beside it) exists (the key: ``compile.cache.library_key``)."""
+    from acco_tpu_torch.compile.cache import library_key
+
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name, library_key(name))
+
+
+def _build(name: str, digest: str) -> Path:
     source = PACKAGE_DIR / "csrc" / f"{name}.cu"
-    headers = sorted(source.parent.glob("*.cuh"))
-    digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in [source, *headers]) + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
-        BUILD_INFO.setdefault(name, {"path": str(out), "seconds": 0.0, "log": ""})
+        BUILD_INFO.setdefault(name, {"path": str(out), "seconds": 0.0, "log": "",
+                                     "cached": True})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -75,6 +86,7 @@ def build(name: str) -> Path:
     os.replace(tmp, out)
     BUILD_INFO[name] = {
         "path": str(out), "seconds": seconds, "log": proc.stdout + proc.stderr,
+        "cached": False,
     }
     return out
 

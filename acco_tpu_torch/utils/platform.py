@@ -38,3 +38,25 @@ def default_allocator_settings() -> None:
     the allocator then frees its cache behind device-wide syncs. Takes
     effect only before the process first initialises CUDA."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOCATOR_SETTINGS)
+
+
+# (device, dtype, shape, bytes) -> the tensor on that device
+_CONSTANTS: dict = {}
+
+
+def device_constant(host: torch.Tensor, device) -> torch.Tensor:
+    """``host`` (a CPU tensor that is a pure function of the layout, such
+    as the ring's absolute positions) on ``device``, copied once and kept:
+    a later call with the same values returns the same device tensor. So
+    a captured round (``compile/graphs.py``), whose warm-up made the copy,
+    holds no host-to-device copy of pageable memory, which a capture
+    refuses, and reads an address that stays put."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return host
+    host = host.detach().contiguous()
+    key = (str(device), host.dtype, tuple(host.shape), host.numpy().tobytes())
+    out = _CONSTANTS.get(key)
+    if out is None:
+        out = _CONSTANTS[key] = host.to(device)
+    return out

@@ -96,7 +96,11 @@ and prints no result line):
    their own) with ``train=acco``, ``train=dpu`` and ``train=ddp``, each
    first loss held to the Llama-125M path's. Every ACCO and DPU path runs
    its comm branch (the count, the sharded AdamW, the all-gather) on a
-   CUDA stream of its own, under the compute branch;
+   CUDA stream of its own, under the compute branch. Every steady-state
+   round of these paths runs as a CUDA graph captured before the first
+   round and replayed (``acco_tpu_torch/compile/graphs.py``; the seed
+   round runs once, uncaptured): the seed round and 8 rounds each, the
+   launch counts credited by each replay with what its capture launched;
 6. agreement: the entry point on a small float32 input through the
    kernels and through the plain attention gives the same losses and
    gradients (tiny128, then gpt-neo-125M at L 512), and so do
@@ -108,17 +112,19 @@ and prints no result line):
    ~10 ms ``torch.cuda._sleep`` planted at the head of either branch,
    while with the end-of-round wait (or the start-of-round wait) removed
    and the sleep on the side it guards they must differ;
-7. profile: each path again under torch.profiler, for the device time
+7. profile: each path again with ``train.profile_steps`` over its
+   steady rounds (the captures come before them), for the device time
    per kernel, K1's to K5's device time per microbatch, the device's
-   idle share (the union of every stream's activity against the round)
-   and, from the trace's streams read by the package's reader
-   (``acco_tpu_torch/telemetry/profile.py``: streams named by probe
-   kernels), the comm side's device ms (the comm stream and NCCL's) and
+   idle share (the union of every stream's activity against phase 5's
+   median round) and, from the trace's streams read by the package's
+   reader (``acco_tpu_torch/telemetry/profile.py``: streams named by
+   probe kernels, a replay's by the probes captured at the head of each
+   branch), the comm side's device ms (the comm stream and NCCL's) and
    its overlap share, the part of it under compute-stream activity, with
-   the prefetch copy stream on its own line, out of the comm side; then
-   each ACCO and DPU path's rounds again with the comm branch on the
-   current stream, and on its own stream under a high-priority compute
-   stream, for their median round ms beside phase 5's;
+   the prefetch copy stream on its own line, out of the comm side, and
+   the host's launch calls and graph launches a round; then Llama-125M's
+   rounds again with the comm branch on the current stream, for their
+   median round ms beside phase 5's;
 8. resume: Llama-125M at full width (``train=acco train.n_warmup_steps=2
    train.eval=true train.eval_step=4``, a constant LR, a temporary run
    dir, deleted after): run A to 10 grads, run B to 6 (mid-epoch, on an
@@ -193,7 +199,28 @@ and prints no result line):
    (and again unprofiled), the trace valid and the attribution's
    buckets within 5% of the round wall; (e) ``train.profile_steps=4`` on
    Llama-125M and llama3-8B-L8192: the summary's ``profile`` beside
-   phase 7's overlap share.
+   phase 7's overlap share;
+11. the rounds captured and replayed against eager rounds
+   (``build_trainer(..., eager=True)``): (a) every phase-5 cell again
+   eager: Llama-125M under acco, dpu and ddp, its fused-CE cell and
+   GPT-Neo-125M bit-equal over the seed round and 8 rounds (losses, LRs,
+   flags, a fingerprint of every final state leaf), the other cells
+   printed (held to the ring's loss bar if they differ), the launch
+   counts equal; (b) planted faults in the captured rounds: the block's
+   copy into the static block dropped, the metric slot's copy dropped
+   (read back once, after the 8 rounds), the buffer sets swapped out of
+   phase,
+   each of which must differ from the eager run; (c) per cell, captured
+   against eager: median round ms, idle share and device ms a
+   microbatch (phase 7's profile and an eager one), kernel launch calls,
+   graph launches and kernels a round, peak allocated (captured within
+   5% of eager) and reserved, allocator retries (none on the long
+   cells), capture ms and ``train_warmup_join_ms``; Llama-125M and its
+   fused-CE cell at cadence 10 eager beside phase 8 (d); Llama-125M from
+   an empty build directory with ``train.warmup_compile`` true and
+   false: the seconds from the trainer's constructor to its first round;
+   (d) ``nan_grads@3``, the ``corrupt_params`` rollback and a SIGTERM
+   stop resumed, captured, bit-equal to their eager oracles.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -267,7 +294,7 @@ BANDED_SHAPES = (
 # main paths at full width: Llama-125M (config/model/llama-125M.json),
 # GPT-Neo-125M (config/model/gpt-neo-125M.json, 6 global + 6 local layers)
 # and Llama-125M with the fused lm-head + CE (train.fused_loss=pallas)
-MAIN_ROUNDS = 6  # after the seed round
+MAIN_ROUNDS = 8  # after the seed round
 LAYERS, D_MODEL, SEQ, BATCH = 12, 768, 1024, 8
 NEO_WINDOW = 256
 VOCAB = 50257
@@ -1831,17 +1858,26 @@ def launch_counts() -> dict:
 class HeadLogitsCalls:
     """Counts the models' calls of the materialized head
     (``layers.lm_logits``, as models/llama.py and models/gpt_neo.py import
-    it) while the context is open: the fused-CE path must make none."""
+    it) while the context is open: the fused-CE path must make none. The
+    count is a launch table of ``compile.graphs.counting``: a captured
+    round's replay adds the calls its capture made."""
+
+    @property
+    def count(self) -> int:
+        return self.calls["lm_logits"]
 
     def __enter__(self):
+        from acco_tpu_torch.compile.graphs import counting
         from acco_tpu_torch.models import gpt_neo, llama
 
-        self.count, self.saved = 0, []
+        self.calls, self.saved = {"lm_logits": 0}, []
+        self.counting = counting(self.calls)
+        self.counting.__enter__()
         for module in (llama, gpt_neo):
             original = module.lm_logits
 
             def counted(h, w, _original=original):
-                self.count += 1
+                self.calls["lm_logits"] += 1
                 return _original(h, w)
 
             self.saved.append((module, original))
@@ -1851,6 +1887,7 @@ class HeadLogitsCalls:
     def __exit__(self, *exc):
         for module, original in self.saved:
             module.lm_logits = original
+        self.counting.__exit__(*exc)
 
 
 class BlockWindows:
@@ -1858,9 +1895,12 @@ class BlockWindows:
     context is open (the windowed ring's layers: 0 = global)."""
 
     def __enter__(self):
+        from acco_tpu_torch.compile.graphs import counting
         from acco_tpu_torch.ops import block_attention as bl
 
         self.module, self.original, self.counts = bl, bl.blk_fwd, {}
+        self.counting = counting(self.counts)  # replays add what their capture counted
+        self.counting.__enter__()
 
         def counted(q, k, v, mode, q_pos, kv_pos, window, scale):
             if mode == bl.MODES["pos"]:
@@ -1872,6 +1912,7 @@ class BlockWindows:
 
     def __exit__(self, *exc):
         self.module.blk_fwd = self.original
+        self.counting.__exit__(*exc)
 
 
 # Each main path: its model and extra overrides, its shape (batch, seq,
@@ -1971,20 +2012,21 @@ SOURCE = {**dict.fromkeys(_K1, "fused_attention.cu"), **dict.fromkeys(_K2, "band
           **dict.fromkeys(_K4, "block_attention.cu")}
 
 
-def ring_trainer(path: str, sg, extra=()):
+def ring_trainer(path: str, sg, extra=(), eager: bool = False):
     """The trainer of a ring path: its base path's configuration, the model
     on the ring, and ``sg`` (a one-rank sequence group) handed in."""
     from acco_tpu_torch.__main__ import build_trainer
 
-    return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra], sequence_group=sg)
+    return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra], sequence_group=sg,
+                         eager=eager)
 
 
-def dp_trainer(path: str, group):
+def dp_trainer(path: str, group, extra=(), eager: bool = False):
     """The trainer of a dp path: its configuration and ``group`` (a
     one-rank process group) handed in as the data-parallel group."""
     from acco_tpu_torch.__main__ import build_trainer
 
-    return build_trainer(main_args(path), data_group=group)
+    return build_trainer([*main_args(path), *extra], data_group=group, eager=eager)
 
 
 def path_spec(path: str) -> dict:
@@ -1998,28 +2040,55 @@ def path_microbatches(path: str) -> int:
     return MAIN_ROUNDS + (path_spec(path).get("method", "acco") != "ddp")
 
 
-def path_trainer(path: str, sg=None, group=None):
+def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
     """The trainer of any path (``sg``: a ring path's sequence group;
-    ``group``: a dp path's data group)."""
+    ``group``: a dp path's data group; ``eager``: its rounds as eager
+    calls, not the captured programs)."""
     from acco_tpu_torch.__main__ import build_trainer
 
     if path in RING_PATHS:
-        return ring_trainer(path, sg)
+        return ring_trainer(path, sg, extra, eager)
     if path in DP_PATHS:
-        return dp_trainer(path, group)
-    return build_trainer(main_args(path))
+        return dp_trainer(path, group, extra, eager)
+    return build_trainer([*main_args(path), *extra], eager=eager)
 
 
-def main_path(path: str, sg=None, group=None) -> tuple[dict, float, int, dict]:
-    """The port's entry point, in-process, at the model's full width (a
-    ring path: its trainer on the one-rank group ``sg``; a dp path: its
-    trainer on the one-rank data group ``group``), with every launch
-    count (and the materialized head's calls) set to 0 just before the
-    run and read just after; returns the counts, the median round ms, the
-    peak memory and the summary."""
+def state_fingerprint(state) -> list:
+    """Per state leaf, two int64 sums over its bits (the bits as
+    integers, plainly and weighted by a hash of the position), chunk by
+    chunk on the card: equal fingerprints are equal states bar a
+    collision, and a 27 GB state costs no copy."""
     import torch
 
-    from acco_tpu_torch.__main__ import main as entry
+    from acco_tpu_torch.compile.graphs import flatten
+
+    out = []
+    for leaf in flatten(state):
+        bits = leaf.detach().contiguous().reshape(-1).view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[leaf.element_size()])
+        plain = mixed = 0
+        for lo in range(0, bits.numel(), 1 << 26):
+            c = bits[lo:lo + (1 << 26)].to(torch.int64)
+            i = torch.arange(lo, lo + c.numel(), device=c.device, dtype=torch.int64)
+            plain += int(c.sum())
+            mixed += int((c * ((i * 2654435761) % 2147483647 + 1)).sum())
+        out.append((plain, mixed))
+    return out
+
+
+def main_path(path: str, sg=None, group=None, eager: bool = False
+              ) -> tuple[dict, float, int, dict]:
+    """The port's entry point's trainer (``build_trainer``, then
+    ``train()``), in-process, at the model's full width (a ring path: its
+    trainer on the one-rank group ``sg``; a dp path: its trainer on the
+    one-rank data group ``group``), its rounds captured and replayed
+    (``eager``: as eager calls), with every launch count (and the
+    materialized head's calls) set to 0 just before the run and read just
+    after; returns the counts, the median round ms, the peak memory and
+    the summary, to which it adds the final state's fingerprint
+    (``fingerprint``), the peak reserved bytes and the allocator's
+    retries."""
+    import torch
 
     spec = path_spec(path)
     method = spec.get("method", "acco")
@@ -2028,14 +2097,18 @@ def main_path(path: str, sg=None, group=None) -> tuple[dict, float, int, dict]:
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     with HeadLogitsCalls() as head, BlockWindows() as windows:
+        trainer = path_trainer(path, sg, group, eager=eager)
         reset_launch_counts()
-        if path in MAIN_PATHS:
-            summary = entry(main_args(path))
-        else:
-            summary = path_trainer(path, sg, group).train()
+        summary = trainer.train()
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    summary.update(fingerprint=state_fingerprint(trainer.final_state), peak_bytes=peak,
+                   reserved_bytes=torch.cuda.max_memory_reserved(), retries=retries)
+    del trainer
+    want_as = "eager" if eager else "captured"
+    if summary["rounds_as"] != want_as:
+        raise AssertionError(f"{path}: rounds ran as {summary['rounds_as']}, not {want_as}")
     rounds = summary["round_log"]
     if len(rounds) != MAIN_ROUNDS or summary["method"] != method:
         raise AssertionError(f"expected {MAIN_ROUNDS} {method} rounds, ran {len(rounds)} "
@@ -2091,6 +2164,14 @@ def main_path(path: str, sg=None, group=None) -> tuple[dict, float, int, dict]:
         f"retry frees the cached blocks after a device-wide sync)")
     log(f"  launches {launches}  materialized head calls {head.count}"
         + (f"  K4 positional launches by window {windows.counts}" if windows.counts else ""))
+    report = summary["compile_report"]
+    if not eager:
+        log(f"  rounds as {summary['rounds_as']}: train_warmup_join_ms "
+            f"{report['warmup_join_ms']:.1f} (builds joined {report['join_ms'] or 0.0:.1f}); programs "
+            f"{ {n: (round(r['warmup_ms'] or 0, 1), round(r['capture_ms'] or 0, 1)) for n, r in report['programs'].items()} } "
+            f"(warm-up ms, capture ms); warm-up launches, not counted above: "
+            f"{ {k: v for k, v in report['warmup_launches'].items() if v} }; constructor to "
+            f"the first round read back {summary['init_to_first_round_s']:.2f} s")
     return launches, med, peak, summary
 
 
@@ -2399,110 +2480,85 @@ def neo_ring_step_agreement(sg) -> None:
         raise AssertionError("GPT-Neo's windowed ring and its non-CP path disagree")
 
 
-def stream_overlap(prof, rounds: int = 1) -> dict:
-    """Device activity by side, from the profiler's trace, through the
-    package's reader (``acco_tpu_torch/telemetry/profile.py``
-    ``read_trace``): the compute stream and the comm side (the comm
-    stream, NCCL's streams) named by the probes launched on them, the
-    prefetch copy stream (and any other) on its own line; each side's
-    busy ms, the comm side's ms under compute-stream activity and the
-    union of all streams' activity, per round of ``rounds``."""
-    from acco_tpu_torch.telemetry.profile import load_events, read_trace
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        st = read_trace(load_events(path), rounds=rounds)
-    if st.get("device") != "cuda":
-        raise AssertionError("the profiler's trace holds no device activity")
-    return st
-
-
-def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group=None) -> dict:
-    """Where the device time of a main path goes: the same run again,
-    under torch.profiler (after the measured run, so the profiler's own
-    cost touches no reported time). Prints device ms per microbatch for
-    the top kernels, the device's idle share of a round (1 - the union of
-    every stream's activity per microbatch / the measured run's median
-    round ms, n_acc 1; the sum of kernel times beside it, which counts
-    overlapped time twice)
-    and the two streams: the comm side's device ms per microbatch and its
-    overlap share, the part of it that runs under compute-stream
-    activity. An ACCO or DPU path must show device work off the compute
-    stream (its comm branch). The profiled run's own wall time includes
-    the profiler's host cost."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from acco_tpu_torch.telemetry.profile import probe_streams
+def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group=None,
+                      eager: bool = False) -> dict:
+    """Where the device time of a main path goes: the same run again with
+    ``train.profile_steps`` over its steady rounds (after the first two of
+    ACCO, the first of DPU and DDP; a captured run's captures come before
+    them), the trace read by the package's reader
+    (``acco_tpu_torch/telemetry/profile.py``, which names a replay's
+    streams by the graphs' probes). Prints device ms per microbatch (n_acc
+    1: per round) for the top kernels and by kernel family, the device's
+    idle share of a round (1 - the union of every stream's activity / the
+    measured run's median round ms; the kernel sum beside it, which counts
+    overlapped time twice), the comm side's device ms and its overlap
+    share, the part under compute-stream activity, and the host's launch
+    calls, graph launches and the kernels a round. An ACCO or DPU path
+    must show device work off the compute stream (its comm branch)."""
+    from acco_tpu_torch.telemetry.profile import load_events
 
     free_device_cache()
-    trainer = path_trainer(model, sg, group)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the probes name the streams in the trace (the copy stream is
-        # made by the prefetch worker at its first block)
-        probes = probe_streams({"compute": torch.cuda.current_stream(),
-                                "comm": getattr(trainer.step, "comm_stream", None)})
-        t0 = time.perf_counter()
-        trainer.train()
-        probes += probe_streams({"copy": trainer.source.copy_stream})
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del probes
-    microbatches = path_microbatches(model)
-    # device-side rows only: CPU op rows also carry their kernels' time
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    per_mb = busy_ms / microbatches
-    st = stream_overlap(prof)
-    union_mb = st["union_ms"] / microbatches
-    share = st["comm_under_compute_ms"] / st["comm_ms"] if st["comm_ms"] else 0.0
-    log(f"  {model}: device busy {union_mb:.2f} ms per microbatch (union of streams; kernel "
-        f"sum {per_mb:.2f}; init + {microbatches} microbatches: {st['union_ms']:.1f} ms in "
-        f"{wall_ms:.1f} ms of profiled wall time); idle share of a {round_ms:.2f} ms round "
-        f"{1 - union_mb / round_ms:.3f} (by the kernel sum {1 - per_mb / round_ms:.3f})")
-    log(f"  streams: compute {st['compute_ms'] / microbatches:.3f} ms/microbatch; comm side "
-        f"(comm stream, NCCL) {st['comm_ms'] / microbatches:.3f} ms/microbatch, "
-        f"{st['comm_under_compute_ms'] / microbatches:.3f} under compute-stream activity: "
-        f"overlap share {share:.3f}; copy side (the prefetch copy stream, not comm) "
-        f"{st['copy_ms'] / microbatches:.3f} ms/microbatch; busy ms by role:stream "
-        f"{ {k: round(v, 3) for k, v in st['streams_ms'].items()} }")
+    skip = 2 if path_spec(model).get("method", "acco") == "acco" else 1
+    rounds = MAIN_ROUNDS - skip
+    trainer = path_trainer(model, sg, group, extra=[f"train.profile_steps={rounds}"],
+                           eager=eager)
     method = trainer.method
+    summary = trainer.train()
+    del trainer
+    st = summary["profile"]
+    if st.get("device") != "cuda" or st["rounds"] != rounds:
+        raise AssertionError(f"{model}: the profile holds no device activity: {st}")
+    events = load_events(st["trace"])
+    kernels: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            row = kernels.setdefault(e["name"], [0.0, 0])
+            row[0] += float(e.get("dur", 0)) / 1e3 / rounds
+            row[1] += 1
+    per_mb = sum(ms for ms, _ in kernels.values())
+    union_mb = st["union_ms"]
+    share = st["comm_under_compute_ms"] / st["comm_ms"] if st["comm_ms"] else 0.0
+    log(f"  {model} ({'eager' if eager else 'captured'}): device busy {union_mb:.2f} ms per "
+        f"microbatch (union of streams over {rounds} steady rounds; kernel sum {per_mb:.2f}; "
+        f"profiled wall {st['wall_ms']:.2f} ms a round); idle share of a {round_ms:.2f} ms round "
+        f"{1 - union_mb / round_ms:.3f} (by the kernel sum {1 - per_mb / round_ms:.3f}; of the "
+        f"profiled wall {st['idle_share']:.3f})")
+    log(f"  streams: compute {st['compute_ms']:.3f} ms/microbatch; comm side (comm stream, "
+        f"NCCL) {st['comm_ms']:.3f} ms/microbatch, {st['comm_under_compute_ms']:.3f} under "
+        f"compute-stream activity: overlap share {share:.3f}; copy side {st['copy_ms']:.3f} "
+        f"ms/microbatch; busy ms by role:stream "
+        f"{ {k: round(v, 3) for k, v in st['streams_ms'].items()} }"
+        + (f"; graph streams {st['graph_streams']}" if "graph_streams" in st else ""))
+    log(f"  the host a round: {st['kernel_launch_calls']:.1f} kernel launch calls, "
+        f"{st['graph_launches']:.1f} graph launches; the device ran {st['kernels']:.1f} kernels")
     if method != "ddp" and st["comm_ms"] <= 0:
         raise AssertionError(f"{model}: no device work off the compute stream (the comm branch)")
+    if not eager and st["graph_launches"] < 1:
+        raise AssertionError(f"{model}: no graph launch in a captured run's rounds")
     for family in ("K1", "K2", "K3", "K5", "K4"):
-        rows = [e for e in kernels if kernel_family(e.key) == family]
-        ms = sum(e.self_device_time_total for e in rows) / 1e3 / microbatches
+        names = [k for k in kernels if kernel_family(k) == family]
+        ms = sum(kernels[k][0] for k in names)
         log(f"  {family} kernels: {ms:.3f} ms/microbatch "
-            f"({', '.join(sorted({kernel_label(e.key) for e in rows}))})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / 1e3 / microbatches:9.3f} ms/microbatch "
-            f"x{e.count // microbatches:<4d} {kernel_label(e.key)}: {e.key[:90]}")
+            f"({', '.join(sorted({kernel_label(k) for k in names}))})")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {ms:9.3f} ms/microbatch x{n // rounds:<4d} {kernel_label(name)}: {name[:90]}")
     return {"union_ms_per_microbatch": union_mb, "kernel_sum_ms_per_microbatch": per_mb,
-            "comm_ms_per_microbatch": st["comm_ms"] / microbatches, "overlap_share": share,
-            "copy_ms_per_microbatch": st["copy_ms"] / microbatches,
-            "idle_share": 1 - union_mb / round_ms}
+            "comm_ms_per_microbatch": st["comm_ms"], "overlap_share": share,
+            "copy_ms_per_microbatch": st["copy_ms"], "idle_share": 1 - union_mb / round_ms,
+            "kernels": st["kernels"], "kernel_launch_calls": st["kernel_launch_calls"],
+            "graph_launches": st["graph_launches"]}
 
 
-def stream_variant_ms(model: str, variant: str, sg=None, group=None) -> float:
+def stream_variant_ms(model: str, sg=None, group=None) -> float:
     """The median round ms of a path's rerun with its comm branch on the
-    current stream ('one'), or on its own stream under a high-priority
-    compute stream ('priority': the scheduler then hands free SMs to the
-    microbatches' kernels first), beside phase 5's run on two streams of
-    equal priority."""
+    current stream (``comm_stream`` None: the branches one after the
+    other), beside phase 5's run on two streams."""
     import torch
 
     free_device_cache()
     trainer = path_trainer(model, sg, group)
-    if variant == "one":
-        trainer.step.comm_stream = torch.cuda.current_stream()
-        summary = trainer.train()
-    else:
-        with torch.cuda.stream(torch.cuda.Stream(priority=-1)):
-            summary = trainer.train()
+    trainer.step.comm_stream = None
+    summary = trainer.train()
     torch.cuda.synchronize()
     return statistics.median(r["ms"] for r in summary["round_log"])
 
@@ -2621,18 +2677,19 @@ def resumed_differences(resumed, summary: dict, reference, ref_summary: dict) ->
     return diffs
 
 
-def cadence_ms(path: str, *extra: str) -> tuple[float, dict, object]:
+def cadence_ms(path: str, *extra: str, eager: bool = False) -> tuple[float, dict, object]:
     """(d) A main path's ``CADENCE_ROUNDS`` rounds through the entry point's
     trainer at ``delta_step_for_log=CADENCE``: the mean round ms between
     its two boundaries (the rows' dispatch ms, the boundary round's with
-    the wait for the read back), the summary and the final flat params."""
+    the wait for the read back), the summary and the final flat params
+    (``eager``: the rounds as eager calls)."""
     import torch
 
     from acco_tpu_torch.__main__ import build_trainer
 
     free_device_cache()
     trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
-                             *extra])
+                             *extra], eager=eager)
     summary = trainer.train()
     rounds = summary["round_log"]
     if len(rounds) != CADENCE_ROUNDS or summary["count_grad_tot"] != CADENCE_ROUNDS:
@@ -2818,21 +2875,21 @@ REMAT_F32 = ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=
 
 def profile_cadence(path: str, mean_ms: float, *extra: str) -> float:
     """The idle share of a path at ``delta_step_for_log=CADENCE``: its run
-    again under torch.profiler, 1 - the union of every stream's activity
-    per microbatch / ``mean_ms`` (the unprofiled run's mean round ms)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    again with ``train.profile_steps`` over its rounds after the first two
+    (the captures and the warm-ups come before them), 1 - the union of
+    every stream's activity per microbatch / ``mean_ms`` (the unprofiled
+    run's mean round ms)."""
     from acco_tpu_torch.__main__ import build_trainer
 
     free_device_cache()
+    rounds = CADENCE_ROUNDS - 2
     trainer = build_trainer([*main_args(path, CADENCE), f"train.nb_steps_tot={CADENCE_ROUNDS}",
-                             *extra])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train()
-        torch.cuda.synchronize()
-    union = stream_overlap(prof)["union_ms"] / (CADENCE_ROUNDS + 1)
-    return 1 - union / mean_ms
+                             f"train.profile_steps={rounds}", *extra])
+    prof = trainer.train()["profile"]
+    del trainer
+    if prof.get("device") != "cuda" or prof["rounds"] != rounds:
+        raise AssertionError(f"{path}: the cadence profile holds no device activity: {prof}")
+    return 1 - prof["union_ms"] / mean_ms
 
 
 def prefetch_fault_run(wait: bool, cycles: int, seed: int):
@@ -3078,15 +3135,23 @@ def write_hf_checkpoint(path: str, config, flat) -> None:
 
 class PadMaskedK1:
     """Counts K1's forward launches that carry a pad mask while the
-    context is open."""
+    context is open (a launch table of ``compile.graphs.counting``: a
+    replay adds what its capture counted)."""
+
+    @property
+    def count(self) -> int:
+        return self.calls["masked"]
 
     def __enter__(self):
+        from acco_tpu_torch.compile.graphs import counting
         from acco_tpu_torch.ops import fused_attention as fa
 
-        self.module, self.original, self.count = fa, fa.attn_fwd, 0
+        self.module, self.original, self.calls = fa, fa.attn_fwd, {"masked": 0}
+        self.counting = counting(self.calls)
+        self.counting.__enter__()
 
         def counted(q, k, v, pad_mask, window, scale):
-            self.count += pad_mask is not None
+            self.calls["masked"] += pad_mask is not None
             return self.original(q, k, v, pad_mask, window, scale)
 
         fa.attn_fwd = counted
@@ -3094,6 +3159,7 @@ class PadMaskedK1:
 
     def __exit__(self, *exc):
         self.module.attn_fwd = self.original
+        self.counting.__exit__(*exc)
 
 
 def finetune_run(model: str, ckpt: str, tmp: str, *extra: str):
@@ -3246,9 +3312,9 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
     log(f" (a) the prefetch: {CADENCE_ROUNDS} rounds at delta_step_for_log={CADENCE}, prefetch "
         f"on (phase 8 (d)'s runs) and off")
     for path in CADENCE_PATHS:
-        # on (phase 8 (d)), off, on, off: the two settings in turns
+        # on (phase 8 (d)), then off (the turns off, on, off cut for time)
         runs = {"on": [cadence[path]], "off": []}
-        for setting in ("off", "on", "off"):
+        for setting in ("off",):
             runs[setting].append(cadence_ms(path, f"train.prefetch={setting == 'on'}"))
         _, s_ref, flat_ref = runs["on"][0]
         for setting, (_, s, flat) in [(k, r) for k in runs for r in runs[k]]:
@@ -3615,7 +3681,8 @@ def phase_10(smi: str, profiles: dict) -> dict:
         raise AssertionError(f"telemetry changes the sync calls: {tel['true'][0]} against "
                              f"{tel['false'][0]}")
     means = {"true": [], "false": []}
-    for i, enabled in enumerate(("false", "true", "true", "false")):  # unprofiled, in turns
+    # unprofiled, off then on (the turns off, on, on, off cut for time)
+    for i, enabled in enumerate(("false", "true")):
         s = p10_run(f"telemetry-{enabled}-unprofiled-{i}", launches,
                     f"train.telemetry.enabled={enabled}")[1]
         means[enabled].append(p10_mean(s))
@@ -3662,6 +3729,262 @@ def phase_10(smi: str, profiles: dict) -> dict:
         f"{p10_mean(s_plain):.3f}, async {p10_mean(sa):.3f}, sync {p10_mean(ss):.3f} ms; "
         f"telemetry off {means['false']:.3f}, on {means['true']:.3f} ms")
     return launches
+
+
+# Phase 11: the cells whose captured rounds must equal their eager rounds
+# bit for bit (Llama-125M under acco, dpu and ddp, its fused-CE cell and
+# GPT-Neo-125M); the other cells' equality is printed and held as named.
+BIT_EQUAL_PATHS = ("llama-125M", "gptneo", "llama-125M-fusedce", "llama-125M-dp-acco",
+                   "llama-125M-dp-dpu", "llama-125M-dp-ddp")
+GRAPH_FAULT_PATH = "llama-125M"
+LONG_PATHS = ("llama3-8B-L8192", "llama3-8B-L8192-ring")
+ONE_STREAM_PATHS = ("llama-125M",)
+PEAK_RISE = 0.05  # captured peak allocated within 5% of eager's
+
+
+def same_values(a: list, b: list) -> bool:
+    """Equal lists, a NaN equal to a NaN (a drill's skipped round logs one)."""
+    return len(a) == len(b) and all(x == y or (x != x and y != y) for x, y in zip(a, b))
+
+
+def captured_vs_eager(path: str, cap: dict, eager: dict) -> list:
+    """What differs between a path's captured and eager runs: the seed
+    and round losses, LRs and flags, the final state's fingerprint."""
+    diffs = []
+    if not same_values([cap["seed_loss"]], [eager["seed_loss"]]):
+        diffs.append("seed loss")
+    for key in ("loss", "lr", "is_real_update"):
+        if not same_values([r[key] for r in cap["round_log"]],
+                           [r[key] for r in eager["round_log"]]):
+            diffs.append(f"round {key}")
+    bad = [i for i, (a, b) in enumerate(zip(cap["fingerprint"], eager["fingerprint"])) if a != b]
+    if bad:
+        diffs.append(f"state leaves {bad}")
+    return diffs
+
+
+@contextlib.contextmanager
+def graph_fault(kind: str):
+    """A planted fault in the captured rounds (``compile/graphs.py``):
+    'block' drops the copy of each round's block into the static block
+    (every replay reads a stale block); 'slot' drops the copy of the
+    metric vector into the round's slot (rounds read back together all
+    show the last one's); 'phase' swaps the buffer sets out of phase
+    once, before round 3 (a round reads the set its previous round did
+    not write)."""
+    from acco_tpu_torch.compile.graphs import RoundPrograms
+
+    saved = {name: getattr(RoundPrograms, name) for name in ("load_block", "slot", "run")}
+    if kind == "block":
+        RoundPrograms.load_block = lambda self, block: None
+    elif kind == "slot":
+        RoundPrograms.slot = lambda self, vec: vec
+    else:
+        run = saved["run"]
+
+        def swapped(self, block, parity, quiet=contextlib.nullcontext):
+            self.rounds_run = getattr(self, "rounds_run", 0) + 1
+            if self.rounds_run == 4:
+                self.phases = tuple(1 - p for p in self.phases)
+            return run(self, block, parity, quiet)
+
+        RoundPrograms.run = swapped
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(RoundPrograms, name, value)
+
+
+def fresh_build_start(warmup: bool) -> tuple:
+    """Llama-125M built from nothing: the kernel libraries into an empty
+    build directory (git-ignored, removed after), ``train.warmup_compile``
+    true (built in the background from the constructor on, every program
+    captured before the first round) or false (built at first use, each
+    program captured after its first round); returns the seconds from the
+    trainer's constructor to the first round read back, round 0's synced
+    ms and the compile report."""
+    from pathlib import Path
+
+    from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.utils import cuda_build
+
+    saved = cuda_build.BUILD_DIR, dict(cuda_build._LOADED), dict(cuda_build.BUILD_INFO)
+    fresh = tempfile.mkdtemp(prefix="fresh_", dir=os.path.join(REPO, "build"))
+    cuda_build.BUILD_DIR = Path(fresh)
+    cuda_build._LOADED.clear()
+    cuda_build.BUILD_INFO.clear()
+    try:
+        free_device_cache()
+        trainer = build_trainer([*main_args("llama-125M"),
+                                 f"train.warmup_compile={'true' if warmup else 'false'}"])
+        summary = trainer.train()
+        del trainer
+    finally:
+        cuda_build.BUILD_DIR = saved[0]
+        cuda_build._LOADED.clear()
+        cuda_build._LOADED.update(saved[1])
+        cuda_build.BUILD_INFO.clear()
+        cuda_build.BUILD_INFO.update(saved[2])
+        shutil.rmtree(fresh, ignore_errors=True)
+    return (summary["init_to_first_round_s"], summary["round_log"][0]["ms"],
+            summary["compile_report"])
+
+
+def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, profiles: dict,
+             cadence: dict) -> dict:
+    """The rounds captured and replayed against eager rounds: (a) each
+    phase-5 cell again with its rounds as eager calls, bit-equal
+    (losses, LRs, flags, the final state) and with the same launch counts;
+    (b) three planted faults in the captured rounds that the check must
+    catch; (c) per cell, captured against eager: synced median round ms,
+    idle share and device ms a microbatch (profiled reruns), the host's
+    launch calls and graph launches and the device's kernels a round,
+    peak allocated and reserved, allocator retries, capture and warm-up
+    join ms; Llama-125M and its fused-CE cell at cadence 10; the time to
+    the first round from a fresh build directory with warmup_compile
+    true and false; (d) a drill, a rollback and a SIGTERM resume,
+    captured, against their eager oracles. ``cadence``: phase 8 (d)'s
+    captured cadence runs, path -> (mean round ms, round losses). Returns
+    the eager runs' launches."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    out: dict = {}
+    eager: dict = {}
+    log(" (a) every cell again with its rounds as eager calls (build_trainer(..., eager=True))")
+    for path in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
+        group = sg.group if path in DP_PATHS else None
+        la, med, _, s = main_path(path, sg if path in RING_PATHS else None, group, eager=True)
+        out[f"{path}-eager"] = la
+        diffs = captured_vs_eager(path, summaries[path], s)
+        same_launches = la == launches[path]
+        log(f"  {path}: captured against eager: "
+            f"{'bit-equal (losses, LRs, flags, final state)' if not diffs else 'DIFFER in ' + str(diffs)}; "
+            f"launch counts {'equal' if same_launches else 'DIFFER: ' + str(la) + ' eager'}")
+        if not same_launches:
+            raise AssertionError(f"{path}: launches under replay {launches[path]}, eager {la}")
+        if diffs and path in BIT_EQUAL_PATHS:
+            raise AssertionError(f"{path}: captured rounds differ from eager: {diffs}")
+        if diffs:  # the long and ring cells: held to the ring's loss bar
+            cap = [summaries[path]["seed_loss"]] + [r["loss"] for r in summaries[path]["round_log"]]
+            eag = [s["seed_loss"]] + [r["loss"] for r in s["round_log"]]
+            worst = max(abs(a - b) / abs(b) for a, b in zip(cap, eag))
+            log(f"    largest relative loss difference {worst:.3e} (bar {RING_LOSS_RTOL:g})")
+            if worst > RING_LOSS_RTOL:
+                raise AssertionError(f"{path}: captured losses off eager's by {worst:.3e}")
+        prof = profile_main_path(path, med, sg=sg, group=sg.group, eager=True)
+        eager[path] = (med, s, prof)
+
+    log(f" (b) planted faults in the captured rounds of {GRAPH_FAULT_PATH}, against its eager run")
+    ref = eager[GRAPH_FAULT_PATH][1]
+    # the slot fault shows once a read-back window outlasts the program
+    # cycle (4 programs for ACCO, each with its own metric vector): read
+    # back once, after all the rounds
+    for kind, cad in (("block", 1), ("slot", MAIN_ROUNDS), ("phase", 1)):
+        free_device_cache()
+        with graph_fault(kind):
+            trainer = build_trainer(main_args(GRAPH_FAULT_PATH, cad))
+            s = trainer.train()
+            s["fingerprint"] = state_fingerprint(trainer.final_state)
+            del trainer
+        diffs = captured_vs_eager(GRAPH_FAULT_PATH, s, ref)
+        what = {"block": "the block copy dropped (a stale block)",
+                "slot": f"the metric-slot copy dropped (read back every {MAIN_ROUNDS} rounds)",
+                "phase": "the buffer sets swapped out of phase before round 3"}[kind]
+        log(f"  {what}: {'caught, differs in ' + str(diffs) if diffs else 'NOT caught'}"
+            + (f"; round losses {[round(r['loss'], 5) for r in s['round_log']]}"
+               if kind == "slot" else ""))
+        if not diffs:
+            raise AssertionError(f"the captured-rounds check missed the planted fault {kind!r}")
+
+    log(f" (c) captured against eager, by cell, on {smi}")
+    for path in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
+        cap, (med_e, s_e, prof_e) = summaries[path], eager[path]
+        prof_c = profiles[path]
+        report = cap["compile_report"]
+        capture_ms = sum(r["capture_ms"] or 0.0 for r in report["programs"].values())
+        rise = cap["peak_bytes"] / s_e["peak_bytes"] - 1
+        log(f"  {path}: median round ms {round_ms[path]:.2f} / {med_e:.2f}; idle share "
+            f"{prof_c['idle_share']:.3f} / {prof_e['idle_share']:.3f}; device ms a microbatch "
+            f"{prof_c['union_ms_per_microbatch']:.2f} / {prof_e['union_ms_per_microbatch']:.2f}; "
+            f"a round: kernel launch calls {prof_c['kernel_launch_calls']:.1f} / "
+            f"{prof_e['kernel_launch_calls']:.1f}, graph launches {prof_c['graph_launches']:.1f} / "
+            f"{prof_e['graph_launches']:.1f}, kernels {prof_c['kernels']:.1f} / "
+            f"{prof_e['kernels']:.1f}; peak allocated {cap['peak_bytes'] / 2**30:.2f} / "
+            f"{s_e['peak_bytes'] / 2**30:.2f} GiB ({100 * rise:+.2f}%), reserved "
+            f"{cap['reserved_bytes'] / 2**30:.2f} / {s_e['reserved_bytes'] / 2**30:.2f} GiB, "
+            f"allocator retries {cap['retries']} / {s_e['retries']}; captures "
+            f"{len(report['programs'])} in {capture_ms:.1f} ms, train_warmup_join_ms "
+            f"{report['warmup_join_ms']:.1f} (captured / eager)")
+        if rise > PEAK_RISE:
+            raise AssertionError(f"{path}: captured peak {cap['peak_bytes']} is {100 * rise:.2f}% "
+                                 f"over eager's {s_e['peak_bytes']}")
+        if path in LONG_PATHS and cap["retries"]:
+            raise AssertionError(f"{path}: {cap['retries']} allocator retries under capture")
+    for path in CADENCE_PATHS:
+        mean_e, s_e, _ = cadence_ms(path, eager=True)
+        mean_c, losses_c = cadence[path]
+        same = [r["loss"] for r in s_e["round_log"]] == losses_c
+        log(f"  {path} at cadence {CADENCE}: mean round ms of rounds {CADENCE + 1}-"
+            f"{CADENCE_ROUNDS} captured {mean_c:.3f} / eager {mean_e:.3f}; losses "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{path}: captured and eager losses differ at cadence {CADENCE}")
+    for warm in (True, False):
+        first_s, round0_ms, report = fresh_build_start(warm)
+        lib = report["libraries"].get("fused_attention") or {}
+        log(f"  llama-125M from an empty build directory, warmup_compile={warm}: constructor to "
+            f"the first round read back {first_s:.2f} s; round 0 {round0_ms:.1f} ms; background "
+            f"build {lib.get('build_ms') or 0.0:.0f} ms; train_warmup_join_ms "
+            f"{report['warmup_join_ms']:.1f}; programs captured "
+            f"{sum(1 for r in report['programs'].values() if r['capture_ms'])}")
+
+    log(" (d) a drill, a rollback and a SIGTERM resume, captured, against eager oracles")
+    for label, extra, nb in (
+            ("nan_grads@3", ["+train.delta_step_for_log=2", "train.fault_injection=nan_grads@3"], 8),
+            ("rollback", ["+train.delta_step_for_log=4", "train.rollback_after_skipped=2",
+                          "train.save=true", "train.checkpoint_every_s=0",
+                          "train.ckpt_keep_last=0",
+                          "train.fault_injection=[{kind: corrupt_params, round: 5, n: 64}]"], 12)):
+        runs = {}
+        for how in ("captured", "eager"):
+            free_device_cache()
+            trainer = build_trainer(p10_args(f"p11-{label}-{how}", nb, *extra),
+                                    eager=how == "eager")
+            s = trainer.train()
+            s["fingerprint"] = state_fingerprint(trainer.final_state)
+            runs[how] = s
+            del trainer
+        diffs = captured_vs_eager(label, runs["captured"], runs["eager"])
+        log(f"  {label}: skipped {runs['captured']['skipped_rounds']} / "
+            f"{runs['eager']['skipped_rounds']}, rollbacks {runs['captured']['rollbacks']} / "
+            f"{runs['eager']['rollbacks']} (captured / eager): "
+            f"{'bit-equal' if not diffs else 'DIFFER in ' + str(diffs)}")
+        if diffs or runs["captured"]["rounds_as"] != "captured":
+            raise AssertionError(f"{label}: captured against eager {diffs}")
+    free_device_cache()
+    stop = build_trainer(p10_args("p11-sigterm", P10_ROUNDS, "train.save=true"))
+    with sigterm_after_rounds(5):
+        st = stop.train()
+    del stop
+    resumed = build_trainer(p10_args("p11-sigterm-resume", P10_ROUNDS,
+                                     f"train.resume_from={run_root()}/p10/p11-sigterm/checkpoints/acco"))
+    sr = resumed.train()
+    fp = state_fingerprint(resumed.final_state)
+    del resumed
+    free_device_cache()
+    oracle = build_trainer(p10_args("p11-eager", P10_ROUNDS), eager=True)
+    so = oracle.train()
+    fo = state_fingerprint(oracle.final_state)
+    del oracle
+    same = fp == fo and same_values([r["loss"] for r in st["round_log"] + sr["round_log"]],
+                                    [r["loss"] for r in so["round_log"]])
+    log(f"  SIGTERM after 5 rounds (interrupted {st['interrupted']}, {st['count_grad_tot']} "
+        f"grads), resumed captured to {sr['count_grad_tot']}: "
+        f"{'bit-equal to the eager uninterrupted run' if same else 'DIFFERS from it'}")
+    if not (st["interrupted"] and same):
+        raise AssertionError("the captured SIGTERM resume differs from the eager run")
+    return out
 
 
 def build_all() -> None:
@@ -3902,25 +4225,32 @@ def main() -> int:
         profiles = {}
         for model in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
             profiles[model] = profile_main_path(model, round_ms[model], sg=sg, group=sg.group)
-            if path_spec(model).get("method", "acco") == "ddp":
+            # the comm branch on the current stream: the flagship only (the
+            # other cells' reruns cut for time)
+            if model not in ONE_STREAM_PATHS:
                 continue
-            one, prio = (stream_variant_ms(model, v, sg, sg.group) for v in ("one", "priority"))
-            profiles[model].update(round_ms=round_ms[model], one_stream_round_ms=one,
-                                   priority_round_ms=prio)
+            one = stream_variant_ms(model, sg, sg.group)
+            profiles[model].update(round_ms=round_ms[model], one_stream_round_ms=one)
             log(f"  {model}: median round ms, comm branch on its own stream (phase 5) "
-                f"{round_ms[model]:.2f}, on the current stream {one:.2f}, on its own stream "
-                f"under a high-priority compute stream {prio:.2f}")
+                f"{round_ms[model]:.2f}, on the current stream {one:.2f}")
         log("  comm side, overlap share and idle share by path: "
             f"{ {p: {k: round(v, 4) for k, v in r.items()} for p, r in profiles.items()} }")
 
         log("== 8 resume, eval and perplexity (Llama-125M, full width)")
         launches["llama-125M-fusedce-eval"], cadence = resume_phase(smi, round_ms)
+        # what phase 11 compares against, kept: phase 9 frees the runs
+        cadence_losses = {p: (c[0], [r["loss"] for r in c[1]["round_log"]])
+                          for p, c in cadence.items()}
 
         log("== 9 the input pipeline, remat, finetuning from a local HF checkpoint")
         launches.update(phase_9(smi, cadence, round_ms, peaks))
 
         log("== 10 a run that survives: the overlapped save, SIGTERM, drills, telemetry")
         launches.update(phase_10(smi, profiles))
+
+        log("== 11 the rounds captured as CUDA graphs and replayed, against eager rounds")
+        launches.update(phase_11(smi, sg, round_ms, summaries, launches, profiles,
+                                 cadence_losses))
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

@@ -52,6 +52,7 @@ def test_scan_sees_the_package():
 @pytest.mark.parametrize("subpackage, modules", [
     ("telemetry", ("__init__", "metrics", "trace", "attribution", "profile")),
     ("resilience", ("__init__", "preemption", "watchdog", "manager", "faults")),
+    ("compile", ("__init__", "cache", "warmup", "graphs")),
 ])
 def test_scan_sees_the_robustness_subpackages(subpackage, modules):
     """The scan covers the telemetry and resilience subpackages, the

@@ -47,7 +47,7 @@ from acco_tpu_torch.parallel.acco import AccoTrainStep
 from acco_tpu_torch.parallel.common import block_from_numpy
 from acco_tpu_torch.parallel.mesh import Mesh, check_mesh
 import torch_ranks
-from torch_ranks import REPO, run_ranks
+from torch_ranks import REPO, Ranks, run_ranks
 
 torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
@@ -174,7 +174,6 @@ def test_cp_rounds_match_jax_and_one_rank(family, mode, zigzag, tmp_path):
     blocks = _blocks(ROUNDS + 1)
     model = _port_model(family)
     flat = model.init_flat(torch.Generator().manual_seed(0))
-    jax_losses, jstate = _jax_run(family, mode, zigzag, flat, blocks)
     np.save(tmp_path / "flat.npy", flat.numpy())
     np.savez(tmp_path / "blocks.npz",
              **{f"{i}/{k}": v for i, b in enumerate(blocks) for k, v in b.items()})
@@ -182,9 +181,11 @@ def test_cp_rounds_match_jax_and_one_rank(family, mode, zigzag, tmp_path):
     (tmp_path / "spec.json").write_text(json.dumps(dict(
         family=family, arch=arch, zigzag=zigzag, mode=mode, sched=SCHED, opt=OPT,
         rounds=ROUNDS)))
-    run_ranks(WORKER, SP, tmp_path)
-    ranks = [np.load(tmp_path / f"out{r}.npz") for r in range(SP)]
+    ranks = Ranks(WORKER, SP, tmp_path)  # beside JAX's rounds and the one-rank port
+    jax_losses, jstate = _jax_run(family, mode, zigzag, flat, blocks)
     one_losses, one_state = _port_one_rank(family, mode, flat, blocks)
+    ranks.join()
+    ranks = [np.load(tmp_path / f"out{r}.npz") for r in range(SP)]
 
     n = flat.numel()
     for r, out in enumerate(ranks):  # the replicated leaves agree on every rank

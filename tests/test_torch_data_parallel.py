@@ -51,7 +51,7 @@ from acco_tpu_torch.parallel.mesh import Mesh, RankGroups
 from acco_tpu_torch.utils import hostlist
 from test_acco import B1, B2, EPS, LR, WD, _Sim
 import torch_ranks
-from torch_ranks import REPO, run_ranks, run_training
+from torch_ranks import REPO, run_ranks, start_training
 
 torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
@@ -155,8 +155,9 @@ def test_dp_rounds_match_jax(family, dp, sp, method, mask, tmp_path):
     spec = _spec(family, dp, sp, method, accounting=mask is not None)
     blocks = _blocks(ROUNDS + 1, dp, mask=mask)
     flat = _port_model(family).init_flat(torch.Generator().manual_seed(0))
+    ranks = start_training(spec, flat.numpy(), blocks, tmp_path)  # beside JAX's rounds
     want = _jax_acco(spec, flat, blocks)
-    ranks = run_training(spec, flat.numpy(), blocks, tmp_path)
+    ranks = ranks()
 
     n, final = flat.numel(), want["states"][-1]
     S = ranks[0]["opt_params"].shape[-1]
@@ -230,17 +231,20 @@ def test_rounds_match_the_simulator(dp, method, tmp_path):
     spec["opt"] = dict(weight_decay=WD, beta1=B1, beta2=B2, eps=EPS)
     blocks = _blocks(rounds + 1, dp, seed=1, mask=mask)
     flat = _port_model("llama").init_flat(torch.Generator().manual_seed(0))
-    ranks = run_training(spec, flat.numpy(), blocks, tmp_path)
+    ranks = start_training(spec, flat.numpy(), blocks, tmp_path)  # beside the simulator
 
     geom = ShardGeometry(flat.numel(), dp)
     sim = _Sim(geom.pad_flat(flat.double()).numpy(), _sim_grad_fn(geom), geom, method)
     sim.seed(_sim_micros(blocks[0], dp))
-    counts = []
+    counts, sim_params = [], []
     for r in range(rounds):
         counts.append(sim.pending_count)
         sim.round(_sim_micros(blocks[r + 1], dp))
+        sim_params.append(np.array(sim.params))
+    ranks = ranks()
+    for r in range(rounds):
         for d, got in enumerate(ranks):
-            np.testing.assert_allclose(got["flats"][r + 1], sim.params,
+            np.testing.assert_allclose(got["flats"][r + 1], sim_params[r],
                                        err_msg=f"rank {d}, round {r} ({method})", **SIM_TOL)
     per_round = float(mask.sum())
     for got in ranks:

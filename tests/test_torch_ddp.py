@@ -38,7 +38,7 @@ from acco_tpu_torch.ops.schedules import get_schedule
 from acco_tpu_torch.parallel.common import block_from_numpy
 from acco_tpu_torch.parallel.ddp import DDPTrainStep
 import torch_ranks
-from torch_ranks import REPO, run_training
+from torch_ranks import REPO, start_training
 
 torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
@@ -82,7 +82,7 @@ def test_one_step_matches_unsharded_math(valid, tmp_path):
     flat = _flat()
     blocks = _blocks(1, dp, seed=5, valid=valid)
     spec = _spec(dp, sched=("constant", lr, 0, 1000))
-    ranks = run_training(spec, flat.numpy(), blocks, tmp_path)
+    ranks = start_training(spec, flat.numpy(), blocks, tmp_path)  # beside JAX's math
 
     params = params_to_jax(flat, LlamaConfig(**ARCH))
     jflat, unravel = ravel_pytree(params)
@@ -103,7 +103,7 @@ def test_one_step_matches_unsharded_math(valid, tmp_path):
     expected = np.asarray(jflat) * (1 - lr * OPT["weight_decay"]) - lr * g_avg / (
         np.sqrt(g_avg ** 2) + 1e-8)
     n = flat.numel()
-    for r, got in enumerate(ranks):
+    for r, got in enumerate(ranks()):
         assert got["round_grads"][0] == count == (4 if valid is None else 3)
         np.testing.assert_allclose(got["flats"][1][:n], expected, rtol=5e-4, atol=1e-5,
                                    err_msg=f"rank {r}")
@@ -143,8 +143,9 @@ def test_ddp_matches_jax(dp, sp, accounting, tmp_path):
     valid = [[1, 1], [0, 1]] if accounting else None
     blocks = _blocks(steps, dp, seed=2, valid=valid)
     spec = _spec(dp, sp, rounds=steps, accounting=accounting)
+    ranks = start_training(spec, flat.numpy(), blocks, tmp_path)  # beside JAX's steps
     want = _jax_ddp(spec, flat, blocks)
-    ranks = run_training(spec, flat.numpy(), blocks, tmp_path)
+    ranks = ranks()
     n, final = flat.numel(), want["states"][-1]
     S = ranks[0]["opt_params"].shape[-1]
     for r, got in enumerate(ranks):

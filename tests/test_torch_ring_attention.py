@@ -27,7 +27,7 @@ from acco_tpu.ops import ring_attention as jax_ring
 from acco_tpu.ops.attention import attention_mask_bias, dot_product_attention
 from acco_tpu_torch.ops import ring_attention as port
 import torch_ranks
-from torch_ranks import run_ranks
+from torch_ranks import Ranks
 
 torch_settings = torch_ranks.torch_settings  # autouse: one torch thread, settings restored
 
@@ -137,12 +137,15 @@ def test_ring_matches_jax_ring_and_dense(ws, tmp_path):
     data = _inputs()
     np.savez(tmp_path / "inputs.npz", **data)
     (tmp_path / "layouts.json").write_text(json.dumps(LAYOUTS))
-    run_ranks(WORKER, ws, tmp_path)
-    parts = [np.load(tmp_path / f"out{r}.npz") for r in range(ws)]
+    ranks = Ranks(WORKER, ws, tmp_path)  # beside JAX's rings and the dense reference
+    want = {}
     for layout, (hkv, window) in LAYOUTS.items():
         q, k, v, cot = data["q"], data[f"k{hkv}"], data[f"v{hkv}"], data["cot"]
-        jax_out = _jax_ring(layout, ws, q, k, v, cot, window)
-        dense = _dense(q, k, v, cot, window)
+        want[layout] = (_jax_ring(layout, ws, q, k, v, cot, window), _dense(q, k, v, cot, window))
+    ranks.join()
+    parts = [np.load(tmp_path / f"out{r}.npz") for r in range(ws)]
+    for layout, (hkv, window) in LAYOUTS.items():
+        jax_out, dense = want[layout]
         inv = (jax_ring.zigzag_permutation(L, ws)[1] if layout.endswith("zigzag")
                else np.arange(L))
         for impl in IMPLS:

@@ -1,19 +1,24 @@
 """Run a script on several gloo ranks for the port's distributed tests.
 
-Each rank is its own Python process (``python -c <script> <rank> <world
-size> <store> <workdir>``) that imports torch and the port, never JAX. The
-script initialises its process group through a ``file://`` store in the
-test's temporary directory (no fixed port: the suite runs under
-pytest-xdist), does its work, and writes its results into the work
-directory. :func:`run_ranks` joins the processes under a timeout and
-fails, with their output, if one hangs or exits non-zero.
+Each rank is its own Python process that runs ``<script>`` with
+``sys.argv`` ``[<rank>, <world size>, <store>, <workdir>]`` and imports
+torch and the port, never JAX. The processes are forked from a
+multiprocessing fork server that imported torch once (per test worker),
+not started afresh: a fresh interpreter spends ~3.6 s importing torch,
+and the distributed tests start ~70 ranks. The script initialises its
+process group through a ``file://`` store in the test's temporary
+directory (no fixed port: the suite runs under pytest-xdist), does its
+work, and writes its results into the work directory. :func:`run_ranks`
+joins the processes under a timeout and fails, with their output, if
+one hangs or exits non-zero.
 """
 
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
+import time
+import traceback
 
 import pytest
 
@@ -52,39 +57,102 @@ def torch_settings(monkeypatch):
         torch.use_deterministic_algorithms(saved[4])
 
 
+_CONTEXT = None
+
+
+def _fork_server():
+    """The fork server's context (made once a process): its server imports
+    torch, torch.distributed and numpy before it forks any rank."""
+    global _CONTEXT
+    if _CONTEXT is None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload(["torch", "torch.distributed", "numpy", "torch_ranks"])
+        _CONTEXT = ctx
+    return _CONTEXT
+
+
+def _rank_main(code: str, argv: list, log: str, env: dict) -> None:
+    """One rank, in a process forked from the server: the test's
+    environment, ``sys.argv``, stdout and stderr into ``log``, then the
+    script as ``__main__``; exits 1 with the traceback logged if it
+    raises."""
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    sys.stdout = sys.stderr = os.fdopen(1, "w", buffering=1)
+    os.environ.clear()
+    os.environ.update(env)
+    sys.argv = ["-c", *argv]
+    status = 0
+    try:
+        exec(compile(code, "<rank script>", "exec"), {"__name__": "__main__"})
+    except SystemExit as exc:
+        status = exc.code if isinstance(exc.code, int) else 1
+    except BaseException:  # noqa: BLE001 — reported through the log and the exit code
+        traceback.print_exc()
+        status = 1
+    sys.stdout.flush()
+    os._exit(status)
+
+
+class Ranks:
+    """``ws`` rank processes running a script; :meth:`join` waits for
+    them (the timeout counts from their start) and raises with their
+    output if any fails or hangs. Started first, they run while the test
+    computes its reference in-process."""
+
+    def __init__(self, script: str, ws: int, workdir, timeout: float = 120.0) -> None:
+        workdir = str(workdir)
+        store = os.path.join(workdir, "store")
+        # the barrier: a rank that tears gloo down while another is still in
+        # a collective of one of several groups can abort at exit
+        code = (PRELUDE.format(repo=REPO) + script
+                + "\ndist.barrier()\ndist.destroy_process_group()\n")
+        env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
+        self.ws, self.timeout = ws, timeout
+        self.deadline = time.monotonic() + timeout
+        self.logs = [os.path.join(workdir, f"rank{r}.log") for r in range(ws)]
+        ctx = _fork_server()
+        self.procs = [
+            ctx.Process(target=_rank_main, name=f"rank{r}",
+                        args=(code, [str(r), str(ws), store, workdir], self.logs[r], env))
+            for r in range(ws)
+        ]
+        for p in self.procs:
+            p.start()
+
+    def join(self) -> None:
+        try:
+            for p in self.procs:
+                p.join(timeout=max(0.0, self.deadline - time.monotonic()))
+            if any(p.exitcode is None for p in self.procs):
+                raise AssertionError(f"the {self.ws} ranks did not finish within {self.timeout} s")
+        finally:
+            for p in self.procs:
+                if p.exitcode is None:
+                    p.kill()
+                    p.join()
+        failed = [(r, p.exitcode) for r, p in enumerate(self.procs) if p.exitcode]
+        if failed:
+            raise AssertionError("\n".join(
+                f"rank {r} exited {rc}:\n{_tail(self.logs[r])}" for r, rc in failed))
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            return f.read()[-n:]
+    except OSError:
+        return "(no output)"
+
+
 def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
     """Run ``script`` (after :data:`PRELUDE`) on ``ws`` ranks; raise with
     the ranks' output if any fails or the group does not finish within
     ``timeout`` seconds."""
-    workdir = str(workdir)
-    store = os.path.join(workdir, "store")
-    # the barrier: a rank that tears gloo down while another is still in a
-    # collective of one of several groups can abort at exit
-    code = (PRELUDE.format(repo=REPO) + script
-            + "\ndist.barrier()\ndist.destroy_process_group()\n")
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-c", code, str(r), str(ws), store, workdir],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
-        )
-        for r in range(ws)
-    ]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"the {ws} ranks did not finish within {timeout} s") from None
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    failed = [(r, p.returncode, out) for r, (p, out) in enumerate(zip(procs, outs)) if p.returncode]
-    if failed:
-        raise AssertionError("\n".join(
-            f"rank {r} exited {rc}:\n{out[-3000:]}" for r, rc, out in failed))
+    Ranks(script, ws, workdir, timeout).join()
 
 
 # Training on ranks: one rank of a {dp, sp} world runs the port's ACCO/DPU
@@ -166,9 +234,10 @@ np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **{k: np.array(v) for k, v in 
 """
 
 
-def run_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0) -> list:
-    """:data:`TRAIN_WORKER` on ``spec['dp'] * spec['sp']`` ranks; returns
-    each rank's saved arrays."""
+def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0):
+    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` ranks;
+    the returned function waits for them and returns each rank's saved
+    arrays."""
     import json
 
     import numpy as np
@@ -179,5 +248,16 @@ def run_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0
     with open(os.path.join(str(workdir), "spec.json"), "w") as f:
         json.dump(spec, f)
     ws = spec["dp"] * spec["sp"]
-    run_ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
-    return [dict(np.load(os.path.join(str(workdir), f"out{r}.npz"))) for r in range(ws)]
+    ranks = Ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
+
+    def join() -> list:
+        ranks.join()
+        return [dict(np.load(os.path.join(str(workdir), f"out{r}.npz"))) for r in range(ws)]
+
+    return join
+
+
+def run_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0) -> list:
+    """:data:`TRAIN_WORKER` on ``spec['dp'] * spec['sp']`` ranks; returns
+    each rank's saved arrays."""
+    return start_training(spec, flat, blocks, workdir, timeout)()
