@@ -32,6 +32,14 @@ more plan, banded local layers beside einsum global layers, which it takes
 only where 'auto' does not pick its full-tile kernel (L past its VMEM
 wall). K1 here has no L cap and takes every shape K2 takes, so on the card
 that plan is never chosen and is not ported.
+
+The serving surface (JAX: gpt_neo.py:518-649; ``serve/engine.py``
+drives it): :meth:`GPTNeoModel.kv_spec`, :meth:`GPTNeoModel.prefill`
+(the plain path with each layer's window bias, whatever ``attention``
+says, returning every layer's K/V) and :meth:`GPTNeoModel.decode`, whose
+local layers read the narrow band gather when the engine passes one
+(the per-layer window is static here: a Python branch, not JAX's
+``cond``).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from acco_tpu_torch.models.layers import (
 )
 from acco_tpu_torch.ops.attention import (
     attention_mask_bias,
+    cached_attention,
     dot_product_attention,
     normalize_attention_impl,
     normalize_remat,
@@ -277,14 +286,100 @@ class GPTNeoModel(FlatParamModel):
 
     def _layer(self, x, blk, attend, window: int) -> torch.Tensor:
         """One block: attention with this layer's window, then the MLP."""
+        q, k, v = self._qkv(x, blk)
+        return self._out(x, blk, attend(q, k, v, window))
+
+    def _qkv(self, x, blk):
+        """The block's q, k, v in [B, H, L, D] (no positional rotation)."""
         cfg = self.config
-        eps, D = cfg.layer_norm_epsilon, cfg.hidden_size
-        h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, eps)
+        D = cfg.hidden_size
+        h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, cfg.layer_norm_epsilon)
         q, k, v = (h @ blk.w_qkv.reshape(D, 3 * D)).split(D, dim=-1)
-        ctx = attend(
-            split_heads(q, cfg.num_heads), split_heads(k, cfg.num_heads),
-            split_heads(v, cfg.num_heads), window,
-        )
+        return (split_heads(q, cfg.num_heads), split_heads(k, cfg.num_heads),
+                split_heads(v, cfg.num_heads))
+
+    def _out(self, x, blk, ctx) -> torch.Tensor:
+        """The block after its attention: the output projection, the MLP."""
+        eps = self.config.layer_norm_epsilon
         x = x + merge_heads(ctx) @ blk.wo + blk.wo_bias
         h = layer_norm(x, blk.ln2_scale, blk.ln2_bias, eps)
         return x + gelu_new(h @ blk.w_fc + blk.b_fc) @ blk.w_proj + blk.b_proj
+
+    # -- serving surface (serve/) ------------------------------------------
+
+    def kv_spec(self) -> tuple[int, int, int]:
+        """(n_layers, n_heads, head_dim): the per-token KV-cache row shape
+        (``serve/kv_cache.CacheSpec``); GPT-Neo has no GQA."""
+        cfg = self.config
+        return cfg.num_layers, cfg.num_heads, cfg.head_dim
+
+    def _check_serve(self) -> None:
+        if self.sequence_group is not None:
+            raise ValueError(
+                "the serving decode path is single-replica: build the model "
+                "without a sequence group"
+            )
+
+    def prefill(self, input_ids: torch.Tensor):
+        """Serving prefill (see ``LlamaModel.prefill`` for the padding
+        contract): the plain path with each layer's window bias, always,
+        so the committed cache rows are what decode's plain attention
+        replays.
+
+        Returns ``(logits [B, L, V] float32, k, v [n_layers, B, L, H, D])``.
+        """
+        cfg = self.config
+        self._check_serve()
+        L = input_ids.shape[1]
+        if L > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prefill length {L} exceeds max_position_embeddings "
+                f"{cfg.max_position_embeddings}"
+            )
+        device = input_ids.device
+        biases = {w: attention_mask_bias(L, w, None, device) for w in set(cfg.layer_windows)}
+        x = F.embedding(input_ids, self.wte) + self.wpe[:L][None, :, :]
+        ks, vs = [], []
+        for blk, window in zip(self.layers, cfg.layer_windows):
+            q, k, v = self._qkv(x, blk)
+            x = self._out(x, blk, dot_product_attention(q, k, v, biases[window], scale=1.0))
+            ks.append(k.transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        x = layer_norm(x, self.lnf_scale, self.lnf_bias, cfg.layer_norm_epsilon)
+        return lm_logits(x, self.lm_head()), torch.stack(ks), torch.stack(vs)
+
+    def decode(
+        self,
+        token_ids: torch.Tensor,  # [R] one token per request slot
+        positions: torch.Tensor,  # [R] absolute position being decoded
+        k_ctx: torch.Tensor,  # [n_layers, R, C, H, D] gathered cache rows
+        v_ctx: torch.Tensor,
+        kv_positions: torch.Tensor,  # [C] or [R, C] absolute row positions
+        band=None,  # (k_band, v_band [n_layers, R, Cb, H, D], band_positions [R, Cb])
+    ):
+        """One continuous-batching decode step. Global layers attend the
+        full gathered context; local layers attend it under their window,
+        or, when the engine passes ``band`` (``serve/kv_cache.gather_band``),
+        only the pages covering the window, so that their cost stays
+        O(window). Unscaled scores (GPT-Neo's ``scale=1.0``).
+
+        Returns ``(logits [R, V] float32, k_new, v_new [n_layers, R, H, D])``.
+        """
+        cfg = self.config
+        self._check_serve()
+        x = (F.embedding(token_ids, self.wte) + self.wpe[positions])[:, None, :]
+        k_new, v_new = [], []
+        for i, (blk, window) in enumerate(zip(self.layers, cfg.layer_windows)):
+            q, k, v = self._qkv(x, blk)
+            if band is not None and window:
+                k_band, v_band, band_positions = band
+                ctx = cached_attention(q, k_band[i], v_band[i], k, v, positions,
+                                       band_positions, window=window, scale=1.0)
+            else:
+                ctx = cached_attention(q, k_ctx[i], v_ctx[i], k, v, positions,
+                                       kv_positions, window=window, scale=1.0)
+            x = self._out(x, blk, ctx)
+            k_new.append(k[:, :, 0])
+            v_new.append(v[:, :, 0])
+        x = layer_norm(x, self.lnf_scale, self.lnf_bias, cfg.layer_norm_epsilon)
+        return lm_logits(x, self.lm_head())[:, 0], torch.stack(k_new), torch.stack(v_new)

@@ -167,6 +167,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def apply_rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-rotation RoPE on [R, H, 1, D] with per-ROW angle tables [R, D/2]
+    (``rope_angles`` at each slot's position): the decode step's variant of
+    :func:`apply_rope`, each request slot at its own depth."""
+    return apply_rope(x, cos[:, None, None, :], sin[:, None, None, :])
+
+
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """[B, L, H*D] -> [B, H, L, D]"""
     b, l, _ = x.shape

@@ -18,6 +18,13 @@ refused: the ring serves const-len packed sequences.
 context-parallel one included, through ``layers.wrap_remat`` (JAX:
 llama.py:300-304, :562-567) and moves 'auto''s flash threshold
 (``ops.attention.resolve_attention_impl``).
+
+The serving surface (JAX: llama.py:354-452; ``serve/engine.py`` drives
+it): :meth:`LlamaModel.kv_spec`, :meth:`LlamaModel.prefill` (the plain
+causal forward whatever ``attention`` says, with every layer's post-RoPE
+K/V) and :meth:`LlamaModel.decode` (one position per request slot
+against the rows gathered from the paged cache,
+``ops.attention.cached_attention``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch.nn import functional as F
 from acco_tpu_torch.models.flat import FlatParamModel, sorted_layout
 from acco_tpu_torch.models.layers import (
     apply_rope,
+    apply_rope_at,
     lm_logits,
     merge_heads,
     rms_norm,
@@ -41,6 +49,7 @@ from acco_tpu_torch.models.layers import (
 )
 from acco_tpu_torch.ops.attention import (
     attention_mask_bias,
+    cached_attention,
     dot_product_attention,
     normalize_attention_impl,
     normalize_remat,
@@ -183,13 +192,7 @@ class LlamaModel(FlatParamModel):
 
     def _layer(self, x, blk, cos, sin, attention_mask, bias, impl: str) -> torch.Tensor:
         """One decoder layer: attention, then the SwiGLU MLP."""
-        cfg = self.config
-        eps = cfg.rms_norm_eps
-        h = rms_norm(x, blk.attn_norm, eps)
-        q = split_heads(h @ blk.wq, cfg.num_heads)
-        k = split_heads(h @ blk.wk, cfg.num_kv_heads)
-        v = split_heads(h @ blk.wv, cfg.num_kv_heads)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q, k, v = self._qkv(x, blk, cos, sin)
         if impl == "fused":
             ctx = fused_dot_product_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), attention_mask
@@ -203,6 +206,95 @@ class LlamaModel(FlatParamModel):
             ctx = ring(q, k, v, self.sequence_group)
         else:
             ctx = dot_product_attention(q, k, v, bias)
+        return self._out(x, blk, ctx)
+
+    def _qkv(self, x, blk, cos, sin, rope=apply_rope):
+        """The layer's post-RoPE q, k, v in [B, H(kv), L, D]."""
+        cfg = self.config
+        h = rms_norm(x, blk.attn_norm, cfg.rms_norm_eps)
+        q = split_heads(h @ blk.wq, cfg.num_heads)
+        k = split_heads(h @ blk.wk, cfg.num_kv_heads)
+        v = split_heads(h @ blk.wv, cfg.num_kv_heads)
+        return rope(q, cos, sin), rope(k, cos, sin), v
+
+    def _out(self, x, blk, ctx) -> torch.Tensor:
+        """The layer after its attention: the output projection, the MLP."""
         x = x + merge_heads(ctx) @ blk.wo
-        h = rms_norm(x, blk.mlp_norm, eps)
+        h = rms_norm(x, blk.mlp_norm, self.config.rms_norm_eps)
         return x + (F.silu(h @ blk.w_gate) * (h @ blk.w_up)) @ blk.w_down
+
+    # -- serving surface (serve/) ------------------------------------------
+
+    def kv_spec(self) -> tuple[int, int, int]:
+        """(n_layers, n_kv_heads, head_dim): the per-token KV-cache row
+        shape the paged pool allocates (``serve/kv_cache.CacheSpec``)."""
+        cfg = self.config
+        return cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+    def _check_serve(self) -> None:
+        if self.sequence_group is not None:
+            raise ValueError(
+                "the serving decode path is single-replica: build the model "
+                "without a sequence group"
+            )
+
+    def prefill(self, input_ids: torch.Tensor):
+        """Serving prefill: the plain causal forward (whatever
+        ``attention`` says, so the committed cache rows are what decode's
+        plain attention replays) that also returns every layer's post-RoPE
+        K/V. Right-padded prompts need no mask: pad positions cannot reach
+        real ones, and their cache rows stay masked by decode's strict
+        ``kv_pos < q_pos`` until overwritten.
+
+        Returns ``(logits [B, L, V] float32, k, v [n_layers, B, L, Hkv, D])``.
+        """
+        cfg = self.config
+        self._check_serve()
+        L = input_ids.shape[1]
+        if L > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prefill length {L} exceeds max_position_embeddings "
+                f"{cfg.max_position_embeddings}"
+            )
+        device = input_ids.device
+        x = F.embedding(input_ids, self.wte)
+        bias = attention_mask_bias(L, 0, None, device)
+        cos, sin = rope_angles(L, cfg.head_dim, cfg.rope_theta, device)
+        ks, vs = [], []
+        for blk in self.layers:
+            q, k, v = self._qkv(x, blk, cos, sin)
+            x = self._out(x, blk, dot_product_attention(q, k, v, bias))
+            ks.append(k.transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return lm_logits(x, self.lm_head()), torch.stack(ks), torch.stack(vs)
+
+    def decode(
+        self,
+        token_ids: torch.Tensor,  # [R] one token per request slot
+        positions: torch.Tensor,  # [R] absolute position being decoded
+        k_ctx: torch.Tensor,  # [n_layers, R, C, Hkv, D] gathered cache rows
+        v_ctx: torch.Tensor,
+        kv_positions: torch.Tensor,  # [C] or [R, C] absolute row positions
+    ):
+        """One continuous-batching decode step over the gathered paged
+        cache: each slot attends its own context rows (strict ``kv_pos <
+        q_pos``) plus the current token, and emits this position's K/V for
+        the write-back.
+
+        Returns ``(logits [R, V] float32, k_new, v_new [n_layers, R, Hkv, D])``.
+        """
+        cfg = self.config
+        self._check_serve()
+        x = F.embedding(token_ids, self.wte)[:, None, :]  # [R, 1, D]
+        cos, sin = rope_angles(1, cfg.head_dim, cfg.rope_theta, token_ids.device,
+                               positions=positions)  # [R, D/2] per-slot angles
+        k_new, v_new = [], []
+        for blk, kc, vc in zip(self.layers, k_ctx, v_ctx):
+            q, k, v = self._qkv(x, blk, cos, sin, rope=apply_rope_at)
+            ctx = cached_attention(q, kc, vc, k, v, positions, kv_positions)
+            x = self._out(x, blk, ctx)
+            k_new.append(k[:, :, 0])
+            v_new.append(v[:, :, 0])
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return lm_logits(x, self.lm_head())[:, 0], torch.stack(k_new), torch.stack(v_new)

@@ -22,6 +22,9 @@ Counterpart of ``acco_tpu/ops/attention.py`` for the training path:
   'fused' and 'flash' on the CPU run their kernels' plain versions.
   'ring' (context parallelism, ops/ring_attention.py) is asked for by
   name and passes through.
+- :func:`cached_attention` is the serving decode step's attention
+  (JAX: ops/attention.py:224-274): one query position per request slot
+  against the rows gathered from the paged KV cache (``serve/``).
 """
 
 from __future__ import annotations
@@ -94,6 +97,76 @@ def dot_product_attention(
     scores = scores * scale + bias
     probs = attn_probs(torch.softmax(scores, dim=-1), q.dtype)
     return torch.matmul(probs, v)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, M, K] @ [B, K, N] -> float32, summed in float32 with no rounding
+    of the product to the operands' dtype (JAX's
+    ``preferred_element_type=jnp.float32``): on the card a bf16 batched
+    GEMM with float32 output, elsewhere the widened operands' product."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def cached_attention(
+    q: torch.Tensor,  # [R, H, 1, D] the current position's queries
+    k_ctx: torch.Tensor,  # [R, C, Hkv, D] rows gathered from the paged cache
+    v_ctx: torch.Tensor,  # [R, C, Hkv, D]
+    k_new: torch.Tensor,  # [R, Hkv, 1, D] the current token's K (post-RoPE)
+    v_new: torch.Tensor,  # [R, Hkv, 1, D]
+    q_positions: torch.Tensor,  # [R] absolute position being decoded
+    kv_positions: torch.Tensor,  # [C] or [R, C] absolute position per row
+    window: int = 0,  # 0 = global
+    scale: Optional[float] = None,
+) -> torch.Tensor:  # [R, H, 1, D]
+    """Single-position attention against gathered KV-cache rows, as JAX's
+    ``cached_attention``: a cached row attends iff its position is
+    STRICTLY below the query's (rows at or past it are unallocated, a
+    prefill bucket's garbage tail, or this position's own slot, written
+    only after the step), and the current token rides in as a final
+    key/value column that is always attended. ``window`` (a Python int per
+    layer: GPT-Neo's local layers) also masks rows ``window`` or more
+    positions back. Scores and softmax in float32, the probabilities cast
+    to q's dtype before the PV product, which sums in float32 and rounds
+    once.
+
+    GQA without JAX's ``repeat_kv``: the queries are grouped by KV head and
+    laid block-diagonally, ``[R, H, Hkv*D]`` with query head ``h``'s row
+    nonzero only in its KV head's ``D`` columns, so each slot's product runs
+    on its page-major context rows ``[C, Hkv*D]`` as they were gathered:
+    the context is read once, never transposed, concatenated or repeated.
+    The other heads' columns add exact zeros (the products are Hkv times
+    the work; the step is bound by its bytes). The current token's column
+    is summed apart."""
+    R, H, _, D = q.shape
+    C, Hkv = k_ctx.shape[1], k_ctx.shape[2]
+    G = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    # a pool in another dtype than the activations (``cache_dtype``)
+    k_ctx, v_ctx = k_ctx.to(q.dtype), v_ctx.to(q.dtype)
+    qg = q.reshape(R, Hkv, G, D)
+    eye = torch.eye(Hkv, dtype=q.dtype, device=q.device)
+    q_bd = (qg[:, :, :, None, :] * eye[None, :, None, :, None]).reshape(R, H, Hkv * D)
+    s_ctx = _bmm_f32(q_bd, k_ctx.reshape(R, C, Hkv * D).transpose(1, 2))  # [R, H, C]
+    s_self = (qg.float() * k_new.float()).sum(-1).reshape(R, H, 1)
+    scores = torch.cat([s_ctx, s_self], dim=2)
+    if kv_positions.dim() == 1:
+        kv_positions = kv_positions[None, :].expand(R, -1)
+    qp = q_positions[:, None]
+    allowed = kv_positions < qp
+    if window:
+        allowed = allowed & ((qp - kv_positions) < window)
+    allowed = torch.cat([allowed, torch.ones_like(allowed[:, :1])], dim=1)  # self column
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(allowed, zero, torch.full_like(zero, NEG_INF))
+    probs = torch.softmax(scores * scale + bias[:, None, :], dim=-1).to(q.dtype)
+    out = _bmm_f32(probs[:, :, :C], v_ctx.reshape(R, C, Hkv * D))  # [R, H, Hkv*D]
+    # each query head's own KV head's D columns: the block diagonal
+    out = torch.diagonal(out.view(R, Hkv, G, Hkv, D), dim1=1, dim2=3)  # [R, G, D, Hkv]
+    out = out.permute(0, 3, 1, 2) + probs[:, :, C:].float().view(R, Hkv, G, 1) * v_new.float()
+    return out.to(q.dtype).reshape(R, H, 1, D)
 
 
 def _attn_probs(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

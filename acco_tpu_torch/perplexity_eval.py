@@ -22,8 +22,11 @@ where it holds one. ::
 
 It runs on ``cuda:0`` unless ``--device cpu`` is given. The texts are the
 train split of ``--data`` (``synthetic``, or a dataset that
-``data/datasets.py`` loads). ``--engine serve`` (serving, ROADMAP.md
-queue 1, item 11) is not ported yet and raises.
+``data/datasets.py`` loads). ``--engine serve`` scores each sample
+through the serving path's forward (``serve/engine.ServeEngine.
+score_nll``: ``model.prefill`` at the sample's bucket, no KV page
+touched), on an engine sized as JAX's (page 16, buckets up to
+``--max-length`` clamped to the model's positions).
 """
 
 from __future__ import annotations
@@ -58,12 +61,14 @@ def compute(
     batch_size: int = 8,
     max_length: int = 256,
     add_start_token: bool = True,
+    engine=None,
 ) -> dict:
     """Per-sample perplexities of ``texts`` under ``flat_params`` (an
     [n_params] vector in the model's flat order) and their mean, as the
     JAX ``compute`` gives them: BOS (or EOS) prepended, each sample padded
     to ``max_length``, the NLL of its next-token targets averaged over
-    its real tokens."""
+    its real tokens. With ``engine`` (a ``serve.engine.ServeEngine`` on
+    ``model``) each sample is scored alone through ``engine.score_nll``."""
     from acco_tpu_torch.data.loader import IGNORE_INDEX
     from acco_tpu_torch.ops.losses import _per_token_ce
 
@@ -77,6 +82,14 @@ def compute(
     encoded = tokenizer(texts, truncation=True, max_length=max_length)["input_ids"]
     encoded = [([bos] + list(ids) if add_start_token else list(ids)) for ids in encoded]
     encoded = [ids[:max_length] for ids in encoded]
+
+    if engine is not None:
+        engine.set_params(flat_params)
+        ppls = []
+        for ids in encoded:
+            nll_sum, n_tok = engine.score_nll(ids)
+            ppls.append(float(np.exp(nll_sum / max(n_tok, 1.0))))
+        return {"perplexities": ppls, "mean_perplexity": float(np.mean(ppls))}
 
     device = next(model.parameters()).device
     model.load_flat(flat_params.to(device=device, dtype=model.dtype))
@@ -114,15 +127,12 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--max-length", type=int, default=256)
     parser.add_argument("--no-bos", action="store_true")
     parser.add_argument("--engine", choices=("jit", "serve"), default="jit",
-                        help="'serve' (the serving path's forward) is not ported yet")
+                        help="'serve' scores through the serving path's prefill forward "
+                             "(ServeEngine.score_nll) instead of the model's apply")
     parser.add_argument("--device", default=None, help="cpu, or the card (default)")
     parser.add_argument("--seed", type=int, default=0, help="init seed without --checkpoint")
     args = parser.parse_args(argv)
 
-    if args.engine == "serve":
-        raise NotImplementedError(
-            "--engine serve (the serving path) is not ported yet: ROADMAP.md queue 1, item 11"
-        )
     from acco_tpu_torch.data.datasets import load_text_dataset
     from acco_tpu_torch.data.tokenizer import load_tokenizer
     from acco_tpu_torch.utils.checkpoint import load_flat_params, resolve_serving_checkpoint
@@ -145,8 +155,22 @@ def main(argv: list[str] | None = None) -> dict:
             flat = model.init_flat(torch.Generator(device=device).manual_seed(args.seed))
     train_texts, _ = load_text_dataset({"path": args.data}, test_size=0.01)
     texts = train_texts[: args.n_samples]
+    engine, max_length = None, args.max_length
+    if args.engine == "serve":
+        from acco_tpu_torch.serve.engine import ServeEngine
+
+        # a scoring-only engine: score_nll never touches the KV pool, so
+        # the page budget is a formality; the buckets cover the eval's
+        # max_length, clamped to the model's position table (JAX:
+        # perplexity_eval.py:169-185)
+        page = 16
+        ctx = min(max_length, model.config.max_position_embeddings)
+        ctx = max(page, (ctx // page) * page)
+        max_length = min(max_length, ctx)
+        engine = ServeEngine(model, page_size=page, num_pages=2, max_pages_per_seq=ctx // page,
+                             max_slots=1)
     result = compute(model, flat, tokenizer, texts, batch_size=args.batch_size,
-                     max_length=args.max_length, add_start_token=not args.no_bos)
+                     max_length=max_length, add_start_token=not args.no_bos, engine=engine)
     out = {"mean_perplexity": result["mean_perplexity"], "n": len(texts)}
     print(json.dumps(out))
     return out

@@ -1,8 +1,7 @@
 """Resilience: survive being killed, never stall to save, and survive
 going numerically bad.
 
-Counterpart of ``acco_tpu/resilience/`` (its serve fault kinds wait for
-the port's serving):
+Counterpart of ``acco_tpu/resilience/``:
 
 - :class:`CheckpointManager` (manager.py) — overlapped checkpointing:
   the train loop blocks only for the device-to-host snapshot into pinned
@@ -21,9 +20,18 @@ the port's serving):
   rollback to the newest complete checkpoint, fencing the poisoned data
   window. Drilled by the fault registry (faults.py, the
   ``fault_injection:`` train key).
+- serve chaos (faults.py, :class:`ServeFaultInjector`): the serving
+  loop's fault kinds at scheduler steps (``ACCO_SERVE_CHAOS``).
 """
 
-from acco_tpu_torch.resilience.faults import FaultInjector, parse_fault_specs
+from acco_tpu_torch.resilience.faults import (
+    SERVE_FAULT_KINDS,
+    FaultInjector,
+    ServeFaultInjector,
+    ServeFaultSpec,
+    parse_fault_specs,
+    parse_serve_fault_specs,
+)
 from acco_tpu_torch.resilience.manager import CheckpointManager
 from acco_tpu_torch.resilience.preemption import ShutdownHandler
 from acco_tpu_torch.resilience.watchdog import HealthVerdict, TrainingHealthMonitor
@@ -32,7 +40,11 @@ __all__ = [
     "CheckpointManager",
     "FaultInjector",
     "HealthVerdict",
+    "SERVE_FAULT_KINDS",
+    "ServeFaultInjector",
+    "ServeFaultSpec",
     "ShutdownHandler",
     "TrainingHealthMonitor",
     "parse_fault_specs",
+    "parse_serve_fault_specs",
 ]

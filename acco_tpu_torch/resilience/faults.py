@@ -1,8 +1,7 @@
-"""Fault injection for the train loop: one registry for tests, configs
-and drills on the card.
+"""Fault injection for the train loop and the serving loop: one registry
+for tests, configs and drills on the card.
 
-Counterpart of the train half of ``acco_tpu/resilience/faults.py`` (its
-serve kinds wait for the port's serving). Two layers:
+Counterpart of ``acco_tpu/resilience/faults.py``. Three layers:
 
 **Filesystem/process faults** — the failure modes a preempted or killed
 trainer actually produces:
@@ -49,6 +48,11 @@ round: 5, n: 128}]``), a single dict, or compact strings
 (``"nan_grads@3"``). Round indexes are 0-based dispatch counts of the
 current run's train loop (the seed round is not counted); each spec
 fires exactly once.
+
+**Serve chaos** — a copy of JAX's: :class:`ServeFaultInjector` fires the
+``SERVE_FAULT_KINDS`` (``engine_raise``, ``slow_decode``, ``kv_exhaust``,
+``client_abandon``) at scheduler step indices, from ``--chaos``, the
+serve config's ``fault_injection:`` or ``ACCO_SERVE_CHAOS``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ import signal
 import subprocess
 import sys
 import textwrap
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from acco_tpu_torch.resilience.preemption import ShutdownHandler
@@ -343,3 +348,218 @@ class FaultInjector:
                              spec.params or "")
             state, block = FAULT_KINDS[spec.kind](state, block, **spec.params)
         return state, block
+
+
+# ---------------------------------------------------------------------------
+# Serve-side chaos: faults fired at scheduler step indices (a copy of JAX's)
+# ---------------------------------------------------------------------------
+
+# kind -> inject(injector, scheduler, **params). Fired by the scheduler
+# at the TOP of step() (before admission), on the serving-loop thread —
+# so every injection is serialized with normal scheduling exactly like a
+# real event would be. Kinds mirror production failure classes:
+#
+# - ``engine_raise``   — the decode dispatch blows up: the raise
+#   propagates out of step() into ServingLoop's fail_all path (every
+#   in-flight request fails loudly, the loop survives);
+# - ``slow_decode``    — one decode takes ``seconds`` longer (a
+#   stragglers/step-time-spike drill for timeouts and deadlines);
+# - ``kv_exhaust``     — the page pool drains to ``leave`` free pages
+#   for ``hold_steps`` steps: admission must shed (503, never 500) and
+#   growth must preempt, then the pool recovers;
+# - ``client_abandon`` — the newest in-flight request's client vanishes:
+#   the cancellation path must free its pages (the zombie-leak drill).
+SERVE_FAULT_KINDS: Dict[str, Callable] = {}
+
+
+def register_serve_fault(kind: str):
+    def wrap(fn: Callable) -> Callable:
+        SERVE_FAULT_KINDS[kind] = fn
+        return fn
+
+    return wrap
+
+
+@register_serve_fault("engine_raise")
+def _serve_engine_raise(injector, scheduler, **params):
+    raise RuntimeError("injected serve fault: engine_raise")
+
+
+@register_serve_fault("slow_decode")
+def _serve_slow_decode(injector, scheduler, seconds: float = 0.05, **params):
+    """Make the NEXT engine.decode call sleep ``seconds`` first; the
+    wrapper restores the original before delegating, so exactly one
+    decode is slow."""
+    engine = scheduler.engine
+    orig = engine.decode
+
+    def slow_once(*a, **k):
+        engine.decode = orig
+        time.sleep(float(seconds))
+        return orig(*a, **k)
+
+    engine.decode = slow_once
+
+
+@register_serve_fault("kv_exhaust")
+def _serve_kv_exhaust(
+    injector, scheduler, leave: int = 0, hold_steps: int = 5, **params
+):
+    """Allocate the pool down to ``leave`` free pages and hold them for
+    ``hold_steps`` scheduler steps (the injector frees them)."""
+    n = scheduler.allocator.available - int(leave)
+    if n <= 0:
+        return
+    pages = scheduler.allocator.alloc(n)
+    if pages:
+        injector.hold_pages(scheduler, pages, hold_steps=int(hold_steps))
+
+
+@register_serve_fault("client_abandon")
+def _serve_client_abandon(injector, scheduler, **params):
+    """Cancel the newest in-flight request as an abandoning client
+    would (handler gone, nobody waiting) — the scheduler must free its
+    pages via the cancellation path."""
+    active = [r for r in scheduler.slots if r is not None]
+    if active:
+        victim = max(active, key=lambda r: r.admit_seq)
+    elif scheduler.waiting:
+        victim = scheduler.waiting[-1]
+    else:
+        return
+    scheduler.cancel(victim, reason="abandoned")
+
+
+class ServeFaultSpec:
+    """One scheduled serve fault: ``kind`` at 0-based scheduler ``step``
+    (counted over step() calls of the current scheduler); fires once."""
+
+    def __init__(self, kind: str, step_idx: int, **params: Any) -> None:
+        if kind not in SERVE_FAULT_KINDS:
+            raise ValueError(
+                f"unknown serve fault kind {kind!r}; registered: "
+                f"{sorted(SERVE_FAULT_KINDS)}"
+            )
+        self.kind = kind
+        self.step = int(step_idx)
+        if self.step < 0:
+            raise ValueError(f"fault step must be >= 0, got {self.step}")
+        self.params = dict(params)
+        self.fired = False
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        extra = "".join(f", {k}={v!r}" for k, v in self.params.items())
+        return f"ServeFaultSpec({self.kind!r}@{self.step}{extra})"
+
+
+def parse_serve_fault_specs(cfg: Any) -> List["ServeFaultSpec"]:
+    """Normalize a serve chaos config (``ACCO_SERVE_CHAOS`` env /
+    ``fault_injection:`` serve-yaml key / ``--chaos`` flags) into
+    ServeFaultSpecs. Same grammar as the train injector: a list of
+    dicts (``{kind: kv_exhaust, step: 4, hold_steps: 8}``), a single
+    dict, or compact comma-separable strings (``"client_abandon@5"``).
+    Unknown kinds raise at parse time — a drill that silently injects
+    nothing would report a robustness the stack does not have."""
+    if cfg is None or cfg == "" or cfg is False:
+        return []
+    if isinstance(cfg, str):
+        cfg = [s for s in cfg.split(",") if s.strip()]
+    if isinstance(cfg, dict):
+        cfg = [cfg]
+    specs: List[ServeFaultSpec] = []
+    for entry in cfg:
+        if isinstance(entry, str):
+            kind, sep, step = entry.strip().partition("@")
+            if not sep:
+                raise ValueError(
+                    f"serve fault string {entry!r} must be 'kind@step'"
+                )
+            specs.append(ServeFaultSpec(kind.strip(), int(step)))
+        elif isinstance(entry, dict):
+            entry = dict(entry)
+            kind = entry.pop("kind", None)
+            step = entry.pop("step", None)
+            if kind is None or step is None:
+                raise ValueError(
+                    f"serve fault dict {entry!r} needs 'kind' and 'step'"
+                )
+            specs.append(ServeFaultSpec(str(kind), int(step), **entry))
+        else:
+            raise ValueError(f"unsupported serve fault spec: {entry!r}")
+    return specs
+
+
+class ServeFaultInjector:
+    """Fire scheduled serve faults into the continuous-batching loop.
+
+    Wire via ``ContinuousBatchingScheduler(fault_injector=...)``; the
+    scheduler calls :meth:`before_step` with its 0-based step index at
+    the top of every step(). Matching un-fired specs fire (counted in
+    ``serve_faults_injected_total``); pages held by ``kv_exhaust`` are
+    released here once their hold expires.
+    """
+
+    ENV_VAR = "ACCO_SERVE_CHAOS"
+
+    def __init__(
+        self,
+        specs: List[ServeFaultSpec],
+        log: Optional[logging.Logger] = None,
+    ) -> None:
+        self.specs = list(specs)
+        self.log = log or _module_log
+        self._holds: List[Tuple[Any, list, int]] = []  # (sched, pages, release)
+
+    @classmethod
+    def from_config(
+        cls, cfg: Any, log: Optional[logging.Logger] = None
+    ) -> Optional["ServeFaultInjector"]:
+        specs = parse_serve_fault_specs(cfg)
+        return cls(specs, log=log) if specs else None
+
+    @classmethod
+    def from_env(
+        cls, log: Optional[logging.Logger] = None
+    ) -> Optional["ServeFaultInjector"]:
+        return cls.from_config(os.environ.get(cls.ENV_VAR), log=log)
+
+    @property
+    def pending(self) -> bool:
+        return any(not s.fired for s in self.specs) or bool(self._holds)
+
+    @property
+    def fired(self) -> List[ServeFaultSpec]:
+        return [s for s in self.specs if s.fired]
+
+    def hold_pages(self, scheduler, pages: list, hold_steps: int) -> None:
+        release = scheduler._step_idx + max(1, int(hold_steps))
+        self._holds.append((scheduler, pages, release))
+        self.log.warning(
+            "kv_exhaust holding %d pages until scheduler step %d",
+            len(pages), release,
+        )
+
+    def before_step(self, scheduler, step_idx: int) -> None:
+        from acco_tpu_torch.telemetry import metrics
+
+        for hold in self._holds[:]:
+            sched, pages, release = hold
+            if sched is scheduler and step_idx >= release:
+                sched.allocator.free(pages)
+                self._holds.remove(hold)
+                self.log.warning(
+                    "kv_exhaust released %d pages at step %d",
+                    len(pages), step_idx,
+                )
+        for spec in self.specs:
+            if spec.fired or spec.step != int(step_idx):
+                continue
+            # mark fired BEFORE injecting: engine_raise propagates out
+            # of step() by design and must not re-fire forever
+            spec.fired = True
+            metrics.emit("serve_faults_injected_total", 1)
+            self.log.warning(
+                "serve fault injection: %s at step %d %s",
+                spec.kind, step_idx, spec.params or "",
+            )
+            SERVE_FAULT_KINDS[spec.kind](self, scheduler, **spec.params)

@@ -220,7 +220,33 @@ and prints no result line):
    an empty build directory with ``train.warmup_compile`` true and
    false: the seconds from the trainer's constructor to its first round;
    (d) ``nan_grads@3``, the ``corrupt_params`` rollback and a SIGTERM
-   stop resumed, captured, bit-equal to their eager oracles.
+   stop resumed, captured, bit-equal to their eager oracles;
+12. serving, in the order (b), (c), (d), (a) (``acco_tpu_torch/serve/``;
+   no hand kernel: the serving path's products and attention are plain
+   PyTorch, as the JAX package computes them outside any Pallas kernel):
+   (a) the full-depth
+   Llama-3-8B replica of ``config/serve/llama3-8b.yaml`` (32 layers, bf16
+   params and cache, pages of 16, 2048 pages, context 4096, 8 slots),
+   its parameters drawn on the card from seed 0: one prompt prefilled in
+   each of eight buckets (16 to 4096; each bucket's second call timed),
+   32 decode steps over the 8 slots eager and the same 32 captured as a
+   CUDA graph from the same pools, bit-equal (logits and both pools),
+   the scheduler's step (decode + greedy sample) timed, a profiled
+   window of decode steps (launch calls, graph launches, idle share),
+   the capture ms and the peak memory beside the pool's bytes; (b)
+   Llama-125M and GPT-Neo-125M (window 256: the band lane, and its full
+   lane beside it) in float32, TF32 off: a 601-token prefill and 40
+   decode steps (page 16, context 1024) against one forward of the whole
+   sequence at 1e-4; (c) planted faults that (b)'s bar must catch: the
+   captured step's page table rebound instead of copied, ``write_token``
+   one position late, the band's first page one late; (d) ``python -m
+   acco_tpu_torch.serve`` serving a Llama-125M ``params.npz`` written
+   here (bf16, 8 slots, the byte tokenizer; started beside (b) and (c)),
+   ``python -m acco_tpu_torch.serve.load_harness --url`` against it for
+   10 s at concurrency 8 (no 500, TTFT p50/p99,
+   tokens/s, no page in use after), then 8 requests in flight and
+   SIGTERM: the drain finishes them within its budget and the server
+   exits 0.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -237,6 +263,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -731,9 +758,11 @@ sys.exit(3)
 """
 
 
-# checks of planted faults running at once: each of K3's holds a few
-# float32 [8184, 50257] tensors (1.6 GB each) of its plain version
-FAULT_PROCS = 6
+# checks of planted faults running at once, one a CPU core of an 8-core
+# host (each builds its patched library with nvcc first): each of K3's
+# holds a few float32 [8184, 50257] tensors (1.6 GB each) of its plain
+# version, so eight fit the card together
+FAULT_PROCS = 8
 
 
 def planted_faults() -> None:
@@ -3987,6 +4016,533 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
     return out
 
 
+# -- phase 12: serving ---------------------------------------------------------
+
+SERVE_CONFIG = os.path.join(REPO, "config", "serve", "llama3-8b.yaml")
+# one prompt a slot, eight buckets of the replica's (4096 down to 16)
+SERVE_PROMPTS = (4000, 1800, 1000, 500, 100, 50, 20, 9)
+SERVE_STEPS = 32  # decode steps each way (eager, captured), bit-equal
+SERVE_TIMED_STEPS = 16  # then decode + greedy sample, the scheduler's step
+SERVE_PROFILE_STEPS = 8
+# (b): prefill + K decode steps against one forward of the whole sequence,
+# float32, TF32 off, the plain attention on both sides: only the
+# summation order differs (the JAX tests hold 1e-5 on the CPU at tiny
+# widths; here 12 layers of D 768 and the card's GEMMs)
+SERVE_PARITY_ATOL = 1e-4
+SERVE_PARITY = dict(n_prompt=601, n_decode=40, page_size=16, max_pages_per_seq=64)
+SERVE_FAMILIES = {"llama-125M": "llama-125M", "gptneo": "gptneo"}  # config/model/<name>.yaml
+SERVE_HTTP_SECONDS = 10
+SERVE_HTTP_CONCURRENCY = 8
+SERVE_DRAIN_BUDGET_S = 30.0
+# (d)'s replica: Llama-125M, bf16 params and cache, context 1024, 8 slots
+SERVE_HTTP_MODEL = "llama-125M"
+SERVE_HTTP_SIZING = dict(page_size=16, num_pages=1024, max_pages_per_seq=64, max_slots=8)
+# the card; 'cpu' (with smaller sizes above) runs phase 12's logic on the
+# CPU, the entry point with --device cpu
+SERVE_DEVICE = "cuda"
+
+
+def _serve_sync() -> None:
+    import torch
+
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_replica(smi: str) -> dict:
+    """(a) The full-depth Llama-3-8B replica of config/serve/llama3-8b.yaml
+    through ``ServeEngine`` with parameters drawn on the card from seed 0:
+    one prompt in each of eight buckets, then 32 decode steps over the 8
+    active slots eager and the same 32 captured (from the same pools),
+    which must be bit-equal (logits and both pools), then the scheduler's
+    step (decode + greedy sample) timed and a profiled window."""
+    import logging
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acco_tpu_torch.configuration import load_yaml
+    from acco_tpu_torch.serve.__main__ import build_engine
+    from acco_tpu_torch.serve.kv_cache import PageAllocator
+    from acco_tpu_torch.telemetry.profile import load_events, read_trace
+
+    free_device_cache()
+    cuda = SERVE_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = load_yaml(SERVE_CONFIG)
+    t0 = time.perf_counter()
+    engine, _ = build_engine(cfg, torch.device(SERVE_DEVICE), logging.getLogger("chip_smoke.serve"))
+    model, spec = engine.model, engine.spec
+    c = model.config
+    log(f"  {cfg['model']} ({c.num_layers} layers, d {c.hidden_size}, heads {c.num_heads}/"
+        f"{c.num_kv_heads}, vocab {c.vocab_size}): {model.n_params:,} params, "
+        f"{model.n_params * 2:,} bytes bf16; pool {spec.num_pages} pages of {spec.page_size}, "
+        f"{spec.total_bytes:,} bytes; context {engine.max_context}, {engine.max_slots} slots")
+    report = engine.start_warmup()
+    engine.set_params(model.init_flat(torch.Generator(device=SERVE_DEVICE).manual_seed(0)))
+    _serve_sync()
+    log(f"  built, captured and initialised in {time.perf_counter() - t0:.1f} s; decode step "
+        f"warm-up {report.get('warmup_ms')} ms, capture {report.get('capture_ms')} ms, "
+        f"memory after capture (allocated, reserved GiB) {report.get('memory_gib')}")
+
+    total = SERVE_STEPS * 2 + SERVE_TIMED_STEPS + SERVE_PROFILE_STEPS
+    rng = np.random.default_rng(0)
+    alloc = PageAllocator(engine.num_pages)
+    table = np.zeros((engine.max_slots, engine.max_pages_per_seq), np.int32)
+    prefill_ms, first = {}, []
+    for slot, n in enumerate(SERVE_PROMPTS):
+        ids = rng.integers(0, c.vocab_size, n).tolist()
+        pages = alloc.alloc(spec.pages_for(min(n + total + 1, engine.max_context)))
+        table[slot, : len(pages)] = pages
+        own = pages[: spec.pages_for(n)]
+        engine.prefill(ids, own)  # this bucket's first call
+        t = time.perf_counter()
+        last = engine.prefill(ids, own)  # returns host logits: synced
+        prefill_ms[engine.bucket_for(n)] = (time.perf_counter() - t) * 1e3
+        if not np.isfinite(last).all():
+            raise AssertionError(f"prefill of {n} tokens: non-finite logits")
+        first.append(int(last.argmax()))
+    log("  prefill ms by bucket (prompt tokens -> bucket, the second call): "
+        + ", ".join(f"{n} -> {b}: {ms:.2f}" for n, (b, ms) in zip(SERVE_PROMPTS,
+                                                                  prefill_ms.items())))
+
+    lens0 = np.asarray(SERVE_PROMPTS, np.int64)
+    k_pages, v_pages = engine.pools
+    snapshot = (k_pages.clone(), v_pages.clone())
+
+    def decode_run(eager: bool):
+        toks, outs, times = np.asarray(first), [], []
+        for s in range(SERVE_STEPS):
+            _serve_sync()
+            t = time.perf_counter()
+            logits = engine.decode_logits(table, lens0 + s, toks, eager=eager)
+            _serve_sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            outs.append(logits.clone())
+            toks = logits.argmax(-1).cpu().numpy()
+        return outs, times
+
+    eager_out, eager_ms = decode_run(True)
+    eager_pools = (k_pages.clone(), v_pages.clone())
+    k_pages.copy_(snapshot[0])
+    v_pages.copy_(snapshot[1])
+    del snapshot
+    cap_out, cap_ms = decode_run(False)
+    same_logits = all(torch.equal(a, b) for a, b in zip(eager_out, cap_out))
+    same_pools = torch.equal(k_pages, eager_pools[0]) and torch.equal(v_pages, eager_pools[1])
+    finite = all(bool(torch.isfinite(x).all()) for x in cap_out)
+    log(f"  {SERVE_STEPS} decode steps x {engine.max_slots} slots, captured against eager: "
+        f"logits {'bit-equal' if same_logits else 'DIFFER'}, pools "
+        f"{'bit-equal' if same_pools else 'DIFFER'}; finite {finite}; median step ms "
+        f"(inputs staged, replay or eager, synced) captured {statistics.median(cap_ms):.3f}, "
+        f"eager {statistics.median(eager_ms):.3f}")
+    del eager_out, cap_out, eager_pools
+    if not (same_logits and same_pools and finite):
+        raise AssertionError("the captured decode step is not bit-equal to the eager one")
+
+    # the scheduler's step: decode (host logits) + greedy sample
+    lens = lens0 + SERVE_STEPS
+    toks = np.asarray(first)
+    keys = np.stack([engine.make_key(s) for s in range(engine.max_slots)])
+    temps = np.zeros(engine.max_slots, np.float32)
+    top_ks = np.zeros(engine.max_slots, np.int32)
+    step_ms = []
+    for _ in range(SERVE_TIMED_STEPS):
+        t = time.perf_counter()
+        logits = engine.decode(table, lens, toks)
+        toks, keys = engine.sample(logits, keys, temps, top_ks)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        lens = lens + 1
+    step = statistics.median(step_ms)
+
+    _serve_sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            engine.decode(table, lens, toks)
+            lens = lens + 1
+        _serve_sync()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    trace = os.path.join(run_root(), "serve_decode_trace.json")
+    prof.export_chrome_trace(trace)
+    st = read_trace(load_events(trace), wall_ms, SERVE_PROFILE_STEPS)
+    top = serve_top_kernels(prof, SERVE_PROFILE_STEPS)
+    # the smallest bucket's prefill, profiled: host-bound or device-bound
+    ids = rng.integers(0, c.vocab_size, SERVE_PROMPTS[-1]).tolist()
+    own = [int(table[-1, 0])]
+    _serve_sync()
+    with profile(activities=activities) as prof:
+        t = time.perf_counter()
+        engine.prefill(ids, own)
+        prefill_wall = (time.perf_counter() - t) * 1e3
+    prof.export_chrome_trace(trace)
+    pst = read_trace(load_events(trace), prefill_wall)
+    peak, reserved = ((torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved())
+                      if cuda else (0, 0))
+    out = {
+        "prefill_ms": prefill_ms, "decode_ms": statistics.median(cap_ms),
+        "eager_decode_ms": statistics.median(eager_ms), "step_ms": step,
+        "tokens_per_s": engine.max_slots * 1e3 / step, "capture_ms": report.get("capture_ms"),
+        "launch_calls": st.get("kernel_launch_calls"), "graph_launches": st.get("graph_launches"),
+        "kernels": st.get("kernels"), "device_ms": st.get("union_ms"),
+        "idle_share": st.get("idle_share"), "peak_bytes": peak, "reserved_bytes": reserved,
+        "pool_bytes": spec.total_bytes, "param_bytes": model.n_params * 2,
+        "top_kernels": top, "small_prefill": {"wall_ms": prefill_wall,
+                                              "device_ms": pst.get("union_ms")},
+    }
+    log(f"  the scheduler's step (decode + greedy sample, host logits) median {step:.3f} ms: "
+        f"{out['tokens_per_s']:.1f} tokens/s at {engine.max_slots} slots")
+    log(f"  profiled window, {SERVE_PROFILE_STEPS} decode steps: a step {st.get('wall_ms', 0):.3f} "
+        f"ms wall, device busy {st.get('union_ms', 0):.3f} ms, idle share "
+        f"{st.get('idle_share', float('nan')):.4f}; kernel launch calls "
+        f"{st.get('kernel_launch_calls')}, graph launches {st.get('graph_launches')}, kernels "
+        f"{st.get('kernels')} a step")
+    log(f"  device time a decode step by kernel (the window's top 8): {top}")
+    log(f"  prefill at bucket {engine.bucket_for(SERVE_PROMPTS[-1])}, profiled: {prefill_wall:.2f} ms "
+        f"wall, device busy {pst.get('union_ms', 0):.2f} ms, {pst.get('kernels')} kernels, "
+        f"kernel launch calls {pst.get('kernel_launch_calls')}")
+    log(f"  peak allocated {peak:,} bytes ({peak / 2**30:.2f} GiB), reserved {reserved:,} "
+        f"({reserved / 2**30:.2f} GiB); pool {spec.total_bytes:,}, params "
+        f"{model.n_params * 2:,} bytes  [{smi}]")
+    del engine, model, k_pages, v_pages
+    free_device_cache()
+    return out
+
+
+def serve_top_kernels(prof, steps: int, n: int = 8) -> str:
+    """The ``n`` kernels with the most device time in a profile, as
+    'name ms a step (calls a step)'."""
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted((e for e in prof.key_averages() if device_us(e) > 0), key=device_us,
+                  reverse=True)[:n]
+    return "; ".join(f"{e.key[:70]} {device_us(e) / 1e3 / steps:.3f} ms (x{e.count / steps:g})"
+                     for e in rows)
+
+
+def serve_parity_model(name: str):
+    """The float32 model of config/model/<name>.yaml on the card (the plain
+    attention) and a flat parameter vector drawn from seed 0."""
+    import torch
+
+    from acco_tpu_torch.configuration import load_yaml
+    from acco_tpu_torch.models.registry import build_model
+
+    model_cfg = load_yaml(os.path.join(REPO, "config", "model", name + ".yaml"))
+    model = build_model(model_cfg, repo_root=REPO, dtype=torch.float32, attention="xla",
+                        device=SERVE_DEVICE)
+    return model, model.init_flat(torch.Generator(device=SERVE_DEVICE).manual_seed(0))
+
+
+def serve_parity(model, flat, *, use_band=None, engine_cls=None) -> tuple:
+    """Prefill + K decode steps through a captured ``ServeEngine`` against
+    one ``apply`` over the whole sequence (float32, TF32 off): returns
+    (the max |difference| over the K decode logits and the prefill's
+    last, the decode logits). ``use_band`` forces GPT-Neo's lane."""
+    import numpy as np
+    import torch
+
+    from acco_tpu_torch.serve.engine import ServeEngine
+
+    p = SERVE_PARITY
+    n, k, page = p["n_prompt"], p["n_decode"], p["page_size"]
+    engine = (engine_cls or ServeEngine)(
+        model, page_size=page, num_pages=p["max_pages_per_seq"] + 2,
+        max_pages_per_seq=p["max_pages_per_seq"], max_slots=2, cache_dtype="float32")
+    if use_band is not None:
+        engine._use_band = use_band
+    engine.start_warmup()
+    engine.set_params(flat)
+    ids = np.random.default_rng(1).integers(0, model.config.vocab_size, n + k)
+    with torch.no_grad():
+        ref = model.apply(torch.from_numpy(ids[None]).to(SERVE_DEVICE))[0]
+    pages = list(range(1, -(-(n + k) // page) + 1))
+    last = torch.from_numpy(engine.prefill(ids[:n].tolist(), pages[: -(-n // page)])).to(SERVE_DEVICE)
+    err = float((last - ref[n - 1]).abs().max())
+    table = np.zeros((2, p["max_pages_per_seq"]), np.int32)
+    table[0, : len(pages)] = pages
+    outs = []
+    for t in range(k):
+        logits = engine.decode_logits(table, np.array([n + t, 0]), np.array([ids[n + t], 0]))
+        outs.append(logits[0].clone())
+        err = max(err, float((logits[0] - ref[n + t]).abs().max()))
+    return err, torch.stack(outs)
+
+
+def rebound_page_table_engine(*args, **kwargs):
+    """Planted fault: a ``ServeEngine`` whose step rebinds its page table
+    to a new tensor instead of copying it into the captured buffer (the
+    graph keeps reading the old one)."""
+    import numpy as np
+    import torch
+
+    from acco_tpu_torch.serve.engine import ServeEngine
+
+    class Engine(ServeEngine):
+        def _stage(self, page_table, seq_lens, tokens):
+            dev = self._ensure_inputs()["dev"]
+            dev["page_table"] = torch.as_tensor(np.asarray(page_table, np.int64),
+                                                device=self.device)
+            dev["seq_lens"].copy_(torch.as_tensor(np.asarray(seq_lens, np.int64)))
+            dev["tokens"].copy_(torch.as_tensor(np.asarray(tokens, np.int64)))
+
+    return Engine(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def serve_fault(kind: str):
+    """Planted faults in the serving path's ops, patched into the engine's
+    module for the block: 'write_token' writes each new K/V row one
+    position late; 'band' gathers each band from one page later."""
+    from acco_tpu_torch.serve import engine as engine_mod
+
+    name = {"write_token": "write_token", "band": "gather_band"}[kind]
+    original = getattr(engine_mod, name)
+    if kind == "write_token":
+        def planted(k_pages, v_pages, page_table, seq_lens, k_new, v_new):
+            return original(k_pages, v_pages, page_table, seq_lens + 1, k_new, v_new)
+    else:
+        def planted(k_pages, v_pages, page_table, seq_lens, window, page_size):
+            return original(k_pages, v_pages, page_table, seq_lens + page_size, window,
+                            page_size)
+    setattr(engine_mod, name, planted)
+    try:
+        yield
+    finally:
+        setattr(engine_mod, name, original)
+
+
+def serve_parity_phase() -> dict:
+    """(b) and (c): both 125M families in float32 (GPT-Neo at window 256:
+    the band lane, its full lane beside it), then the planted faults."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for label, name in SERVE_FAMILIES.items():
+            model, flat = serve_parity_model(name)
+            err, outs = serve_parity(model, flat)
+            errs[label] = err
+            log(f"  {label}: prefill {SERVE_PARITY['n_prompt']} + {SERVE_PARITY['n_decode']} "
+                f"decode steps (page {SERVE_PARITY['page_size']}, context "
+                f"{SERVE_PARITY['page_size'] * SERVE_PARITY['max_pages_per_seq']}) against one "
+                f"forward: max |err| {err:.3e} (bar {SERVE_PARITY_ATOL:g})")
+            if not err <= SERVE_PARITY_ATOL:
+                raise AssertionError(f"{label}: the serving path is off the forward by {err:.3e}")
+            if label == "gptneo":
+                full_err, full = serve_parity(model, flat, use_band=False)
+                lanes = float((outs - full).abs().max())
+                errs["gptneo_full_lane"] = full_err
+                errs["gptneo_lanes"] = lanes
+                log(f"  gptneo full-context lane: max |err| {full_err:.3e}; band lane against "
+                    f"full lane {lanes:.3e} (bar {SERVE_PARITY_ATOL:g})")
+                if not (full_err <= SERVE_PARITY_ATOL and lanes <= SERVE_PARITY_ATOL):
+                    raise AssertionError("GPT-Neo's band and full lanes disagree")
+                neo = (model, flat)
+            else:
+                llama = (model, flat)
+        faults = [
+            ("write_token one position late", llama, serve_fault("write_token"), {}),
+            ("the band's first page one late", neo, serve_fault("band"), {}),
+        ]
+        if SERVE_DEVICE == "cuda":  # only a captured step reads a stale buffer
+            faults.insert(0, ("page table rebound, not copied", llama,
+                              contextlib.nullcontext(), {"engine_cls": rebound_page_table_engine}))
+        for label, (model, flat), ctx, kw in faults:
+            with ctx:
+                err, _ = serve_parity(model, flat, **kw)
+            caught = not err <= SERVE_PARITY_ATOL
+            log(f"  planted fault, {label}: max |err| {err:.3e}: "
+                f"{'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise AssertionError(f"the serving parity check missed a planted fault: {label}")
+            errs[f"fault: {label}"] = err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        free_device_cache()
+    return errs
+
+
+def serve_http_start() -> dict:
+    """Start (d)'s server: ``python -m acco_tpu_torch.serve`` on the card
+    serving a Llama-125M ``params.npz`` written here (seeded init, bf16
+    params and cache, 8 slots, context 1024), in a process of its own, so
+    that its start overlaps (b) and (c)."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from acco_tpu_torch.configuration import load_yaml
+    from acco_tpu_torch.models.registry import build_model
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    atexit.register(shutil.rmtree, tmp, True)
+    step = os.path.join(tmp, "ckpt", "step_1")
+    os.makedirs(os.path.join(step, "state"))
+    model = build_model(load_yaml(os.path.join(REPO, "config", "model",
+                                               SERVE_HTTP_MODEL + ".yaml")),
+                        repo_root=REPO, dtype=torch.float32, device=SERVE_DEVICE)
+    flat = model.init_flat(torch.Generator(device=SERVE_DEVICE).manual_seed(0)).cpu().numpy()
+    del model
+    np.savez(os.path.join(step, "params.npz"), flat_params=flat)
+    with open(os.path.join(step, "meta.json"), "w") as f:
+        json.dump({"step": 1}, f)
+    # the model's architecture file with the byte tokenizer, which its hub
+    # tokenizer falls back to on a machine without its files (the server
+    # then starts without importing transformers)
+    model_yaml = load_yaml(os.path.join(REPO, "config", "model", SERVE_HTTP_MODEL + ".yaml"))
+    with open(os.path.join(tmp, "model.yaml"), "w") as f:
+        f.write(f"config_path: \"{model_yaml['config_path']}\"\ntokenizer: byte\n")
+    config = os.path.join(tmp, "serve.yaml")
+    sizing = "".join(f"{k}: {v}\n" for k, v in SERVE_HTTP_SIZING.items())
+    with open(config, "w") as f:
+        # an absolute `model:` names that file (config/model/<model>.yaml otherwise)
+        f.write(f"model: {os.path.join(tmp, 'model')}\nparam_dtype: bfloat16\n"
+                "cache_dtype: bfloat16\n"
+                + sizing + "prefills_per_step: 1\ntop_k_max: 64\nhost: 127.0.0.1\n"
+                "request_timeout_s: 120\n"
+                f"max_waiting: 64\nkv_watermark: 0.95\ndrain_budget_s: {SERVE_DRAIN_BUDGET_S}\n"
+                "defaults:\n  max_new_tokens: 32\n  temperature: 0.0\n  top_k: 0\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    err_path = os.path.join(tmp, "server.log")
+    device = [] if SERVE_DEVICE == "cuda" else ["--device", SERVE_DEVICE]
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "acco_tpu_torch.serve", "--config", config,
+             "--resume_from", os.path.dirname(step), "--port", str(port), *device],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err, text=True)
+    return {"proc": proc, "url": f"http://127.0.0.1:{port}", "tmp": tmp, "t0": t0,
+            "log": err_path}
+
+
+def serve_http_phase(smi: str, server: dict) -> dict:
+    """(d) The load harness against ``server`` in ``--url`` mode (no 500,
+    no page in use once the clients are done), then 8 requests in flight
+    and SIGTERM: the drain must finish them within its budget and the
+    server exit 0. Kills the server if a check fails first."""
+    import threading
+
+    import numpy as np
+
+    from acco_tpu_torch.serve.load_harness import _http
+
+    proc, url, tmp, t0, err_path = (server[k] for k in ("proc", "url", "tmp", "t0", "log"))
+    ctx = SERVE_HTTP_SIZING["page_size"] * SERVE_HTTP_SIZING["max_pages_per_seq"]
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited ({proc.returncode}) before serving: "
+                                     f"{open(err_path).read()[-3000:]}")
+            try:
+                if _http(url + "/healthz", timeout=2.0)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 240:
+                raise AssertionError("the server did not answer /healthz within 240 s")
+            time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        with open(err_path) as f:
+            for line in f:
+                if "serve decode step:" in line:
+                    log("  server: " + line.strip().split("] - ", 1)[-1])
+        record_path = os.path.join(tmp, "load.json")
+        # the clients in a process of their own: threads of this one share
+        # its interpreter lock with whatever it still runs
+        harness = subprocess.run(
+            [sys.executable, "-m", "acco_tpu_torch.serve.load_harness", "--url", url,
+             "--duration-s", str(SERVE_HTTP_SECONDS), "--concurrency",
+             str(SERVE_HTTP_CONCURRENCY), "--no-drain", "--prompt-len", "16", str(ctx // 2),
+             "--max-new", "16", "128", "--out", record_path],
+            cwd=REPO, capture_output=True, text=True, timeout=SERVE_HTTP_SECONDS + 300)
+        if harness.returncode != 0 or not os.path.exists(record_path):
+            raise AssertionError(f"the load harness failed ({harness.returncode}): "
+                                 f"{harness.stderr[-3000:]}")
+        with open(record_path) as f:
+            record = json.load(f)
+        log(f"  server ready in {ready_s:.1f} s; load harness, {SERVE_HTTP_SECONDS} s at "
+            f"concurrency {SERVE_HTTP_CONCURRENCY}: {record['requests']} requests, 200 "
+            f"{record['ok_200']}, 500 {record['server_500']}, shed {record['shed_429']} + "
+            f"{record['shed_503']}, 504 {record['timeout_504']}; {record['tokens_per_s']} "
+            f"tokens/s; TTFT p50 {record['p50_ttft_ms']} ms, p99 {record['p99_ttft_ms']} ms; "
+            f"latency p50 {record['p50_latency_ms']} ms, p99 {record['p99_latency_ms']} ms; "
+            f"pages in use after {record['leaked_pages']}  [{smi}]")
+        if record["server_500"] or record["leaked_pages"] or not record["ok_200"]:
+            raise AssertionError(f"the HTTP drill failed: {record}")
+        # in flight, then SIGTERM: the drain finishes them within budget
+        results = []
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, 256, ctx // 16 * (2 + i)).tolist() for i in range(8)]
+
+        def hit(prompt):
+            results.append(_http(url + "/generate", {
+                "tokens": prompt, "max_new_tokens": 96}, timeout=SERVE_DRAIN_BUDGET_S + 60))
+
+        threads = [threading.Thread(target=hit, args=(p,)) for p in prompts]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline:
+            if _http(url + "/healthz")[1].get("active", 0) > 0:
+                break
+            time.sleep(0.02)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=SERVE_DRAIN_BUDGET_S + 60)
+        exit_s = time.perf_counter() - t_term
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    summary = json.loads(out.strip().splitlines()[-1])
+    drain, stats = summary["drain"], summary["stats"]
+    statuses = sorted(s for s, _ in results)
+    log(f"  SIGTERM with {len(threads)} requests in flight: exit {proc.returncode} after "
+        f"{exit_s:.2f} s; drain {drain}; the in-flight requests {statuses}; pages in use "
+        f"{stats['pages_in_use']}, completed {stats['completed']}, decode steps "
+        f"{stats['decode_steps']}")
+    if (proc.returncode != 0 or not drain or not drain["in_budget"] or drain["cancelled"]
+            or stats["pages_in_use"] or statuses != [200] * len(threads)):
+        raise AssertionError("the SIGTERM drain failed")
+    return {"ready_s": ready_s, "record": record, "drain": drain, "exit_s": exit_s}
+
+
+def phase_12(smi: str) -> dict:
+    """Serving: (b) parity on both 125M families and (c) its planted
+    faults while (d)'s server starts, (d) the entry point and HTTP, then
+    (a) the Llama-3-8B replica alone on the card."""
+    # the earlier phases' cached blocks back to the card first: the
+    # server is another process, and a card left near full by this one
+    # would make its allocator free and retry (synchronizing) every step
+    free_device_cache()
+    server = serve_http_start()  # starts beside (b) and (c)
+    try:
+        log(" (b) parity against the forward, float32, TF32 off; (c) planted faults")
+        parity = serve_parity_phase()
+        log(" (d) python -m acco_tpu_torch.serve and its load harness over HTTP")
+        http = serve_http_phase(smi, server)
+    finally:
+        if server["proc"].poll() is None:
+            server["proc"].kill()
+            server["proc"].wait()
+    log(" (a) the Llama-3-8B serving replica (config/serve/llama3-8b.yaml, full depth, random "
+        "init from seed 0)")
+    replica = serve_replica(smi)
+    return {"replica": replica, "parity": parity, "http": http}
+
+
 def build_all() -> None:
     """The four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4251,6 +4807,9 @@ def main() -> int:
         log("== 11 the rounds captured as CUDA graphs and replayed, against eager rounds")
         launches.update(phase_11(smi, sg, round_ms, summaries, launches, profiles,
                                  cadence_losses))
+
+        log("== 12 serving: the Llama-3-8B replica, parity, planted faults, HTTP")
+        phase_12(smi)
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

@@ -321,13 +321,16 @@ def test_perplexity_matches_jax():
         np.testing.assert_allclose(got["mean_perplexity"], want["mean_perplexity"], rtol=1e-5)
 
 
-def test_perplexity_cli_refusals():
+def test_perplexity_cli_refusals(monkeypatch):
     # --hf-checkpoint is ported (HF loading): a checkpoint that is not
     # there raises, naming the missing download
     with pytest.raises(FileNotFoundError, match="no network egress"):
         port_ppl.main(["--device", "cpu", "--hf-checkpoint", "/models/x"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        port_ppl.main(["--device", "cpu", "--engine", "serve"])
+    # --engine serve is ported (serving): as every entry point, it refuses
+    # to run without a card unless given --device cpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_ppl.main(["--engine", "serve"])
 
 
 def test_perplexity_cli_reads_a_checkpoint(tmp_path, monkeypatch):
