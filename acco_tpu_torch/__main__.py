@@ -28,8 +28,14 @@ over gloo):
 
 ``train=ddp`` runs the synchronous baseline on the same ranks. As in
 ``main.py``, sp > 1 builds the model on the ring attention
-(``train.zigzag_cp``, default true, picks the zig-zag layout). Rank 0
-alone prints the summary.
+(``train.zigzag_cp``, default true, picks the zig-zag layout). Tensor
+parallelism runs the same way:
+
+    torchrun --nproc_per_node 4 -m acco_tpu_torch --device cpu train=acco \
+        model=tiny128 data=synthetic "train.mesh_shape={dp: 2, tp: 2}"
+
+builds each rank's tp shard of the model (the vocab padded to a multiple
+of tp, ``parallel/tp.pad_vocab``). Rank 0 alone prints the summary.
 
 ``train.finetune=true`` (``train=acco-ft``, ``ddp-ft``, ``dpu-ft``) reads
 ``model.config_path`` as a local HF checkpoint directory, or a hub name
@@ -111,7 +117,8 @@ def _make_run_dir(pattern: str, cfg, mesh) -> str:
     return run_dir
 
 
-def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: bool = False):
+def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_group=None,
+                  eager: bool = False):
     """Everything before the first round: device, config, model, data.
     ``eager``: the rounds as eager PyTorch calls instead of the captured
     programs (``compile/graphs.py``), for comparisons; no config key
@@ -121,7 +128,10 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: 
     group runs the context-parallel code, the ring included, with no hop;
     ``data_group`` hands in a data-parallel process group: a one-rank
     group runs the dp code (the count all-reduce and ZeRO-1's collectives
-    on process groups of their own) as an identity."""
+    on process groups of their own) as an identity; ``tensor_group`` hands
+    in a tensor-parallel process group: a one-rank group runs the tp code
+    (the layers' all-reduces, the vocab-parallel loss, ZeRO-1's tp terms)
+    at tp 1."""
     import dataclasses
 
     import torch
@@ -142,9 +152,10 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: 
     cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
     check_supported(cfg.train)
     mesh = init_distributed(cfg.train.get("mesh_shape"), device)
-    if sequence_group is not None or data_group is not None:
-        mesh = dataclasses.replace(mesh, sequence_group=sequence_group,
-                                   groups=RankGroups.around(sequence_group, data_group))
+    if sequence_group is not None or data_group is not None or tensor_group is not None:
+        groups = RankGroups.around(sequence_group, data_group, tensor_group)
+        mesh = dataclasses.replace(mesh, sequence_group=sequence_group, groups=groups,
+                                   tp=groups.tp)
     device = mesh.device
 
     logging.basicConfig(
@@ -156,6 +167,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: 
     log.info("run dir: %s", run_dir)
     use_mp = bool(cfg.train.get("use_mixed_precision", True))
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
+    tg = mesh.tensor_group  # tensor parallelism (JAX: trainer.py:146-155)
     model_kw = dict(
         dtype=torch.bfloat16 if use_mp else torch.float32,
         attention="ring" if use_cp else cfg.train.get("use_pallas_attention", "auto"),
@@ -163,14 +175,23 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, eager: 
         sequence_group=mesh.sequence_group,
         zigzag=use_cp and bool(cfg.train.get("zigzag_cp", True)),
         remat=cfg.train.get("remat", False),
+        tensor_group=tg,
     )
+    pad_multiple = 1 if tg is None else tg.size
     initial_params = None
     if bool(cfg.train.get("finetune", False)):
         # the model group names a local pretrained checkpoint (JAX: main.py:95-112)
-        model, initial_params = from_pretrained(cfg.model.config_path, **model_kw)
+        model, initial_params = from_pretrained(cfg.model.config_path,
+                                                vocab_pad_multiple=pad_multiple, **model_kw)
+        if tg is not None:  # this rank's shard of the dense (padded) weights
+            from acco_tpu_torch.models.convert import params_to_jax, rank_flat_from_jax
+
+            initial_params = rank_flat_from_jax(
+                params_to_jax(initial_params, model.config, vocab=model.padded_vocab), model)
         log.info("finetune: %d parameters from %s", model.n_params, cfg.model.config_path)
     else:
-        model = build_model(cfg.model, repo_root=REPO_ROOT, **model_kw)
+        model = build_model(cfg.model, repo_root=REPO_ROOT, vocab_pad_multiple=pad_multiple,
+                            **model_kw)
     tokenizer = load_tokenizer(cfg.model.get("tokenizer"), log)
     train_texts, eval_texts = load_text_dataset(cfg.data, log=log)
     trainer = Trainer(

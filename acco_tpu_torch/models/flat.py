@@ -9,6 +9,12 @@ state. Each layer owns its slice of a stacked leaf as a separate
 parameter, so autograd hands back per-layer gradients that
 :meth:`FlatParamModel.gather_grads` copies into a flat gradient without
 any [num_layers, ...] scatter.
+
+Under tensor parallelism (a ``tensor_group``) the model holds only its tp
+shard's parameters: the flat vector is ``parallel/tp.TpLayout``'s local
+one, ``[replicated leaves | this shard's slices]``, each leaf at its
+local shape, so it compares elementwise with JAX's row of the
+``[tp, ...]`` stacked state.
 """
 
 from __future__ import annotations
@@ -47,12 +53,33 @@ class ParamBlock(nn.Module):
             setattr(self, name, nn.Parameter(torch.empty(shape, dtype=dtype, device=device)))
 
 
+def tensor_parallel_layout(family: str, dense_layout, tp: int):
+    """``parallel/tp.TpLayout`` of a dense ``(path, shape, offset)``
+    layout at ``tp`` shards, its split dims from the family's rule table
+    (``sharding/tables.py`` ``model_split_specs``)."""
+    from acco_tpu_torch.parallel.tp import TpLayout, shape_tree
+    from acco_tpu_torch.sharding import model_split_specs
+
+    shapes = shape_tree(dense_layout)
+    return TpLayout(shapes, model_split_specs(family, shapes), tp)
+
+
 class FlatParamModel(nn.Module):
     """Parameters for ``layout``: a top-level leaf ``p`` is the attribute
-    :meth:`attr_name` ``(p)``, and a leaf ``layers/x`` is ``layers[i].x``."""
+    :meth:`attr_name` ``(p)``, and a leaf ``layers/x`` is ``layers[i].x``.
+    ``layout`` is the dense model's; with a ``tensor_group`` the model
+    holds its tp shard's part of it (``tp_layout``)."""
 
-    def __init__(self, layout, num_layers: int, dtype, device):
+    family = ""  # the sharding tables' family name
+
+    def __init__(self, layout, num_layers: int, dtype, device, tensor_group=None):
         super().__init__()
+        self.dense_layout = layout
+        self.tensor_group = tensor_group
+        self.tp_layout = (None if tensor_group is None
+                          else tensor_parallel_layout(self.family, layout, tensor_group.size))
+        if self.tp_layout is not None:
+            layout = self.tp_layout.layout
         self.layout = layout
         self.dtype = dtype
         self.n_params = sum(int(torch.Size(s).numel()) for _, s, _ in layout)
@@ -103,19 +130,94 @@ class FlatParamModel(nn.Module):
             out[offset : offset + numel].copy_(g.reshape(-1))
         return out
 
+    @property
+    def tp(self) -> int:
+        return 1 if self.tensor_group is None else self.tensor_group.size
+
+    def dense_shapes(self) -> dict:
+        """The dense parameter tree's shapes (``parallel/tp.Leaf`` leaves)."""
+        from acco_tpu_torch.parallel.tp import shape_tree
+
+        return shape_tree(self.dense_layout)
+
+    def tp_param_specs(self) -> dict:
+        """Tensor-parallel split dim per leaf of the dense tree: None
+        (replicated on every tp shard) or the int dim split over the tp
+        shards, from the family's rule table (JAX: ``tp_param_specs``)."""
+        from acco_tpu_torch.sharding import model_split_specs
+
+        return model_split_specs(self.family, self.dense_shapes())
+
     def init_flat(self, generator: torch.Generator) -> torch.Tensor:
         """A fresh flat parameter vector: each leaf at its ``init_fill``
         constant, else normal(0, initializer_range) (the JAX init's
-        distributions; the random draws differ)."""
+        distributions; the random draws differ). Under tensor parallelism
+        the dense model's leaves are drawn in the dense order, one at a
+        time, and this shard's slice of each is kept: the values are the
+        dense init's at any tp (the same bits at tp 1), and the largest
+        transient is one dense leaf in float32, as in the dense init."""
         device = next(self.parameters()).device
         flat = torch.empty(self.n_params, dtype=self.dtype, device=device)
-        for path, shape, offset in self.layout:
+        local = {path: (shape, offset) for path, shape, offset in self.layout}
+        tpl = self.tp_layout
+        for path, shape, _ in self.dense_layout:
             n = int(torch.Size(shape).numel())
+            local_shape, offset = local[path]
+            m = int(torch.Size(local_shape).numel())
             fill = self.init_fill(path)
-            if fill is None:
-                flat[offset : offset + n] = normal_init(
-                    (n,), self.config.initializer_range, self.dtype, generator, device
-                )
-            else:
-                flat[offset : offset + n] = fill
+            if fill is not None:
+                flat[offset : offset + m] = fill
+                continue
+            leaf = normal_init((n,), self.config.initializer_range, self.dtype, generator,
+                               device)
+            spec = None if tpl is None else tpl.spec(path)
+            if spec is not None:
+                from acco_tpu_torch.parallel.tp import slice_dim
+
+                leaf = slice_dim(leaf.view(shape), spec, tpl.tp, self.tensor_group.rank)
+            flat[offset : offset + m] = leaf.reshape(-1)
         return flat
+
+
+def check_tp(config, tensor_group, sequence_group, vocab_pad_to, heads) -> int:
+    """The padded vocab; raises where tensor parallelism cannot run:
+    tp not dividing the head counts, tp together with the ring, a pad
+    below the vocab."""
+    padded = int(vocab_pad_to or config.vocab_size)
+    if padded < config.vocab_size:
+        raise ValueError(f"vocab_pad_to={vocab_pad_to} < vocab_size={config.vocab_size}")
+    if tensor_group is None:
+        return padded
+    if sequence_group is not None:
+        raise NotImplementedError(
+            "tensor parallelism with context parallelism (tp x sp) is not ported yet: "
+            "ROADMAP.md queue 1, item 9.4")
+    tp = tensor_group.size
+    if any(h % tp for h in heads):
+        raise ValueError(f"tensor parallelism size {tp} must divide the head counts {heads}")
+    return padded
+
+
+def unpad_vocab_tree(params: dict, vocab: int, padded: int) -> dict:
+    """``params`` with the embedding's rows (and an untied head's columns)
+    past ``vocab`` removed."""
+    if padded == vocab:
+        return params
+    out = dict(params)
+    out["wte"] = params["wte"][:vocab]
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"][:, :vocab]
+    return out
+
+
+def check_serve(model) -> None:
+    """The serving surface runs one replica of the dense model."""
+    if model.sequence_group is not None:
+        raise ValueError(
+            "the serving decode path is single-replica: build the model "
+            "without a sequence group"
+        )
+    if model.tensor_group is not None:
+        raise NotImplementedError(
+            "serving a tensor-parallel model (tp decode) is not ported yet: ROADMAP.md "
+            "queue 1, item 9.5")

@@ -40,6 +40,14 @@ says, returning every layer's K/V) and :meth:`GPTNeoModel.decode`, whose
 local layers read the narrow band gather when the engine passes one
 (the per-layer window is static here: a Python branch, not JAX's
 ``cond``).
+
+Tensor parallelism (a ``tensor_group``, JAX gpt_neo.py:111-185,
+:222-303), as for Llama: the vocab-parallel ``wte``, ``num_heads / tp``
+heads from the local third of each of ``w_qkv``'s q, k and v (dim 3),
+``w_fc`` and ``b_fc`` split on the ffn dim, and one all-reduce after
+``wo`` and one after ``w_proj``, with ``wo_bias`` and ``b_proj`` added
+after them; ``wpe``, the norms and the output biases stay replicated.
+``vocab_pad_to`` pads ``wte``'s rows (``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -51,13 +59,21 @@ from typing import Optional
 import torch
 from torch.nn import functional as F
 
-from acco_tpu_torch.models.flat import FlatParamModel, sorted_layout
+from acco_tpu_torch.models.flat import (
+    FlatParamModel,
+    check_serve,
+    check_tp,
+    sorted_layout,
+    unpad_vocab_tree,
+)
 from acco_tpu_torch.models.layers import (
     gelu_new,
     layer_norm,
     lm_logits,
     merge_heads,
     split_heads,
+    tp_all_reduce,
+    vocab_parallel_embed,
     wrap_remat,
 )
 from acco_tpu_torch.ops.attention import (
@@ -129,9 +145,10 @@ class GPTNeoConfig:
         return cls(**kwargs)
 
 
-def param_layout(cfg: GPTNeoConfig) -> list[tuple[str, tuple, int]]:
+def param_layout(cfg: GPTNeoConfig, vocab: Optional[int] = None) -> list[tuple[str, tuple, int]]:
     """``(path, shape, offset)`` per leaf of the JAX params pytree, in
-    ``ravel_pytree`` order; ``path`` joins nested keys with '/'."""
+    ``ravel_pytree`` order; ``path`` joins nested keys with '/'. ``vocab``:
+    the (padded) rows of ``wte`` (default the config's)."""
     D, Fd, N = cfg.hidden_size, cfg.ffn_dim, cfg.num_layers
     layer = {
         "ln1_scale": (N, D), "ln1_bias": (N, D),
@@ -140,7 +157,7 @@ def param_layout(cfg: GPTNeoConfig) -> list[tuple[str, tuple, int]]:
         "w_fc": (N, D, Fd), "b_fc": (N, Fd), "w_proj": (N, Fd, D), "b_proj": (N, D),
     }
     return sorted_layout({
-        "wte": (cfg.vocab_size, D),
+        "wte": (cfg.vocab_size if vocab is None else int(vocab), D),
         "wpe": (cfg.max_position_embeddings, D),
         "layers": layer,
         "lnf_scale": (D,),
@@ -149,6 +166,8 @@ def param_layout(cfg: GPTNeoConfig) -> list[tuple[str, tuple, int]]:
 
 
 class GPTNeoModel(FlatParamModel):
+    family = "gpt_neo"
+
     def __init__(
         self,
         config: GPTNeoConfig,
@@ -157,16 +176,10 @@ class GPTNeoModel(FlatParamModel):
         device="cpu",
         sequence_group: Optional[SequenceGroup] = None,
         zigzag: bool = False,
-        tensor_axis: Optional[str] = None,
-        vocab_pad_to: Optional[int] = None,
         remat=False,
+        tensor_group=None,
+        vocab_pad_to: Optional[int] = None,
     ):
-        for value, what in (
-            (tensor_axis, "tensor_axis (tensor parallelism)"),
-            (vocab_pad_to, "vocab_pad_to (Megatron vocab padding)"),
-        ):
-            if value:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item 9")
         impl = normalize_attention_impl(attention)
         if impl == "ring" and sequence_group is None:
             raise ValueError("attention='ring' requires a sequence group")
@@ -176,8 +189,13 @@ class GPTNeoModel(FlatParamModel):
                 "kernel (as in the JAX model): use attention='fused', 'xla' "
                 "or 'auto'"
             )
-        super().__init__(param_layout(config), config.num_layers, dtype, device)
+        padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
+                           (config.num_heads,))
+        super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
+                         tensor_group)
         self.config = config
+        self.padded_vocab = padded
+        self.n_heads = config.num_heads // self.tp
         self.attention = attention
         self.sequence_group = sequence_group
         self.zigzag = bool(zigzag)
@@ -278,7 +296,9 @@ class GPTNeoModel(FlatParamModel):
             # the layout's host positions, on the card once (no copy in a
             # captured round)
             wpe = self.wpe[device_constant(positions, input_ids.device)]
-        x = F.embedding(input_ids, self.wte) + wpe[None, :, :]
+        tok = (F.embedding(input_ids, self.wte) if self.tensor_group is None
+               else vocab_parallel_embed(self.wte, input_ids, self.tensor_group))
+        x = tok + wpe[None, :, :]
         layer = wrap_remat(self._layer, self.remat)
         for blk, window in zip(self.layers, cfg.layer_windows):
             x = layer(x, blk, attend, window)
@@ -292,18 +312,22 @@ class GPTNeoModel(FlatParamModel):
     def _qkv(self, x, blk):
         """The block's q, k, v in [B, H, L, D] (no positional rotation)."""
         cfg = self.config
-        D = cfg.hidden_size
+        D, Dl = cfg.hidden_size, blk.w_qkv.shape[-1]  # Dl: this shard's third
         h = layer_norm(x, blk.ln1_scale, blk.ln1_bias, cfg.layer_norm_epsilon)
-        q, k, v = (h @ blk.w_qkv.reshape(D, 3 * D)).split(D, dim=-1)
-        return (split_heads(q, cfg.num_heads), split_heads(k, cfg.num_heads),
-                split_heads(v, cfg.num_heads))
+        q, k, v = (h @ blk.w_qkv.reshape(D, 3 * Dl)).split(Dl, dim=-1)
+        return (split_heads(q, self.n_heads), split_heads(k, self.n_heads),
+                split_heads(v, self.n_heads))
 
     def _out(self, x, blk, ctx) -> torch.Tensor:
         """The block after its attention: the output projection, the MLP."""
-        eps = self.config.layer_norm_epsilon
-        x = x + merge_heads(ctx) @ blk.wo + blk.wo_bias
+        eps, tg = self.config.layer_norm_epsilon, self.tensor_group
+        x = x + tp_all_reduce(merge_heads(ctx) @ blk.wo, tg) + blk.wo_bias
         h = layer_norm(x, blk.ln2_scale, blk.ln2_bias, eps)
-        return x + gelu_new(h @ blk.w_fc + blk.b_fc) @ blk.w_proj + blk.b_proj
+        return x + tp_all_reduce(gelu_new(h @ blk.w_fc + blk.b_fc) @ blk.w_proj, tg) + blk.b_proj
+
+    def unpad_vocab(self, params: dict) -> dict:
+        """The dense params tree without the Megatron vocab padding."""
+        return unpad_vocab_tree(params, self.config.vocab_size, self.padded_vocab)
 
     # -- serving surface (serve/) ------------------------------------------
 
@@ -314,11 +338,7 @@ class GPTNeoModel(FlatParamModel):
         return cfg.num_layers, cfg.num_heads, cfg.head_dim
 
     def _check_serve(self) -> None:
-        if self.sequence_group is not None:
-            raise ValueError(
-                "the serving decode path is single-replica: build the model "
-                "without a sequence group"
-            )
+        check_serve(self)
 
     def prefill(self, input_ids: torch.Tensor):
         """Serving prefill (see ``LlamaModel.prefill`` for the padding

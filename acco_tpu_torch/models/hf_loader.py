@@ -239,16 +239,18 @@ def from_pretrained(
     ``config.json`` in ``dtype`` (``model_kwargs``: attention, device,
     sequence_group, zigzag, remat), and its weights as an [n_params]
     float32 flat vector in the model's order. ``vocab_pad_multiple``
-    other than 1 (Megatron vocab padding) raises: tensor parallelism is
-    not ported."""
+    (the tp size under tensor parallelism, JAX hf_loader.py:231-280) pads
+    the vocab to a tp-divisible size (``parallel/tp.pad_vocab``) with zero
+    rows (and zero columns of an untied head), which are never looked up
+    and never enter the loss. The flat vector is the dense (padded)
+    model's; a tensor-parallel model (``tensor_group`` in
+    ``model_kwargs``) takes its rank's part with
+    ``models.convert.rank_flat_from_jax``."""
     from acco_tpu_torch.models.convert import params_from_jax
     from acco_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
     from acco_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from acco_tpu_torch.parallel.tp import pad_vocab
 
-    if int(vocab_pad_multiple) != 1:
-        raise NotImplementedError(
-            f"vocab_pad_multiple={vocab_pad_multiple} (vocab padding for tensor "
-            "parallelism) is not ported yet: ROADMAP.md queue 1, item 9")
     path = resolve_pretrained_dir(name_or_path, models_root)
     hf_cfg = read_hf_config(path)
     state = read_hf_state(path)
@@ -258,19 +260,27 @@ def from_pretrained(
         if "lm_head.weight" not in state:
             tied = True  # a tied head: HF omits the tensor
         cfg = LlamaConfig(**{**_map_config(hf_cfg, _LLAMA_KEYS), "tie_word_embeddings": tied})
-        model = LlamaModel(cfg, dtype=dtype, **model_kwargs)
+        padded = pad_vocab(cfg.vocab_size, int(vocab_pad_multiple))
+        model = LlamaModel(cfg, dtype=dtype, vocab_pad_to=padded, **model_kwargs)
         tree = convert_llama(state, cfg)
+        if padded != cfg.vocab_size:
+            tree["wte"] = np.pad(tree["wte"], ((0, padded - cfg.vocab_size), (0, 0)))
+            if "lm_head" in tree:
+                tree["lm_head"] = np.pad(tree["lm_head"], ((0, 0), (0, padded - cfg.vocab_size)))
     elif model_type == "gpt_neo":
         kwargs = _map_config(hf_cfg, _GPT_NEO_KEYS)
         kwargs.setdefault("tie_word_embeddings", True)  # GPT-Neo's default
         if "attention_layers" in kwargs:
             kwargs["attention_layers"] = tuple(kwargs["attention_layers"])
         cfg = GPTNeoConfig(**kwargs)
-        model = GPTNeoModel(cfg, dtype=dtype, **model_kwargs)
+        padded = pad_vocab(cfg.vocab_size, int(vocab_pad_multiple))
+        model = GPTNeoModel(cfg, dtype=dtype, vocab_pad_to=padded, **model_kwargs)
         tree = convert_gpt_neo(state, cfg)
+        if padded != cfg.vocab_size:
+            tree["wte"] = np.pad(tree["wte"], ((0, padded - cfg.vocab_size), (0, 0)))
     else:
         raise ValueError(
             f"Unsupported model_type {model_type!r} in {path}/config.json "
             "(supported: llama, gpt_neo)"
         )
-    return model, params_from_jax(tree, cfg)
+    return model, params_from_jax(tree, cfg, vocab=padded)

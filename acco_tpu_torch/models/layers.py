@@ -3,12 +3,15 @@
 Counterpart of ``acco_tpu/models/layers.py``: norm statistics in float32,
 GPT-Neo's ``gelu_new``, the half-rotation (HF/NeoX) RoPE, head split/merge
 in the JAX package's [B, H, L, D] layout, the tied head's float32
-logits (:func:`lm_logits`) that both model families share, and the
-layers' rematerialisation (:func:`wrap_remat`).
+logits (:func:`lm_logits`) that both model families share, the layers'
+rematerialisation (:func:`wrap_remat`), and tensor parallelism's pieces:
+the :class:`TensorGroup`, its all-reduce (:func:`tp_all_reduce`) and the
+vocab-parallel embedding (:func:`vocab_parallel_embed`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -70,6 +73,80 @@ def wrap_remat(block, remat):
         return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return run
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorGroup:
+    """The process group a model's layers are tensor-parallel over, with
+    this rank's place in it (the JAX ``tensor_axis``)."""
+
+    group: object  # a torch.distributed ProcessGroup
+    size: int
+    rank: int
+
+    @classmethod
+    def of(cls, group=None) -> "TensorGroup":
+        import torch.distributed as dist
+
+        group = group if group is not None else dist.group.WORLD
+        return cls(group, dist.get_world_size(group), dist.get_rank(group))
+
+
+class _TpSum(torch.autograd.Function):
+    """Sum over the tensor group, whose backward is the same sum: the
+    transpose JAX gives ``lax.psum`` under ``shard_map(check_vma=False)``,
+    so that the port's gradients carry JAX's factor tp
+    (``parallel/tp.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def tp_all_reduce(x: torch.Tensor, tg: "TensorGroup | None") -> torch.Tensor:
+    """``lax.psum(x, tensor_axis)``: the sum over ``tg``'s ranks (its
+    gradient is summed the same way); ``x`` itself without a group."""
+    return x if tg is None else _TpSum.apply(x, tg.group)
+
+
+def tp_max(x: torch.Tensor, tg: "TensorGroup | None") -> torch.Tensor:
+    """Elementwise max over ``tg``'s ranks of a value with no gradient
+    (the stabilising max of the vocab-parallel log-sum-exp; JAX gathers
+    the maxes, since ``pmax`` has no autodiff rule, and the max of the
+    gathered values is the same number)."""
+    x = x.detach().clone()
+    if tg is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tg.group)
+    return x
+
+
+def vocab_parallel_embed(wte: torch.Tensor, input_ids: torch.Tensor,
+                         tg: TensorGroup) -> torch.Tensor:
+    """Token embedding with the vocab dim sharded over ``tg`` (Megatron's
+    vocab-parallel embedding, JAX ``models/layers.py:150-169``): each
+    shard looks up its in-range ids (the others at row 0, zeroed) and one
+    all-reduce assembles the [B, L, D] embedding."""
+    v_local = wte.shape[0]
+    loc = input_ids - tg.rank * v_local
+    ok = (loc >= 0) & (loc < v_local)
+    rows = F.embedding(torch.where(ok, loc, torch.zeros_like(loc)), wte)
+    return tp_all_reduce(torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                      device=rows.device)), tg)
 
 
 def normal_init(

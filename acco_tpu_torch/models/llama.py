@@ -25,6 +25,22 @@ causal forward whatever ``attention`` says, with every layer's post-RoPE
 K/V) and :meth:`LlamaModel.decode` (one position per request slot
 against the rows gathered from the paged cache,
 ``ops.attention.cached_attention``).
+
+Tensor parallelism (a ``tensor_group``, JAX's ``tensor_axis``;
+llama.py:81-135, :170-230, :284-345): the model holds its tp shard's
+parameters (``models/flat.py``, ``parallel/tp.TpLayout``): the
+vocab-parallel embedding and head, ``num_heads / tp`` query heads and
+``num_kv_heads / tp`` KV heads, ``intermediate_size / tp`` MLP columns,
+and one all-reduce after ``wo`` and one after ``w_down``
+(``layers.tp_all_reduce``, whose backward is again the sum, as JAX's
+``psum`` under ``check_vma=False``). ``apply`` then gives this shard's
+[B, L, V/tp] logits, which the vocab-parallel CE reads
+(``ops/losses.py``). ``vocab_pad_to`` pads the vocab (Megatron's
+padding, ``parallel/tp.pad_vocab``); the padded rows are never looked
+up and never enter the loss (``real_vocab``), and :meth:`unpad_vocab`
+strips them for export. Tensor parallelism with the ring (tp x sp) and
+the serving surface under tp are not ported yet (ROADMAP.md queue 1,
+items 9.4 and 9.5).
 """
 
 from __future__ import annotations
@@ -36,11 +52,19 @@ from typing import Optional
 import torch
 from torch.nn import functional as F
 
-from acco_tpu_torch.models.flat import FlatParamModel, sorted_layout
+from acco_tpu_torch.models.flat import (
+    FlatParamModel,
+    check_serve,
+    check_tp,
+    sorted_layout,
+    unpad_vocab_tree,
+)
 from acco_tpu_torch.models.layers import (
     apply_rope,
     apply_rope_at,
     lm_logits,
+    tp_all_reduce,
+    vocab_parallel_embed,
     merge_heads,
     rms_norm,
     rope_angles,
@@ -93,9 +117,12 @@ class LlamaConfig:
         return cls(**{k: v for k, v in raw.items() if k in fields and v is not None})
 
 
-def param_layout(cfg: LlamaConfig) -> list[tuple[str, tuple, int]]:
+def param_layout(cfg: LlamaConfig, vocab: Optional[int] = None) -> list[tuple[str, tuple, int]]:
     """``(path, shape, offset)`` per leaf of the JAX params pytree, in
-    ``ravel_pytree`` order; ``path`` joins nested keys with '/'."""
+    ``ravel_pytree`` order; ``path`` joins nested keys with '/'. ``vocab``:
+    the (padded) vocab rows of the embedding and head (default the
+    config's)."""
+    V = cfg.vocab_size if vocab is None else int(vocab)
     D, Fd, N = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     Dkv = cfg.num_kv_heads * cfg.head_dim
     layer = {
@@ -103,13 +130,15 @@ def param_layout(cfg: LlamaConfig) -> list[tuple[str, tuple, int]]:
         "wq": (N, D, D), "wk": (N, D, Dkv), "wv": (N, D, Dkv), "wo": (N, D, D),
         "w_gate": (N, D, Fd), "w_up": (N, D, Fd), "w_down": (N, Fd, D),
     }
-    tree = {"wte": (cfg.vocab_size, D), "final_norm": (D,), "layers": layer}
+    tree = {"wte": (V, D), "final_norm": (D,), "layers": layer}
     if not cfg.tie_word_embeddings:
-        tree["lm_head"] = (D, cfg.vocab_size)
+        tree["lm_head"] = (D, V)
     return sorted_layout(tree)
 
 
 class LlamaModel(FlatParamModel):
+    family = "llama"
+
     def __init__(
         self,
         config: LlamaConfig,
@@ -119,12 +148,20 @@ class LlamaModel(FlatParamModel):
         sequence_group: Optional[SequenceGroup] = None,
         zigzag: bool = False,
         remat=False,
+        tensor_group=None,
+        vocab_pad_to: Optional[int] = None,
     ):
         if (normalize_attention_impl(attention) == "ring") != (sequence_group is not None):
             raise ValueError("attention='ring' requires a sequence group, and a sequence "
                              "group attention='ring'")
-        super().__init__(param_layout(config), config.num_layers, dtype, device)
+        padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
+                           (config.num_heads, config.num_kv_heads))
+        super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
+                         tensor_group)
         self.config = config
+        self.padded_vocab = padded
+        self.n_heads = config.num_heads // self.tp
+        self.n_kv_heads = config.num_kv_heads // self.tp
         self.attention = attention
         self.sequence_group = sequence_group
         self.zigzag = bool(zigzag)
@@ -177,7 +214,7 @@ class LlamaModel(FlatParamModel):
                 f"sequence length {global_len} exceeds max_position_embeddings "
                 f"{cfg.max_position_embeddings}"
             )
-        x = F.embedding(input_ids, self.wte)
+        x = self.embed(input_ids)
         bias = attention_mask_bias(L, 0, attention_mask, device) if impl == "xla" else None
         if impl == "ring" and self.zigzag:
             positions = zigzag_positions(global_len, sg.size, sg.rank, device)
@@ -189,6 +226,17 @@ class LlamaModel(FlatParamModel):
         for blk in self.layers:
             x = layer(x, blk, cos, sin, attention_mask, bias, impl)
         return rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding; vocab-parallel under a tensor group."""
+        if self.tensor_group is None:
+            return F.embedding(input_ids, self.wte)
+        return vocab_parallel_embed(self.wte, input_ids, self.tensor_group)
+
+    def unpad_vocab(self, params: dict) -> dict:
+        """The dense params tree without the Megatron vocab padding (for
+        ``params.npz`` and HF export): the plain config's shapes."""
+        return unpad_vocab_tree(params, self.config.vocab_size, self.padded_vocab)
 
     def _layer(self, x, blk, cos, sin, attention_mask, bias, impl: str) -> torch.Tensor:
         """One decoder layer: attention, then the SwiGLU MLP."""
@@ -212,16 +260,17 @@ class LlamaModel(FlatParamModel):
         """The layer's post-RoPE q, k, v in [B, H(kv), L, D]."""
         cfg = self.config
         h = rms_norm(x, blk.attn_norm, cfg.rms_norm_eps)
-        q = split_heads(h @ blk.wq, cfg.num_heads)
-        k = split_heads(h @ blk.wk, cfg.num_kv_heads)
-        v = split_heads(h @ blk.wv, cfg.num_kv_heads)
+        q = split_heads(h @ blk.wq, self.n_heads)
+        k = split_heads(h @ blk.wk, self.n_kv_heads)
+        v = split_heads(h @ blk.wv, self.n_kv_heads)
         return rope(q, cos, sin), rope(k, cos, sin), v
 
     def _out(self, x, blk, ctx) -> torch.Tensor:
         """The layer after its attention: the output projection, the MLP."""
-        x = x + merge_heads(ctx) @ blk.wo
+        tg = self.tensor_group
+        x = x + tp_all_reduce(merge_heads(ctx) @ blk.wo, tg)
         h = rms_norm(x, blk.mlp_norm, self.config.rms_norm_eps)
-        return x + (F.silu(h @ blk.w_gate) * (h @ blk.w_up)) @ blk.w_down
+        return x + tp_all_reduce((F.silu(h @ blk.w_gate) * (h @ blk.w_up)) @ blk.w_down, tg)
 
     # -- serving surface (serve/) ------------------------------------------
 
@@ -232,11 +281,7 @@ class LlamaModel(FlatParamModel):
         return cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
 
     def _check_serve(self) -> None:
-        if self.sequence_group is not None:
-            raise ValueError(
-                "the serving decode path is single-replica: build the model "
-                "without a sequence group"
-            )
+        check_serve(self)
 
     def prefill(self, input_ids: torch.Tensor):
         """Serving prefill: the plain causal forward (whatever
@@ -298,3 +343,4 @@ class LlamaModel(FlatParamModel):
             v_new.append(v[:, :, 0])
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         return lm_logits(x, self.lm_head())[:, 0], torch.stack(k_new), torch.stack(v_new)
+

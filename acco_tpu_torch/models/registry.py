@@ -80,13 +80,21 @@ def build_model(
     sequence_group=None,
     zigzag: bool = False,
     remat=False,
+    tensor_group=None,
+    vocab_pad_multiple: int = 1,
 ):
     """A model, random parameters to come, from a ``config/model/*.yaml``
     node. ``sequence_group`` (an ``ops.ring_attention.SequenceGroup``) and
     ``zigzag`` select context parallelism and its layout; ``remat`` the
-    layers' rematerialisation (``models/layers.wrap_remat``)."""
+    layers' rematerialisation (``models/layers.wrap_remat``);
+    ``tensor_group`` (a ``models.layers.TensorGroup``) tensor parallelism,
+    with the vocab padded to a multiple of ``vocab_pad_multiple`` (the tp
+    size; ``parallel/tp.pad_vocab``), as JAX's registry does."""
+    from acco_tpu_torch.parallel.tp import pad_vocab
+
     model_type, cfg = model_config(model_cfg["config_path"], repo_root)
     return _MODEL_TYPES[model_type][1](
         cfg, dtype=dtype, attention=attention, device=device,
-        sequence_group=sequence_group, zigzag=zigzag, remat=remat,
+        sequence_group=sequence_group, zigzag=zigzag, remat=remat, tensor_group=tensor_group,
+        vocab_pad_to=pad_vocab(cfg.vocab_size, int(vocab_pad_multiple)),
     )

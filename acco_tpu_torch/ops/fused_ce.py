@@ -37,7 +37,9 @@ versions (:func:`ce_fwd_reference`, :func:`ce_bwd_dp_reference`,
 chunked backward :func:`lm_head_ce_backward_reference`) materialize the
 logits in PyTorch. :func:`fused_ce_loss` takes the plain versions only
 for tensors on the CPU; a tensor anywhere else goes to the kernels or
-raises.
+raises. :func:`vocab_parallel_fused_ce_loss` (JAX: ``fused_ce.py:503``)
+runs the same kernels per vocab shard under tensor parallelism, with a
+cross-shard LSE combine.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ DP_CAP_BYTES = 2 << 30  # the most the backward's bf16 dp buffer may take
 
 # Launches per kernel wrapper since the last reset_launch_counts();
 # ``ce_fwd`` is one C call that launches the split pass and its merge.
-LAUNCHES = {"ce_fwd": 0, "ce_bwd_dp": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0}
+# ``vp_ce`` counts the vocab-parallel wrapper's calls on the card, each
+# of which launches ``ce_fwd`` on its shard.
+LAUNCHES = {"ce_fwd": 0, "ce_bwd_dp": 0, "ce_bwd_dh": 0, "ce_bwd_dw": 0, "vp_ce": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -531,6 +535,127 @@ def fused_ce_loss(
     per_tok = lse - tl
     if label_smoothing:
         per_tok = (1.0 - label_smoothing) * per_tok + label_smoothing * (lse - sl / v_real)
+    denom = mask.sum() if num_valid is None else torch.as_tensor(
+        num_valid, dtype=torch.float32, device=mask.device
+    )
+    return (per_tok * mask).sum() / denom.clamp(min=1.0)
+
+
+def shard_targets(targets: torch.Tensor, v0: int, v_local: int) -> torch.Tensor:
+    """A vocab shard's int32 targets: the global ids in ``[v0, v0 +
+    v_local)`` made local, every other id and the ignored rows the -1
+    sentinel, which the kernel never matches."""
+    t_loc = targets - v0
+    sentinel = (targets == IGNORE_INDEX) | (t_loc < 0) | (t_loc >= v_local)
+    return torch.where(sentinel, torch.full_like(t_loc, -1), t_loc).to(torch.int32).contiguous()
+
+
+def shard_v_real(real_vocab: int, v0: int, v_local: int) -> int:
+    """A vocab shard's real columns: ``clip(real_vocab - v0, 0, v_local)``."""
+    return min(max(int(real_vocab) - v0, 0), v_local)
+
+
+def vp_shard_ce(h2, w_local, targets, rank: int, size: int, real_vocab: Optional[int] = None,
+                dp_cap_bytes: int = DP_CAP_BYTES, ce=None) -> tuple:
+    """One vocab shard's part of the wrapper: rank ``rank`` of ``size``
+    holds rows ``[v0, v0 + V/tp)`` of the head (``w_local``, [V/tp, D]);
+    its K3 runs with the clipped ``v_real`` (:func:`shard_v_real`) on its
+    localised targets (:func:`shard_targets`). Returns the shard's (lse,
+    true logit, sum of real logits) and the vocab size the smoothing
+    averages over. ``ce(h, w, tgt, v_real)`` replaces :class:`LmHeadCE`
+    (the chip check's plain version emulated alike)."""
+    v_local = w_local.shape[0]
+    v0 = rank * v_local
+    vocab_total = v_local * size
+    if real_vocab is not None and real_vocab < vocab_total:
+        v_real, vocab_total = shard_v_real(real_vocab, v0, v_local), int(real_vocab)
+    else:
+        v_real = v_local
+    tgt = shard_targets(targets, v0, v_local)
+    if ce is None:
+        lse_l, tl_l, sl_l = LmHeadCE.apply(h2, w_local, tgt, v_real, dp_cap_bytes)
+    else:
+        lse_l, tl_l, sl_l = ce(h2, w_local, tgt, v_real)
+    return lse_l, tl_l, sl_l, vocab_total
+
+
+def vp_combine(lse_l, tl_l, sl_l, label_smoothing: float, vocab_total: int, reduce_max,
+               reduce_sum):
+    """The vocab-parallel wrapper's cross-shard combine: ``(lse,
+    per-token loss)`` from the shards' (lse, true logit, sum of real
+    logits). ``reduce_max`` takes the shards' max of a value with no
+    gradient; ``reduce_sum`` sums a stack ``[k, ...]`` of per-shard rows
+    over the shards (the group's all-reduce; over a leading shard axis
+    when the shards are emulated in one process)."""
+    gmax = reduce_max(lse_l.detach())
+    parts = [torch.exp(lse_l - gmax), tl_l]
+    if label_smoothing:
+        parts.append(sl_l)
+    summed = reduce_sum(torch.stack(parts))
+    lse = torch.log(summed[0]) + gmax
+    per_tok = lse - summed[1]
+    if label_smoothing:
+        per_tok = (1.0 - label_smoothing) * per_tok + label_smoothing * (
+            lse - summed[2] / vocab_total)
+    return lse, per_tok
+
+
+def vocab_parallel_fused_ce_loss(
+    hidden: torch.Tensor,  # [B, L, D] activation dtype (the same on every tp rank)
+    lm_head_local: torch.Tensor,  # [D, V/tp] this shard's vocab slice
+    labels: torch.Tensor,  # [B, L] int GLOBAL ids, IGNORE_INDEX = masked
+    vocab_group,  # models.layers.TensorGroup the vocab dim is sharded over
+    label_smoothing: float = 0.0,
+    shift: bool = True,
+    num_valid=None,
+    real_vocab: Optional[int] = None,
+    dp_cap_bytes: int = DP_CAP_BYTES,
+) -> torch.Tensor:
+    """:func:`fused_ce_loss` over a vocab-sharded head (JAX
+    ``ops/fused_ce.py:503-575``): the tensor-parallel loss without the
+    local [B, L, V/tp] float32 logits. Each rank runs K3 (:class:`LmHeadCE`:
+    ``ce_fwd`` and the backward kernels on a CUDA tensor, the plain
+    versions on a CPU one) on its own [V/tp, D] slice, with
+
+    - ``v_real = clip(real_vocab - v0, 0, V/tp)``, a host int fixed per
+      rank, so the Megatron padding on the last shard never enters the
+      LSE or the logit sum;
+    - the targets outside ``[v0, v0 + V/tp)`` and the ignored rows as the
+      -1 sentinel, which the kernel never matches (``csrc/fused_ce.cu``).
+
+    The combine is O(N) PyTorch over the group: the ranks' max of the
+    local LSEs (no gradient), then ``sum exp(lse_l - gmax)``, the true
+    logit and the logit sums in one all-reduce
+    (``models.layers.tp_all_reduce``), ``lse = log(sum) + gmax``, and the
+    smoothing over ``real_vocab``. Autograd hands each rank's kernels
+    ``d_lse * exp(lse_l - lse)``, and the all-reduce's backward sums the
+    cotangents over the group, as JAX's ``psum`` transpose. Each rank's
+    dH covers its own vocab slice; the sum over the slices happens where
+    the hidden state's gradient meets the layers' all-reduces (JAX's
+    convention, ``parallel/tp.py``). Every rank returns the same loss."""
+    from acco_tpu_torch.models.layers import tp_all_reduce, tp_max
+
+    B, L, D = hidden.shape
+    v_local = lm_head_local.shape[1]
+    if not supports_fused_ce(B * (L - 1 if shift else L), D, v_local):
+        raise ValueError(f"shape N={B * L} D={D} V/tp={v_local} outside the fused CE envelope")
+    if shift:
+        labels = torch.cat(
+            [labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)], dim=1
+        )
+    targets = labels.reshape(-1)
+    h2 = hidden.reshape(B * L, D)
+    w = lm_head_local.t()  # [V/tp, D]
+    if h2.device.type != "cpu":
+        h2, w = h2.contiguous(), w.contiguous()
+    mask = (targets != IGNORE_INDEX).float()
+    if h2.device.type == "cuda":
+        LAUNCHES["vp_ce"] += 1
+    lse_l, tl_l, sl_l, vocab_total = vp_shard_ce(h2, w, targets, vocab_group.rank,
+                                                 vocab_group.size, real_vocab, dp_cap_bytes)
+    _, per_tok = vp_combine(lse_l, tl_l, sl_l, label_smoothing, vocab_total,
+                            lambda x: tp_max(x, vocab_group),
+                            lambda x: tp_all_reduce(x, vocab_group))
     denom = mask.sum() if num_valid is None else torch.as_tensor(
         num_valid, dtype=torch.float32, device=mask.device
     )

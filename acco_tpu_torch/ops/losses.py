@@ -10,16 +10,22 @@ Counterpart of ``acco_tpu/ops/losses.py``:
 - :func:`chunked_causal_lm_loss`: the same loss from the hidden states
   and the head, one sequence chunk's logits at a time, each recomputed in
   the backward (``torch.utils.checkpoint``), with no kernel of its own;
+- :func:`vocab_parallel_causal_lm_loss`: the materialized CE over
+  logits whose vocab dim is sharded over a tensor group (Megatron's
+  vocab-parallel head under tensor parallelism);
 - :func:`model_ce`: the dispatch between those and the fused lm-head + CE
-  kernel (``ops/fused_ce.py``, K3), after :func:`resolve_fused_loss` has
-  judged the ``fused_loss`` key against the model.
+  kernel (``ops/fused_ce.py``, K3, and its vocab-parallel wrapper), after
+  :func:`resolve_fused_loss` has judged the ``fused_loss`` key against
+  the model.
 
 Under context parallelism (``seq_sharded``) the labels arrive
 pre-shifted on the global sequence (``shift=False``) and the mean's
 denominator is the global token count (``num_valid``); 'auto' resolves
 to the fused kernel there, and 'chunk', which has no sequence-sharded
-form, to the materialized CE. Tensor parallelism is not ported, so a
-sharded vocab is refused by its ROADMAP item.
+form, to the materialized CE. Under tensor parallelism (``vocab_group``,
+a ``models.layers.TensorGroup``) the model's logits and head are its
+shard's vocab slice: 'pallas' is K3's vocab-parallel wrapper, everything
+else the materialized vocab-parallel CE ('chunk' has no sharded form).
 """
 
 from __future__ import annotations
@@ -28,14 +34,6 @@ import torch
 from torch.nn import functional as F
 
 IGNORE_INDEX = -100
-
-
-def _refuse_vocab_sharding(vocab_sharded: bool) -> None:
-    if vocab_sharded:
-        raise NotImplementedError(
-            "a vocab-sharded head (tensor parallelism, the vocab-parallel CE) "
-            "is not ported yet: ROADMAP.md queue 1, item 9"
-        )
 
 
 def shift_labels(labels: torch.Tensor) -> torch.Tensor:
@@ -65,16 +63,19 @@ def _vocab(model) -> int:
     return getattr(model, "padded_vocab", None) or model.config.vocab_size
 
 
-def _auto_fused_policy(model, platform: str, seq_sharded: bool = False):
+def _auto_fused_policy(model, platform: str, seq_sharded: bool = False,
+                       n_vocab_shards: int = 1):
     """``fused_loss: 'auto'``, as the JAX policy decides on its accelerator:
-    the kernel under context parallelism (the long-sequence regime is the
-    no-logits loss's reason to exist) and for Llama-3-class vocabs (V >=
-    100k, where the [N, V] float32 logits dwarf the head's product), the
-    materialized CE otherwise and everywhere on the CPU (the plain version
-    is a test vehicle, not a performance path). Never 'chunk'."""
+    the kernel under a sharded vocab (tensor parallelism) and under context
+    parallelism (the long-sequence regime is the no-logits loss's reason
+    to exist) and for Llama-3-class vocabs (V >= 100k, where the [N, V]
+    float32 logits dwarf the head's product), the materialized CE
+    otherwise and everywhere on the CPU (the plain version is a test
+    vehicle, not a performance path). Never 'chunk'."""
     if platform != "cuda":
         return False
-    return "pallas" if seq_sharded or _vocab(model) >= 100_000 else False
+    sharded = n_vocab_shards > 1 or seq_sharded
+    return "pallas" if sharded or _vocab(model) >= 100_000 else False
 
 
 def _platform_of(model) -> str:
@@ -88,15 +89,15 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
     make_flat_loss_fn``): False | 'chunk' | 'pallas'.
 
     'pallas' outside the kernel's envelope (``ops/fused_ce.
-    supports_fused_ce``) falls back to 'chunk', with a warning; 'chunk'
-    under ``real_vocab`` (Megatron padding, which it predates) falls back
-    to the materialized CE. A model without ``hidden``/``lm_head`` takes
+    supports_fused_ce``, on the per-shard vocab under ``n_vocab_shards``)
+    falls back to 'chunk', with a warning; 'chunk' under ``real_vocab``
+    (Megatron padding, which it predates), a sharded vocab or context
+    parallelism falls back to the materialized (vocab-parallel) CE. A model without ``hidden``/``lm_head`` takes
     the materialized CE. 'auto' resolves through the policy above; a
     policy pick outside the envelope resolves to False silently. ``warn``:
     optional callable taking a message, called on each downgrade of an
     explicit request. 'auto' reads the platform from the device of the
     model's parameters."""
-    _refuse_vocab_sharding(n_vocab_shards > 1)
     fused_loss = requested = normalize_fused_loss(fused_loss)
     if not fused_loss:
         return False
@@ -108,20 +109,22 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
             )
         return False
     if fused_loss == "auto":
-        fused_loss = _auto_fused_policy(model, _platform_of(model), seq_sharded)
+        fused_loss = _auto_fused_policy(model, _platform_of(model), seq_sharded,
+                                        n_vocab_shards)
         if not fused_loss:
             return False
     if fused_loss == "pallas":
         from acco_tpu_torch.ops.fused_ce import supports_fused_ce
 
-        hidden, vocab = model.config.hidden_size, _vocab(model)
+        hidden, vocab = model.config.hidden_size, _vocab(model) // max(n_vocab_shards, 1)
         if not supports_fused_ce(8, hidden, vocab):
             if requested == "auto":
                 return False
             if warn is not None:
                 fallback = (
-                    "'chunk'" if real_vocab is None and not seq_sharded
-                    else "the materialized CE"
+                    "'chunk'" if real_vocab is None and not seq_sharded and n_vocab_shards == 1
+                    else "the materialized " + ("vocab-parallel " if n_vocab_shards > 1 else "")
+                    + "CE"
                 )
                 warn(
                     f"fused_loss='pallas': hidden {hidden} / per-shard vocab "
@@ -129,10 +132,12 @@ def resolve_fused_loss(fused_loss, model, real_vocab, warn=None,
                     f"{fallback}"
                 )
             fused_loss = "chunk"
-    if fused_loss == "chunk" and (real_vocab is not None or seq_sharded):
+    if fused_loss == "chunk" and (real_vocab is not None or seq_sharded or n_vocab_shards > 1):
         if warn is not None and requested == "chunk":
-            form = "context-parallel" if seq_sharded else "Megatron-padded"
-            warn(f"fused_loss='chunk' has no {form} form; using the materialized CE")
+            form = ("sharded" if n_vocab_shards > 1 else "context-parallel" if seq_sharded
+                    else "Megatron-padded")
+            warn(f"fused_loss='chunk' has no {form} form; using the materialized "
+                 + ("vocab-parallel " if n_vocab_shards > 1 else "") + "CE")
         return False
     return fused_loss
 
@@ -180,19 +185,76 @@ def causal_lm_loss(
     label_smoothing: float = 0.0,
     shift: bool = True,
     num_valid=None,
-    vocab_axis: str | None = None,
+    vocab_group=None,
     real_vocab: int | None = None,
 ) -> torch.Tensor:
     """Mean (shifted) cross-entropy, float32 scalar. ``shift=False`` takes
     ``labels`` as already next-token aligned; ``num_valid`` replaces the
     mean's denominator; columns at or past ``real_vocab`` are left out of
-    the softmax and the smoothing mean."""
-    _refuse_vocab_sharding(vocab_axis is not None)
+    the softmax and the smoothing mean. ``vocab_group``: the logits are
+    this shard's vocab slice (:func:`vocab_parallel_causal_lm_loss`)."""
+    if vocab_group is not None:
+        return vocab_parallel_causal_lm_loss(
+            logits, labels, vocab_group, label_smoothing, shift=shift, num_valid=num_valid,
+            real_vocab=real_vocab)
     if real_vocab is not None and real_vocab < logits.shape[-1]:
         logits = logits[..., :real_vocab]
     if shift:
         logits, labels = logits[:, :-1, :], labels[:, 1:]
     per_tok, mask = _per_token_ce(logits, labels, label_smoothing)
+    return _mean(per_tok, mask, num_valid)
+
+
+def vocab_parallel_causal_lm_loss(
+    logits_local: torch.Tensor,  # [B, L, V/tp] this shard's vocab slice
+    labels: torch.Tensor,  # [B, L] int GLOBAL ids, IGNORE_INDEX = masked
+    vocab_group,  # models.layers.TensorGroup the vocab dim is sharded over
+    label_smoothing: float = 0.0,
+    shift: bool = True,
+    num_valid=None,
+    real_vocab: int | None = None,
+) -> torch.Tensor:
+    """:func:`causal_lm_loss` over vocab-sharded logits (JAX
+    ``losses.py:261-300``): a float32 log-sum-exp over the local logits,
+    stabilised by the ranks' max (no gradient), the exp-sums, the true
+    logit and the logit sums summed over the group in one all-reduce
+    (``layers.tp_all_reduce``, whose backward is the same sum),
+    IGNORE_INDEX masking, HF smoothing. Columns whose global index is at
+    or past ``real_vocab`` (Megatron padding) are left out of the softmax
+    and the smoothing mean. Every rank returns the same full-vocab loss."""
+    from acco_tpu_torch.models.layers import tp_all_reduce, tp_max
+
+    if shift:
+        logits_local, targets = logits_local[:, :-1, :], labels[:, 1:]
+    else:
+        targets = labels
+    lg = logits_local.float()
+    v_local = lg.shape[-1]
+    v0 = vocab_group.rank * v_local
+    vocab_total = v_local * vocab_group.size
+    if real_vocab is not None and real_vocab < vocab_total:
+        n_real_local = min(max(real_vocab - v0, 0), v_local)  # a host int per rank
+        if n_real_local < v_local:
+            col = torch.arange(v_local, device=lg.device)
+            lg = torch.where(col < n_real_local, lg, torch.full((), -torch.inf, device=lg.device))
+        vocab_total = real_vocab
+    targets = targets.long()
+    mask = (targets != IGNORE_INDEX).float()
+    loc = torch.where(targets == IGNORE_INDEX, torch.zeros_like(targets), targets) - v0
+    in_range = (loc >= 0) & (loc < v_local)
+    picked = torch.gather(lg, -1, torch.where(in_range, loc, torch.zeros_like(loc))[..., None])
+    picked = torch.where(in_range, picked[..., 0], torch.zeros((), device=lg.device))
+    gmax = tp_max(lg.amax(dim=-1), vocab_group)
+    parts = [torch.exp(lg - gmax[..., None]).sum(dim=-1), picked]
+    if label_smoothing:
+        parts.append(torch.where(torch.isfinite(lg), lg, torch.zeros((), device=lg.device))
+                     .sum(dim=-1))
+    summed = tp_all_reduce(torch.stack(parts), vocab_group)
+    logz = torch.log(summed[0]) + gmax
+    per_tok = logz - summed[1]
+    if label_smoothing:
+        per_tok = (1.0 - label_smoothing) * per_tok + label_smoothing * (
+            logz - summed[2] / vocab_total)
     return _mean(per_tok, mask, num_valid)
 
 
@@ -242,36 +304,43 @@ def model_ce(
     *,
     label_smoothing: float,
     fused,  # resolve_fused_loss's verdict: False | 'chunk' | 'pallas'
-    vocab_axis=None,
+    vocab_group=None,
     real_vocab=None,
     num_valid=None,
     shift: bool = True,
 ) -> torch.Tensor:
     """The fused-vs-materialized CE dispatch of the train path, for a model
     that computes with the parameters it holds. ``fused`` must already
-    have passed :func:`resolve_fused_loss`."""
-    _refuse_vocab_sharding(vocab_axis is not None)
+    have passed :func:`resolve_fused_loss`; ``vocab_group`` (the model's
+    tensor group) selects the vocab-parallel forms."""
     if fused == "pallas":
-        from acco_tpu_torch.ops.fused_ce import fused_ce_loss
+        from acco_tpu_torch.ops.fused_ce import fused_ce_loss, vocab_parallel_fused_ce_loss
 
-        return fused_ce_loss(
-            model.hidden(ids, attention_mask), model.lm_head(), labels, label_smoothing,
-            shift=shift, num_valid=num_valid, real_vocab=real_vocab,
-        )
+        h, head = model.hidden(ids, attention_mask), model.lm_head()
+        if vocab_group is not None:
+            return vocab_parallel_fused_ce_loss(
+                h, head, labels, vocab_group, label_smoothing,
+                shift=shift, num_valid=num_valid, real_vocab=real_vocab,
+            )
+        return fused_ce_loss(h, head, labels, label_smoothing,
+                             shift=shift, num_valid=num_valid, real_vocab=real_vocab)
     if fused == "chunk":
-        # the chunked form has no shift=False, num_valid or real_vocab;
-        # resolve_fused_loss never routes such a call here
-        if not (shift is True and num_valid is None and real_vocab is None):
+        # the chunked form has no shift=False, num_valid, real_vocab or
+        # sharded vocab; resolve_fused_loss never routes such a call here
+        if not (shift is True and num_valid is None and real_vocab is None
+                and vocab_group is None):
             raise ValueError(
                 "fused_loss='chunk' supports only shift=True, num_valid=None, "
-                f"real_vocab=None (got shift={shift!r}, "
+                f"real_vocab=None, vocab_group=None (got shift={shift!r}, "
                 f"num_valid={'set' if num_valid is not None else None}, "
-                f"real_vocab={real_vocab!r}); use 'pallas' or the materialized path"
+                f"real_vocab={real_vocab!r}, vocab_group="
+                f"{'set' if vocab_group is not None else None}); use 'pallas' or the "
+                "materialized path"
             )
         return chunked_causal_lm_loss(
             model.hidden(ids, attention_mask), model.lm_head(), labels, label_smoothing
         )
     return causal_lm_loss(
         model.apply(ids, attention_mask), labels, label_smoothing,
-        shift=shift, num_valid=num_valid, real_vocab=real_vocab,
+        shift=shift, num_valid=num_valid, vocab_group=vocab_group, real_vocab=real_vocab,
     )

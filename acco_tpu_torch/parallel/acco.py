@@ -189,7 +189,7 @@ class AccoTrainStep(FlatTrainStep):
         health = state.health
         if self.nan_guard:
             health = health._replace(
-                pending_ok=staged_ok(grad_sum, loss, self.group("world")))
+                pending_ok=staged_ok(grad_sum, loss, self.group("all")))
         return state._replace(
             pending_grads=grad_sum, pending_count=count.reshape(1), health=health
         ), loss
@@ -264,7 +264,7 @@ class AccoTrainStep(FlatTrainStep):
             state.flat_params, block, grad_init=grad0, count_init=count0
         )
         loss = self.mean_loss(loss_wsum, block.valid)
-        pending_ok = staged_ok(grad_sum, loss, self.group("world")) if self.nan_guard else None
+        pending_ok = staged_ok(grad_sum, loss, self.group("all")) if self.nan_guard else None
         return grad_sum, count, loss, pending_ok
 
     def _fork(self, stream) -> None:

@@ -16,6 +16,14 @@ keeps this rank's chunk; the flat loss is then this rank's partial (its
 chunk's loss sum over the global token count, all-reduced), so the
 partials and their gradients sum over the group to the full microbatch's
 (:func:`world_mean_loss`; ZeRO-1's reduce-scatter sums the gradients).
+
+Tensor parallelism (a model built on a ``TensorGroup``): every rank of a
+tensor group runs the same rows with its shard's parameters; the loss is
+the vocab-parallel CE (the same value on each of them), so the loss
+metric and the valid count reduce over dp x sp as without tp, while the
+staged-grads verdict reduces over every rank (each tp shard stages a
+different piece of the model), and ZeRO-1 runs JAX's tp terms
+(``parallel/zero1.py``).
 """
 
 from __future__ import annotations
@@ -128,12 +136,21 @@ def make_flat_loss_fn(
 
     With ``sequence_group`` (context parallelism) the batch is this rank's
     chunk (:func:`prep_cp_leaves`): pre-shifted labels, no pad mask, and
-    the loss is the chunk's partial over the group's total target count."""
+    the loss is the chunk's partial over the group's total target count.
+
+    Under tensor parallelism (the model's ``tensor_group``) the loss is
+    vocab-parallel: 'pallas' is K3's wrapper on the shard's head slice,
+    anything else the materialized vocab-parallel CE (JAX:
+    ``parallel/common.py:140-162``)."""
     params = [p for p, _, _ in model.flat_slices()]
     real_vocab = real_vocab_of(model)
+    vocab_group = getattr(model, "tensor_group", None)
     fused = resolve_fused_loss(
-        fused_loss, model, real_vocab, warn=log.warning, seq_sharded=sequence_group is not None
+        fused_loss, model, real_vocab, warn=log.warning, seq_sharded=sequence_group is not None,
+        n_vocab_shards=1 if vocab_group is None else vocab_group.size,
     )
+    if vocab_group is not None and fused != "pallas":
+        fused = False  # only the kernel has a sharded form besides the materialized CE
 
     def loss_of(batch: dict) -> torch.Tensor:
         if sequence_group is None:
@@ -141,6 +158,7 @@ def make_flat_loss_fn(
             return model_ce(
                 model, batch["input_ids"], am, batch["labels"],
                 label_smoothing=label_smoothing, fused=fused, real_vocab=real_vocab,
+                vocab_group=vocab_group,
             )
         targets = batch["labels"]
         num_valid = _all_reduce((targets != IGNORE_INDEX).sum().float(), sequence_group.group)
@@ -214,9 +232,10 @@ def world_mean_loss(
 
 def staged_ok(grad_sum: torch.Tensor, loss: torch.Tensor, group=None) -> torch.Tensor:
     """float32 0/1 verdict on the grads a round stages: finite loss and a
-    finite grad sum on every rank of ``group`` (dp x sp, the axes the
-    gradient is reduced over; one scalar all-reduce), so that the verdict,
-    a replicated leaf, agrees across ranks."""
+    finite grad sum on every rank of ``group`` (every rank: the axes the
+    gradient is reduced over, and the tp shards, which stage different
+    pieces of the model; one scalar all-reduce), so that the verdict, a
+    replicated leaf, agrees across ranks."""
     bad = _all_reduce((~torch.isfinite(grad_sum).all()).float(), group)
     return (torch.isfinite(loss) & (bad == 0)).float()
 
@@ -230,7 +249,8 @@ class FlatTrainStep:
     groups; without them, a ``sequence_group`` alone is dp 1 over its
     ranks, and neither is one rank with no collective. Context
     parallelism (a ``sequence_group``) needs a ring-attention model built
-    on that group."""
+    on that group; tensor parallelism (``groups.tensor``) a model built on
+    that tensor group, whose flat vector is its shard's (``tp_layout``)."""
 
     def __init__(
         self,
@@ -271,6 +291,15 @@ class FlatTrainStep:
         self.sequence_group = sequence_group
         self.groups = groups if groups is not None else RankGroups.of_sequence(sequence_group)
         g = self.groups
+        tg = getattr(model, "tensor_group", None)
+        tensor = None if g is None else g.tensor
+        if (tg is None) != (tensor is None) or (tg is not None and tg.group is not tensor):
+            raise ValueError("tensor parallelism needs a model built on the groups' tensor "
+                             "group, and a model built on a tensor group needs those groups")
+        # JAX's model_axis / tp_layout (acco.py:192-273): the local layout
+        # and the tp terms of ZeRO-1
+        self.tp_layout = getattr(model, "tp_layout", None)
+        self.tp = 1 if tg is None else tg.size
         self.shard_index = 0 if g is None else g.shard_index
         self.geom = ShardGeometry(model.n_params, 1 if g is None else g.world_size)
         self.value_and_grad = make_flat_loss_fn(
@@ -323,5 +352,7 @@ class FlatTrainStep:
             out_dtype=self.model.dtype, with_health=self.nan_guard,
             max_grad_norm=self.guard_max_grad_norm, group=self.group("comm_world"),
             shard_index=self.shard_index, keep_state=keep_state, alloc=alloc, into=into,
-            in_place=in_place,
+            in_place=in_place, tp=self.tp,
+            n_repl=0 if self.tp_layout is None else self.tp_layout.n_repl,
+            tensor_group=self.group("comm_tensor"), health_group=self.group("comm_all"),
         )

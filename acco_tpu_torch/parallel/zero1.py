@@ -11,6 +11,14 @@ rank's float32 shard, and ``all_gather_into_tensor`` of the result in
 the parameter dtype; the sum in the scatter adds the data-parallel
 ranks' gradients and the sequence shards' partial gradients. At one rank
 both collectives are the identity and none runs.
+
+Tensor parallelism (``tp``, JAX ``zero1.py:205-300``): the step runs
+within one tp index, over its local flat vector, and applies JAX's
+gradient correction (``parallel/tp.py``): the count divisor is
+multiplied by tp, the replicated prefix (the local vector's first
+``n_repl`` positions) is summed over the tensor group after the
+division, and the guard's sums of squares count that prefix once (its
+squares divided by tp before the all-reduce over every rank).
 """
 
 from __future__ import annotations
@@ -99,6 +107,10 @@ def zero1_update_shard(
     alloc: Optional[Callable[[int, torch.dtype], torch.Tensor]] = None,
     into: Optional[tuple] = None,
     in_place: bool = False,
+    tp: int = 1,
+    n_repl: int = 0,
+    tensor_group=None,
+    health_group=None,
 ):
     """One sharded AdamW step: reduce-scatter (sum) over ``group`` ->
     average by the grad count -> AdamW on this rank's float32 shard ->
@@ -130,7 +142,11 @@ def zero1_update_shard(
     computes the verdict and writes nothing; the second writes
     ``where(ok, new, old)``, the same bits as a step into new buffers
     followed by the caller's select). A captured DDP step carries one
-    buffer set so (``compile/graphs.py``)."""
+    buffer set so (``compile/graphs.py``).
+
+    ``tp``, ``n_repl``, ``tensor_group`` (the comm twin of the tensor
+    group) and ``health_group`` (every rank; default ``group``): the
+    tensor-parallel terms (module doc)."""
     if group is None and geom.world_size != 1:
         raise ValueError(f"a world of {geom.world_size} ranks needs a process group")
     import torch.distributed as dist
@@ -154,6 +170,15 @@ def zero1_update_shard(
         raise ValueError(f"shard {shard_index} would receive the reduce-scatter's chunk "
                          f"{in_group}: the group's ranks are not in dp x sp order")
     pad_mask = geom.shard_pad_mask(shard_index, device)
+    divisor = grad_divisor.float() * tp if tp > 1 else grad_divisor.float()
+    # the replicated prefix's positions in this shard: its first k
+    k = min(max(n_repl - shard_index * S, 0), S) if tp > 1 else 0
+    synced = None
+    if k:
+        synced = flat_grads[:k].float() / divisor
+        if tensor_group is not None:
+            dist.all_reduce(synced, group=tensor_group)
+    inv_tp = torch.full((), 1.0 / tp, dtype=torch.float32, device=device) if k else None
     into_flat, into_opt = into[:2] if into is not None else (None, None)
     if group is not None:  # the shard is written in place of the all-gather's slice
         gathered = into_flat if into_flat is not None else empty(geom.padded_size, out_dtype)
@@ -173,7 +198,9 @@ def zero1_update_shard(
 
     def chunk(lo: int):
         c = slice(lo, min(lo + CHUNK, S))
-        grad_shard = flat_grads[c].float() / grad_divisor.float()
+        grad_shard = flat_grads[c].float() / divisor
+        if lo < k:
+            grad_shard[: min(k, c.stop) - lo] = synced[lo:min(k, c.stop)]
         mask = None if pad_mask is None else pad_mask[c]
         upd = adamw_shard_update(
             AdamWState(opt_shard.params[c], opt_shard.mu[c], opt_shard.nu[c], opt_shard.count),
@@ -182,18 +209,25 @@ def zero1_update_shard(
         )
         return c, grad_shard, mask, upd
 
-    def add_health(sums, grad_shard, mask, prm):
+    def add_health(sums, lo, grad_shard, mask, prm):
         # where(), not a multiply, drops the padded tail: NaN * 0 is NaN
         g = grad_shard
         if mask is not None:
             real = mask > 0
             g, prm = torch.where(real, g, zero), torch.where(real, prm, zero)
-        return sums[0] + g.square().sum(), sums[1] + prm.square().sum()
+        g2, p2 = g.square(), prm.square()
+        if lo < k:  # the replicated prefix sits on every tp shard: count it once
+            r = min(k, lo + g2.numel()) - lo
+            g2 = torch.cat([g2[:r] * inv_tp, g2[r:]])
+            p2 = torch.cat([p2[:r] * inv_tp, p2[r:]])
+        return sums[0] + g2.sum(), sums[1] + p2.sum()
+
+    hgroup = health_group if health_group is not None else group
 
     def verdict(grad_ss, param_ss):
-        if group is not None:  # the shards partition the vector: one [2] all-reduce
+        if hgroup is not None:  # the shards partition the model: one [2] all-reduce
             sums = torch.stack([grad_ss, param_ss])
-            dist.all_reduce(sums, group=group)
+            dist.all_reduce(sums, group=hgroup)
             grad_ss, param_ss = sums[0], sums[1]
         ok = torch.isfinite(grad_ss) & torch.isfinite(param_ss)
         if max_grad_norm and max_grad_norm > 0:
@@ -204,7 +238,7 @@ def zero1_update_shard(
     if in_place and with_health:  # the verdict first: the writes below are final
         for lo in range(0, S, CHUNK):
             _, grad_shard, mask, upd = chunk(lo)
-            sums = add_health(sums, grad_shard, mask, upd.params)
+            sums = add_health(sums, lo, grad_shard, mask, upd.params)
         grad_ss, ok = verdict(*sums)
     for lo in range(0, S, CHUNK):
         c, grad_shard, mask, upd = chunk(lo)
@@ -219,7 +253,7 @@ def zero1_update_shard(
                 dst[c] = src
         new_flat[c] = upd.params.to(out_dtype)
         if with_health:
-            sums = add_health(sums, grad_shard, mask, upd.params)
+            sums = add_health(sums, lo, grad_shard, mask, upd.params)
     if group is not None:
         dist.all_gather_into_tensor(gathered, new_flat, group=group)
         new_flat = gathered

@@ -496,7 +496,8 @@ class ServeFaultInjector:
     scheduler calls :meth:`before_step` with its 0-based step index at
     the top of every step(). Matching un-fired specs fire (counted in
     ``serve_faults_injected_total``); pages held by ``kv_exhaust`` are
-    released here once their hold expires.
+    released here once their hold expires, or at a submit that finds no
+    request left to run (:meth:`release_idle`).
     """
 
     ENV_VAR = "ACCO_SERVE_CHAOS"
@@ -538,6 +539,21 @@ class ServeFaultInjector:
             "kv_exhaust holding %d pages until scheduler step %d",
             len(pages), release,
         )
+
+    def release_idle(self, scheduler) -> None:
+        """Release every ``kv_exhaust`` hold on ``scheduler``, which has no
+        request left to run (its ``submit`` calls this): no step would
+        come to reach the hold's release, so the pool would stay drained,
+        every new request shed for KV pressure, and the pages reported as
+        leaked at the drain. A documented difference from JAX's copy,
+        which holds them until a step."""
+        for hold in self._holds[:]:
+            sched, pages, _ = hold
+            if sched is scheduler:
+                sched.allocator.free(pages)
+                self._holds.remove(hold)
+                self.log.warning("kv_exhaust released %d pages: no request left to run",
+                                 len(pages))
 
     def before_step(self, scheduler, step_idx: int) -> None:
         from acco_tpu_torch.telemetry import metrics

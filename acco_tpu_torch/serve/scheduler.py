@@ -222,6 +222,11 @@ class ContinuousBatchingScheduler:
                 req, "queue_full",
                 f"waiting queue at max depth {self.max_waiting}",
             )
+        if self.fault_injector is not None and not self.has_work:
+            # a kv_exhaust hold with no request left to run would wait for
+            # a step that never comes (every submit shed for KV pressure):
+            # released here, where JAX's copy keeps it until the drain
+            self.fault_injector.release_idle(self)
         if (
             self.kv_watermark is not None
             and self.kv_occupancy >= self.kv_watermark

@@ -1,0 +1,32 @@
+"""Declarative sharding: rule tables from leaf names to partition specs.
+
+Counterpart of ``acco_tpu/sharding/``: the matching engine
+(:mod:`~acco_tpu_torch.sharding.rules`) and the tensor-parallel
+parameter tables (:mod:`~acco_tpu_torch.sharding.tables`). It imports
+nothing of ``parallel/`` or ``models/``.
+"""
+
+from acco_tpu_torch.sharding.rules import (
+    P,
+    PartitionSpec,
+    Rule,
+    RuleTable,
+    ShardingRuleError,
+    leaf_paths,
+    map_tree,
+    split_dims,
+)
+from acco_tpu_torch.sharding.tables import model_split_specs, param_table
+
+__all__ = [
+    "P",
+    "PartitionSpec",
+    "Rule",
+    "RuleTable",
+    "ShardingRuleError",
+    "leaf_paths",
+    "map_tree",
+    "split_dims",
+    "param_table",
+    "model_split_specs",
+]

@@ -1,0 +1,75 @@
+"""The per-model-family tensor-parallel parameter tables.
+
+Counterpart of the tp rules of ``acco_tpu/sharding/tables.py``, rule for
+rule: ``model_split_specs`` gives ``parallel/tp.TpLayout`` the split dim
+of every leaf (the models' ``tp_param_specs``). The pp rules and the
+train, eval and serve state tables come with the pipeline, composition
+and serving-sharding items (ROADMAP.md queue 1, items 9.3-9.5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from acco_tpu_torch.sharding.rules import P, Rule, RuleTable, ShardingRuleError, split_dims
+
+TENSOR_AXIS = "tp"
+
+# The tp rules say which dim of each weight carries the tensor axis
+# (Megatron column/row split).
+
+
+def _llama_tp_rules(axis: str) -> tuple:
+    return (
+        Rule(r"^wte$", P(axis), "vocab-dim split embedding"),
+        Rule(r"^layers/(attn_norm|mlp_norm)$", P(), "norm scales replicated"),
+        Rule(r"^layers/(wq|wk|wv|w_gate|w_up)$", P(None, None, axis),
+             "column-parallel: heads / ffn-in split on dim 2"),
+        Rule(r"^layers/(wo|w_down)$", P(None, axis),
+             "row-parallel: contraction dim split on dim 1"),
+        Rule(r"^final_norm$", P(), "final norm replicated"),
+        Rule(r"^lm_head$", P(None, axis), "untied head split on vocab dim"),
+    )
+
+
+def _gpt_neo_tp_rules(axis: str) -> tuple:
+    return (
+        Rule(r"^wte$", P(axis), "vocab-dim split embedding"),
+        Rule(r"^wpe$", P(), "position embedding replicated"),
+        Rule(r"^layers/(ln1_scale|ln1_bias|wo_bias|ln2_scale|ln2_bias|b_proj)$", P(),
+             "norms and output biases replicated"),
+        Rule(r"^layers/w_qkv$", P(None, None, None, axis), "fused qkv: head dim is dim 3"),
+        Rule(r"^layers/(wo|w_proj)$", P(None, axis),
+             "row-parallel: contraction dim split on dim 1"),
+        Rule(r"^layers/w_fc$", P(None, None, axis), "ffn-in split on dim 2"),
+        Rule(r"^layers/b_fc$", P(None, axis), "ffn-in bias split with w_fc"),
+        Rule(r"^(lnf_scale|lnf_bias)$", P(), "final norm replicated"),
+    )
+
+
+_TP_RULES = {"llama": _llama_tp_rules, "gpt_neo": _gpt_neo_tp_rules}
+
+
+def param_table(family: str, kind: str = "tp", *, tied: bool = True,
+                axis: str = TENSOR_AXIS) -> RuleTable:
+    """Parameter rule table for ``family`` ('llama' | 'gpt_neo') and
+    ``kind`` (only 'tp' is ported). ``tied`` drops Llama's ``lm_head``
+    rule when the head shares the embedding (GPT-Neo always ties)."""
+    if kind == "pp":
+        raise NotImplementedError("the pp parameter table is not ported yet "
+                                  "(ROADMAP.md queue 1, item 9.3)")
+    if kind != "tp" or family not in _TP_RULES:
+        raise ShardingRuleError(f"no param table for family={family!r} kind={kind!r}")
+    rules = _TP_RULES[family](axis)
+    if family == "llama" and tied:
+        rules = tuple(r for r in rules if "lm_head" not in r.pattern)
+    return RuleTable(name=f"params:{family}:{kind}", rules=rules)
+
+
+def model_split_specs(family: str, shapes: Any, axis: Optional[str] = None) -> Any:
+    """Int/None split-dim tree for ``TpLayout`` over a dense parameter tree
+    (``shapes``: a model's ``dense_shapes()``) of ``family`` (a model's
+    ``family``); the head is untied when the tree has an ``lm_head``."""
+    axis = axis or TENSOR_AXIS
+    tied = "lm_head" not in shapes
+    return split_dims(param_table(family, tied=tied, axis=axis), shapes, axis)

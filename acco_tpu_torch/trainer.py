@@ -33,7 +33,15 @@ hop), keeps its chunk of the sequence
 ``max_length`` divisible by sp (2 sp under the zig-zag layout).
 ``microbatch_mask`` ([n_acc][dp], 0/1) gives each rank its ``valid``
 column: heterogeneous workers, whose masked microbatches run and count
-nothing.
+nothing. Under tensor parallelism (``{dp: N, tp: T}``, or a mesh that
+carries a one-rank tensor group; JAX: trainer.py:146-155) the model holds
+its tp shard's parameters (its ``tp_layout``), every rank of a tensor
+group reads the same rows (its dp index's), each rank initialises its own
+shard from the seed (``models/flat.py`` ``init_flat``, no dense vector on
+the card), the eval runs the vocab-parallel loss, each rank's file in a
+checkpoint carries its tp index, and a final save's ``params.npz`` is
+the dense model gathered over tp on rank 0 and unpadded (JAX:
+trainer.py:2240-2252).
 
 The run's persistence and records, as JAX's trainer keeps them, under
 ``run_dir``:
@@ -214,8 +222,16 @@ class Trainer:
             self.step = AccoTrainStep(model, schedule, mode=self.method, **common)
         g = self.step.groups
         self.mesh_shape = {"dp": 1 if g is None else g.dp, "sp": 1 if g is None else g.sp}
+        if g is not None and g.tensor is not None:
+            self.mesh_shape["tp"] = g.tp
         self.world = self.step.group("world")  # dp x sp (None: one rank)
         self.world_size = 1 if g is None else g.world_size
+        # every rank (dp x sp x tp): the decisions all ranks take together
+        self.all_ranks = self.step.group("all")
+        self.n_ranks = 1 if g is None else g.n_ranks
+        # this rank's file in a checkpoint: its tp index, then its ZeRO-1 shard
+        self.file_rank = (0 if g is None else g.tp_index) * self.world_size + \
+            self.step.shard_index
         self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
         self.eos_token_id = int(tokenizer.eos_token_id)
         # the attention impl the model's (global) layers run at this length
@@ -283,7 +299,8 @@ class Trainer:
         self.ckpt_manager = CheckpointManager(
             self.ckpt_dir, async_save=bool(args.get("ckpt_async", True)),
             keep_last=self.keep_last, keep_every_s=self.keep_every_s,
-            rank=self.step.shard_index, world_size=self.world_size, log=self.log, gc_on_init=False, tracer=self.tracer,
+            rank=self.file_rank, world_size=self.n_ranks, log=self.log, gc_on_init=False,
+            tracer=self.tracer,
         )
         # an injected handler (tests, drills); else a SIGTERM/SIGINT latch
         # installed for the duration of train() (JAX: trainer.py:524-535)
@@ -436,7 +453,7 @@ class Trainer:
             path = self._agreed_path(lambda: ckpt.resolve_resume(str(self.resume_from),
                                                                  self.log))
             t0 = time.perf_counter()
-            state, meta = ckpt.restore_checkpoint(path, state, rank=self.step.shard_index,
+            state, meta = ckpt.restore_checkpoint(path, state, rank=self.file_rank,
                                                   mesh=self.mesh_shape)
             self.restore_ms = (time.perf_counter() - t0) * 1e3
             self.log.info("Resumed from %s at %d grads", path, meta["count_grad_tot"])
@@ -896,10 +913,9 @@ class Trainer:
 
     def _agreed_path(self, choose) -> str:
         """``choose()``'s checkpoint path on rank 0, broadcast to every
-        rank of the world group, so that no two ranks restore different
-        steps (one rank alone: its own choice). An error on rank 0 is
-        raised on every rank."""
-        if self.world is None or self.world_size == 1:
+        rank, so that no two ranks restore different steps (one rank alone:
+        its own choice). An error on rank 0 is raised on every rank."""
+        if self.all_ranks is None or self.n_ranks == 1:
             return choose()
         import torch.distributed as dist
 
@@ -909,8 +925,8 @@ class Trainer:
                 box[0] = ("ok", choose())
             except Exception as exc:  # noqa: BLE001 — raised on every rank below
                 box[0] = ("error", exc)
-        dist.broadcast_object_list(box, src=dist.get_global_rank(self.world, 0),
-                                   group=self.world)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.all_ranks, 0),
+                                   group=self.all_ranks)
         kind, value = box[0]
         if kind == "error":
             raise value
@@ -950,7 +966,7 @@ class Trainer:
             return path
 
         path = self._agreed_path(newest)
-        state, meta = ckpt.restore_checkpoint(path, state, rank=self.step.shard_index,
+        state, meta = ckpt.restore_checkpoint(path, state, rank=self.file_rank,
                                               mesh=self.mesh_shape, in_place=True)
         self.loader.set_state(fence)
         self.source = self._block_source()
@@ -967,20 +983,20 @@ class Trainer:
 
     def _preempted(self, rounds_this_run: int) -> bool:
         """The stop decision (JAX: trainer.py:2029-2056): at one rank the
-        local latch; on several, the flags MAX-reduced over the world
-        group every ``preempt_sync_rounds`` rounds on the loop's thread
+        local latch; on several, the flags MAX-reduced over every rank
+        every ``preempt_sync_rounds`` rounds on the loop's thread
         (a per-round read would serialize the dispatch), so every rank
         stops at the same boundary. A rank without a handler takes part
         with a flag of 0."""
         local = self._shutdown is not None and self._shutdown.should_stop()
-        if self.world is None or self.world_size == 1:
+        if self.all_ranks is None or self.n_ranks == 1:
             return local
         if rounds_this_run % self.preempt_sync_rounds != 0:
             return False
         import torch.distributed as dist
 
         flag = torch.tensor([float(local)], device=self.device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.world)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.all_ranks)
         return bool(flag.item())
 
     def _scalars(self, writer, count_grad_tot: float, loss: float, eval_loss, t_beg: float):
@@ -1001,10 +1017,10 @@ class Trainer:
         if self.eval_loader is None:
             return float("nan")
         n_batches = torch.tensor(len(self.eval_rows) // self.batch_size, device=self.device)
-        if self.world is not None:
+        if self.all_ranks is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(n_batches, op=dist.ReduceOp.MIN, group=self.world)
+            dist.all_reduce(n_batches, op=dist.ReduceOp.MIN, group=self.all_ranks)
         model = self.model
         step = self.eval_programs
         if step is not None and step.capture_on:
@@ -1024,9 +1040,10 @@ class Trainer:
     def _eval_sums(self, flat_params: torch.Tensor, blk) -> torch.Tensor:
         """One eval batch (its sequence cut made): ``[nll sum, target
         count]`` summed over dp x sp, through ``model_ce`` (K3's forward
-        alone under fused_loss='pallas'). The loss form is the train
-        path's verdict; the chunked loss, which has no nll-sum form
-        (``num_valid``), gives its mean times the count."""
+        alone under fused_loss='pallas'; the vocab-parallel forms under
+        tp, whose ranks each hold the whole sum, JAX: trainer.py:1916-1944).
+        The loss form is the train path's verdict; the chunked loss, which
+        has no nll-sum form (``num_valid``), gives its mean times the count."""
         model, fused = self.model, self.step.value_and_grad.fused_loss
         model.load_flat(flat_params)
         with torch.no_grad():
@@ -1037,7 +1054,7 @@ class Trainer:
                 shift, count = True, (blk.labels[:, 1:] != IGNORE_INDEX).sum()
             count = count.float()
             kw = dict(label_smoothing=self.label_smoothing, real_vocab=real_vocab_of(model),
-                      shift=shift)
+                      shift=shift, vocab_group=getattr(model, "tensor_group", None))
             if fused == "chunk":
                 nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
                                    **kw) * count
@@ -1075,11 +1092,12 @@ class Trainer:
         """The time-based checkpoint trigger: rank 0's clock decides and
         every rank follows (JAX: trainer.py:2019)."""
         due = elapsed > self.checkpoint_every_s
-        if self.world is not None and self.world_size > 1:
+        if self.all_ranks is not None and self.n_ranks > 1:
             import torch.distributed as dist
 
             flag = torch.tensor([float(due)], device=self.device)
-            dist.broadcast(flag, src=dist.get_global_rank(self.world, 0), group=self.world)
+            dist.broadcast(flag, src=dist.get_global_rank(self.all_ranks, 0),
+                           group=self.all_ranks)
             due = bool(flag.item())
         return due
 
@@ -1111,16 +1129,23 @@ class Trainer:
             "saved_at_unix": time.time(),
         }
         extra = None
+        rows = self._tp_rows(state) if export_npz and self.model.tp_layout is not None else None
         if self.rank == 0 and export_npz:
             n_params = self.model.n_params
 
             def extra(path: str, host: dict) -> None:
-                flat = host["flat_params"][:n_params].to(torch.float32).numpy()
+                if rows is None:
+                    flat = host["flat_params"][:n_params].to(torch.float32).numpy()
+                else:  # the dense model from every tp shard's row, unpadded
+                    from acco_tpu_torch.parallel.tp import host_ravel
+
+                    dense = self.model.tp_layout.gather_params(rows)
+                    flat = host_ravel(self.model.unpad_vocab(dense), np.float32)
                 np.savez(os.path.join(path, "params.npz"), flat_params=flat)
 
         comm_stream = getattr(self.step, "comm_stream", None)
         path = self.ckpt_manager.save(count, state, meta, extra_files=extra,
-                                      rank_meta={"loader": loader},
+                                      rank_meta={"loader": loader, **self._tp_meta()},
                                       streams=() if comm_stream is None else (comm_stream,))
         stall_ms = (time.perf_counter() - t0) * 1e3
         if self.rank == 0:
@@ -1131,6 +1156,35 @@ class Trainer:
         if self.attribution is not None:
             self.attribution.note("ckpt", stall_ms)
         return path
+
+    def _tp_meta(self) -> dict:
+        """The rank file's tp index under tensor parallelism."""
+        g = self.step.groups
+        return {} if g is None or g.tensor is None else {"tp_index": g.tp_index}
+
+    def _tp_rows(self, state):
+        """Under tensor parallelism, every tp shard's flat parameters as
+        float32 host rows on rank 0 (None elsewhere), sent over rank 0's
+        tensor group one row at a time: no card holds more than its own
+        row. The other tensor groups take no part."""
+        g = self.step.groups
+        if g.dp_index != 0 or g.sp_index != 0:
+            return None
+        n = self.model.n_params
+        mine = state.flat_params[:n].contiguous()
+        if g.tp == 1:
+            return [mine.float().cpu().numpy()]
+        import torch.distributed as dist
+
+        if g.tp_index != 0:
+            dist.send(mine, dst=dist.get_global_rank(g.tensor, 0), group=g.tensor)
+            return None
+        rows = [mine.float().cpu().numpy()]
+        buf = torch.empty_like(mine)
+        for t in range(1, g.tp):
+            dist.recv(buf, src=dist.get_global_rank(g.tensor, t), group=g.tensor)
+            rows.append(buf.float().cpu().numpy())
+        return rows
 
     def _write_results(self, final_loss, total_time: float, extra: dict) -> None:
         """The ``results.csv`` row (JAX: trainer.py:2261), health columns

@@ -216,9 +216,11 @@ and prints no result line):
    graph launches and kernels a round, peak allocated (captured within
    5% of eager) and reserved, allocator retries (none on the long
    cells), capture ms and ``train_warmup_join_ms``; Llama-125M and its
-   fused-CE cell at cadence 10 eager beside phase 8 (d); Llama-125M from
-   an empty build directory with ``train.warmup_compile`` true and
-   false: the seconds from the trainer's constructor to its first round;
+   fused-CE cell at cadence 10 eager beside phase 8 (d); Llama-125M with
+   no library loaded, ``train.warmup_compile`` true from an empty build
+   directory and false from the build cache (each program captured after
+   its first round): the seconds from the trainer's constructor to its
+   first round;
    (d) ``nan_grads@3``, the ``corrupt_params`` rollback and a SIGTERM
    stop resumed, captured, bit-equal to their eager oracles;
 12. serving, in the order (b), (c), (d), (a) (``acco_tpu_torch/serve/``;
@@ -246,7 +248,30 @@ and prints no result line):
    10 s at concurrency 8 (no 500, TTFT p50/p99,
    tokens/s, no page in use after), then 8 requests in flight and
    SIGTERM: the drain finishes them within its budget and the server
-   exits 0.
+   exits 0;
+13. tensor parallelism: (a) K3's vocab-parallel wrapper
+   (``ops/fused_ce.py`` ``vocab_parallel_fused_ce_loss``) at GPT-Neo-
+   125M's head (8192 rows, D 768, vocab 50257 padded to 50304, random
+   padding rows, smoothing 0.1, ignored rows) and Llama-3-8B's (8192
+   rows, D 4096, V 128256), tp 2 and tp 4 emulated in one process: each
+   shard through the wrapper's own per-shard step (``vp_shard_ce`` at
+   its rank: K3 on its slice with its clipped ``v_real`` and its targets
+   localised with the -1 sentinel), the slices combined by the wrapper's
+   own combine (``vp_combine``), against K3 over the whole unpadded vocab
+   and against the plain version emulated alike, at K3's bars (dH's |ref|
+   the sum of the shards' bf16 parts' magnitudes, which the ranks'
+   all-reduce sums); three planted faults the bars must fail (the
+   per-shard step patched to leave the last shard's ``v_real`` unclipped
+   and to leave the targets global, the sum of dH over the shards
+   dropped); shard 0's K3 forward and backward timed
+   beside its plain version, its bound (2 N D V/tp a pass) and the
+   materialized vocab-parallel CE on the same slice; (b) the tp paths
+   through a one-rank NCCL tensor group handed to ``build_trainer``:
+   ``llama3-8B-L8192-tp`` (K5 and the wrapper) bit-equal to phase 5's
+   dense cell, ``gptneo-tp`` (K1, K2 and the wrapper, ``fused_loss=
+   pallas``) against phase 5's GPT-Neo cell (its materialized CE: the
+   seed loss within 1e-5, the rounds within the ring's bar), the seed
+   round and 8 captured rounds each, the wrapper's launches counted.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -578,14 +603,16 @@ def check_mass(name: str, got, want, mass) -> float:
     return max_err
 
 
-def check_elementwise(name: str, got, want, term) -> float:
-    """|got - want| <= r * |want| + t * term, elementwise."""
+def check_elementwise(name: str, got, want, term, mass=None) -> float:
+    """|got - want| <= r * |want| + t * term, elementwise (``mass`` in
+    place of |want| where the element is a sum of parts each rounded on
+    its own: the sum of the parts' magnitudes)."""
     import torch
 
     r, t = ELEMENT_TOL[name]
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = r * want.abs() + t * term
+    tol = r * (want.abs() if mass is None else mass) + t * term
     used = float((err / tol.clamp(min=torch.finfo(torch.float32).tiny)).max())
     max_err = float(err.max())
     log(f"  {name:5s} max_abs_err {max_err:.3e}  (tol {r:g}*|ref| + {t:g}*term; median |ref| "
@@ -1986,6 +2013,8 @@ MAIN_PATHS = {
                         **dict.fromkeys(_K5, LLAMA3_LAYERS)},
     ),
 }
+for _spec in MAIN_PATHS.values():  # no dense path reaches the vocab-parallel wrapper
+    _spec["per_microbatch"]["vp_ce"] = 0
 # The ring paths (context parallelism through a one-rank NCCL sequence
 # group: every layout runs its self blocks, no hop): the long-context
 # Llama path's model and data through the zig-zag ring (per layer two
@@ -2015,6 +2044,8 @@ RING_PATHS = {
         pos_windows={0: LAYERS // 2, NEO_WINDOW: LAYERS // 2},
     ),
 }
+for _spec in RING_PATHS.values():
+    _spec["per_microbatch"]["vp_ce"] = 0
 # The dp paths (data parallelism through a one-rank NCCL dp group handed
 # to build_trainer: the count all-reduce and ZeRO-1's reduce-scatter,
 # all-gather and norm all-reduce on process groups of their own, identities
@@ -2060,7 +2091,7 @@ def dp_trainer(path: str, group, extra=(), eager: bool = False):
 
 def path_spec(path: str) -> dict:
     return (MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS.get(path)
-            or REMAT_PATHS[path])
+            or TP_PATHS.get(path) or REMAT_PATHS[path])
 
 
 def path_microbatches(path: str) -> int:
@@ -2071,14 +2102,16 @@ def path_microbatches(path: str) -> int:
 
 def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
     """The trainer of any path (``sg``: a ring path's sequence group;
-    ``group``: a dp path's data group; ``eager``: its rounds as eager
-    calls, not the captured programs)."""
+    ``group``: a dp path's data group, a tp path's tensor group;
+    ``eager``: its rounds as eager calls, not the captured programs)."""
     from acco_tpu_torch.__main__ import build_trainer
 
     if path in RING_PATHS:
         return ring_trainer(path, sg, extra, eager)
     if path in DP_PATHS:
         return dp_trainer(path, group, extra, eager)
+    if path in TP_PATHS:
+        return tp_trainer(path, group, extra, eager)
     return build_trainer([*main_args(path), *extra], eager=eager)
 
 
@@ -2820,7 +2853,8 @@ def resume_phase(smi: str, round_ms: dict) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             counts = launch_counts()
         want = {**dict.fromkeys(_K2 + _K5 + _K4, 0), "attn_fwd": LAYERS * n_batches,
-                **dict.fromkeys(_K1[1:], 0), "ce_fwd": n_batches, **dict.fromkeys(_K3[1:], 0)}
+                **dict.fromkeys(_K1[1:], 0), "ce_fwd": n_batches, **dict.fromkeys(_K3[1:], 0),
+                "vp_ce": 0}
         log(f"  {n_batches} eval batches of {kern.batch_size} x {kern.max_length}: launches "
             f"{ {k: v for k, v in counts.items() if v} }, materialized head calls {head.count}")
         if counts != want or head.count:
@@ -3825,22 +3859,24 @@ def graph_fault(kind: str):
             setattr(RoundPrograms, name, value)
 
 
-def fresh_build_start(warmup: bool) -> tuple:
-    """Llama-125M built from nothing: the kernel libraries into an empty
-    build directory (git-ignored, removed after), ``train.warmup_compile``
-    true (built in the background from the constructor on, every program
-    captured before the first round) or false (built at first use, each
-    program captured after its first round); returns the seconds from the
-    trainer's constructor to the first round read back, round 0's synced
-    ms and the compile report."""
+def fresh_build_start(warmup: bool, empty: bool = True) -> tuple:
+    """Llama-125M started with no kernel library loaded: built into an
+    empty build directory (git-ignored, removed after), or with ``empty``
+    false loaded from the build cache, ``train.warmup_compile`` true
+    (built in the background from the constructor on, every program
+    captured before the first round) or false (built or loaded at first
+    use, each program captured after its first round); returns the
+    seconds from the trainer's constructor to the first round read back,
+    round 0's synced ms and the compile report."""
     from pathlib import Path
 
     from acco_tpu_torch.__main__ import build_trainer
     from acco_tpu_torch.utils import cuda_build
 
     saved = cuda_build.BUILD_DIR, dict(cuda_build._LOADED), dict(cuda_build.BUILD_INFO)
-    fresh = tempfile.mkdtemp(prefix="fresh_", dir=os.path.join(REPO, "build"))
-    cuda_build.BUILD_DIR = Path(fresh)
+    fresh = tempfile.mkdtemp(prefix="fresh_", dir=os.path.join(REPO, "build")) if empty else None
+    if empty:
+        cuda_build.BUILD_DIR = Path(fresh)
     cuda_build._LOADED.clear()
     cuda_build.BUILD_INFO.clear()
     try:
@@ -3855,7 +3891,8 @@ def fresh_build_start(warmup: bool) -> tuple:
         cuda_build._LOADED.update(saved[1])
         cuda_build.BUILD_INFO.clear()
         cuda_build.BUILD_INFO.update(saved[2])
-        shutil.rmtree(fresh, ignore_errors=True)
+        if fresh:
+            shutil.rmtree(fresh, ignore_errors=True)
     return (summary["init_to_first_round_s"], summary["round_log"][0]["ms"],
             summary["compile_report"])
 
@@ -3871,8 +3908,8 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
     launch calls and graph launches and the device's kernels a round,
     peak allocated and reserved, allocator retries, capture and warm-up
     join ms; Llama-125M and its fused-CE cell at cadence 10; the time to
-    the first round from a fresh build directory with warmup_compile
-    true and false; (d) a drill, a rollback and a SIGTERM resume,
+    the first round with warmup_compile true from a fresh build
+    directory and false from the build cache; (d) a drill, a rollback and a SIGTERM resume,
     captured, against their eager oracles. ``cadence``: phase 8 (d)'s
     captured cadence runs, path -> (mean round ms, round losses). Returns
     the eager runs' launches."""
@@ -3959,10 +3996,13 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
             f"{'equal' if same else 'DIFFER'}")
         if not same:
             raise AssertionError(f"{path}: captured and eager losses differ at cadence {CADENCE}")
+    # warmup_compile=false from the build cache: its nvcc builds are the
+    # same as true's, the first-use loads and late captures are its own
     for warm in (True, False):
-        first_s, round0_ms, report = fresh_build_start(warm)
+        first_s, round0_ms, report = fresh_build_start(warm, empty=warm)
         lib = report["libraries"].get("fused_attention") or {}
-        log(f"  llama-125M from an empty build directory, warmup_compile={warm}: constructor to "
+        where = "an empty build directory" if warm else "the build cache"
+        log(f"  llama-125M from {where}, warmup_compile={warm}: constructor to "
             f"the first round read back {first_s:.2f} s; round 0 {round0_ms:.1f} ms; background "
             f"build {lib.get('build_ms') or 0.0:.0f} ms; train_warmup_join_ms "
             f"{report['warmup_join_ms']:.1f}; programs captured "
@@ -4543,6 +4583,364 @@ def phase_12(smi: str) -> dict:
     return {"replica": replica, "parity": parity, "http": http}
 
 
+# -- phase 13: tensor parallelism ------------------------------------------------
+#
+# (a) K3's vocab-parallel wrapper at its real shapes, the tp shards
+# emulated in one process: each shard's K3 on its [V/tp, D] slice of the
+# padded head (random padding rows), its v_real clipped and its targets
+# localised with the -1 sentinel by the wrapper's own per-shard step
+# (ops/fused_ce.py vp_shard_ce at each rank), the slices combined by the
+# wrapper's own combine (vp_combine, its reductions over the shard axis),
+# held against K3 over
+# the whole unpadded vocab and against the plain version emulated alike,
+# at K3's bars (lse and true logit 1e-4 + 1e-5 |ref|; dH and dW
+# elementwise 2^-6 |ref| + 2^-6 of a product bound); three planted faults
+# that the bars must fail; per-shard kernel times beside the bound (2 N D
+# V/tp operations a pass) and the materialized vocab-parallel CE.
+VP_HEADS = {
+    # GPT-Neo-125M's head: batch 8 x 1024 rows, vocab 50257 padded to 50304
+    "gptneo-125M": dict(N=8192, D=768, V=50257, smoothing=0.1, ignore=0.02),
+    # Llama-3-8B's head at the long path's 8192 rows (tp divides 128256)
+    "llama3-8B": dict(N=8192, D=4096, V=128256, smoothing=0.0, ignore=0.0),
+}
+VP_TPS = (2, 4)
+VP_FAULT_HEAD, VP_FAULT_TP = "gptneo-125M", 2
+VP_FAULTS = {
+    "v_real": "the last shard's v_real not clipped (the padding in its LSE)",
+    "targets": "the targets left global on every shard (not localised, no sentinel)",
+    "dh_sum": "the sum of dH over the shards dropped (shard 0's alone)",
+}
+# (b) the tp paths end to end at full width, through a one-rank NCCL
+# tensor group handed to build_trainer: the layers' all-reduces, the
+# vocab-parallel loss through the wrapper and ZeRO-1's tp terms at tp 1,
+# held against phase 5's dense cells on the same seed and batches
+TP_PATHS = {
+    "llama3-8B-L8192-tp": dict(MAIN_PATHS["llama3-8B-L8192"], base="llama3-8B-L8192",
+                               per_microbatch={**MAIN_PATHS["llama3-8B-L8192"]["per_microbatch"],
+                                               "vp_ce": 1}),
+    # GPT-Neo-125M with the wrapper: fused_loss=pallas (its dense cell runs
+    # the materialized CE: the losses are held to the ring's bar)
+    "gptneo-tp": dict(MAIN_PATHS["gptneo"], base="gptneo", extra=["train.fused_loss=pallas"],
+                      head_logits=0, fused_loss="pallas",
+                      per_microbatch={**MAIN_PATHS["gptneo"]["per_microbatch"],
+                                      **dict.fromkeys(_K3, 1), "vp_ce": 1}),
+}
+
+
+class PlainShardCE:
+    """K3's plain version as an autograd function on any device (the
+    wrapper's plain path, which the port takes for CPU tensors):
+    ``ce_fwd_reference`` forward, the chunked reference backward."""
+
+    @staticmethod
+    def apply(h, w, tgt, v_real):
+        import torch
+
+        from acco_tpu_torch.ops import fused_ce as fc
+
+        class _Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, h, w):
+                lse, tl, sl = fc.ce_fwd_reference(h, w, tgt, v_real)
+                ctx.save_for_backward(h, w, lse)
+                return lse, tl, sl
+
+            @staticmethod
+            def backward(ctx, d_lse, d_tl, d_sl):
+                h, w, lse = ctx.saved_tensors
+                cot = [torch.zeros_like(lse) if c is None else c.float().contiguous()
+                       for c in (d_lse, d_tl, d_sl)]
+                return fc.lm_head_ce_backward_reference(h, w, tgt, v_real, lse, *cot)
+
+        return _Plain.apply(h, w)
+
+
+def vp_inputs(head: dict, tp: int, seed: int):
+    """The head's inputs on the card, bf16: hidden rows (std 1), the
+    padded [Vp, D] table (std 0.02, padding rows random too), global
+    targets below V with ignored rows at IGNORE_INDEX."""
+    import torch
+
+    from acco_tpu_torch.ops.losses import IGNORE_INDEX
+    from acco_tpu_torch.parallel.tp import pad_vocab
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N, D, V = head["N"], head["D"], head["V"]
+    vp = pad_vocab(V, tp)
+    h = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(vp, D, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    tgt = torch.randint(0, V, (N,), generator=g, device="cuda")
+    ignored = torch.rand(N, generator=g, device="cuda") < head["ignore"]
+    return h, w, torch.where(ignored, torch.full_like(tgt, IGNORE_INDEX), tgt)
+
+
+def vp_loss(shard, targets, head: dict, reduce_max, reduce_sum):
+    """The wrapper's combine of ``shard`` (the shards' lse, true logit and
+    logit sum, stacked or not, and the vocab total of ``vp_shard_ce``) and
+    its mean over the unignored rows."""
+    from acco_tpu_torch.ops import fused_ce as fc
+    from acco_tpu_torch.ops.losses import IGNORE_INDEX
+
+    lse, per_tok = fc.vp_combine(*shard[:3], head["smoothing"], shard[3], reduce_max,
+                                 reduce_sum)
+    mask = (targets != IGNORE_INDEX).float()
+    return lse, per_tok, (per_tok * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+@contextlib.contextmanager
+def vp_fault(fault):
+    """A planted fault in the wrapper's own per-shard step
+    (``ops/fused_ce.py`` ``vp_shard_ce``): ``v_real`` every shard's whole
+    slice (the last shard's padding in its LSE), ``targets`` the global
+    ids on every shard (not localised, no sentinel); ``dh_sum`` and None
+    patch nothing."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+
+    saved = fc.shard_v_real, fc.shard_targets
+    if fault == "v_real":
+        fc.shard_v_real = lambda real_vocab, v0, v_local: v_local
+    elif fault == "targets":
+        fc.shard_targets = lambda t, v0, v_local: torch.where(
+            t < 0, torch.full_like(t, -1), t).to(torch.int32).contiguous()
+    try:
+        yield
+    finally:
+        fc.shard_v_real, fc.shard_targets = saved
+
+
+def vp_emulated(h, w, targets, head: dict, tp: int, plain: bool = False, fault=None) -> dict:
+    """The tp shards in one process: per shard the wrapper's own step
+    (``vp_shard_ce`` at that rank: its v_real, its targets, the kernel or
+    the plain version on its slice), the wrapper's combine over the shard
+    axis, the mean loss's backward; returns lse, the true logit, the
+    per-token loss, dH (summed over the shards) and dW (the shards' slices
+    joined, the padding rows apart)."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+
+    V = head["V"]
+    vl = w.shape[0] // tp
+    hs, ws, outs = [], [], []
+    with vp_fault(fault):
+        for t in range(tp):
+            h_t = h.detach().clone().requires_grad_(True)
+            w_t = w[t * vl:(t + 1) * vl].detach().clone().requires_grad_(True)
+            outs.append(fc.vp_shard_ce(h_t, w_t, targets, t, tp, V,
+                                       ce=PlainShardCE.apply if plain else None))
+            hs.append(h_t)
+            ws.append(w_t)
+    if len({o[3] for o in outs}) != 1:
+        raise AssertionError(f"the shards disagree on the vocab total: {[o[3] for o in outs]}")
+    shard = (*(torch.stack([o[i] for o in outs]) for i in range(3)), outs[0][3])
+    lse, per_tok, loss = vp_loss(shard, targets, head, lambda x: x.amax(0), lambda x: x.sum(1))
+    loss.backward()
+    dh = hs[0].grad.float() if fault == "dh_sum" else sum(x.grad.float() for x in hs)
+    dw = torch.cat([x.grad for x in ws])
+    return {"lse": lse.detach(), "tl": shard[1].sum(0).detach(), "per_tok": per_tok.detach(),
+            "dh": dh, "dh_mass": sum(x.grad.float().abs() for x in hs), "dw": dw[:V],
+            "dw_pad": dw[V:], "loss": float(loss.detach())}
+
+
+def vp_reference(h, w, targets, head: dict) -> tuple:
+    """K3 over the whole unpadded vocab (one shard, the same combine), and
+    the bounds of its dH and dW elements (``ce_grad_terms``)."""
+    import torch
+
+    from acco_tpu_torch.ops import fused_ce as fc
+    from acco_tpu_torch.ops.losses import IGNORE_INDEX
+
+    V, ls = head["V"], head["smoothing"]
+    h_r = h.detach().clone().requires_grad_(True)
+    w_r = w[:V].detach().clone().requires_grad_(True)
+    shard = fc.vp_shard_ce(h_r, w_r, targets, 0, 1, V)
+    lse, per_tok, loss = vp_loss(shard, targets, head, lambda x: x, lambda x: x)
+    loss.backward()
+    mask = (targets != IGNORE_INDEX).float()
+    denom = mask.sum().clamp(min=1.0)
+    cot = (mask / denom, -(1.0 - ls) * mask / denom, -ls * mask / (denom * V))
+    full = {"lse": lse.detach(), "tl": shard[1].detach(), "per_tok": per_tok.detach(),
+            "dh": h_r.grad, "dw": w_r.grad, "loss": float(loss.detach())}
+    tgt = fc.shard_targets(targets, 0, V)
+    terms = ce_grad_terms(h, w[:V].contiguous(), (h, w[:V].contiguous(), tgt, V,
+                                                  shard[0].detach(), *cot))
+    return full, terms
+
+
+def vp_check(label: str, got: dict, want: dict, terms) -> float:
+    """K3's bars on the combined outputs; the padding rows' dW must be 0.
+    dH is the sum of the shards' bf16 dH (as the ranks' all-reduce sums
+    them), each rounded on its own: its bar's |ref| is the sum of the
+    parts' magnitudes (the larger of the two sides')."""
+    import torch
+
+    log(f"  {label}")
+    mass = (torch.maximum(got["dh_mass"], want["dh_mass"]) if "dh_mass" in want
+            else got["dh_mass"])
+    err = max(check("ce_lse", got["lse"], want["lse"]), check("ce_tl", got["tl"], want["tl"]),
+              check("ce_lse", got["per_tok"], want["per_tok"]),
+              check_elementwise("ce_dh", got["dh"], want["dh"], terms[0], mass=mass),
+              check_elementwise("ce_dw", got["dw"], want["dw"], terms[1]))
+    if bool((got["dw_pad"] != 0).any()):
+        raise AssertionError(f"{label}: nonzero dW on the padding rows")
+    return err
+
+
+def vp_shard_timing(h, w, targets, head: dict, tp: int, group) -> dict:
+    """Shard 0's K3 kernels (forward; dp + dH + dW) and their plain
+    versions, the bound at 2 N D V/tp operations a pass (forward, dp, dH,
+    dW) or the bytes each reads and writes, and the materialized
+    vocab-parallel CE on the same slice (the head's float32 logits and
+    ``vocab_parallel_causal_lm_loss``, forward and backward, its
+    collectives over the one-rank ``group``)."""
+    import torch
+
+    from acco_tpu_torch.models.layers import TensorGroup, lm_logits
+    from acco_tpu_torch.ops import fused_ce as fc
+    from acco_tpu_torch.ops.losses import IGNORE_INDEX, vocab_parallel_causal_lm_loss
+
+    N, D, V = head["N"], head["D"], head["V"]
+    vl = w.shape[0] // tp
+    w0 = w[:vl].contiguous()
+    tgt0, v_real = fc.shard_targets(targets, 0, vl), fc.shard_v_real(V, 0, vl)
+    mask = (targets != IGNORE_INDEX).float()
+    cot = [(mask / mask.sum()).contiguous(), (-mask / mask.sum()).contiguous(),
+           torch.zeros_like(mask)]
+    lse0 = fc.ce_fwd(h, w0, tgt0, v_real)[0]
+    fwd_ms = time_ms(lambda: fc.ce_fwd(h, w0, tgt0, v_real), iters=5, windows=3)
+    bwd_ms = time_ms(lambda: fc._backward_kernels(h, w0, tgt0, v_real, lse0, cot,
+                                                  fc.DP_CAP_BYTES, True, True),
+                     iters=3, windows=3)
+    plain_fwd = time_ms(lambda: fc.ce_fwd_reference(h, w0, tgt0, v_real), iters=1, windows=3)
+    plain_bwd = time_ms(lambda: fc.lm_head_ce_backward_reference(h, w0, tgt0, v_real, lse0,
+                                                                 *cot), iters=1, windows=3)
+    tg = TensorGroup(group, tp, 0)  # shard 0's arithmetic; one rank's collectives
+    hg, wg = h.detach().requires_grad_(True), w0.detach().requires_grad_(True)
+    labels = targets.view(1, N)
+
+    def materialized():
+        loss = vocab_parallel_causal_lm_loss(lm_logits(hg.view(1, N, D), wg.t()), labels, tg,
+                                             head["smoothing"], shift=False, real_vocab=V)
+        return torch.autograd.grad(loss, (hg, wg))
+
+    lib_ms = time_ms(materialized, iters=2, windows=3)
+    hb, wb, rows = N * D * 2, vl * D * 2, N * 4
+    dpb = N * fc.padded_vocab(vl) * 2
+    ops = 2 * N * D * vl
+    fwd_b = bound_ms(hb + wb + rows + 3 * rows, ops)
+    bwd_b = bound_ms(2 * (hb + wb) + 5 * rows + 3 * dpb + hb + wb, 3 * ops)
+    out = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+           "plain_ms": plain_fwd + plain_bwd, "library_ms": lib_ms,
+           "fwd_bound_ms": fwd_b[0], "bound_ms": fwd_b[0] + bwd_b[0],
+           "bound_by": "operations" if "operations" in (fwd_b[1], bwd_b[1]) else "bytes"}
+    log(f"  shard 0 of {tp} ([{N}, {D}] x [{vl}, {D}]): forward {fwd_ms:.4f} ms (bound "
+        f"{fwd_b[0]:.4f}, {fwd_b[1]}), backward {bwd_ms:.4f} ms (bound {bwd_b[0]:.4f}); "
+        f"plain {out['plain_ms']:.3f} ms; materialized vocab-parallel CE (forward + backward) "
+        f"{lib_ms:.3f} ms")
+    del hg, wg, w0
+    torch.cuda.empty_cache()
+    return out
+
+
+def vp_phase(group) -> tuple[dict, float]:
+    """Phase 13 (a); returns the per-(head, tp) timings and the largest
+    error against K3 over the whole vocab."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    times, worst = {}, 0.0
+    for seed, (name, head) in enumerate(VP_HEADS.items(), start=130):
+        for tp in VP_TPS:
+            free_device_cache()
+            h, w, targets = vp_inputs(head, tp, seed)
+            log(f" {name} head {head}, tp {tp}: vocab {head['V']} padded to {w.shape[0]}")
+            want, terms = vp_reference(h, w, targets, head)
+            kern = vp_emulated(h, w, targets, head, tp)
+            worst = max(worst, vp_check("the shards' kernels, combined, against K3 over the "
+                                        "whole vocab", kern, want, terms))
+            plain = vp_emulated(h, w, targets, head, tp, plain=True)
+            vp_check("the shards' kernels against the plain version, combined alike", kern,
+                     plain, terms)
+            log(f"  loss: shards {kern['loss']:.6f}  whole vocab {want['loss']:.6f}  plain "
+                f"{plain['loss']:.6f}")
+            if name == VP_FAULT_HEAD and tp == VP_FAULT_TP:
+                for fault, what in VP_FAULTS.items():
+                    bad = vp_emulated(h, w, targets, head, tp, fault=fault)
+                    try:
+                        vp_check(f"planted: {what}", bad, want, terms)
+                    except AssertionError as exc:
+                        log(f"   caught: {exc}")
+                    else:
+                        raise AssertionError(f"K3's bars missed the planted fault {fault!r}")
+                    del bad
+            del want, terms, kern, plain
+            free_device_cache()
+            times[f"{name} tp{tp}"] = vp_shard_timing(h, w, targets, head, tp, group)
+            del h, w, targets
+    return times, worst
+
+
+def tp_trainer(path: str, group, extra=(), eager: bool = False):
+    """The trainer of a tp path: its base path's configuration and
+    ``group`` (a one-rank process group) handed in as the tensor group."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    return build_trainer([*main_args(TP_PATHS[path]["base"]), *TP_PATHS[path]["extra"],
+                          *extra], tensor_group=group, eager=eager)
+
+
+def phase_13(smi: str, sg, summaries: dict, round_ms: dict, peaks: dict) -> tuple:
+    """Tensor parallelism: (a) the wrapper at its real shapes, shards
+    emulated; (b) the tp paths through a one-rank NCCL tensor group
+    against their dense cells. Returns the tp paths' launches and the
+    wrapper's kernel-line entry."""
+    import torch
+
+    log(" (a) K3's vocab-parallel wrapper, tp 2 and 4 emulated in one process")
+    times, worst = vp_phase(sg.group)
+    launches = {}
+    for path, spec in TP_PATHS.items():
+        base = spec["base"]
+        log(f"== 13 tp path {path}: {' '.join(main_args(base) + spec['extra'])}, a one-rank "
+            "NCCL tensor group handed in")
+        launches[path], med, peak, s = main_path(path, group=sg.group)
+        ref = summaries[base]
+        got = [s["seed_loss"]] + [r["loss"] for r in s["round_log"]]
+        want = [ref["seed_loss"]] + [r["loss"] for r in ref["round_log"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        same = got == want and s["fingerprint"] == ref["fingerprint"]
+        log(f"  against the dense cell {base}: losses {'bit-equal' if got == want else 'differ'}"
+            f" (largest relative difference {rel:.3e}), final state "
+            f"{'bit-equal' if s['fingerprint'] == ref['fingerprint'] else 'differs'}; round ms "
+            f"{med:.2f} / {round_ms[base]:.2f}, peak allocated {peak / 2**30:.2f} / "
+            f"{peaks[base] / 2**30:.2f} GiB (tp / dense), the wrapper's launches "
+            f"{launches[path]['vp_ce']} (on {smi})")
+        if spec["fused_loss"] == MAIN_PATHS[base]["fused_loss"]:
+            if not same:  # the same kernels at tp 1: the combine is exact
+                raise AssertionError(f"{path}: not bit-equal to {base} at tp 1")
+        else:  # the wrapper (K3) against the dense cell's materialized CE
+            if abs(got[0] - want[0]) > 1e-5 * abs(want[0]) or rel > RING_LOSS_RTOL:
+                raise AssertionError(f"{path}: losses off {base}'s: {rel:.3e}")
+    long = times["llama3-8B tp2"]
+    entry = {
+        "name": "vp_ce",
+        "route": "cuda",
+        "source": "acco_tpu_torch/ops/fused_ce.py",
+        "replaces": "acco_tpu/ops/fused_ce.py:503",
+        "launches": launches["llama3-8B-L8192-tp"]["vp_ce"],
+        "launches_by_path": {p: launches[p]["vp_ce"] for p in launches},
+        "max_abs_err": worst,
+        # per shard, forward + backward, the Llama-3-8B head at tp 2; the
+        # other heads and tp sizes beside it
+        **{k: long[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_shape": times,
+    }
+    torch.cuda.empty_cache()
+    return launches, entry
+
+
 def build_all() -> None:
     """The four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4811,6 +5209,10 @@ def main() -> int:
         log("== 12 serving: the Llama-3-8B replica, parity, planted faults, HTTP")
         phase_12(smi)
 
+        log("== 13 tensor parallelism: K3's vocab-parallel wrapper, the tp paths")
+        tp_launches, vp_entry = phase_13(smi, sg, summaries, round_ms, peaks)
+        launches.update(tp_launches)
+
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the
         # long-context path), and on every path. K5's times are at the
@@ -4827,7 +5229,7 @@ def main() -> int:
                 **times[kname],
             }
             for kname in times
-        ]
+        ] + [vp_entry]
         log(f"K1 backward total (delta + dK/dV + dQ): {json.dumps(backward)}; at Llama-3-8B's "
             f"width: {json.dumps(k1_d128_bwd)}")
         log(f"K2 backward total (delta + dQ + dK/dV): {json.dumps(banded_backward)}; at D 128: "

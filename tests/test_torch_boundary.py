@@ -53,6 +53,7 @@ def test_scan_sees_the_package():
     ("telemetry", ("__init__", "metrics", "trace", "attribution", "profile")),
     ("resilience", ("__init__", "preemption", "watchdog", "manager", "faults")),
     ("compile", ("__init__", "cache", "warmup", "graphs")),
+    ("sharding", ("__init__", "rules", "tables")),
 ])
 def test_scan_sees_the_robustness_subpackages(subpackage, modules):
     """The scan covers the telemetry and resilience subpackages, the
@@ -61,3 +62,11 @@ def test_scan_sees_the_robustness_subpackages(subpackage, modules):
     found = {os.path.splitext(os.path.basename(p))[0] for p in FILES
              if p.startswith(f"acco_tpu_torch/{subpackage}/")}
     assert found == set(modules)
+
+
+def test_scan_sees_tensor_parallelism():
+    """The scan covers tensor parallelism's modules: the sharding rule
+    engine's copy (JAX's imports ``jax.sharding``) and ``parallel/tp.py``."""
+    for path in ("acco_tpu_torch/parallel/tp.py", "acco_tpu_torch/sharding/rules.py",
+                 "acco_tpu_torch/sharding/tables.py"):
+        assert path in FILES

@@ -243,8 +243,13 @@ def test_resolve_fused_loss_gate():
     assert resolve(True, ok, None) == "chunk"
     assert resolve(False, ok, None) is False
     assert resolve("pallas", object(), None) is False
-    with pytest.raises(NotImplementedError, match="item 9"):
-        resolve("pallas", ok, None, n_vocab_shards=2)
+    # a sharded vocab (tensor parallelism): the envelope holds per shard,
+    # and 'chunk', which has no sharded form, goes to the materialized CE
+    msgs.clear()
+    assert resolve("pallas", _llama(vocab=512), None, n_vocab_shards=2) == "pallas"
+    assert resolve("pallas", _llama(vocab=250), None, warn=msgs.append, n_vocab_shards=2) is False
+    assert resolve("chunk", ok, None, warn=msgs.append, n_vocab_shards=2) is False
+    assert "vocab-parallel CE" in msgs[0] and "sharded form" in msgs[1]
     # context parallelism (JAX's seq_sharded chains): the kernel composes
     # with it; 'chunk' has no sequence-sharded form and goes to the
     # materialized CE, with a warning when asked for, silently when the
@@ -294,9 +299,9 @@ def test_model_ce_chunk_rejects_unsupported_args():
     for bad in (dict(shift=False), dict(num_valid=1.0), dict(real_vocab=250)):
         with pytest.raises(ValueError, match="fused_loss='chunk'"):
             port_losses.model_ce(model, ids, None, ids, label_smoothing=0.0, fused="chunk", **bad)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_losses.model_ce(model, ids, None, ids, label_smoothing=0.0, fused=False,
-                             vocab_axis="tp")
+    with pytest.raises(ValueError, match="vocab_group"):
+        port_losses.model_ce(model, ids, None, ids, label_smoothing=0.0, fused="chunk",
+                             vocab_group=object())
 
 
 def test_envelope_and_vocab_splits():

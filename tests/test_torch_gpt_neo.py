@@ -201,6 +201,13 @@ def test_unported_options_raise():
     # context parallelism is ported (a sequence group); the ring needs one
     with pytest.raises(ValueError, match="requires a sequence group"):
         GPTNeoModel(cfg, attention="ring")
-    for kwargs, item in (({"tensor_axis": "tp"}, "item 9"), ({"vocab_pad_to": 256}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            GPTNeoModel(cfg, **kwargs)
+    # tensor parallelism is ported (a tensor group); with the ring (tp x sp)
+    # it raises by its item, and a pad below the vocab is refused
+    from acco_tpu_torch.models.layers import TensorGroup
+
+    with pytest.raises(NotImplementedError, match="item 9.4"):
+        GPTNeoModel(cfg, attention="ring", sequence_group=object(),
+                    tensor_group=TensorGroup(None, 2, 0))
+    with pytest.raises(ValueError, match="vocab_pad_to"):
+        GPTNeoModel(cfg, vocab_pad_to=cfg.vocab_size - 1)
+    assert GPTNeoModel(cfg, vocab_pad_to=256).wte.shape[0] == 256

@@ -176,8 +176,13 @@ def test_models_root_missing_and_pad_multiple(tiny_gpt_neo, monkeypatch, tmp_pat
     torch.testing.assert_close(flat, direct, rtol=0, atol=0)
     with pytest.raises(FileNotFoundError, match="no network egress"):
         hf_loader.from_pretrained("EleutherAI/not-here")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        hf_loader.from_pretrained(path, vocab_pad_multiple=2)
+    # Megatron vocab padding (tensor parallelism): zero rows past the vocab
+    model, padded = hf_loader.from_pretrained(path, dtype=torch.float32, vocab_pad_multiple=3)
+    extra = model.padded_vocab - model.config.vocab_size
+    assert model.padded_vocab % 3 == 0 and extra > 0
+    assert padded.numel() == direct.numel() + extra * model.config.hidden_size
+    model.load_flat(padded)
+    assert not model.wte[model.config.vocab_size:].any()
 
 
 def test_finetune_entry_point_starts_from_the_checkpoint(tiny_gpt_neo, tmp_path):

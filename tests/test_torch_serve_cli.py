@@ -98,9 +98,7 @@ def test_load_harness_stub_drill(tmp_path):
     from acco_tpu_torch.serve.load_harness import main
 
     out = tmp_path / "record.json"
-    # tests/test_load_harness.py's drill (its chaos steps: a kv_exhaust
-    # that fires when no request is left to step the scheduler holds its
-    # pages until the drain, ROADMAP.md queue 3)
+    # tests/test_load_harness.py's drill, at its chaos steps
     rc = main(["--duration-s", "1.0", "--concurrency", "3", "--decode-sleep-s", "0.002",
                "--deadline-frac", "0.2", "--deadline-ms", "150", "--drain-budget-s", "10",
                "--chaos", "kv_exhaust@15,client_abandon@30", "--out", str(out)])
@@ -111,3 +109,44 @@ def test_load_harness_stub_drill(tmp_path):
     assert record["faults_injected"] == 2.0 and record["cancelled"] >= 1
     with pytest.raises(SystemExit):
         main(["--no-drain"])  # the stub stack is always drained
+
+
+def test_kv_exhaust_early_releases_when_idle(tmp_path):
+    """``kv_exhaust@3`` on the stub harness: the hold, taken when no
+    request may be left to step the scheduler, is released at the next
+    submit that finds none (the port's documented difference from JAX,
+    whose copy held the pages to the drain and shed every request for KV
+    pressure); the drain reports no page leaked."""
+    from acco_tpu_torch.serve.load_harness import main
+
+    out = tmp_path / "record.json"
+    rc = main(["--duration-s", "1.0", "--concurrency", "3", "--decode-sleep-s", "0.002",
+               "--drain-budget-s", "10", "--chaos", "kv_exhaust@3", "--out", str(out)])
+    record = json.loads(out.read_text())
+    assert rc == 0
+    assert record["leaked_pages"] == 0 and record["server_500"] == 0
+    assert record["faults_injected"] == 1.0 and record["ok_200"] > 0
+
+
+def test_kv_exhaust_hold_released_at_idle_submit():
+    """On the scheduler: a hold taken while a request runs is released by
+    its step (JAX's drill); one still held when every request is done is
+    released by the next submit, which is then admitted, not shed."""
+    from acco_tpu_torch.resilience.faults import ServeFaultInjector, parse_serve_fault_specs
+    from acco_tpu_torch.serve.engine import StubEngine
+    from acco_tpu_torch.serve.scheduler import ContinuousBatchingScheduler, GenRequest
+
+    eng = StubEngine(page_size=4, num_pages=16, max_pages_per_seq=4, max_slots=2)
+    inj = ServeFaultInjector(parse_serve_fault_specs(
+        [{"kind": "kv_exhaust", "step": 1, "hold_steps": 50}]))
+    sched = ContinuousBatchingScheduler(eng, fault_injector=inj, kv_watermark=0.9)
+    first = GenRequest(prompt=[1], max_new_tokens=3)  # runs past step 1, in one page
+    sched.submit(first)
+    while sched.has_work:
+        sched.step()
+    assert sched.kv_occupancy >= 0.9 and inj.pending  # held over the watermark, no step left
+    second = sched.submit(GenRequest(prompt=[3], max_new_tokens=2))
+    assert second.status == "waiting" and not inj.pending
+    while sched.has_work:
+        sched.step()
+    assert second.finish_reason == "length" and sched.allocator.in_use == 0

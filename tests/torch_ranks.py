@@ -159,8 +159,9 @@ def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
 # rounds or DDP steps on its slice of seeded global blocks and saves what
 # it saw. ``spec.json``: family ('llama' | 'gpt_neo'), arch, dp, sp,
 # zigzag, method ('acco' | 'dpu' | 'ddp'), sched, opt, rounds, batch (the
-# rank's batch), lr_grad_accounting. ``flat.npy``: the initial [n_params]
-# parameters. ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
+# rank's batch), lr_grad_accounting, and optionally tp (a {dp, tp} world,
+# dp outer) with vocab_pad_to. ``flat.npy``: the initial [n_params] dense
+# parameters (under tp each rank keeps its shard's local vector). ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
 # [n_acc, dp * batch, seq] and ``{i}/valid`` [n_acc, dp]. The rank takes
 # its dp index's rows and valid column, then (sp > 1) its sequence chunk.
 # Saves ``out{RANK}.npz``: per round the loss, LR, is_real_update, the
@@ -177,8 +178,13 @@ from acco_tpu_torch.parallel.ddp import DDPTrainStep
 from acco_tpu_torch.parallel.mesh import RankGroups
 
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
-groups, sg = RankGroups.build(spec["dp"], spec["sp"], RANK)
-kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
+tp = spec.get("tp", 1)
+if tp > 1:
+    groups, sg = RankGroups.build_tp(spec["dp"], tp, RANK), None
+    kw = dict(tensor_group=groups.tensor_group(), vocab_pad_to=spec.get("vocab_pad_to"))
+else:
+    groups, sg = RankGroups.build(spec["dp"], spec["sp"], RANK)
+    kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
 if spec["family"] == "llama":
     model = LlamaModel(LlamaConfig(**spec["arch"]), dtype=torch.float32, **kw)
 else:
@@ -190,7 +196,12 @@ if spec["method"] == "ddp":
     step = DDPTrainStep(model, get_schedule(*spec["sched"]), **common)
 else:
     step = AccoTrainStep(model, get_schedule(*spec["sched"]), mode=spec["method"], **common)
-state = step.init_state(torch.tensor(np.load(os.path.join(WORKDIR, "flat.npy"))))
+flat0 = np.load(os.path.join(WORKDIR, "flat.npy"))
+if tp > 1:
+    from acco_tpu_torch.models.convert import params_to_jax
+    dense = params_to_jax(torch.tensor(flat0), model.config, vocab=model.padded_vocab)
+    flat0 = model.tp_layout.stack_flat(dense)[groups.tp_index]
+state = step.init_state(torch.tensor(flat0))
 data = np.load(os.path.join(WORKDIR, "blocks.npz"))
 rows = slice(groups.dp_index * spec["batch"], (groups.dp_index + 1) * spec["batch"])
 
@@ -235,7 +246,7 @@ np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **{k: np.array(v) for k, v in 
 
 
 def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0):
-    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` ranks;
+    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` (x tp) ranks;
     the returned function waits for them and returns each rank's saved
     arrays."""
     import json
@@ -247,7 +258,7 @@ def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120
              **{f"{i}/{k}": v for i, b in enumerate(blocks) for k, v in b.items()})
     with open(os.path.join(str(workdir), "spec.json"), "w") as f:
         json.dump(spec, f)
-    ws = spec["dp"] * spec["sp"]
+    ws = spec["dp"] * spec["sp"] * spec.get("tp", 1)
     ranks = Ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
 
     def join() -> list:
