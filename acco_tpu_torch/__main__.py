@@ -35,7 +35,14 @@ parallelism runs the same way:
         model=tiny128 data=synthetic "train.mesh_shape={dp: 2, tp: 2}"
 
 builds each rank's tp shard of the model (the vocab padded to a multiple
-of tp, ``parallel/tp.pad_vocab``). Rank 0 alone prints the summary.
+of tp, ``parallel/tp.pad_vocab``), and pipeline parallelism
+
+    torchrun --nproc_per_node 4 -m acco_tpu_torch --device cpu train=acco \
+        model=tiny128 data=synthetic "train.mesh_shape={dp: 2, pp: 2}"
+
+each rank's stage (``num_layers / pp`` layers, the vocab padded to a
+multiple of pp; the GPipe loop of ``parallel/pp.py``). Rank 0 alone
+prints the summary.
 
 ``train.finetune=true`` (``train=acco-ft``, ``ddp-ft``, ``dpu-ft``) reads
 ``model.config_path`` as a local HF checkpoint directory, or a hub name
@@ -118,7 +125,7 @@ def _make_run_dir(pattern: str, cfg, mesh) -> str:
 
 
 def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_group=None,
-                  eager: bool = False):
+                  pipeline_group=None, eager: bool = False):
     """Everything before the first round: device, config, model, data.
     ``eager``: the rounds as eager PyTorch calls instead of the captured
     programs (``compile/graphs.py``), for comparisons; no config key
@@ -131,7 +138,10 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     on process groups of their own) as an identity; ``tensor_group`` hands
     in a tensor-parallel process group: a one-rank group runs the tp code
     (the layers' all-reduces, the vocab-parallel loss, ZeRO-1's tp terms)
-    at tp 1."""
+    at tp 1; ``pipeline_group`` hands in a pipeline process group: a
+    one-rank group runs the pp code (the GPipe tick loop with its
+    per-tick recompute, the masked broadcast, the vocab-parallel lookup
+    and loss over the group, ZeRO-1's terms over it) at pp 1."""
     import dataclasses
 
     import torch
@@ -152,8 +162,8 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
     check_supported(cfg.train)
     mesh = init_distributed(cfg.train.get("mesh_shape"), device)
-    if sequence_group is not None or data_group is not None or tensor_group is not None:
-        groups = RankGroups.around(sequence_group, data_group, tensor_group)
+    if any(g is not None for g in (sequence_group, data_group, tensor_group, pipeline_group)):
+        groups = RankGroups.around(sequence_group, data_group, tensor_group, pipeline_group)
         mesh = dataclasses.replace(mesh, sequence_group=sequence_group, groups=groups,
                                    tp=groups.tp)
     device = mesh.device
@@ -168,6 +178,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     use_mp = bool(cfg.train.get("use_mixed_precision", True))
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
     tg = mesh.tensor_group  # tensor parallelism (JAX: trainer.py:146-155)
+    pg = mesh.pipeline_group  # pipeline parallelism (JAX: trainer.py:156-175)
     model_kw = dict(
         dtype=torch.bfloat16 if use_mp else torch.float32,
         attention="ring" if use_cp else cfg.train.get("use_pallas_attention", "auto"),
@@ -176,14 +187,16 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
         zigzag=use_cp and bool(cfg.train.get("zigzag_cp", True)),
         remat=cfg.train.get("remat", False),
         tensor_group=tg,
+        pipeline_group=pg,
     )
-    pad_multiple = 1 if tg is None else tg.size
+    mg = tg if tg is not None else pg  # the model group the vocab is split over
+    pad_multiple = 1 if mg is None else mg.size
     initial_params = None
     if bool(cfg.train.get("finetune", False)):
         # the model group names a local pretrained checkpoint (JAX: main.py:95-112)
         model, initial_params = from_pretrained(cfg.model.config_path,
                                                 vocab_pad_multiple=pad_multiple, **model_kw)
-        if tg is not None:  # this rank's shard of the dense (padded) weights
+        if mg is not None:  # this rank's shard (or stage) of the dense (padded) weights
             from acco_tpu_torch.models.convert import params_to_jax, rank_flat_from_jax
 
             initial_params = rank_flat_from_jax(

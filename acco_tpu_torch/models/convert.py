@@ -10,8 +10,10 @@ Under tensor parallelism JAX's state is a ``[tp, n_local]`` stack of
 per-shard flat vectors (``TpLayout.stack_flat``) and each port rank holds
 one row of it: :func:`rank_flat_from_jax` cuts a rank's row from a JAX
 params pytree, :func:`dense_from_rank_flats` puts the ranks' rows back
-into the dense pytree (the inverse, ``TpLayout.gather_params``). Neither
-imports JAX: the pytree arrives as numpy.
+into the dense pytree (the inverse, ``TpLayout.gather_params``). Under
+pipeline parallelism the same two carry a stage's local flat vector
+(``TpLayout`` over the pp rule table), by pp index. Neither imports JAX:
+the pytree arrives as numpy.
 """
 
 from __future__ import annotations
@@ -64,15 +66,15 @@ def params_to_jax(flat: torch.Tensor, config, vocab=None) -> dict:
 
 
 def rank_flat_from_jax(tree: dict, model) -> torch.Tensor:
-    """This rank's local flat vector (float32) of a tensor-parallel
-    ``model`` from a dense JAX params pytree: JAX's
-    ``TpLayout.stack_flat`` row for the model's tp index."""
+    """This rank's local flat vector (float32) of a tensor- or
+    pipeline-parallel ``model`` from a dense JAX params pytree: JAX's
+    ``TpLayout.stack_flat`` row for the model's tp (or pp) index."""
     rows = model.tp_layout.stack_flat(tree)
-    return torch.from_numpy(np.ascontiguousarray(rows[model.tensor_group.rank], np.float32))
+    return torch.from_numpy(np.ascontiguousarray(rows[model.model_group.rank], np.float32))
 
 
 def dense_from_rank_flats(rows, model) -> dict:
-    """The dense params pytree (numpy) from every tp rank's local flat
-    vector, in tp order (JAX's ``TpLayout.gather_params``)."""
+    """The dense params pytree (numpy) from every tp rank's (or stage's)
+    local flat vector, in tp (pp) order (JAX's ``TpLayout.gather_params``)."""
     return model.tp_layout.gather_params(
         [np.asarray(torch.as_tensor(r).detach().float().cpu()) for r in rows])

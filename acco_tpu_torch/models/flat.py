@@ -15,6 +15,13 @@ shard's parameters: the flat vector is ``parallel/tp.TpLayout``'s local
 one, ``[replicated leaves | this shard's slices]``, each leaf at its
 local shape, so it compares elementwise with JAX's row of the
 ``[tp, ...]`` stacked state.
+
+Under pipeline parallelism (a ``pipeline_group``, JAX ``pp_param_specs``)
+the same layout runs over the pp rule table: a stage holds
+``num_layers / pp`` contiguous layers, ``V_pad / pp`` embedding rows
+(and, for an untied Llama head, ``V_pad / pp`` head columns) and the
+replicated leaves (the final norm; GPT-Neo's position table), its flat
+vector ``[replicated leaves | this stage's slices]``.
 """
 
 from __future__ import annotations
@@ -53,33 +60,39 @@ class ParamBlock(nn.Module):
             setattr(self, name, nn.Parameter(torch.empty(shape, dtype=dtype, device=device)))
 
 
-def tensor_parallel_layout(family: str, dense_layout, tp: int):
+def tensor_parallel_layout(family: str, dense_layout, tp: int, axis: str = "tp"):
     """``parallel/tp.TpLayout`` of a dense ``(path, shape, offset)``
     layout at ``tp`` shards, its split dims from the family's rule table
-    (``sharding/tables.py`` ``model_split_specs``)."""
+    for ``axis`` ('tp', or 'pp': ``tp`` stages; ``sharding/tables.py``
+    ``model_split_specs``)."""
     from acco_tpu_torch.parallel.tp import TpLayout, shape_tree
     from acco_tpu_torch.sharding import model_split_specs
 
     shapes = shape_tree(dense_layout)
-    return TpLayout(shapes, model_split_specs(family, shapes), tp)
+    return TpLayout(shapes, model_split_specs(family, shapes, axis), tp)
 
 
 class FlatParamModel(nn.Module):
     """Parameters for ``layout``: a top-level leaf ``p`` is the attribute
     :meth:`attr_name` ``(p)``, and a leaf ``layers/x`` is ``layers[i].x``.
     ``layout`` is the dense model's; with a ``tensor_group`` the model
-    holds its tp shard's part of it (``tp_layout``)."""
+    holds its tp shard's part of it, with a ``pipeline_group`` its
+    stage's (``tp_layout``, over the model group's rule table)."""
 
     family = ""  # the sharding tables' family name
 
-    def __init__(self, layout, num_layers: int, dtype, device, tensor_group=None):
+    def __init__(self, layout, num_layers: int, dtype, device, tensor_group=None,
+                 pipeline_group=None):
         super().__init__()
         self.dense_layout = layout
         self.tensor_group = tensor_group
-        self.tp_layout = (None if tensor_group is None
-                          else tensor_parallel_layout(self.family, layout, tensor_group.size))
+        self.pipeline_group = pipeline_group
+        mg = self.model_group
+        self.tp_layout = (None if mg is None else tensor_parallel_layout(
+            self.family, layout, mg.size, "tp" if tensor_group is not None else "pp"))
         if self.tp_layout is not None:
             layout = self.tp_layout.layout
+            num_layers //= 1 if pipeline_group is None else pipeline_group.size
         self.layout = layout
         self.dtype = dtype
         self.n_params = sum(int(torch.Size(s).numel()) for _, s, _ in layout)
@@ -134,6 +147,12 @@ class FlatParamModel(nn.Module):
     def tp(self) -> int:
         return 1 if self.tensor_group is None else self.tensor_group.size
 
+    @property
+    def model_group(self):
+        """The tensor or pipeline group the parameters are split over (JAX's
+        model axis), or None."""
+        return self.tensor_group if self.tensor_group is not None else self.pipeline_group
+
     def dense_shapes(self) -> dict:
         """The dense parameter tree's shapes (``parallel/tp.Leaf`` leaves)."""
         from acco_tpu_torch.parallel.tp import shape_tree
@@ -148,6 +167,14 @@ class FlatParamModel(nn.Module):
 
         return model_split_specs(self.family, self.dense_shapes())
 
+    def pp_param_specs(self) -> dict:
+        """Pipeline split dim per leaf of the dense tree: the stacked layer
+        leaves on their layer dim, the embedding (and an untied head) on
+        the vocab dim, the rest replicated (JAX: ``pp_param_specs``)."""
+        from acco_tpu_torch.sharding import model_split_specs
+
+        return model_split_specs(self.family, self.dense_shapes(), "pp")
+
     def init_flat(self, generator: torch.Generator) -> torch.Tensor:
         """A fresh flat parameter vector: each leaf at its ``init_fill``
         constant, else normal(0, initializer_range) (the JAX init's
@@ -155,7 +182,9 @@ class FlatParamModel(nn.Module):
         the dense model's leaves are drawn in the dense order, one at a
         time, and this shard's slice of each is kept: the values are the
         dense init's at any tp (the same bits at tp 1), and the largest
-        transient is one dense leaf in float32, as in the dense init."""
+        transient is one dense leaf in float32, as in the dense init. A
+        pipeline stage keeps its slice of each leaf alike (the dense bits
+        at pp 1)."""
         device = next(self.parameters()).device
         flat = torch.empty(self.n_params, dtype=self.dtype, device=device)
         local = {path: (shape, offset) for path, shape, offset in self.layout}
@@ -174,18 +203,25 @@ class FlatParamModel(nn.Module):
             if spec is not None:
                 from acco_tpu_torch.parallel.tp import slice_dim
 
-                leaf = slice_dim(leaf.view(shape), spec, tpl.tp, self.tensor_group.rank)
+                leaf = slice_dim(leaf.view(shape), spec, tpl.tp, self.model_group.rank)
             flat[offset : offset + m] = leaf.reshape(-1)
         return flat
 
 
-def check_tp(config, tensor_group, sequence_group, vocab_pad_to, heads) -> int:
-    """The padded vocab; raises where tensor parallelism cannot run:
-    tp not dividing the head counts, tp together with the ring, a pad
-    below the vocab."""
+def check_tp(config, tensor_group, sequence_group, vocab_pad_to, heads,
+             pipeline_group=None) -> int:
+    """The padded vocab; raises where tensor or pipeline parallelism
+    cannot run: tp not dividing the head counts, tp together with the
+    ring, a pipeline together with either or with pp not dividing the
+    layers (``sharding/layout.check_pipeline``), a pad below the vocab."""
     padded = int(vocab_pad_to or config.vocab_size)
     if padded < config.vocab_size:
         raise ValueError(f"vocab_pad_to={vocab_pad_to} < vocab_size={config.vocab_size}")
+    if pipeline_group is not None:
+        from acco_tpu_torch.sharding.layout import check_pipeline
+
+        check_pipeline(pipeline_group.size, num_layers=config.num_layers,
+                       tensor_group=tensor_group, sequence_group=sequence_group)
     if tensor_group is None:
         return padded
     if sequence_group is not None:
@@ -211,7 +247,7 @@ def unpad_vocab_tree(params: dict, vocab: int, padded: int) -> dict:
 
 
 def check_serve(model) -> None:
-    """The serving surface runs one replica of the dense model."""
+    """The serving surface runs one replica of the dense model, whole."""
     if model.sequence_group is not None:
         raise ValueError(
             "the serving decode path is single-replica: build the model "
@@ -221,3 +257,16 @@ def check_serve(model) -> None:
         raise NotImplementedError(
             "serving a tensor-parallel model (tp decode) is not ported yet: ROADMAP.md "
             "queue 1, item 9.5")
+    if model.pipeline_group is not None:
+        raise NotImplementedError(
+            "serving a pipeline-staged model is not ported yet: ROADMAP.md queue 1, item 9.5")
+
+
+def check_whole(model) -> None:
+    """The dense forward (``hidden``/``apply``) needs every layer: a
+    pipeline stage holds only its own and runs through ``parallel/pp.py``."""
+    if model.pipeline_group is not None:
+        raise ValueError(
+            f"this model is pipeline stage {model.pipeline_group.rank} of "
+            f"{model.pipeline_group.size}: it holds only its layers; run it through "
+            "parallel/pp.py (make_pp_loss_fn)")

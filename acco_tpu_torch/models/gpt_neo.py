@@ -48,6 +48,15 @@ heads from the local third of each of ``w_qkv``'s q, k and v (dim 3),
 ``wo`` and one after ``w_proj``, with ``wo_bias`` and ``b_proj`` added
 after them; ``wpe``, the norms and the output biases stay replicated.
 ``vocab_pad_to`` pads ``wte``'s rows (``models/llama.py``).
+
+Pipeline parallelism (a ``pipeline_group``, JAX gpt_neo.py:653-760): the
+model is one stage, ``num_layers / pp`` contiguous layers, the
+vocab-split ``wte`` and the replicated ``wpe`` and final norm.
+:meth:`GPTNeoModel.pp_embed` is the vocab-parallel lookup plus the
+learned positions, :meth:`GPTNeoModel.stage_blocks` runs the stage's
+layers with their windows cut from the whole ``layer_windows`` table at
+``stage_index * layers_per_stage`` (the global/local pattern is indexed
+by the absolute layer), :meth:`GPTNeoModel.finalize` the final norm.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from acco_tpu_torch.models.flat import (
     FlatParamModel,
     check_serve,
     check_tp,
+    check_whole,
     sorted_layout,
     unpad_vocab_tree,
 )
@@ -179,6 +189,7 @@ class GPTNeoModel(FlatParamModel):
         remat=False,
         tensor_group=None,
         vocab_pad_to: Optional[int] = None,
+        pipeline_group=None,
     ):
         impl = normalize_attention_impl(attention)
         if impl == "ring" and sequence_group is None:
@@ -190,9 +201,9 @@ class GPTNeoModel(FlatParamModel):
                 "or 'auto'"
             )
         padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
-                           (config.num_heads,))
+                          (config.num_heads,), pipeline_group)
         super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
-                         tensor_group)
+                         tensor_group, pipeline_group)
         self.config = config
         self.padded_vocab = padded
         self.n_heads = config.num_heads // self.tp
@@ -280,29 +291,61 @@ class GPTNeoModel(FlatParamModel):
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         """[B, L, D] final-norm hidden states in the activation dtype."""
+        check_whole(self)
+        return self.finalize(self.stage_blocks(self.pp_embed(input_ids, attention_mask),
+                                               attention_mask))
+
+    def pp_embed(self, input_ids: torch.Tensor,
+                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token plus learned position embeddings: the vocab-split lookup
+        summed over the tensor or pipeline group (JAX: ``pp_embed``), the
+        positions this rank's (its chunk's under context parallelism)."""
         cfg = self.config
         L = input_ids.shape[1]  # CP: this rank's chunk length
-        positions, attend = self._cp_plan(L, attention_mask)
+        positions, _ = self._cp_plan(L, attention_mask)
         global_len = L if positions is None else self.sequence_group.size * L
         if global_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"sequence length {global_len} exceeds max_position_embeddings "
                 f"{cfg.max_position_embeddings}"
             )
-        if attend is None:
-            attend = self._attention_fn(L, attention_mask, input_ids.device)
+        if positions is None:
             wpe = self.wpe[:L]
         else:
             # the layout's host positions, on the card once (no copy in a
             # captured round)
             wpe = self.wpe[device_constant(positions, input_ids.device)]
-        tok = (F.embedding(input_ids, self.wte) if self.tensor_group is None
-               else vocab_parallel_embed(self.wte, input_ids, self.tensor_group))
-        x = tok + wpe[None, :, :]
+        mg = self.model_group
+        tok = (F.embedding(input_ids, self.wte) if mg is None
+               else vocab_parallel_embed(self.wte, input_ids, mg))
+        return tok + wpe[None, :, :]
+
+    def stage_blocks(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                     stage_index: Optional[int] = None) -> torch.Tensor:
+        """The layers this model holds over [B, L, D] hidden states (JAX:
+        ``stage_blocks``): every layer, or pipeline stage ``stage_index``'s,
+        whose windows are cut from the whole ``layer_windows`` table at
+        ``stage_index * layers_per_stage`` (stage 0's pattern on every
+        stage would be wrong wherever the stages' patterns differ)."""
+        cfg = self.config
+        n_stage = len(self.layers)
+        if stage_index is None and n_stage != cfg.num_layers:
+            raise ValueError("stage_blocks on a layer sub-stack needs stage_index: GPT-Neo's "
+                             "global/local window pattern is absolute-layer-indexed")
+        first = 0 if stage_index is None else stage_index * n_stage
+        windows = cfg.layer_windows[first:first + n_stage]
+        L = x.shape[1]
+        _, attend = self._cp_plan(L, attention_mask)
+        if attend is None:
+            attend = self._attention_fn(L, attention_mask, x.device)
         layer = wrap_remat(self._layer, self.remat)
-        for blk, window in zip(self.layers, cfg.layer_windows):
+        for blk, window in zip(self.layers, windows):
             x = layer(x, blk, attend, window)
-        return layer_norm(x, self.lnf_scale, self.lnf_bias, cfg.layer_norm_epsilon)
+        return x
+
+    def finalize(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm over the last layer's hidden states."""
+        return layer_norm(x, self.lnf_scale, self.lnf_bias, self.config.layer_norm_epsilon)
 
     def _layer(self, x, blk, attend, window: int) -> torch.Tensor:
         """One block: attention with this layer's window, then the MLP."""

@@ -41,6 +41,16 @@ up and never enter the loss (``real_vocab``), and :meth:`unpad_vocab`
 strips them for export. Tensor parallelism with the ring (tp x sp) and
 the serving surface under tp are not ported yet (ROADMAP.md queue 1,
 items 9.4 and 9.5).
+
+Pipeline parallelism (a ``pipeline_group``, JAX's ``pipeline_axis``;
+llama.py:456-575): the model is one stage, ``num_layers / pp``
+contiguous layers, the vocab-split embedding (and untied head) and the
+replicated final norm (``models/flat.py``). ``parallel/pp.py`` drives
+it through :meth:`LlamaModel.pp_embed` (the vocab-parallel lookup over
+the pipeline group), :meth:`LlamaModel.stage_blocks` (this stage's
+layers, the same math as the span of :meth:`LlamaModel.hidden`) and
+:meth:`LlamaModel.finalize` (the final norm); ``hidden`` and ``apply``
+refuse a stage, and serving one is item 9.5.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from acco_tpu_torch.models.flat import (
     FlatParamModel,
     check_serve,
     check_tp,
+    check_whole,
     sorted_layout,
     unpad_vocab_tree,
 )
@@ -150,14 +161,15 @@ class LlamaModel(FlatParamModel):
         remat=False,
         tensor_group=None,
         vocab_pad_to: Optional[int] = None,
+        pipeline_group=None,
     ):
         if (normalize_attention_impl(attention) == "ring") != (sequence_group is not None):
             raise ValueError("attention='ring' requires a sequence group, and a sequence "
                              "group attention='ring'")
         padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
-                           (config.num_heads, config.num_kv_heads))
+                          (config.num_heads, config.num_kv_heads), pipeline_group)
         super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
-                         tensor_group)
+                         tensor_group, pipeline_group)
         self.config = config
         self.padded_vocab = padded
         self.n_heads = config.num_heads // self.tp
@@ -196,9 +208,18 @@ class LlamaModel(FlatParamModel):
         self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         """[B, L, D] final-norm hidden states in the activation dtype."""
+        check_whole(self)
+        return self.finalize(self.stage_blocks(self.embed(input_ids), attention_mask))
+
+    def stage_blocks(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                     stage_index: Optional[int] = None) -> torch.Tensor:
+        """The layers this model holds over [B, L, D] hidden states: every
+        layer, or one pipeline stage's (JAX: ``stage_blocks``). Llama's
+        layers are position-uniform, so ``stage_index`` (GPT-Neo's window
+        offset) is not read."""
         cfg = self.config
-        L = input_ids.shape[1]  # ring: this rank's chunk length
-        device = input_ids.device
+        L = x.shape[1]  # ring: this rank's chunk length
+        device = x.device
         impl = resolve_attention_impl(self.attention, L, cfg.head_dim, device, self.remat)
         sg = self.sequence_group
         global_len = L
@@ -214,7 +235,6 @@ class LlamaModel(FlatParamModel):
                 f"sequence length {global_len} exceeds max_position_embeddings "
                 f"{cfg.max_position_embeddings}"
             )
-        x = self.embed(input_ids)
         bias = attention_mask_bias(L, 0, attention_mask, device) if impl == "xla" else None
         if impl == "ring" and self.zigzag:
             positions = zigzag_positions(global_len, sg.size, sg.rank, device)
@@ -225,13 +245,21 @@ class LlamaModel(FlatParamModel):
         layer = wrap_remat(self._layer, self.remat)
         for blk in self.layers:
             x = layer(x, blk, cos, sin, attention_mask, bias, impl)
-        return rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return x
+
+    def finalize(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm over the last layer's hidden states."""
+        return rms_norm(x, self.final_norm, self.config.rms_norm_eps)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Token embedding; vocab-parallel under a tensor group."""
-        if self.tensor_group is None:
+        """Token embedding; vocab-parallel under a tensor or pipeline group."""
+        if self.model_group is None:
             return F.embedding(input_ids, self.wte)
-        return vocab_parallel_embed(self.wte, input_ids, self.tensor_group)
+        return vocab_parallel_embed(self.wte, input_ids, self.model_group)
+
+    # a pipeline's token embeddings (JAX: ``pp_embed``): the vocab-split
+    # lookup, summed over the pipeline group
+    pp_embed = embed
 
     def unpad_vocab(self, params: dict) -> dict:
         """The dense params tree without the Megatron vocab padding (for

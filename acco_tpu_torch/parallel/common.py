@@ -24,6 +24,13 @@ metric and the valid count reduce over dp x sp as without tp, while the
 staged-grads verdict reduces over every rank (each tp shard stages a
 different piece of the model), and ZeRO-1 runs JAX's tp terms
 (``parallel/zero1.py``).
+
+Pipeline parallelism (a model built on a pipeline group): the tensor
+group's place is taken by the pipeline group, JAX's *model group*
+(``acco_tpu/parallel/acco.py:232-237``): the block runs through the GPipe
+loop (``parallel/pp.py``), whose loss is the same on every stage, so the
+loss metric and the count reduce over dp as under tp, the verdict over
+every rank, and ZeRO-1 runs the same tp terms over the pipeline group.
 """
 
 from __future__ import annotations
@@ -249,8 +256,12 @@ class FlatTrainStep:
     groups; without them, a ``sequence_group`` alone is dp 1 over its
     ranks, and neither is one rank with no collective. Context
     parallelism (a ``sequence_group``) needs a ring-attention model built
-    on that group; tensor parallelism (``groups.tensor``) a model built on
-    that tensor group, whose flat vector is its shard's (``tp_layout``)."""
+    on that group; tensor or pipeline parallelism (the model group
+    ``groups.tensor``) a model built on that tensor or pipeline group,
+    whose flat vector is its shard's or its stage's (``tp_layout``), and
+    ``self.tp`` is the model group's size. Under pp the accumulation is
+    the GPipe loop (``parallel/pp.py``) and ``value_and_grad`` its block
+    loss."""
 
     def __init__(
         self,
@@ -291,20 +302,31 @@ class FlatTrainStep:
         self.sequence_group = sequence_group
         self.groups = groups if groups is not None else RankGroups.of_sequence(sequence_group)
         g = self.groups
-        tg = getattr(model, "tensor_group", None)
+        tg = getattr(model, "model_group", None)  # tensor or pipeline
         tensor = None if g is None else g.tensor
-        if (tg is None) != (tensor is None) or (tg is not None and tg.group is not tensor):
-            raise ValueError("tensor parallelism needs a model built on the groups' tensor "
-                             "group, and a model built on a tensor group needs those groups")
+        self.pipelined = getattr(model, "pipeline_group", None) is not None
+        if ((tg is None) != (tensor is None) or (tg is not None and tg.group is not tensor)
+                or (tg is not None and self.pipelined != (g.model_axis == "pp"))):
+            raise ValueError("tensor or pipeline parallelism needs a model built on the groups' "
+                             "model group (tensor or pipeline, as the groups' model_axis "
+                             "says), and a model built on such a group needs those groups")
         # JAX's model_axis / tp_layout (acco.py:192-273): the local layout
         # and the tp terms of ZeRO-1
         self.tp_layout = getattr(model, "tp_layout", None)
         self.tp = 1 if tg is None else tg.size
         self.shard_index = 0 if g is None else g.shard_index
         self.geom = ShardGeometry(model.n_params, 1 if g is None else g.world_size)
-        self.value_and_grad = make_flat_loss_fn(
-            model, label_smoothing, const_len_batch, fused_loss, sequence_group
-        )
+        if self.pipelined:
+            from acco_tpu_torch.parallel.pp import make_pp_loss_fn
+
+            if not const_len_batch:
+                raise ValueError("pipeline parallelism requires const_len_batch=True: the "
+                                 "pipelined loss has no per-token attention mask")
+            self.value_and_grad = make_pp_loss_fn(model, label_smoothing, fused_loss)
+        else:
+            self.value_and_grad = make_flat_loss_fn(
+                model, label_smoothing, const_len_batch, fused_loss, sequence_group
+            )
 
     def group(self, name: str):
         """One of ``groups``' process groups (None: one rank)."""
@@ -316,6 +338,13 @@ class FlatTrainStep:
         return init_zero1_state(flat_params.float(), self.geom, self.shard_index)
 
     def accumulate(self, flat_params, block, grad_init=None, count_init=None):
+        if self.pipelined:
+            from acco_tpu_torch.parallel.pp import accumulate_grads_pipelined
+
+            return accumulate_grads_pipelined(
+                self.value_and_grad, self.model, flat_params, block,
+                grad_init=grad_init, count_init=count_init,
+            )
         return accumulate_grads(
             self.value_and_grad, self.model, flat_params, block,
             grad_init=grad_init, count_init=count_init,

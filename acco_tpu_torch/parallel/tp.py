@@ -26,8 +26,12 @@ divided by tp (folded into the count divisor) and the replicated
 prefix, whose per-shard gradients are mixtures of partial and duplicated
 contributions, is summed over the tensor group first.
 
-``ComposedLayout`` (pp x tp) is not ported yet: ROADMAP.md queue 1,
-item 9.4.
+Pipeline parallelism's layout *is* a ``TpLayout`` (JAX ``pp.py:12-17``)
+over the pp rule table (``sharding/tables.py``): ``tp`` is then the
+pipeline size, the layer leaves split on their layer dim into contiguous
+stages and the vocab-split rows padded with ``pad_vocab(V, pp)``; the
+class needs nothing more. ``ComposedLayout`` (pp x tp) is not ported yet:
+ROADMAP.md queue 1, item 9.4.
 """
 
 from __future__ import annotations

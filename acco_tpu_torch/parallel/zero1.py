@@ -18,7 +18,10 @@ gradient correction (``parallel/tp.py``): the count divisor is
 multiplied by tp, the replicated prefix (the local vector's first
 ``n_repl`` positions) is summed over the tensor group after the
 division, and the guard's sums of squares count that prefix once (its
-squares divided by tp before the all-reduce over every rank).
+squares divided by tp before the all-reduce over every rank). Under
+pipeline parallelism the same terms run over the pipeline group
+(``parallel/pp.py``): ``tp`` is then pp and the prefix the stage's
+replicated leaves.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Declarative sharding: rule tables from leaf names to partition specs.
 
 Counterpart of ``acco_tpu/sharding/``: the matching engine
-(:mod:`~acco_tpu_torch.sharding.rules`) and the tensor-parallel
-parameter tables (:mod:`~acco_tpu_torch.sharding.tables`). It imports
-nothing of ``parallel/`` or ``models/``.
+(:mod:`~acco_tpu_torch.sharding.rules`), the tensor- and
+pipeline-parallel parameter tables (:mod:`~acco_tpu_torch.sharding.tables`)
+and the pipeline's pairing checks (:mod:`~acco_tpu_torch.sharding.layout`).
+It imports nothing of ``parallel/`` or ``models/``.
 """
 
 from acco_tpu_torch.sharding.rules import (
@@ -16,6 +17,7 @@ from acco_tpu_torch.sharding.rules import (
     map_tree,
     split_dims,
 )
+from acco_tpu_torch.sharding.layout import check_pipeline
 from acco_tpu_torch.sharding.tables import model_split_specs, param_table
 
 __all__ = [
@@ -29,4 +31,5 @@ __all__ = [
     "split_dims",
     "param_table",
     "model_split_specs",
+    "check_pipeline",
 ]

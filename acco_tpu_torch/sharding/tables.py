@@ -1,10 +1,11 @@
-"""The per-model-family tensor-parallel parameter tables.
+"""The per-model-family tensor- and pipeline-parallel parameter tables.
 
-Counterpart of the tp rules of ``acco_tpu/sharding/tables.py``, rule for
-rule: ``model_split_specs`` gives ``parallel/tp.TpLayout`` the split dim
-of every leaf (the models' ``tp_param_specs``). The pp rules and the
-train, eval and serve state tables come with the pipeline, composition
-and serving-sharding items (ROADMAP.md queue 1, items 9.3-9.5).
+Counterpart of the tp and pp rules of ``acco_tpu/sharding/tables.py``,
+rule for rule: ``model_split_specs`` gives ``parallel/tp.TpLayout`` the
+split dim of every leaf (the models' ``tp_param_specs`` and
+``pp_param_specs``). The train, eval and serve state tables come with
+the composition and serving-sharding items and the static gates
+(ROADMAP.md queue 1, items 9.4, 9.5 and 12).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Optional
 from acco_tpu_torch.sharding.rules import P, Rule, RuleTable, ShardingRuleError, split_dims
 
 TENSOR_AXIS = "tp"
+PIPELINE_AXIS = "pp"
 
 # The tp rules say which dim of each weight carries the tensor axis
 # (Megatron column/row split).
@@ -47,20 +49,44 @@ def _gpt_neo_tp_rules(axis: str) -> tuple:
     )
 
 
-_TP_RULES = {"llama": _llama_tp_rules, "gpt_neo": _gpt_neo_tp_rules}
+# The pp rules split every stacked layer leaf on its layer dim (contiguous
+# stages) and the embedding (and an untied head) on the vocab dim.
+
+
+def _llama_pp_rules(axis: str) -> tuple:
+    return (
+        Rule(r"^wte$", P(axis), "embedding rows spread over stages"),
+        Rule(r"^layers/", P(axis), "layer stack split on the layer dim"),
+        Rule(r"^final_norm$", P(), "final norm replicated"),
+        Rule(r"^lm_head$", P(None, axis), "untied head split on vocab dim"),
+    )
+
+
+def _gpt_neo_pp_rules(axis: str) -> tuple:
+    return (
+        Rule(r"^wte$", P(axis), "embedding rows spread over stages"),
+        Rule(r"^wpe$", P(), "position embedding replicated"),
+        Rule(r"^layers/", P(axis), "layer stack split on the layer dim"),
+        Rule(r"^(lnf_scale|lnf_bias)$", P(), "final norm replicated"),
+    )
+
+
+_RULES = {
+    ("llama", "tp"): _llama_tp_rules, ("gpt_neo", "tp"): _gpt_neo_tp_rules,
+    ("llama", "pp"): _llama_pp_rules, ("gpt_neo", "pp"): _gpt_neo_pp_rules,
+}
+_DEFAULT_AXIS = {"tp": TENSOR_AXIS, "pp": PIPELINE_AXIS}
 
 
 def param_table(family: str, kind: str = "tp", *, tied: bool = True,
-                axis: str = TENSOR_AXIS) -> RuleTable:
+                axis: Optional[str] = None) -> RuleTable:
     """Parameter rule table for ``family`` ('llama' | 'gpt_neo') and
-    ``kind`` (only 'tp' is ported). ``tied`` drops Llama's ``lm_head``
-    rule when the head shares the embedding (GPT-Neo always ties)."""
-    if kind == "pp":
-        raise NotImplementedError("the pp parameter table is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9.3)")
-    if kind != "tp" or family not in _TP_RULES:
+    ``kind`` ('tp' | 'pp'), over ``axis`` (default the kind's own).
+    ``tied`` drops Llama's ``lm_head`` rule when the head shares the
+    embedding (GPT-Neo always ties)."""
+    if (family, kind) not in _RULES:
         raise ShardingRuleError(f"no param table for family={family!r} kind={kind!r}")
-    rules = _TP_RULES[family](axis)
+    rules = _RULES[family, kind](axis or _DEFAULT_AXIS[kind])
     if family == "llama" and tied:
         rules = tuple(r for r in rules if "lm_head" not in r.pattern)
     return RuleTable(name=f"params:{family}:{kind}", rules=rules)
@@ -69,7 +95,9 @@ def param_table(family: str, kind: str = "tp", *, tied: bool = True,
 def model_split_specs(family: str, shapes: Any, axis: Optional[str] = None) -> Any:
     """Int/None split-dim tree for ``TpLayout`` over a dense parameter tree
     (``shapes``: a model's ``dense_shapes()``) of ``family`` (a model's
-    ``family``); the head is untied when the tree has an ``lm_head``."""
+    ``family``): the pp table for ``axis='pp'``, else the tp table; the
+    head is untied when the tree has an ``lm_head``."""
     axis = axis or TENSOR_AXIS
+    kind = "pp" if axis == PIPELINE_AXIS else "tp"
     tied = "lm_head" not in shapes
-    return split_dims(param_table(family, tied=tied, axis=axis), shapes, axis)
+    return split_dims(param_table(family, kind, tied=tied, axis=axis), shapes, axis)

@@ -41,7 +41,15 @@ shard from the seed (``models/flat.py`` ``init_flat``, no dense vector on
 the card), the eval runs the vocab-parallel loss, each rank's file in a
 checkpoint carries its tp index, and a final save's ``params.npz`` is
 the dense model gathered over tp on rank 0 and unpadded (JAX:
-trainer.py:2240-2252).
+trainer.py:2240-2252). Pipeline parallelism (``{dp: N, pp: P}``, or a
+mesh that carries a one-rank pipeline group; JAX: trainer.py:156-175,
+:337-345) runs the same way over the pipeline group: every stage of a dp
+index reads that dp index's rows, each stage initialises its own slice,
+the rounds and the eval run the GPipe loop (``parallel/pp.py``; the eval
+splits each batch into the largest count of microbatches at most pp that
+divides it), the rank files carry the pp index, and ``params.npz`` is
+gathered over the stages. It needs ``const_len_batch`` and warns when
+``n_grad_accumulation`` < pp (the bubble dominates).
 
 The run's persistence and records, as JAX's trainer keeps them, under
 ``run_dir``:
@@ -223,13 +231,18 @@ class Trainer:
         g = self.step.groups
         self.mesh_shape = {"dp": 1 if g is None else g.dp, "sp": 1 if g is None else g.sp}
         if g is not None and g.tensor is not None:
-            self.mesh_shape["tp"] = g.tp
+            self.mesh_shape[g.model_axis] = g.tp
+        self.pipelined = self.step.pipelined
+        if self.pipelined and self.n_acc < g.tp:
+            self.log.warning("n_grad_accumulation (%d) < pp (%d): the pipeline bubble "
+                             "dominates; use n_acc >= pp microbatches per round", self.n_acc,
+                             g.tp)
         self.world = self.step.group("world")  # dp x sp (None: one rank)
         self.world_size = 1 if g is None else g.world_size
         # every rank (dp x sp x tp): the decisions all ranks take together
         self.all_ranks = self.step.group("all")
         self.n_ranks = 1 if g is None else g.n_ranks
-        # this rank's file in a checkpoint: its tp index, then its ZeRO-1 shard
+        # this rank's file in a checkpoint: its tp (or pp) index, then its ZeRO-1 shard
         self.file_rank = (0 if g is None else g.tp_index) * self.world_size + \
             self.step.shard_index
         self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
@@ -1043,7 +1056,10 @@ class Trainer:
         alone under fused_loss='pallas'; the vocab-parallel forms under
         tp, whose ranks each hold the whole sum, JAX: trainer.py:1916-1944).
         The loss form is the train path's verdict; the chunked loss, which
-        has no nll-sum form (``num_valid``), gives its mean times the count."""
+        has no nll-sum form (``num_valid``), gives its mean times the count.
+        Under pp the batch runs the pipeline (:meth:`_pp_eval_sums`)."""
+        if self.pipelined:
+            return self._pp_eval_sums(flat_params, blk)
         model, fused = self.model, self.step.value_and_grad.fused_loss
         model.load_flat(flat_params)
         with torch.no_grad():
@@ -1061,6 +1077,22 @@ class Trainer:
             else:
                 nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
                                    num_valid=torch.ones((), device=self.device), **kw)
+            sums = torch.stack([nll_sum.float(), count])
+            if self.world is not None:
+                import torch.distributed as dist
+
+                dist.all_reduce(sums, group=self.world)
+        return sums
+
+    def _pp_eval_sums(self, flat_params: torch.Tensor, blk) -> torch.Tensor:
+        """One eval batch through the pipeline (JAX: trainer.py:1751-1800),
+        as ``parallel/pp.eval_block`` splits it: ``[nll sum, target
+        count]`` summed over dp (every stage holds the same sum)."""
+        from acco_tpu_torch.parallel.pp import eval_block
+
+        block = eval_block(blk.input_ids, blk.attention_mask, blk.labels, self.step.tp)
+        with torch.no_grad():
+            nll_sum, count = self.step.value_and_grad(flat_params, block)
             sums = torch.stack([nll_sum.float(), count])
             if self.world is not None:
                 import torch.distributed as dist
@@ -1158,15 +1190,18 @@ class Trainer:
         return path
 
     def _tp_meta(self) -> dict:
-        """The rank file's tp index under tensor parallelism."""
+        """The rank file's tp index under tensor parallelism (its pp index
+        under pipeline parallelism)."""
         g = self.step.groups
-        return {} if g is None or g.tensor is None else {"tp_index": g.tp_index}
+        return ({} if g is None or g.tensor is None
+                else {f"{g.model_axis}_index": g.tp_index})
 
     def _tp_rows(self, state):
-        """Under tensor parallelism, every tp shard's flat parameters as
-        float32 host rows on rank 0 (None elsewhere), sent over rank 0's
-        tensor group one row at a time: no card holds more than its own
-        row. The other tensor groups take no part."""
+        """Under tensor (or pipeline) parallelism, every tp shard's (or
+        stage's) flat parameters as float32 host rows on rank 0 (None
+        elsewhere), sent over rank 0's model group one row at a time: no
+        card holds more than its own row. The other model groups take no
+        part."""
         g = self.step.groups
         if g.dp_index != 0 or g.sp_index != 0:
             return None

@@ -386,10 +386,11 @@ def restore_checkpoint(path: str, template: Any, *, rank: int = 0,
     with ``in_place``, into its tensors), and ``meta.json`` with the
     rank's own entries over it.
     ``mesh`` (``{'dp': N, 'sp': M}``, with ``'tp'`` under tensor
-    parallelism) must equal the mesh that saved the checkpoint, as JAX
-    restores onto a mesh of the same shape only; a JAX step dir (an Orbax
-    ``state/`` tree, no ``rank_*.pt``) raises. Under tp, ``rank`` is the
-    rank's file index, ``tp_index * dp * sp + shard``."""
+    parallelism, ``'pp'`` under pipeline parallelism) must equal the mesh
+    that saved the checkpoint, as JAX restores onto a mesh of the same
+    shape only; a JAX step dir (an Orbax ``state/`` tree, no
+    ``rank_*.pt``) raises. Under tp (pp), ``rank`` is the rank's file
+    index, ``tp_index * dp * sp + shard`` (``pp_index * dp + shard``)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -521,12 +522,14 @@ def load_flat_params(step_dir: str, n_params: int, log=None):
         meta_path = os.path.join(step_dir, "meta.json")
         if os.path.exists(meta_path):
             with open(meta_path) as f:
-                tp = int((json.load(f).get("mesh") or {}).get("tp", 1))
-            if tp > 1:
-                raise ValueError(
-                    f"{step_dir} is a periodic save of a tensor-parallel run (tp {tp}): each "
-                    "rank file holds one tp shard's parameters and there is no params.npz; "
-                    "resume the run, or load a final save's params.npz")
+                saved_mesh = json.load(f).get("mesh") or {}
+            for axis, what in (("tp", "tensor-parallel run (tp"), ("pp", "pipeline run (pp")):
+                size = int(saved_mesh.get(axis, 1))
+                if size > 1:
+                    raise ValueError(
+                        f"{step_dir} is a periodic save of a {what} {size}): each rank file "
+                        f"holds one {axis} index's parameters and there is no params.npz; "
+                        "resume the run, or load a final save's params.npz")
         saved = torch.load(os.path.join(step_dir, "state", "rank_0.pt"), map_location="cpu",
                            weights_only=True)
         flat = saved["state"]["flat_params"].float().numpy()

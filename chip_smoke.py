@@ -59,7 +59,8 @@ and prints no result line):
    statistics, the tie term, dl, the window, the positional walk, the
    sum of V on a row with no key, Lq and Lk swapped) bars against planted
    faults, each in a patched copy of the kernel's source, which they
-   must fail;
+   must fail (each built and checked in its own process from the end of
+   phase 2 on, beside the parity checks);
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
@@ -271,7 +272,24 @@ and prints no result line):
    dense cell, ``gptneo-tp`` (K1, K2 and the wrapper, ``fused_loss=
    pallas``) against phase 5's GPT-Neo cell (its materialized CE: the
    seed loss within 1e-5, the rounds within the ring's bar), the seed
-   round and 8 captured rounds each, the wrapper's launches counted.
+   round and 8 captured rounds each, the wrapper's launches counted;
+14. pipeline parallelism through a one-rank NCCL pipeline group handed to
+   ``build_trainer`` (the GPipe tick loop of ``parallel/pp.py`` with its
+   per-tick recompute, the masked broadcast, the vocab-parallel lookup
+   and CE over the group, ZeRO-1's terms over it, the capture) at pp 1:
+   (a) ``gptneo-2.7B-stage-pp``: GPT-Neo-2.7B at full width (the
+   registry's hidden 2560, 20 heads of 128, vocab 50257, W 256) cut to
+   the 8 layers one stage of ``config/train/acco-neo27b-v5e8.yaml``
+   ({dp: 2, pp: 4}, 32 layers) holds, seq 1024, batch 8, n_acc 4,
+   ``remat=true``, ``fused_loss=pallas``, ACCO, the seed round + 8 rounds
+   (K1, K2, K3 through the wrapper), beside the same cell dense; (b)
+   ``llama3-8B-L8192-pp``: phase 5's long-context cell's model and data
+   through the pipeline (K5, the untied head through the wrapper),
+   against phase 5's dense cell. Each pp cell also eager: the captured
+   rounds bit-equal to eager; bars: the seed loss within 1e-5 (relative)
+   of the dense cell, every later round within 1e-3; round ms captured
+   and eager, peak allocated and reserved, each kernel's launches a
+   microbatch.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -453,6 +471,34 @@ def llama3_config() -> str:
     return path
 
 
+# phase 14's pipeline stage: GPT-Neo-2.7B at full width (the registry's
+# preset for config/model/gptneoLarge.yaml) cut to the 8 layers that one
+# stage of config/train/acco-neo27b-v5e8.yaml ({dp: 2, pp: 4}, 32 layers)
+# holds, written at run time into a temporary directory
+NEO27_PRESET, NEO27_LAYERS = "EleutherAI/gpt-neo-2.7B", 8
+
+
+@functools.cache
+def neo27_stage_config() -> str:
+    """The depth-cut GPT-Neo-2.7B architecture file (the registry's widths,
+    the first ``NEO27_LAYERS`` layers' global/local pattern), written once
+    per run into a temporary directory that is removed at exit."""
+    import dataclasses
+
+    from acco_tpu_torch.models.registry import model_config
+
+    _, cfg = model_config(NEO27_PRESET)
+    raw = dataclasses.asdict(cfg)
+    raw.update(model_type="gpt_neo", num_layers=NEO27_LAYERS,
+               attention_layers=list(cfg.attention_layers[:NEO27_LAYERS]))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    path = os.path.join(tmp, f"gpt-neo-2.7B-depth{NEO27_LAYERS}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
 @functools.cache
 def run_root() -> str:
     """A temporary directory, removed at exit, for the run dirs of the
@@ -471,14 +517,17 @@ def run_flags(cadence: int = 1) -> list[str]:
 
 
 def main_args(path: str, cadence: int = 1) -> list[str]:
-    spec = MAIN_PATHS.get(path) or DP_PATHS.get(path) or REMAT_PATHS[path]
+    spec = MAIN_PATHS.get(path) or DP_PATHS.get(path) or REMAT_PATHS.get(path) or PP_PATHS[path]
     extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
+    if spec.get("neo27"):
+        extra = [f"model.config_path={neo27_stage_config()}"]
+    n_acc = spec.get("n_acc", 1)
     return [
         f"train={spec.get('method', 'acco')}", f"model={spec['model']}", *extra,
         "data=synthetic",
         f"train.batch_size={spec['batch']}", f"train.max_length={spec['seq']}",
-        "train.n_grad_accumulation=1", f"train.nb_steps_tot={MAIN_ROUNDS}", *spec["extra"],
-        *run_flags(cadence),
+        f"train.n_grad_accumulation={n_acc}", f"train.nb_steps_tot={MAIN_ROUNDS * n_acc}",
+        *spec["extra"], *run_flags(cadence),
     ]
 
 # Tolerances on the card, bf16 (kernel vs its plain version, same inputs):
@@ -785,56 +834,108 @@ sys.exit(3)
 """
 
 
-# checks of planted faults running at once, one a CPU core of an 8-core
-# host (each builds its patched library with nvcc first): each of K3's
-# holds a few float32 [8184, 50257] tensors (1.6 GB each) of its plain
-# version, so eight fit the card together
+# planted faults built and checked at once, one a CPU core of an 8-core
+# host, from the end of phase 2 on, beside phase 3's parity checks on the
+# card: each of K3's checks holds a few float32 [8184, 50257] tensors (1.6
+# GB each) of its plain version, so eight fit the card beside the parity
 FAULT_PROCS = 8
+# the libraries each planted fault's check loads (K2's backward also runs
+# K1's delta kernel)
+FAULT_LIBRARIES = {"K3": ("fused_ce",), "K3 chunks": ("fused_ce",), "K5": ("flash_attention",),
+                   "K1": ("fused_attention",), "K2": ("banded_attention", "fused_attention"),
+                   "K4": ("block_attention",)}
 
 
-def planted_faults() -> None:
-    """Each fault of PLANTED_FAULTS in its own copy of the package and its
-    own process, FAULT_PROCS at a time: the patched kernel builds in the
-    copy and its check must fail it."""
-    procs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            for i, (fault, (source, old, new, kernel)) in enumerate(PLANTED_FAULTS.items()):
-                while sum(p.poll() is None for p in procs.values()) >= FAULT_PROCS:
-                    time.sleep(0.5)
-                root = os.path.join(tmp, str(i))
-                shutil.copytree(os.path.join(REPO, "acco_tpu_torch"),
-                                os.path.join(root, "acco_tpu_torch"),
-                                ignore=shutil.ignore_patterns("__pycache__"))
-                shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
-                path = os.path.join(root, "acco_tpu_torch", "csrc", source)
-                with open(path) as f:
-                    src = f.read()
-                if src.count(old) != 1:
-                    raise AssertionError(f"planted fault {fault!r}: its patch no longer applies")
-                with open(path, "w") as f:
-                    f.write(src.replace(old, new))
-                with open(os.path.join(root, "check.log"), "w") as out:  # no pipe to fill
-                    procs[fault] = subprocess.Popen(
-                        [sys.executable, "-c", _FAULT_CHILD, root, kernel],
-                        stdout=out, stderr=subprocess.STDOUT, text=True,
-                    )
-            for i, (fault, proc) in enumerate(procs.items()):
-                proc.wait(timeout=600)
-                with open(os.path.join(tmp, str(i), "check.log")) as f:
-                    out = f.read()
-                caught = [line for line in out.splitlines() if line.startswith("caught:")]
-                if proc.returncode == 3:
-                    raise AssertionError(f"planted fault {fault!r} passed its check:\n{out[-2000:]}")
-                if proc.returncode != 0 or not caught:
-                    raise AssertionError(f"planted fault {fault!r}: the check exited "
-                                         f"{proc.returncode}:\n{out[-2000:]}")
-                log(f"  {fault}: {caught[0]}")
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+class PlantedFaults:
+    """Each fault of PLANTED_FAULTS in its own patched copy of the package
+    and its own process, FAULT_PROCS at a time on a thread started here:
+    the libraries its check loads built with nvcc in the copy (one the
+    patch leaves as it was is copied from this checkout's build), then
+    the check, which must fail the fault. :meth:`wait` joins them and
+    raises for a fault that built badly, passed or did not run."""
+
+    def __init__(self):
+        import threading
+
+        from acco_tpu_torch.compile.cache import library_key
+        from acco_tpu_torch.utils import cuda_build
+
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+        atexit.register(shutil.rmtree, self.tmp, True)
+        self.results, jobs = {}, []
+        self.t0, self.seconds = time.perf_counter(), float("nan")
+        for i, (fault, (source, old, new, kernel)) in enumerate(PLANTED_FAULTS.items()):
+            root = os.path.join(self.tmp, str(i))
+            shutil.copytree(os.path.join(REPO, "acco_tpu_torch"),
+                            os.path.join(root, "acco_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+            csrc = os.path.join(root, "acco_tpu_torch", "csrc")
+            with open(os.path.join(csrc, source)) as f:
+                src = f.read()
+            if src.count(old) != 1:
+                raise AssertionError(f"planted fault {fault!r}: its patch no longer applies")
+            with open(os.path.join(csrc, source), "w") as f:
+                f.write(src.replace(old, new))
+            os.makedirs(os.path.join(root, "build"))
+            nvcc = []
+            for name in FAULT_LIBRARIES[kernel]:
+                out = os.path.join(root, "build", f"{name}-{library_key(name, csrc)}.so")
+                built = cuda_build.BUILD_DIR / f"{name}-{library_key(name)}.so"
+                if os.path.basename(out) == built.name:
+                    shutil.copy(built, out)
+                else:
+                    nvcc.append([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", out,
+                                 os.path.join(csrc, f"{name}.cu")])
+            jobs.append((fault, root, kernel, nvcc))
+        self.thread = threading.Thread(target=self._run, args=(jobs,), daemon=True)
+        self.thread.start()
+
+    def _one(self, job) -> None:
+        fault, root, kernel, nvcc = job
+        for cmd in nvcc:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                self.results[fault] = ("build", proc.returncode, proc.stderr[-2000:])
+                return
+        log_path = os.path.join(root, "check.log")
+        with open(log_path, "w") as out:  # no pipe to fill
+            proc = subprocess.run([sys.executable, "-c", _FAULT_CHILD, root, kernel],
+                                  stdout=out, stderr=subprocess.STDOUT, text=True, timeout=600)
+        with open(log_path) as f:
+            self.results[fault] = ("check", proc.returncode, f.read())
+
+    def _run(self, jobs) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(FAULT_PROCS) as pool:
+            list(pool.map(self._one, jobs))
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self) -> None:
+        t0 = time.perf_counter()
+        self.thread.join()
+        log(f"  the {len(PLANTED_FAULTS)} planted faults built and checked in {self.seconds:.1f} s, "
+            f"beside the parity checks (waited {time.perf_counter() - t0:.1f} s for them)")
+        for fault in PLANTED_FAULTS:
+            if fault not in self.results:
+                raise AssertionError(f"planted fault {fault!r}: its build or check did not run")
+            stage, rc, out = self.results[fault]
+            caught = [line for line in out.splitlines() if line.startswith("caught:")]
+            if stage == "build":
+                raise AssertionError(f"planted fault {fault!r}: nvcc exited {rc}:\n{out}")
+            if rc == 3:
+                raise AssertionError(f"planted fault {fault!r} passed its check:\n{out[-2000:]}")
+            if rc != 0 or not caught:
+                raise AssertionError(f"planted fault {fault!r}: the check exited {rc}:\n"
+                                     f"{out[-2000:]}")
+            log(f"  {fault}: {caught[0]}")
+
+
+def planted_faults(faults: "PlantedFaults | None" = None) -> None:
+    """The planted faults' checks (``faults``, started here when not given)
+    joined and reported; raises unless each check failed its fault."""
+    (faults or PlantedFaults()).wait()
 
 
 def make_inputs(shape: dict, seed: int):
@@ -1925,11 +2026,12 @@ class HeadLogitsCalls:
     def __enter__(self):
         from acco_tpu_torch.compile.graphs import counting
         from acco_tpu_torch.models import gpt_neo, llama
+        from acco_tpu_torch.parallel import pp
 
         self.calls, self.saved = {"lm_logits": 0}, []
         self.counting = counting(self.calls)
         self.counting.__enter__()
-        for module in (llama, gpt_neo):
+        for module in (llama, gpt_neo, pp):
             original = module.lm_logits
 
             def counted(h, w, _original=original):
@@ -2091,13 +2193,15 @@ def dp_trainer(path: str, group, extra=(), eager: bool = False):
 
 def path_spec(path: str) -> dict:
     return (MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS.get(path)
-            or TP_PATHS.get(path) or REMAT_PATHS[path])
+            or TP_PATHS.get(path) or PP_PATHS.get(path) or REMAT_PATHS[path])
 
 
 def path_microbatches(path: str) -> int:
-    """Microbatches of a path's run at n_acc 1: the rounds, and the seed
-    round but under ddp."""
-    return MAIN_ROUNDS + (path_spec(path).get("method", "acco") != "ddp")
+    """Microbatches of a path's run: n_acc a round (1 but on phase 14's
+    GPT-Neo-2.7B cells), over the rounds and the seed round but under
+    ddp."""
+    spec = path_spec(path)
+    return (MAIN_ROUNDS + (spec.get("method", "acco") != "ddp")) * spec.get("n_acc", 1)
 
 
 def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
@@ -2112,6 +2216,8 @@ def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
         return dp_trainer(path, group, extra, eager)
     if path in TP_PATHS:
         return tp_trainer(path, group, extra, eager)
+    if path in PP_PATHS and "base" in PP_PATHS[path]:
+        return pp_trainer(path, group, extra, eager)
     return build_trainer([*main_args(path), *extra], eager=eager)
 
 
@@ -2202,7 +2308,7 @@ def main_path(path: str, sg=None, group=None, eager: bool = False
     round_ms = [r["ms"] for r in rounds]
     med = statistics.median(round_ms)
     seq, d_model = spec["seq"], spec["d_model"]
-    tokens = spec["batch"] * seq
+    tokens = spec["batch"] * seq * spec.get("n_acc", 1)
     log(f"  attention {summary['attention']}  fused_loss {summary['fused_loss']}  "
         f"n_params {summary['n_params']}")
     log(f"  losses {['%.4f' % x for x in losses]}")
@@ -4627,6 +4733,42 @@ TP_PATHS = {
 }
 
 
+# Phase 14: pipeline parallelism at pp 1 through a one-rank NCCL pipeline
+# group handed to build_trainer: the GPipe tick loop, its per-tick
+# recompute (every forward kernel of a tick launched once more in the
+# backward, the wrapper's K3 forward included), the masked broadcast, the
+# vocab-parallel lookup and CE over the group and ZeRO-1's terms over it.
+# (a) GPT-Neo-2.7B cut to one stage of its {dp: 2, pp: 4} preset, dense
+# and through the pipeline (remat true: each layer's forward twice dense,
+# three times under the tick's recompute); (b) the long-context Llama-3-8B
+# cell through the pipeline, against phase 5's dense cell.
+_NEO27 = dict(model="gptneo", neo27=True, extra=["train.fused_loss=pallas", "train.remat=true"],
+              batch=8, seq=1024, n_acc=4, d_model=2560, embed_params=0,
+              windows=[0, NEO_WINDOW] * (NEO27_LAYERS // 2), head_logits=0,
+              fused_loss="pallas", attention="fused")
+
+
+def _neo27_launches(forwards: int, ce_forwards: int, vp: int) -> dict:
+    half = NEO27_LAYERS // 2  # global layers (K1), local layers (K2)
+    return {"attn_fwd": forwards * half, "attn_bwd_delta": NEO27_LAYERS, "attn_bwd_dkdv": half,
+            "attn_bwd_dq": half, "banded_fwd": forwards * half, "banded_bwd_dq": half,
+            "banded_bwd_dkdv": half, "ce_fwd": ce_forwards, "ce_bwd_dp": 1, "ce_bwd_dh": 1,
+            "ce_bwd_dw": 1, "vp_ce": vp, **dict.fromkeys(_K4 + _K5, 0)}
+
+
+PP_PATHS = {
+    "gptneo-2.7B-stage": dict(_NEO27, per_microbatch=_neo27_launches(2, 1, 0)),
+    "gptneo-2.7B-stage-pp": dict(_NEO27, base="gptneo-2.7B-stage",
+                                 per_microbatch=_neo27_launches(3, 2, 2)),
+    "llama3-8B-L8192-pp": dict(
+        MAIN_PATHS["llama3-8B-L8192"], base="llama3-8B-L8192",
+        per_microbatch={**MAIN_PATHS["llama3-8B-L8192"]["per_microbatch"],
+                        "flash_fwd": 2 * LLAMA3_LAYERS, "ce_fwd": 2, "vp_ce": 2}),
+}
+PP_CELLS = ("gptneo-2.7B-stage-pp", "llama3-8B-L8192-pp")
+PP_SEED_RTOL, PP_ROUND_RTOL = 1e-5, 1e-3
+
+
 class PlainShardCE:
     """K3's plain version as an autograd function on any device (the
     wrapper's plain path, which the port takes for CPU tensors):
@@ -4941,6 +5083,68 @@ def phase_13(smi: str, sg, summaries: dict, round_ms: dict, peaks: dict) -> tupl
     return launches, entry
 
 
+def pp_trainer(path: str, group, extra=(), eager: bool = False):
+    """The trainer of a pp path: its dense cell's configuration and
+    ``group`` (a one-rank process group) handed in as the pipeline group."""
+    from acco_tpu_torch.__main__ import build_trainer
+
+    return build_trainer([*main_args(PP_PATHS[path]["base"]), *extra], pipeline_group=group,
+                         eager=eager)
+
+
+def phase_14(smi: str, group, summaries: dict, round_ms: dict, peaks: dict) -> dict:
+    """Pipeline parallelism at pp 1 through the one-rank NCCL ``group``:
+    (a) GPT-Neo-2.7B's stage dense, then through the pipeline; (b) the
+    long-context Llama-3-8B cell through the pipeline against phase 5's
+    dense cell (``summaries``). Each pp cell captured, then eager: bit-equal.
+    Returns the launches of the cells it ran."""
+    import torch
+
+    launches = {}
+    dense = "gptneo-2.7B-stage"
+    log(f" (a) the cut: GPT-Neo-2.7B ({NEO27_PRESET}, the registry's widths: hidden 2560, 20 "
+        f"heads of 128, vocab 50257, W 256) at {NEO27_LAYERS} of its 32 layers, the stage "
+        "that config/train/acco-neo27b-v5e8.yaml's {dp: 2, pp: 4} gives one card; seq 1024, "
+        "batch 8, n_acc 4, remat, fused_loss=pallas, ACCO, the seed round + "
+        f"{MAIN_ROUNDS} rounds")
+    log(f"== 14 dense cell {dense}: {' '.join(main_args(dense))}")
+    launches[dense], round_ms[dense], peaks[dense], summaries[dense] = main_path(dense)
+    for path in PP_CELLS:
+        base = PP_PATHS[path]["base"]
+        log(f"== 14 pp cell {path}: {' '.join(main_args(base))}, a one-rank NCCL pipeline "
+            "group handed in")
+        launches[path], med, peak, cap = main_path(path, group=group)
+        log(f"  {path} again, eager")
+        _, med_eager, peak_eager, eager = main_path(path, group=group, eager=True)
+        diffs = captured_vs_eager(path, cap, eager)
+        if diffs:
+            raise AssertionError(f"{path}: captured rounds differ from eager: {diffs}")
+        del eager
+        ref = summaries[base]
+        got = [cap["seed_loss"]] + [r["loss"] for r in cap["round_log"]]
+        want = [ref["seed_loss"]] + [r["loss"] for r in ref["round_log"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        bit_equal = got == want and cap["fingerprint"] == ref["fingerprint"]
+        n_mb = path_microbatches(path)
+        per_mb = {k: launches[path][k] / n_mb for k in (*_K1, *_K2, *_K3, *_K5, "vp_ce")
+                  if launches[path][k]}
+        log(f"  against the dense cell {base}: losses {'bit-equal' if got == want else 'differ'}"
+            f" (seed {rel[0]:.3e}, largest round {max(rel[1:]):.3e} relative), final state "
+            f"{'bit-equal' if cap['fingerprint'] == ref['fingerprint'] else 'differs'}"
+            f"{' (pp 1 is bit-equal to dense)' if bit_equal else ''}; captured rounds "
+            f"bit-equal to eager; round ms captured {med:.2f}, eager {med_eager:.2f}, dense "
+            f"{round_ms[base]:.2f}; peak allocated {peak / 2**30:.2f} GiB (eager "
+            f"{peak_eager / 2**30:.2f}, dense {peaks[base] / 2**30:.2f}), reserved "
+            f"{cap['reserved_bytes'] / 2**30:.2f} GiB; launches a microbatch {per_mb} (on {smi})")
+        if rel[0] > PP_SEED_RTOL or max(rel[1:]) > PP_ROUND_RTOL:
+            raise AssertionError(f"{path}: losses off {base}'s: seed {rel[0]:.3e} (bar "
+                                 f"{PP_SEED_RTOL}), rounds {max(rel[1:]):.3e} (bar "
+                                 f"{PP_ROUND_RTOL})")
+        del cap
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_all() -> None:
     """The four kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5013,6 +5217,8 @@ def main() -> int:
 
     log("== 2 build")
     build_all()
+    # the planted faults, built and checked beside phase 3's parity checks
+    faults = PlantedFaults()
 
     log("== 3 parity (bf16 unless named, kernel vs plain on the same inputs)")
     errs = {}
@@ -5052,7 +5258,7 @@ def main() -> int:
     log(" K3's bars (softmax-alone Llama-125M head; the chunked backward), K5's (small GQA "
         "shape with pads), K1's (rows with no allowed key, L 320), K2's (odd windows) and K4's "
         "(bf16 ties, small GQA hops, Lq != Lk) against planted faults")
-    planted_faults()
+    planted_faults(faults)
 
     log("== 4 timing (CUDA events)")
     log(f" K1 at the Llama flagship shape {FLAGSHIP}")
@@ -5212,6 +5418,11 @@ def main() -> int:
         log("== 13 tensor parallelism: K3's vocab-parallel wrapper, the tp paths")
         tp_launches, vp_entry = phase_13(smi, sg, summaries, round_ms, peaks)
         launches.update(tp_launches)
+
+        log("== 14 pipeline parallelism: GPT-Neo-2.7B's stage and the long-context cell at pp 1")
+        pp_launches = phase_14(smi, sg.group, summaries, round_ms, peaks)
+        launches.update(pp_launches)
+        vp_entry["launches_by_path"].update({p: n["vp_ce"] for p, n in pp_launches.items()})
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

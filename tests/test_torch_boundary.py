@@ -53,7 +53,7 @@ def test_scan_sees_the_package():
     ("telemetry", ("__init__", "metrics", "trace", "attribution", "profile")),
     ("resilience", ("__init__", "preemption", "watchdog", "manager", "faults")),
     ("compile", ("__init__", "cache", "warmup", "graphs")),
-    ("sharding", ("__init__", "rules", "tables")),
+    ("sharding", ("__init__", "rules", "tables", "layout")),
 ])
 def test_scan_sees_the_robustness_subpackages(subpackage, modules):
     """The scan covers the telemetry and resilience subpackages, the
@@ -69,4 +69,12 @@ def test_scan_sees_tensor_parallelism():
     engine's copy (JAX's imports ``jax.sharding``) and ``parallel/tp.py``."""
     for path in ("acco_tpu_torch/parallel/tp.py", "acco_tpu_torch/sharding/rules.py",
                  "acco_tpu_torch/sharding/tables.py"):
+        assert path in FILES
+
+
+def test_scan_sees_pipeline_parallelism():
+    """The scan covers pipeline parallelism's modules: the GPipe loop
+    (``parallel/pp.py``) and the pipeline's pairing checks (the copy of
+    JAX's ``sharding/layout.py`` validation)."""
+    for path in ("acco_tpu_torch/parallel/pp.py", "acco_tpu_torch/sharding/layout.py"):
         assert path in FILES

@@ -341,13 +341,15 @@ def test_one_process_makes_no_process_group(monkeypatch):
 @pytest.mark.parametrize(
     "mesh_shape, item",
     [({"dp": 2}, None), ({"dp": 2, "sp": 2}, None), ({"sp": 2, "tp": 2}, "item 9"),
-     ({"pp": 2}, "item 9")],
+     ({"pp": 2, "sp": 2}, "item 9")],
 )
 def test_meshes_other_than_sp_raise_by_item(mesh_shape, item):
-    """tp and pp raise by their item. The dp meshes (item None) run since
-    data parallelism was ported: they pass the check, and at one process
-    they ask for their ranks (tests/test_torch_data_parallel.py runs
-    them)."""
+    """sp composed with tp or with pp raises by its item (9.4; tp and pp
+    alone run since they were ported, tests/test_torch_tensor_parallel.py
+    and tests/test_torch_pipeline_parallel.py). The dp meshes (item None)
+    run since data parallelism was ported: they pass the check, and at
+    one process they ask for their ranks (tests/test_torch_data_parallel.py
+    runs them)."""
     if item is None:
         sizes = check_mesh(mesh_shape)
         assert (sizes["dp"], sizes["sp"]) == (mesh_shape["dp"], mesh_shape.get("sp", 1))

@@ -7,7 +7,8 @@ port's spec is a tuple of axis entries, as JAX's ``PartitionSpec``), and
 the tp parameter tables over the real trees of both families: the port's
 ``model_split_specs`` (the models' ``tp_param_specs``) equal JAX's for
 tied and untied Llama and for GPT-Neo, also for a model read from an HF
-checkpoint.
+checkpoint; the pp tables equal JAX's (tests/test_torch_pipeline_parallel.py
+holds them leaf for leaf), and pp composed with tp or sp raises.
 """
 
 from collections import namedtuple
@@ -127,15 +128,25 @@ def test_split_dims_equal_jax(family, tied):
 
 
 def test_family_attribute_and_unknown_tables():
-    """The models name their family; an unknown family or kind raises,
-    and the pp table names the ROADMAP item that ports it."""
+    """The models name their family; an unknown family or kind raises;
+    the pp table is JAX's, and a pipeline composed with tensor or context
+    parallelism raises naming the ROADMAP item that ports it (9.4)."""
+    from acco_tpu_torch.sharding import check_pipeline
+
     assert (_port("llama").family, _port("gpt_neo").family) == ("llama", "gpt_neo")
     with pytest.raises(ShardingRuleError):
         param_table("llama", "fsdp", axis="x")
     with pytest.raises(ShardingRuleError):
         param_table("mystery", "tp")
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        param_table("llama", "pp")
+    for family in ("llama", "gpt_neo"):
+        mine, theirs = param_table(family, "pp"), jax_sharding.param_table(family, "pp")
+        assert [(r.pattern, tuple(r.spec)) for r in mine.rules] == \
+            [(r.pattern, tuple(r.spec)) for r in theirs.rules]
+        assert model_split_specs(family, _port(family).dense_shapes(), "pp") == \
+            jax_sharding.model_split_specs(_jax(family), "pp")
+    for kw in ({"tp": 2}, {"sp": 2}, {"tensor_group": object()}, {"sequence_group": object()}):
+        with pytest.raises(NotImplementedError, match="item 9.4"):
+            check_pipeline(2, num_layers=2, **kw)
 
 
 def test_hf_import_is_covered_by_the_same_tables(tmp_path):

@@ -17,7 +17,8 @@
 - ``torchrun --nproc_per_node 4 -m acco_tpu_torch --device cpu ...
   "train.mesh_shape={dp: 2, tp: 2}"``: its dense ``params.npz`` is the
   unpadded model's layout; the rank layout follows mesh_shape's key
-  order; ``pp`` and ``tp`` with ``sp`` raise by their item.
+  order; ``tp`` with ``sp``, and ``pp`` with ``tp`` or ``sp``, raise by
+  their item.
 """
 
 import json
@@ -174,12 +175,13 @@ def test_tp_init_is_the_dense_init(family, tied):
 
 
 def test_meshes_raise_by_item():
-    """tp runs; pp and tp together with sp raise naming their items."""
+    """tp and pp run; tp together with sp, and pp together with tp or sp,
+    raise naming their item (9.4); serving under tp names 9.5."""
     assert check_mesh({"dp": 2, "tp": 2})["tp"] == 2
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        check_mesh({"dp": 2, "pp": 2})
-    with pytest.raises(NotImplementedError, match="item 9.4"):
-        check_mesh({"sp": 2, "tp": 2})
+    assert check_mesh({"dp": 2, "pp": 2})["pp"] == 2
+    for shape in ({"sp": 2, "tp": 2}, {"pp": 2, "tp": 2}, {"pp": 2, "sp": 2}):
+        with pytest.raises(NotImplementedError, match="item 9.4"):
+            check_mesh(shape)
     with pytest.raises(NotImplementedError, match="item 9.4"):
         LlamaModel(_port_config("llama"), attention="ring", sequence_group=object(),
                    tensor_group=TensorGroup(None, 2, 0))

@@ -62,13 +62,17 @@ _CONTEXT = None
 
 def _fork_server():
     """The fork server's context (made once a process): its server imports
-    torch, torch.distributed and numpy before it forks any rank."""
+    torch, torch.distributed, torch._dynamo and numpy before it forks any
+    rank."""
     global _CONTEXT
     if _CONTEXT is None:
         import multiprocessing
 
         ctx = multiprocessing.get_context("forkserver")
-        ctx.set_forkserver_preload(["torch", "torch.distributed", "numpy", "torch_ranks"])
+        # torch._dynamo: torch.utils.checkpoint imports it at its first call
+        # (~5 s with sympy), which every pipeline rank would pay again
+        ctx.set_forkserver_preload(["torch", "torch.distributed", "torch._dynamo", "numpy",
+                                    "torch_ranks"])
         _CONTEXT = ctx
     return _CONTEXT
 
@@ -112,7 +116,6 @@ class Ranks:
                 + "\ndist.barrier()\ndist.destroy_process_group()\n")
         env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
         self.ws, self.timeout = ws, timeout
-        self.deadline = time.monotonic() + timeout
         self.logs = [os.path.join(workdir, f"rank{r}.log") for r in range(ws)]
         ctx = _fork_server()
         self.procs = [
@@ -122,6 +125,8 @@ class Ranks:
         ]
         for p in self.procs:
             p.start()
+        # after the starts: a worker's first start waits for the fork server's imports
+        self.deadline = time.monotonic() + timeout
 
     def join(self) -> None:
         try:
@@ -160,8 +165,10 @@ def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
 # it saw. ``spec.json``: family ('llama' | 'gpt_neo'), arch, dp, sp,
 # zigzag, method ('acco' | 'dpu' | 'ddp'), sched, opt, rounds, batch (the
 # rank's batch), lr_grad_accounting, and optionally tp (a {dp, tp} world,
-# dp outer) with vocab_pad_to. ``flat.npy``: the initial [n_params] dense
-# parameters (under tp each rank keeps its shard's local vector). ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
+# dp outer) or pp (a {dp, pp} world, dp outer) with vocab_pad_to, and
+# fused_loss. ``flat.npy``: the initial [n_params] dense parameters (under
+# tp or pp each rank keeps its shard's or stage's local vector).
+# ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
 # [n_acc, dp * batch, seq] and ``{i}/valid`` [n_acc, dp]. The rank takes
 # its dp index's rows and valid column, then (sp > 1) its sequence chunk.
 # Saves ``out{RANK}.npz``: per round the loss, LR, is_real_update, the
@@ -178,10 +185,12 @@ from acco_tpu_torch.parallel.ddp import DDPTrainStep
 from acco_tpu_torch.parallel.mesh import RankGroups
 
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
-tp = spec.get("tp", 1)
-if tp > 1:
-    groups, sg = RankGroups.build_tp(spec["dp"], tp, RANK), None
-    kw = dict(tensor_group=groups.tensor_group(), vocab_pad_to=spec.get("vocab_pad_to"))
+tp, pp = spec.get("tp", 1), spec.get("pp", 1)
+if tp > 1 or pp > 1:
+    axis = "tp" if tp > 1 else "pp"
+    groups, sg = RankGroups.build_tp(spec["dp"], tp * pp, RANK, axis=axis), None
+    kw = {("tensor_group" if axis == "tp" else "pipeline_group"): groups.model_group(),
+          "vocab_pad_to": spec.get("vocab_pad_to")}
 else:
     groups, sg = RankGroups.build(spec["dp"], spec["sp"], RANK)
     kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
@@ -191,13 +200,14 @@ else:
     arch = dict(spec["arch"], attention_layers=tuple(spec["arch"]["attention_layers"]))
     model = GPTNeoModel(GPTNeoConfig(**arch), dtype=torch.float32, **kw)
 common = dict(const_len_batch=True, sequence_group=sg, groups=groups,
-              lr_grad_accounting=spec["lr_grad_accounting"], **spec["opt"])
+              lr_grad_accounting=spec["lr_grad_accounting"],
+              fused_loss=spec.get("fused_loss", False), **spec["opt"])
 if spec["method"] == "ddp":
     step = DDPTrainStep(model, get_schedule(*spec["sched"]), **common)
 else:
     step = AccoTrainStep(model, get_schedule(*spec["sched"]), mode=spec["method"], **common)
 flat0 = np.load(os.path.join(WORKDIR, "flat.npy"))
-if tp > 1:
+if tp > 1 or pp > 1:
     from acco_tpu_torch.models.convert import params_to_jax
     dense = params_to_jax(torch.tensor(flat0), model.config, vocab=model.padded_vocab)
     flat0 = model.tp_layout.stack_flat(dense)[groups.tp_index]
@@ -246,7 +256,7 @@ np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **{k: np.array(v) for k, v in 
 
 
 def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0):
-    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` (x tp) ranks;
+    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` (x tp x pp) ranks;
     the returned function waits for them and returns each rank's saved
     arrays."""
     import json
@@ -258,7 +268,7 @@ def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120
              **{f"{i}/{k}": v for i, b in enumerate(blocks) for k, v in b.items()})
     with open(os.path.join(str(workdir), "spec.json"), "w") as f:
         json.dump(spec, f)
-    ws = spec["dp"] * spec["sp"] * spec.get("tp", 1)
+    ws = spec["dp"] * spec["sp"] * spec.get("tp", 1) * spec.get("pp", 1)
     ranks = Ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
 
     def join() -> list:
