@@ -41,7 +41,16 @@ of tp, ``parallel/tp.pad_vocab``), and pipeline parallelism
         model=tiny128 data=synthetic "train.mesh_shape={dp: 2, pp: 2}"
 
 each rank's stage (``num_layers / pp`` layers, the vocab padded to a
-multiple of pp; the GPipe loop of ``parallel/pp.py``). Rank 0 alone
+multiple of pp; the GPipe loop of ``parallel/pp.py``). The axes compose,
+the ranks row-major in the mesh's key order (JAX's ``make_mesh``):
+
+    torchrun --nproc_per_node 8 -m acco_tpu_torch --device cpu train=acco \
+        model=tiny128 data=synthetic "train.mesh_shape={dp: 2, pp: 2, tp: 2}"
+    torchrun --nproc_per_node 8 -m acco_tpu_torch --device cpu train=acco \
+        model=tiny128 data=synthetic "train.mesh_shape={dp: 1, pp: 2, tp: 2, sp: 2}"
+
+(tp x pp: each rank a stage's tensor shard, the vocab padded to a
+multiple of pp x tp; with sp the ring inside every stage). Rank 0 alone
 prints the summary.
 
 ``train.finetune=true`` (``train=acco-ft``, ``ddp-ft``, ``dpu-ft``) reads
@@ -124,24 +133,24 @@ def _make_run_dir(pattern: str, cfg, mesh) -> str:
     return run_dir
 
 
-def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_group=None,
-                  pipeline_group=None, eager: bool = False):
+def build_trainer(argv: list[str], groups=None, eager: bool = False):
     """Everything before the first round: device, config, model, data.
     ``eager``: the rounds as eager PyTorch calls instead of the captured
     programs (``compile/graphs.py``), for comparisons; no config key
     selects it.
-    For a run not launched on several ranks, ``sequence_group`` hands in a
-    sequence group (an ``ops.ring_attention.SequenceGroup``): a one-rank
-    group runs the context-parallel code, the ring included, with no hop;
-    ``data_group`` hands in a data-parallel process group: a one-rank
-    group runs the dp code (the count all-reduce and ZeRO-1's collectives
-    on process groups of their own) as an identity; ``tensor_group`` hands
-    in a tensor-parallel process group: a one-rank group runs the tp code
-    (the layers' all-reduces, the vocab-parallel loss, ZeRO-1's tp terms)
-    at tp 1; ``pipeline_group`` hands in a pipeline process group: a
-    one-rank group runs the pp code (the GPipe tick loop with its
-    per-tick recompute, the masked broadcast, the vocab-parallel lookup
-    and loss over the group, ZeRO-1's terms over it) at pp 1."""
+    For a run not launched on several ranks, ``groups`` hands in process
+    groups made by the caller: the pair ``(RankGroups, sequence group or
+    None)`` that ``parallel/mesh.RankGroups.around`` returns around a
+    sequence, data, tensor or pipeline group, or one-rank groups of
+    several of these axes. A one-rank group runs that axis's code at size
+    1: the ring with no hop (sp), the count all-reduce and ZeRO-1's
+    collectives as identities (dp), the layers' all-reduces, the
+    vocab-parallel loss and ZeRO-1's model-group terms (tp), the GPipe
+    tick loop with its per-tick recompute and the masked broadcast (pp);
+    several together run the composed code (tp x pp with its combined
+    model group and two-segment prefix, the ring inside the stages or
+    the tensor shards). Made once, such groups serve several trainers
+    without new communicators each."""
     import dataclasses
 
     import torch
@@ -151,7 +160,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     from acco_tpu_torch.data.tokenizer import load_tokenizer
     from acco_tpu_torch.models.hf_loader import from_pretrained
     from acco_tpu_torch.models.registry import build_model
-    from acco_tpu_torch.parallel.mesh import RankGroups, init_distributed
+    from acco_tpu_torch.parallel.mesh import init_distributed
     from acco_tpu_torch.trainer import Trainer
     from acco_tpu_torch.utils.platform import default_allocator_settings, resolve_device
 
@@ -162,10 +171,9 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     cfg = compose_config(os.path.join(REPO_ROOT, "config"), overrides)
     check_supported(cfg.train)
     mesh = init_distributed(cfg.train.get("mesh_shape"), device)
-    if any(g is not None for g in (sequence_group, data_group, tensor_group, pipeline_group)):
-        groups = RankGroups.around(sequence_group, data_group, tensor_group, pipeline_group)
-        mesh = dataclasses.replace(mesh, sequence_group=sequence_group, groups=groups,
-                                   tp=groups.tp)
+    if groups is not None:
+        rank_groups, sequence_group = groups
+        mesh = dataclasses.replace(mesh, sequence_group=sequence_group, groups=rank_groups)
     device = mesh.device
 
     logging.basicConfig(
@@ -179,6 +187,7 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
     use_cp = mesh.sequence_group is not None  # context parallelism: the ring
     tg = mesh.tensor_group  # tensor parallelism (JAX: trainer.py:146-155)
     pg = mesh.pipeline_group  # pipeline parallelism (JAX: trainer.py:156-175)
+    mg = mesh.model_group  # the group the vocab is split over (pp x tp composed)
     model_kw = dict(
         dtype=torch.bfloat16 if use_mp else torch.float32,
         attention="ring" if use_cp else cfg.train.get("use_pallas_attention", "auto"),
@@ -188,8 +197,8 @@ def build_trainer(argv: list[str], sequence_group=None, data_group=None, tensor_
         remat=cfg.train.get("remat", False),
         tensor_group=tg,
         pipeline_group=pg,
+        model_group=mg if tg is not None and pg is not None else None,
     )
-    mg = tg if tg is not None else pg  # the model group the vocab is split over
     pad_multiple = 1 if mg is None else mg.size
     initial_params = None
     if bool(cfg.train.get("finetune", False)):

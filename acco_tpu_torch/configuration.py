@@ -379,9 +379,8 @@ def compose_config(
 
 def check_supported(train_cfg: dict) -> None:
     """Raise, before any data is read, for train keys the port cannot run
-    as given: a misspelt ``remat`` mode, a mesh composing tp, pp or sp
-    with each other, which raises NotImplementedError naming its ROADMAP
-    item (``fused_loss`` is resolved against the model:
+    as given: a misspelt ``remat`` mode, a mesh with an unknown axis or a
+    size below 1 (``fused_loss`` is resolved against the model:
     ops.losses.resolve_fused_loss), and a malformed ``fault_injection``
     spec."""
     from acco_tpu_torch.ops.attention import normalize_remat
@@ -389,7 +388,6 @@ def check_supported(train_cfg: dict) -> None:
 
     parse_fault_specs(train_cfg.get("fault_injection"))
     normalize_remat(train_cfg.get("remat", False))  # a misspelt mode raises here
-    # {dp, sp}, {dp, tp} and {dp, pp} run; their compositions raise by their item
     from acco_tpu_torch.parallel.mesh import check_mesh
 
     check_mesh(train_cfg.get("mesh_shape"))

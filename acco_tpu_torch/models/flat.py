@@ -22,6 +22,12 @@ the same layout runs over the pp rule table: a stage holds
 (and, for an untied Llama head, ``V_pad / pp`` head columns) and the
 replicated leaves (the final norm; GPT-Neo's position table), its flat
 vector ``[replicated leaves | this stage's slices]``.
+
+Under both (a ``tensor_group`` and a ``pipeline_group``, with their
+combined ``model_group``: JAX's tp x pp) the model is one stage's tensor
+shard: ``parallel/tp.ComposedLayout``'s local vector, its layers' heads
+and ffn columns split over the tensor group, the vocab over the combined
+(pp, tp) group, ``V_pad / (pp * tp)`` rows a shard.
 """
 
 from __future__ import annotations
@@ -72,24 +78,43 @@ def tensor_parallel_layout(family: str, dense_layout, tp: int, axis: str = "tp")
     return TpLayout(shapes, model_split_specs(family, shapes, axis), tp)
 
 
+def composed_layout(family: str, dense_layout, pp: int, tp: int):
+    """``parallel/tp.ComposedLayout`` of a dense layout at ``pp`` stages of
+    ``tp`` tensor shards (``sharding/tables.py`` ``composed_split_specs``)."""
+    from acco_tpu_torch.parallel.tp import ComposedLayout, shape_tree
+    from acco_tpu_torch.sharding import composed_split_specs
+
+    shapes = shape_tree(dense_layout)
+    outer, inner = composed_split_specs(family, shapes)
+    return ComposedLayout(shapes, outer, pp, inner, tp)
+
+
 class FlatParamModel(nn.Module):
     """Parameters for ``layout``: a top-level leaf ``p`` is the attribute
     :meth:`attr_name` ``(p)``, and a leaf ``layers/x`` is ``layers[i].x``.
     ``layout`` is the dense model's; with a ``tensor_group`` the model
     holds its tp shard's part of it, with a ``pipeline_group`` its
-    stage's (``tp_layout``, over the model group's rule table)."""
+    stage's, with both (and their combined ``model_group``) its stage's
+    tp shard's (``tp_layout``, over the model axes' rule tables)."""
 
     family = ""  # the sharding tables' family name
 
     def __init__(self, layout, num_layers: int, dtype, device, tensor_group=None,
-                 pipeline_group=None):
+                 pipeline_group=None, model_group=None):
         super().__init__()
         self.dense_layout = layout
         self.tensor_group = tensor_group
         self.pipeline_group = pipeline_group
-        mg = self.model_group
-        self.tp_layout = (None if mg is None else tensor_parallel_layout(
-            self.family, layout, mg.size, "tp" if tensor_group is not None else "pp"))
+        # the group the parameters are split over (JAX's model axis): the
+        # tensor or pipeline group, their combined (pp, tp) group under
+        # both (the vocab's group), or None
+        self.model_group = mg = check_model_group(tensor_group, pipeline_group, model_group)
+        if tensor_group is not None and pipeline_group is not None:
+            self.tp_layout = composed_layout(self.family, layout, pipeline_group.size,
+                                             tensor_group.size)
+        else:
+            self.tp_layout = (None if mg is None else tensor_parallel_layout(
+                self.family, layout, mg.size, "tp" if tensor_group is not None else "pp"))
         if self.tp_layout is not None:
             layout = self.tp_layout.layout
             num_layers //= 1 if pipeline_group is None else pipeline_group.size
@@ -147,12 +172,6 @@ class FlatParamModel(nn.Module):
     def tp(self) -> int:
         return 1 if self.tensor_group is None else self.tensor_group.size
 
-    @property
-    def model_group(self):
-        """The tensor or pipeline group the parameters are split over (JAX's
-        model axis), or None."""
-        return self.tensor_group if self.tensor_group is not None else self.pipeline_group
-
     def dense_shapes(self) -> dict:
         """The dense parameter tree's shapes (``parallel/tp.Leaf`` leaves)."""
         from acco_tpu_torch.parallel.tp import shape_tree
@@ -183,8 +202,8 @@ class FlatParamModel(nn.Module):
         time, and this shard's slice of each is kept: the values are the
         dense init's at any tp (the same bits at tp 1), and the largest
         transient is one dense leaf in float32, as in the dense init. A
-        pipeline stage keeps its slice of each leaf alike (the dense bits
-        at pp 1)."""
+        pipeline stage, or a stage's tensor shard, keeps its slice of
+        each leaf alike (the dense bits at pp 1)."""
         device = next(self.parameters()).device
         flat = torch.empty(self.n_params, dtype=self.dtype, device=device)
         local = {path: (shape, offset) for path, shape, offset in self.layout}
@@ -199,35 +218,49 @@ class FlatParamModel(nn.Module):
                 continue
             leaf = normal_init((n,), self.config.initializer_range, self.dtype, generator,
                                device)
-            spec = None if tpl is None else tpl.spec(path)
-            if spec is not None:
-                from acco_tpu_torch.parallel.tp import slice_dim
-
-                leaf = slice_dim(leaf.view(shape), spec, tpl.tp, self.model_group.rank)
+            if tpl is not None:
+                leaf = tpl.slice_leaf(path, leaf.view(shape), self.model_group.rank)
             flat[offset : offset + m] = leaf.reshape(-1)
         return flat
 
 
-def check_tp(config, tensor_group, sequence_group, vocab_pad_to, heads,
-             pipeline_group=None) -> int:
+def check_model_group(tensor_group, pipeline_group, model_group):
+    """The group the vocab is split over: the one model group, or under
+    both a tensor and a pipeline group ``model_group``, which must be
+    their combined (pp, tp) group, this rank at ``pp_index * tp +
+    tp_index`` (JAX's ``lax.axis_index(('pp', 'tp'))``)."""
+    if tensor_group is None or pipeline_group is None:
+        if model_group is not None:
+            raise ValueError("model_group is the combined group of a tensor and a pipeline "
+                             "group: pass it with both")
+        return tensor_group if tensor_group is not None else pipeline_group
+    if model_group is None:
+        raise ValueError("a model on a tensor and a pipeline group (tp x pp) needs their "
+                         "combined (pp, tp) group as its model_group")
+    want = (pipeline_group.size * tensor_group.size,
+            pipeline_group.rank * tensor_group.size + tensor_group.rank)
+    if (model_group.size, model_group.rank) != want:
+        raise ValueError(f"model_group is {model_group.size} ranks with this one at "
+                         f"{model_group.rank}; the combined (pp, tp) group is {want[0]} with "
+                         f"this rank at {want[1]}")
+    return model_group
+
+
+def check_tp(config, tensor_group, vocab_pad_to, heads, pipeline_group=None) -> int:
     """The padded vocab; raises where tensor or pipeline parallelism
-    cannot run: tp not dividing the head counts, tp together with the
-    ring, a pipeline together with either or with pp not dividing the
-    layers (``sharding/layout.check_pipeline``), a pad below the vocab."""
+    cannot run: tp not dividing the head counts, pp not dividing the
+    layers (``sharding/layout.check_pipeline``), a pad below the vocab.
+    Every composition with the ring (a ``sequence_group``) runs: under
+    tp the ring takes this shard's heads."""
     padded = int(vocab_pad_to or config.vocab_size)
     if padded < config.vocab_size:
         raise ValueError(f"vocab_pad_to={vocab_pad_to} < vocab_size={config.vocab_size}")
     if pipeline_group is not None:
         from acco_tpu_torch.sharding.layout import check_pipeline
 
-        check_pipeline(pipeline_group.size, num_layers=config.num_layers,
-                       tensor_group=tensor_group, sequence_group=sequence_group)
+        check_pipeline(pipeline_group.size, num_layers=config.num_layers)
     if tensor_group is None:
         return padded
-    if sequence_group is not None:
-        raise NotImplementedError(
-            "tensor parallelism with context parallelism (tp x sp) is not ported yet: "
-            "ROADMAP.md queue 1, item 9.4")
     tp = tensor_group.size
     if any(h % tp for h in heads):
         raise ValueError(f"tensor parallelism size {tp} must divide the head counts {heads}")

@@ -57,6 +57,13 @@ learned positions, :meth:`GPTNeoModel.stage_blocks` runs the stage's
 layers with their windows cut from the whole ``layer_windows`` table at
 ``stage_index * layers_per_stage`` (the global/local pattern is indexed
 by the absolute layer), :meth:`GPTNeoModel.finalize` the final norm.
+
+The compositions (JAX gpt_neo.py:274-276, :666-700): with a tensor and
+a sequence group the windowed ring runs this shard's heads; a stage on a
+tensor group (tp x pp, with the combined ``model_group``) runs its
+layers' all-reduces and looks its tokens up over the combined group; a
+stage on a sequence group (pp x sp) runs the windowed ring with the
+learned positions at its chunk's offsets.
 """
 
 from __future__ import annotations
@@ -190,6 +197,7 @@ class GPTNeoModel(FlatParamModel):
         tensor_group=None,
         vocab_pad_to: Optional[int] = None,
         pipeline_group=None,
+        model_group=None,
     ):
         impl = normalize_attention_impl(attention)
         if impl == "ring" and sequence_group is None:
@@ -200,10 +208,10 @@ class GPTNeoModel(FlatParamModel):
                 "kernel (as in the JAX model): use attention='fused', 'xla' "
                 "or 'auto'"
             )
-        padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
+        padded = check_tp(config, tensor_group, vocab_pad_to,
                           (config.num_heads,), pipeline_group)
         super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
-                         tensor_group, pipeline_group)
+                         tensor_group, pipeline_group, model_group)
         self.config = config
         self.padded_vocab = padded
         self.n_heads = config.num_heads // self.tp

@@ -38,9 +38,9 @@ and one all-reduce after ``wo`` and one after ``w_down``
 (``ops/losses.py``). ``vocab_pad_to`` pads the vocab (Megatron's
 padding, ``parallel/tp.pad_vocab``); the padded rows are never looked
 up and never enter the loss (``real_vocab``), and :meth:`unpad_vocab`
-strips them for export. Tensor parallelism with the ring (tp x sp) and
-the serving surface under tp are not ported yet (ROADMAP.md queue 1,
-items 9.4 and 9.5).
+strips them for export. With a ``sequence_group`` too (tp x sp; JAX
+llama.py:253-338) the ring runs this shard's heads; serving under tp is
+not ported yet (ROADMAP.md queue 1, item 9.5).
 
 Pipeline parallelism (a ``pipeline_group``, JAX's ``pipeline_axis``;
 llama.py:456-575): the model is one stage, ``num_layers / pp``
@@ -50,7 +50,10 @@ it through :meth:`LlamaModel.pp_embed` (the vocab-parallel lookup over
 the pipeline group), :meth:`LlamaModel.stage_blocks` (this stage's
 layers, the same math as the span of :meth:`LlamaModel.hidden`) and
 :meth:`LlamaModel.finalize` (the final norm); ``hidden`` and ``apply``
-refuse a stage, and serving one is item 9.5.
+refuse a stage, and serving one is item 9.5. A stage takes a tensor
+group (tp x pp, with the combined ``model_group``: the stage's layers
+run their all-reduces and the lookup and the loss run over the combined
+group) and a sequence group (pp x sp: the ring inside the stage).
 """
 
 from __future__ import annotations
@@ -162,14 +165,15 @@ class LlamaModel(FlatParamModel):
         tensor_group=None,
         vocab_pad_to: Optional[int] = None,
         pipeline_group=None,
+        model_group=None,
     ):
         if (normalize_attention_impl(attention) == "ring") != (sequence_group is not None):
             raise ValueError("attention='ring' requires a sequence group, and a sequence "
                              "group attention='ring'")
-        padded = check_tp(config, tensor_group, sequence_group, vocab_pad_to,
+        padded = check_tp(config, tensor_group, vocab_pad_to,
                           (config.num_heads, config.num_kv_heads), pipeline_group)
         super().__init__(param_layout(config, padded), config.num_layers, dtype, device,
-                         tensor_group, pipeline_group)
+                         tensor_group, pipeline_group, model_group)
         self.config = config
         self.padded_vocab = padded
         self.n_heads = config.num_heads // self.tp

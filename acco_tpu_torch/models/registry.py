@@ -83,6 +83,7 @@ def build_model(
     tensor_group=None,
     vocab_pad_multiple: int = 1,
     pipeline_group=None,
+    model_group=None,
 ):
     """A model, random parameters to come, from a ``config/model/*.yaml``
     node. ``sequence_group`` (an ``ops.ring_attention.SequenceGroup``) and
@@ -92,7 +93,8 @@ def build_model(
     with the vocab padded to a multiple of ``vocab_pad_multiple`` (the tp
     size; ``parallel/tp.pad_vocab``), as JAX's registry does;
     ``pipeline_group`` a pipeline stage (the vocab padded to a multiple
-    of pp)."""
+    of pp); both, with their combined (pp, tp) ``model_group``, a stage's
+    tensor shard (the vocab padded to a multiple of pp x tp)."""
     from acco_tpu_torch.parallel.tp import pad_vocab
 
     model_type, cfg = model_config(model_cfg["config_path"], repo_root)
@@ -100,5 +102,5 @@ def build_model(
         cfg, dtype=dtype, attention=attention, device=device,
         sequence_group=sequence_group, zigzag=zigzag, remat=remat, tensor_group=tensor_group,
         vocab_pad_to=pad_vocab(cfg.vocab_size, int(vocab_pad_multiple)),
-        pipeline_group=pipeline_group,
+        pipeline_group=pipeline_group, model_group=model_group,
     )

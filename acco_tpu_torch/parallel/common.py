@@ -31,6 +31,12 @@ group's place is taken by the pipeline group, JAX's *model group*
 loop (``parallel/pp.py``), whose loss is the same on every stage, so the
 loss metric and the count reduce over dp as under tp, the verdict over
 every rank, and ZeRO-1 runs the same tp terms over the pipeline group.
+
+The compositions (JAX ``acco.py:225-275``): under tp x pp the model
+group is the combined (pp, tp) group, the layout ``ComposedLayout``, and
+ZeRO-1 syncs its two replicated segments (``parallel/zero1.py``); with
+sp the chunk's loss is the vocab-parallel partial over the group's
+target count (tp x sp), or the pipeline's (pp x sp).
 """
 
 from __future__ import annotations
@@ -151,7 +157,7 @@ def make_flat_loss_fn(
     ``parallel/common.py:140-162``)."""
     params = [p for p, _, _ in model.flat_slices()]
     real_vocab = real_vocab_of(model)
-    vocab_group = getattr(model, "tensor_group", None)
+    vocab_group = getattr(model, "model_group", None)
     fused = resolve_fused_loss(
         fused_loss, model, real_vocab, warn=log.warning, seq_sharded=sequence_group is not None,
         n_vocab_shards=1 if vocab_group is None else vocab_group.size,
@@ -172,7 +178,7 @@ def make_flat_loss_fn(
         return model_ce(
             model, batch["input_ids"], None, targets,
             label_smoothing=label_smoothing, fused=fused, real_vocab=real_vocab,
-            num_valid=num_valid, shift=False,
+            num_valid=num_valid, shift=False, vocab_group=vocab_group,
         )
 
     def value_and_grad(flat_params: torch.Tensor, batch: dict):
@@ -257,8 +263,9 @@ class FlatTrainStep:
     ranks, and neither is one rank with no collective. Context
     parallelism (a ``sequence_group``) needs a ring-attention model built
     on that group; tensor or pipeline parallelism (the model group
-    ``groups.tensor``) a model built on that tensor or pipeline group,
-    whose flat vector is its shard's or its stage's (``tp_layout``), and
+    ``groups.tensor``) a model built on the groups' tensor and pipeline
+    groups, whose flat vector is its shard's, its stage's or its stage's
+    shard's (``tp_layout``; ``sharding/layout.check_pairing``), and
     ``self.tp`` is the model group's size. Under pp the accumulation is
     the GPipe loop (``parallel/pp.py``) and ``value_and_grad`` its block
     loss."""
@@ -283,6 +290,7 @@ class FlatTrainStep:
     ):
         from acco_tpu_torch.parallel.mesh import RankGroups
         from acco_tpu_torch.parallel.zero1 import ShardGeometry
+        from acco_tpu_torch.sharding.layout import check_pairing
 
         self.model = model
         self.schedule = schedule
@@ -295,25 +303,18 @@ class FlatTrainStep:
         # False = the reference's schedule (one step a committed update);
         # True advances it by the committed micro-grad count (JAX: acco.py:612)
         self.lr_grad_accounting = bool(lr_grad_accounting)
-        on_group = getattr(model, "sequence_group", None) is sequence_group
-        if sequence_group is not None and not on_group:
-            raise ValueError("context parallelism needs a ring-attention model built on the "
-                             "same sequence group")
         self.sequence_group = sequence_group
         self.groups = groups if groups is not None else RankGroups.of_sequence(sequence_group)
         g = self.groups
-        tg = getattr(model, "model_group", None)  # tensor or pipeline
-        tensor = None if g is None else g.tensor
+        check_pairing(model, g, sequence_group)
         self.pipelined = getattr(model, "pipeline_group", None) is not None
-        if ((tg is None) != (tensor is None) or (tg is not None and tg.group is not tensor)
-                or (tg is not None and self.pipelined != (g.model_axis == "pp"))):
-            raise ValueError("tensor or pipeline parallelism needs a model built on the groups' "
-                             "model group (tensor or pipeline, as the groups' model_axis "
-                             "says), and a model built on such a group needs those groups")
         # JAX's model_axis / tp_layout (acco.py:192-273): the local layout
-        # and the tp terms of ZeRO-1
+        # and the tp terms of ZeRO-1, tp the model group's size (pp x tp
+        # when composed), pp the pipeline's
         self.tp_layout = getattr(model, "tp_layout", None)
-        self.tp = 1 if tg is None else tg.size
+        mg = getattr(model, "model_group", None)
+        self.tp = 1 if mg is None else mg.size
+        self.pp = 1 if not self.pipelined else model.pipeline_group.size
         self.shard_index = 0 if g is None else g.shard_index
         self.geom = ShardGeometry(model.n_params, 1 if g is None else g.world_size)
         if self.pipelined:
@@ -384,4 +385,8 @@ class FlatTrainStep:
             in_place=in_place, tp=self.tp,
             n_repl=0 if self.tp_layout is None else self.tp_layout.n_repl,
             tensor_group=self.group("comm_tensor"), health_group=self.group("comm_all"),
+            n_repl_both=0 if self.tp_layout is None else self.tp_layout.n_repl_both,
+            inner=1 if getattr(self.model, "tensor_group", None) is None
+            else self.model.tensor_group.size,
+            inner_group=self.group("comm_inner"),
         )

@@ -1,35 +1,47 @@
 """Process groups from the launcher's environment, shaped as the JAX mesh.
 
 Counterpart of ``acco_tpu/parallel/mesh.py`` (``initialize_distributed``,
-``make_mesh``) for the axes this port runs: ``{dp: N, sp: M}``, ``{dp: N, tp: T}``
-and ``{dp: N, pp: P}``.
-Ranks lie row-major as on JAX's CPU mesh. With sp, dp is outer and sp
-inner, so rank ``r`` is ``dp_index * sp + sp_index``; the data-parallel
-(dp) groups are the ranks that share an ``sp_index``, the sequence (sp)
-groups of context parallelism those that share a ``dp_index``, and
-ZeRO-1 shards over the whole dp x sp world. With tp the axes lie in
-``mesh_shape``'s own key order (JAX ``make_mesh``): ``{dp: 2, tp: 2}``
-puts rank ``dp_index * 2 + tp_index``, ``{tp: 2, dp: 2}`` rank
-``tp_index * 2 + dp_index``; the tensor groups are the ranks that share
-a ``dp_index``, and ZeRO-1 shards each tp index's local flat vector over
-the dp ranks that share it. The ``pp`` axis lies the same way: the
-pipeline groups are the ranks that share a ``dp_index`` (the stages of
-one model replica), and ZeRO-1 shards each stage's local flat vector
-over the dp ranks that share its pp index.
+``make_mesh``): any subset of the axes ``{dp, sp, tp, pp}``. Ranks lie
+row-major over ``mesh_shape``'s own key order, as JAX's ``make_mesh``
+lays devices out: ``{dp: 2, tp: 2}`` puts rank ``dp_index * 2 +
+tp_index``, ``{tp: 2, dp: 2}`` rank ``tp_index * 2 + dp_index``, the
+preset ``{dp: 2, pp: 8, tp: 2}`` rank ``(dp_index * 8 + pp_index) * 2 +
+tp_index`` and ``{dp: 1, pp: 2, tp: 2, sp: 2}`` rank ``(pp_index * 2 +
+tp_index) * 2 + sp_index``; an axis the config leaves out has size 1.
+:meth:`RankGroups.build` makes, on every rank and in one order, every
+group of the mesh (a scope of one rank is None):
+
+- the data-parallel (dp) groups: the ranks that share every other index;
+- the sequence (sp) groups of context parallelism (the ring);
+- the tensor (tp) groups: the layers' all-reduces;
+- the pipeline (pp) groups: the stages of one model replica;
+- the model group, JAX's model axis (``acco_tpu/parallel/acco.py:
+  225-275``): the tensor group, the pipeline group, or, with both, the
+  combined (pp, tp) group in ``pp_index * tp + tp_index`` order, over
+  which the vocab is split and the fully replicated prefix summed;
+- ZeRO-1's world: the dp x sp ranks of one model index, in
+  ``dp_index * sp + sp_index`` order (JAX's ``flat_shard_index(('dp',
+  'sp'))``);
+- every rank, for the staged-grads verdict, the guard's sums and the
+  trainer's decisions;
+
+and a comm twin of each group the communication branch reduces over
+(``parallel/acco.py``). A group whose ranks are not in increasing order
+(the world of an sp-major mesh, the model group of a tp-major one) keeps
+its order through ``new_group(..., sort_ranks=False)``.
 
 :func:`init_distributed` reads torchrun's ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK`` and ``MASTER_ADDR``/``PORT``, or, as JAX does, SLURM's
 ``SLURM_PROCID``, ``SLURM_NTASKS`` and ``SLURM_JOB_NODELIST`` (the first
 host, port ``ACCO_COORD_PORT`` or 12346), and initialises the default
 group: NCCL for CUDA, each rank on ``cuda:LOCAL_RANK``, gloo for the CPU.
-A world of one rank initialises no process group. ``pp`` together with
-``tp`` or ``sp``, and ``tp`` together with ``sp``, raise
-(ROADMAP.md queue 1, item 9.4).
+A world of one rank initialises no process group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Optional
 
@@ -39,50 +51,62 @@ from acco_tpu_torch.models.layers import TensorGroup
 from acco_tpu_torch.ops.ring_attention import SequenceGroup
 
 AXES = ("dp", "sp", "tp", "pp")
+COMPOSED = "pp,tp"  # the model axis of a tp x pp mesh: JAX's ('pp', 'tp') tuple
 DEFAULT_COORD_PORT = 12346  # JAX's SLURM rendezvous port
+
+
+def _new_group(ranks):
+    """A process group of ``ranks``, its group ranks in the order given."""
+    import torch.distributed as dist
+
+    ranks = list(ranks)
+    return dist.new_group(ranks, sort_ranks=ranks == sorted(ranks))
 
 
 @dataclasses.dataclass(frozen=True)
 class RankGroups:
     """The process groups a train step reduces over, and this rank's place
-    in the dp x sp layout. ``None`` is a scope of one rank (no collective).
+    in the mesh. ``None`` is a scope of one rank (no collective).
 
-    Each scope has two groups: the compute branch's (the loss metric and
-    the staged-grads verdict; the ring's hops go on the sequence group)
-    and the comm branch's (the count all-reduce and ZeRO-1's collectives).
-    On NCCL every communicator has its own stream, so the comm branch's
+    Each scope has two groups: the compute branch's (the loss metric, the
+    staged-grads verdict, the layers' and the ring's collectives) and the
+    comm branch's (the count all-reduce and ZeRO-1's collectives). On
+    NCCL every communicator has its own stream, so the comm branch's
     collectives never queue behind the compute branch's.
 
-    Under tensor parallelism ``world`` is the dp x sp ranks of this tp
-    index (ZeRO-1's), ``tensor`` the tp ranks of this dp index (the
-    layers' all-reduces and the vocab-parallel loss), ``comm_tensor`` its
-    comm twin (ZeRO-1's sync of the replicated prefix), and ``all`` /
-    ``comm_all`` every rank (the staged-grads verdict, the guard's
-    sums, the trainer's decisions). Without tp, ``all`` is ``world``.
-
-    ``tensor``, ``comm_tensor``, ``tp`` and ``tp_index`` are JAX's *model
-    group* (``acco_tpu/parallel/acco.py:232-237``): the ranks that hold
-    different pieces of one model replica, over the axis ``model_axis``
-    names. Under pipeline parallelism (``model_axis`` 'pp') they are the
-    pipeline group of this dp index, its size pp and this rank's stage:
-    ZeRO-1's terms, the staged-grads verdict and the checkpoint's rank
-    files read them alike for both axes."""
+    ``world`` is the dp x sp ranks of this model index (ZeRO-1's shards),
+    ``tensor`` the model group (JAX's model axis, ``model_axis``: 'tp',
+    'pp', or :data:`COMPOSED` for the combined (pp, tp) group), of size
+    ``n_model`` with this rank at ``model_index``, ``comm_tensor`` its comm twin
+    (ZeRO-1's sync of the replicated prefix), and ``all`` / ``comm_all``
+    every rank. Without a model group, ``all`` is ``world``. Under tp x
+    pp, ``pp`` is the pipeline's size, ``inner`` the tensor group of this
+    stage (the layers' all-reduces) with ``comm_inner`` its comm twin
+    (ZeRO-1's sum of the stage-split, tp-replicated segment) and ``pipe``
+    the pipeline group (the hops and the broadcast of the last stage's
+    output). ZeRO-1's terms, the staged-grads verdict and the
+    checkpoint's rank files read the model group alike for every
+    axis."""
 
     dp: int
     sp: int
     dp_index: int
     sp_index: int
-    data: object = None  # compute: the dp ranks sharing this sp (and tp) index
-    world: object = None  # compute: dp x sp
-    comm_data: object = None  # comm: the dp ranks sharing this sp (and tp) index
+    data: object = None  # compute: the dp ranks sharing every other index
+    world: object = None  # compute: dp x sp of this model index
+    comm_data: object = None  # comm: the same ranks as data
     comm_world: object = None  # comm: dp x sp, ZeRO-1's shards
-    tp: int = 1
-    tp_index: int = 0
-    tensor: object = None  # compute: the tp ranks sharing this dp index
+    n_model: int = 1  # the model group's size: tp, pp, or pp x tp when composed
+    model_index: int = 0
+    tensor: object = None  # compute: the model group
     comm_tensor: object = None  # comm: the same ranks
-    all: object = None  # compute: every rank (dp x sp x tp)
+    all: object = None  # compute: every rank
     comm_all: object = None  # comm: every rank
-    model_axis: str = "tp"  # the axis of the model group: 'tp' or 'pp'
+    model_axis: str = "tp"  # the axis of the model group: 'tp', 'pp' or COMPOSED
+    pp: int = 1  # composed: the pipeline's size
+    inner: object = None  # composed, compute: the tensor group of this stage
+    comm_inner: object = None  # composed, comm: the same ranks
+    pipe: object = None  # composed, compute: the pipeline group of this tp index
 
     def __post_init__(self):
         if self.tensor is None and self.all is None:
@@ -96,20 +120,48 @@ class RankGroups:
 
     @property
     def n_ranks(self) -> int:
-        return self.dp * self.sp * self.tp
+        return self.dp * self.sp * self.n_model
+
+    @property
+    def composed(self) -> bool:
+        return self.model_axis == COMPOSED
+
+    def model_sizes(self) -> dict:
+        """``{axis: size}`` of the model axes (empty without a model group)."""
+        if self.tensor is None:
+            return {}
+        if self.composed:
+            return {"pp": self.pp, "tp": self.n_model // self.pp}
+        return {self.model_axis: self.n_model}
+
+    def model_indices(self) -> dict:
+        """``{axis index name: index}`` of this rank on the model axes."""
+        if self.tensor is None:
+            return {}
+        if self.composed:
+            stage, shard = divmod(self.model_index, self.n_model // self.pp)
+            return {"pp_index": stage, "tp_index": shard}
+        return {f"{self.model_axis}_index": self.model_index}
 
     def model_group(self) -> Optional[TensorGroup]:
-        """The model group (None without tensor or pipeline parallelism)."""
+        """The model group (None without tensor or pipeline parallelism): the
+        vocab's group."""
         if self.tensor is None:
             return None
-        return TensorGroup(self.tensor, self.tp, self.tp_index)
+        return TensorGroup(self.tensor, self.n_model, self.model_index)
 
     def tensor_group(self) -> Optional[TensorGroup]:
         """The model's tensor group (None without tensor parallelism)."""
+        if self.composed:
+            inner = self.n_model // self.pp
+            return TensorGroup(self.inner, inner, self.model_index % inner)
         return self.model_group() if self.model_axis == "tp" else None
 
     def pipeline_group(self) -> Optional[TensorGroup]:
         """The pipeline group (None without pipeline parallelism)."""
+        if self.composed:
+            return TensorGroup(self.pipe, self.pp,
+                               self.model_index // (self.n_model // self.pp))
         return self.model_group() if self.model_axis == "pp" else None
 
     @property
@@ -127,106 +179,128 @@ class RankGroups:
 
     @classmethod
     def around(cls, sequence_group: Optional[SequenceGroup] = None,
-               data_group=None, tensor_group=None, pipeline_group=None) -> "RankGroups":
-        """The groups around a group made by hand: a sequence group (dp 1),
-        a data group (sp 1), a tensor group or a pipeline group (a process
-        group: dp 1, tp or pp its size), with comm groups of the same ranks
-        made here (every rank of the default group must call this)."""
+               data_group=None, tensor_group=None, pipeline_group=None
+               ) -> tuple["RankGroups", Optional[SequenceGroup]]:
+        """The groups around groups made by hand, one per axis: a sequence
+        group (sp), a data group (dp), a tensor group (tp) and a pipeline
+        group (pp), any of them. One group alone may span several ranks
+        (the other axes of size 1); several must each be of one rank (the
+        composed code at every axis's size 1). The comm twins, the world
+        (dp x sp), the combined model group under tp x pp and the
+        all-rank groups are made here, of the same ranks (every rank of
+        the default group must call this). Returns the groups and the
+        sequence group, as :meth:`build` does."""
         import torch.distributed as dist
 
-        given = [g for g in (sequence_group, data_group, tensor_group, pipeline_group)
+        sp_group = None if sequence_group is None else sequence_group.group
+        given = [g for g in (sp_group, data_group, tensor_group, pipeline_group)
                  if g is not None]
-        if len(given) != 1:
-            raise ValueError("hand in one of a sequence group, a data group, a tensor group "
-                             "or a pipeline group")
-        group = sequence_group.group if sequence_group is not None else given[0]
-        comm = dist.new_group(dist.get_process_group_ranks(group))
-        size, rank = dist.get_world_size(group), dist.get_rank(group)
-        if sequence_group is not None:
-            return cls(dp=1, sp=size, dp_index=0, sp_index=rank, world=group, comm_world=comm)
-        if tensor_group is not None or pipeline_group is not None:
-            return cls(dp=1, sp=1, dp_index=0, sp_index=0, tp=size, tp_index=rank,
-                       tensor=group, comm_tensor=comm, all=group, comm_all=comm,
-                       model_axis="tp" if tensor_group is not None else "pp")
-        return cls(dp=size, sp=1, dp_index=rank, sp_index=0, data=group, world=group,
-                   comm_data=comm, comm_world=comm)
+        if not given:
+            raise ValueError("hand in a sequence group, a data group, a tensor group or a "
+                             "pipeline group")
+        if len(given) > 1 and any(dist.get_world_size(g) != 1 for g in given):
+            raise ValueError("groups handed in together must each be of one rank")
+        ranks = dist.get_process_group_ranks(given[0])
+
+        def new(twin_of=True):
+            """A new group of the same ranks (None as the twin of None)."""
+            return None if twin_of is None else dist.new_group(ranks)
+
+        def place(group):
+            return (1, 0) if group is None else (dist.get_world_size(group),
+                                                 dist.get_rank(group))
+
+        (dp, dp_index), (sp, sp_index) = place(data_group), place(sp_group)
+        world = new() if sp_group is not None and data_group is not None else (
+            sp_group if sp_group is not None else data_group)
+        comm_data = new(data_group)
+        kw = dict(dp=dp, sp=sp, dp_index=dp_index, sp_index=sp_index, data=data_group,
+                  comm_data=comm_data, world=world,
+                  comm_world=comm_data if world is data_group else new(world))
+        if tensor_group is not None and pipeline_group is not None:
+            kw.update(tensor=new(), model_axis=COMPOSED, inner=tensor_group,
+                      comm_inner=new(), pipe=pipeline_group)
+        elif tensor_group is not None or pipeline_group is not None:
+            model = tensor_group if tensor_group is not None else pipeline_group
+            n_model, model_index = place(model)
+            kw.update(tensor=model, n_model=n_model, model_index=model_index,
+                      model_axis="tp" if tensor_group is not None else "pp")
+        if "tensor" in kw:
+            kw["comm_tensor"] = new()
+            if len(given) == 1:  # every rank: the model group alone
+                kw.update(all=kw["tensor"], comm_all=kw["comm_tensor"])
+            else:
+                kw.update(all=new(), comm_all=new())
+        return cls(**kw), sequence_group
 
     @classmethod
-    def build(cls, dp: int, sp: int, rank: int) -> tuple["RankGroups", Optional[SequenceGroup]]:
-        """Every group of a dp x sp world (each rank makes them all, in one
-        order); returns this rank's groups and its sequence group (None at
-        sp 1)."""
+    def build(cls, mesh_shape: dict, rank: int) -> tuple["RankGroups", Optional[SequenceGroup]]:
+        """Every group of the mesh ``mesh_shape`` (``{axis: size}`` in its
+        key order; axes left out have size 1), each rank making them all in
+        one order; returns this rank's groups and its sequence group (None
+        at sp 1)."""
         import torch.distributed as dist
 
-        dp_index, sp_index = divmod(rank, sp)
-        world = dist.group.WORLD
-        comm_world = dist.new_group(list(range(dp * sp)))
+        order = [a for a in mesh_shape if a in AXES] + [a for a in AXES if a not in mesh_shape]
+        sizes = {a: int(mesh_shape.get(a) or 1) for a in order}
+        n = 1
+        for a in order:
+            n *= sizes[a]
+        coords, rest = {}, rank
+        for a in reversed(order):
+            rest, coords[a] = divmod(rest, sizes[a])
 
-        def mine(n_groups, ranks_of, index):
-            """This rank's group of a family of ``n_groups`` (all made)."""
-            return [dist.new_group(ranks_of(i)) for i in range(n_groups)][index]
+        def rank_of(c: dict) -> int:
+            r = 0
+            for a in order:
+                r = r * sizes[a] + c[a]
+            return r
 
-        data = comm_data = seq = None
-        if dp > 1 and sp == 1:
-            data, comm_data = world, comm_world
-        elif dp > 1:
-            dp_ranks = lambda s: [d * sp + s for d in range(dp)]  # noqa: E731
-            data = mine(sp, dp_ranks, sp_index)
-            comm_data = mine(sp, dp_ranks, sp_index)
-        if sp > 1:
-            seq = world if dp == 1 else mine(dp, lambda d: list(range(d * sp, (d + 1) * sp)),
-                                             dp_index)
-        groups = cls(dp=dp, sp=sp, dp_index=dp_index, sp_index=sp_index, data=data,
-                     world=world, comm_data=comm_data, comm_world=comm_world)
-        return groups, None if seq is None else SequenceGroup.of(seq)
+        made = {}  # (ranks, comm) -> group: one group per rank list and branch
 
-    @classmethod
-    def build_tp(cls, dp: int, tp: int, rank: int, dp_major: bool = True,
-                 axis: str = "tp") -> "RankGroups":
-        """Every group of a dp x tp world (each rank makes them all, in one
-        order), the axes row-major with dp outer when ``dp_major`` (the
-        mesh_shape's key order, as JAX's ``make_mesh``); returns this
-        rank's groups. A dp scope of one rank is None. ``axis`` 'pp'
-        makes the same groups for a dp x pp world, ``tp`` then the pipeline
-        size: the model groups are the pipelines."""
-        import torch.distributed as dist
+        def family(axes: tuple, comm: bool = False):
+            """This rank's group over ``axes`` (major to minor) of the family
+            of such groups, every one made (the other indices fixed)."""
+            others = [a for a in order if a not in axes]
+            mine = None
+            for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+                c = dict(zip(others, fixed))
+                ranks = tuple(rank_of({**c, **dict(zip(axes, idx))})
+                              for idx in itertools.product(*(range(sizes[a]) for a in axes)))
+                if (ranks, comm) not in made:
+                    whole = not comm and ranks == tuple(range(n))
+                    made[ranks, comm] = dist.group.WORLD if whole else _new_group(ranks)
+                if all(coords[a] == c[a] for a in others):
+                    mine = made[ranks, comm]
+            return mine
 
-        def rank_of(d: int, t: int) -> int:
-            return d * tp + t if dp_major else t * dp + d
-
-        if dp_major:
-            dp_index, tp_index = divmod(rank, tp)
-        else:
-            tp_index, dp_index = divmod(rank, dp)
-        world = dist.group.WORLD
-        comm_all = dist.new_group(list(range(dp * tp)))
-
-        def mine(n_groups, ranks_of, index):
-            """This rank's group of a family of ``n_groups`` (all made)."""
-            return [dist.new_group(ranks_of(i)) for i in range(n_groups)][index]
-
-        data = comm_data = None
+        dp, sp, tp, pp = (sizes[a] for a in ("dp", "sp", "tp", "pp"))
+        model = (("pp", "tp") if tp > 1 and pp > 1 else ("tp",) if tp > 1
+                 else ("pp",) if pp > 1 else ())
+        comm_all = family(tuple(order), comm=True)
+        kw = dict(dp=dp, sp=sp, dp_index=coords["dp"], sp_index=coords["sp"],
+                  all=dist.group.WORLD, comm_all=comm_all)
+        if dp * sp > 1:
+            kw.update(world=family(("dp", "sp")), comm_world=family(("dp", "sp"), comm=True))
         if dp > 1:
-            dp_ranks = lambda t: [rank_of(d, t) for d in range(dp)]  # noqa: E731
-            data = mine(tp, dp_ranks, tp_index)
-            comm_data = mine(tp, dp_ranks, tp_index)
-        tp_ranks = lambda d: [rank_of(d, t) for t in range(tp)]  # noqa: E731
-        tensor = world if dp == 1 else mine(dp, tp_ranks, dp_index)
-        comm_tensor = comm_all if dp == 1 else mine(dp, tp_ranks, dp_index)
-        return cls(dp=dp, sp=1, dp_index=dp_index, sp_index=0, data=data, world=data,
-                   comm_data=comm_data, comm_world=comm_data, tp=tp, tp_index=tp_index,
-                   tensor=tensor, comm_tensor=comm_tensor, all=world, comm_all=comm_all,
-                   model_axis=axis)
+            kw.update(data=family(("dp",)), comm_data=family(("dp",), comm=True))
+        seq = family(("sp",)) if sp > 1 else None
+        if model:
+            kw.update(n_model=tp * pp, model_index=coords["pp"] * tp + coords["tp"],
+                      tensor=family(model), comm_tensor=family(model, comm=True),
+                      model_axis=COMPOSED if len(model) == 2 else model[0])
+        if len(model) == 2:
+            kw.update(pp=pp, inner=family(("tp",)), comm_inner=family(("tp",), comm=True),
+                      pipe=family(("pp",)))
+        return cls(**kw), None if seq is None else SequenceGroup.of(seq)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The run's layout: ``dp`` data-parallel groups of ``sp`` sequence
     shards, this rank, its groups (None at one rank, unless a caller hands
-    in a one-rank group to run the multi-rank code) and its sequence group
-    (None unless context parallelism is on); ``tp`` the model group's
-    size: tensor-parallel (its group is ``groups.tensor_group()``) or,
-    under pipeline parallelism, the pipeline's (``groups.pipeline_group()``)."""
+    in one-rank groups to run the multi-rank code) and its sequence group
+    (None unless context parallelism is on)."""
 
     dp: int
     sp: int
@@ -234,12 +308,11 @@ class Mesh:
     device: torch.device
     sequence_group: Optional[SequenceGroup] = None
     groups: Optional[RankGroups] = None
-    tp: int = 1
 
     @property
     def world_size(self) -> int:
-        """Every rank of the run: dp x sp x tp (or x pp)."""
-        return self.dp * self.sp * self.tp
+        """Every rank of the run: dp x sp x tp x pp."""
+        return self.dp * self.sp * (1 if self.groups is None else self.groups.n_model)
 
     @property
     def tensor_group(self) -> Optional[TensorGroup]:
@@ -249,32 +322,29 @@ class Mesh:
     def pipeline_group(self) -> Optional[TensorGroup]:
         return None if self.groups is None else self.groups.pipeline_group()
 
+    @property
+    def model_group(self) -> Optional[TensorGroup]:
+        return None if self.groups is None else self.groups.model_group()
+
     def describe(self) -> dict:
         out = {"dp": self.dp, "sp": self.sp}
-        if self.groups is not None and self.groups.tensor is not None:
-            out[self.groups.model_axis] = self.tp
+        if self.groups is not None:
+            out.update(self.groups.model_sizes())
         return out
 
 
 def check_mesh(mesh_shape) -> dict:
     """``{axis: size}`` for every axis (1 where the config leaves it out).
-    Raises ValueError for an unknown axis and NotImplementedError, naming
-    ROADMAP item 9.4, for ``pp`` together with ``tp`` or ``sp`` and for
-    ``tp`` together with ``sp``."""
-    from acco_tpu_torch.sharding.layout import check_pipeline
-
+    Raises ValueError for an unknown axis or a size below 1; whether pp
+    divides the layers is the model's check (``sharding/layout.py``)."""
     mesh_shape = dict(mesh_shape or {})
     unknown = set(mesh_shape) - set(AXES)
     if unknown:
         raise ValueError(f"mesh_shape axes must be among {AXES}, got {sorted(unknown)}")
     sizes = {axis: int(mesh_shape.get(axis) or 1) for axis in AXES}
-    if sizes["pp"] > 1:
-        check_pipeline(sizes["pp"], tp=sizes["tp"], sp=sizes["sp"])
-    if sizes["tp"] > 1 and sizes["sp"] > 1:
-        raise NotImplementedError(
-            f"mesh_shape={dict(mesh_shape)}: tp together with sp (tensor parallelism "
-            "composed with context parallelism) is not ported yet: ROADMAP.md queue 1, "
-            "item 9.4")
+    bad = {a: s for a, s in sizes.items() if s < 1}
+    if bad:
+        raise ValueError(f"mesh_shape sizes must be >= 1, got {bad}")
     return sizes
 
 
@@ -303,14 +373,12 @@ def init_distributed(mesh_shape, device) -> Mesh:
     import torch.distributed as dist
 
     sizes = check_mesh(mesh_shape)
-    dp, sp = sizes["dp"], sizes["sp"]
-    model_axis = "pp" if sizes["pp"] > 1 else "tp"
-    tp = sizes[model_axis]  # the model group's size (at most one of tp and pp is > 1)
+    n = sizes["dp"] * sizes["sp"] * sizes["tp"] * sizes["pp"]
     world, rank, local_rank, init_method = _launch_env()
-    if world != dp * sp * tp:
+    if world != n:
         raise ValueError(
-            f"mesh_shape={dict(mesh_shape or {})} needs {dp * sp * tp} processes, the "
-            f"launcher started {world} (torchrun --nproc_per_node {dp * sp * tp})"
+            f"mesh_shape={dict(mesh_shape or {})} needs {n} processes, the "
+            f"launcher started {world} (torchrun --nproc_per_node {n})"
         )
     device = torch.device(device)
     if world == 1:
@@ -323,10 +391,7 @@ def init_distributed(mesh_shape, device) -> Mesh:
     backend = "nccl" if device.type == "cuda" else "gloo"
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    if tp > 1:
-        keys = [axis for axis in dict(mesh_shape) if axis in ("dp", model_axis)]
-        groups = RankGroups.build_tp(dp, tp, rank, dp_major=keys[0] == "dp", axis=model_axis)
-        return Mesh(dp=dp, sp=1, rank=rank, device=device, groups=groups, tp=tp)
-    groups, sequence_group = RankGroups.build(dp, sp, rank)
-    return Mesh(dp=dp, sp=sp, rank=rank, device=device, sequence_group=sequence_group,
-                groups=groups)
+    order = {a: sizes[a] for a in dict(mesh_shape)}
+    groups, sequence_group = RankGroups.build(order, rank)
+    return Mesh(dp=groups.dp, sp=groups.sp, rank=rank, device=device,
+                sequence_group=sequence_group, groups=groups)

@@ -46,6 +46,20 @@ pipelining are one loop.
   the same sum, so every gradient carries a factor pp, which ZeRO-1's tp
   terms (``parallel/zero1.py``, over the pipeline group) take out, the
   replicated prefix summed over the group first.
+- **The compositions** (JAX ``make_pp_loss_fn``'s ``vocab_axes`` and
+  ``seq_axis``, pp.py:74-90, :110, :141, :178-188). Under tp x pp the
+  stage is a tensor shard (its layers' all-reduces on the tensor group),
+  and the lookup and the CE run over the model's vocab group, the
+  combined (pp, tp) group, ``V / (pp * tp)`` columns a shard; the
+  gradients then carry pp x tp. Under pp x sp each stage runs the ring
+  (its hops on the sequence group, inside the tick's checkpoint region:
+  the recompute reissues them, in the same order on every rank of the
+  group, since the ranks of a sequence group are one stage), the labels
+  come pre-shifted on the global sequence (``common.prep_cp_leaves``)
+  and each microbatch's loss is this chunk's nll sum over the
+  microbatch's global target count (summed over the sequence group), so
+  that the partials sum over sp to the microbatch's mean, JAX's CP
+  convention.
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ from typing import Callable, Optional
 import torch
 
 from acco_tpu_torch.models.layers import lm_logits, tp_all_reduce
-from acco_tpu_torch.ops.losses import real_vocab_of, resolve_fused_loss
+from acco_tpu_torch.ops.losses import IGNORE_INDEX, real_vocab_of, resolve_fused_loss
 
 log = logging.getLogger("acco_tpu_torch")
 
@@ -108,11 +122,13 @@ def make_pp_loss_fn(model, label_smoothing: float = 0.0,
     the valid sum. Runs as it is under ``torch.no_grad`` (the eval) and
     under autograd (:func:`accumulate_grads_pipelined`).
 
-    ``fused_loss`` is resolved here against the per-stage vocab slice
-    (``ops.losses.resolve_fused_loss`` with ``n_vocab_shards=pp``):
-    'pallas' runs K3's vocab-parallel wrapper, anything else the
-    materialized vocab-parallel CE ('chunk' has no sharded form). The
-    verdict is ``loss_fn.fused_loss``."""
+    ``fused_loss`` is resolved here against the per-shard vocab slice
+    (``ops.losses.resolve_fused_loss`` with ``n_vocab_shards`` the vocab
+    group's size: pp, or pp x tp): 'pallas' runs K3's vocab-parallel
+    wrapper, anything else the materialized vocab-parallel CE ('chunk'
+    has no sharded form). The verdict is ``loss_fn.fused_loss``. A model
+    on a sequence group takes its chunk of a block whose labels are
+    pre-shifted (the module's doc)."""
     from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
     from acco_tpu_torch.ops.fused_ce import vocab_parallel_fused_ce_loss
@@ -122,19 +138,27 @@ def make_pp_loss_fn(model, label_smoothing: float = 0.0,
     if pg is None:
         raise ValueError("make_pp_loss_fn needs a model built on a pipeline group")
     pp, stage = pg.size, pg.rank
+    vg = model.model_group  # the vocab's group: pp, or the combined (pp, tp)
+    sg = getattr(model, "sequence_group", None)
     real_vocab = real_vocab_of(model)
     fused = resolve_fused_loss(fused_loss, model, real_vocab, warn=log.warning,
-                               n_vocab_shards=pp)
+                               n_vocab_shards=vg.size, seq_sharded=sg is not None)
     if fused != "pallas":
         fused = False  # only the kernel has a sharded form besides the materialized CE
 
     def ce(hid, labels):
-        head = model.lm_head()  # [D, V/pp]: this stage's vocab slice
+        head = model.lm_head()  # [D, V/(pp*tp)]: this shard's vocab slice
+        kw = dict(real_vocab=real_vocab)
+        if sg is not None:  # the chunk's nll sum over the microbatch's global count
+            import torch.distributed as dist
+
+            count = (labels != IGNORE_INDEX).sum().float()
+            dist.all_reduce(count, group=sg.group)
+            kw.update(shift=False, num_valid=count)
         if fused == "pallas":
-            return vocab_parallel_fused_ce_loss(hid, head, labels, pg, label_smoothing,
-                                                real_vocab=real_vocab)
-        return vocab_parallel_causal_lm_loss(lm_logits(hid, head), labels, pg,
-                                             label_smoothing, real_vocab=real_vocab)
+            return vocab_parallel_fused_ce_loss(hid, head, labels, vg, label_smoothing, **kw)
+        return vocab_parallel_causal_lm_loss(lm_logits(hid, head), labels, vg,
+                                             label_smoothing, **kw)
 
     def loss_fn(flat_params: torch.Tensor, block):
         model.load_flat(flat_params)
@@ -182,25 +206,35 @@ def make_pp_loss_fn(model, label_smoothing: float = 0.0,
 
 
 def eval_block(input_ids: torch.Tensor, attention_mask: torch.Tensor,
-               labels: torch.Tensor, pp: int):
+               labels: torch.Tensor, pp: int, sequence_group=None):
     """An eval batch ([B, L]) as the pipeline's block (JAX:
     trainer.py:1751-1800): M microbatches of B / M rows, M the largest
     divisor of B that is at most ``pp`` (the pipeline fills instead of
     paying the whole bubble at M 1), each weighted by its target count
     (``valid``), so that the pipelined loss's weighted sum is the batch's
-    nll sum and ``valid.sum()`` its target count."""
-    from acco_tpu_torch.ops.losses import IGNORE_INDEX
+    nll sum. Under a ``sequence_group`` the batch is this rank's chunk
+    with pre-shifted labels, and the weights are the microbatches' global
+    counts (summed over the group): the weighted sum is then this chunk's
+    nll sum. Returns the block and this rank's own target count."""
     from acco_tpu_torch.parallel.common import MicrobatchBlock
 
     B, L = input_ids.shape
     M = max(d for d in range(1, B + 1) if B % d == 0 and d <= pp)
     labels = labels.reshape(M, B // M, L)
-    return MicrobatchBlock(
+    scored = labels if sequence_group is not None else labels[:, :, 1:]
+    counts = (scored != IGNORE_INDEX).sum((1, 2)).float()
+    valid = counts.clone()
+    if sequence_group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(valid, group=sequence_group.group)
+    block = MicrobatchBlock(
         input_ids=input_ids.reshape(M, B // M, L),
         attention_mask=attention_mask.reshape(M, B // M, L),
         labels=labels,
-        valid=(labels[:, :, 1:] != IGNORE_INDEX).sum((1, 2)).float(),
+        valid=valid,
     )
+    return block, counts.sum()
 
 
 def accumulate_grads_pipelined(

@@ -30,8 +30,20 @@ Pipeline parallelism's layout *is* a ``TpLayout`` (JAX ``pp.py:12-17``)
 over the pp rule table (``sharding/tables.py``): ``tp`` is then the
 pipeline size, the layer leaves split on their layer dim into contiguous
 stages and the vocab-split rows padded with ``pad_vocab(V, pp)``; the
-class needs nothing more. ``ComposedLayout`` (pp x tp) is not ported yet:
-ROADMAP.md queue 1, item 9.4.
+class needs nothing more.
+
+``ComposedLayout`` (JAX ``tp.py:239-429``) is tp x pp: the stages are
+the outer split, the tensor shards of a stage the inner one, one local
+flat vector per (stage, tp shard) in three contiguous segments, each in
+``ravel_pytree`` order: ``[0:n_repl_both)`` the leaves replicated on
+both axes (the final norm; GPT-Neo's position table),
+``[n_repl_both:n_repl)`` the stage-split, tp-replicated leaves (the
+layers' norm scales and output biases), ``[n_repl:n_local)`` the
+tp-split leaves (the layer matrices, stage-sliced then head- or
+ffn-sliced; the vocab tables double-sliced, rows ``(o * tp + i) *
+V / (pp * tp)`` on). ZeRO-1 sums the first segment's gradients over the
+combined (pp, tp) group and the second's over the tensor group
+(``parallel/zero1.py``).
 """
 
 from __future__ import annotations
@@ -115,7 +127,29 @@ def slice_dim(leaf, dim: int, parts: int, index: int):
     return leaf[tuple(sl)]
 
 
-class TpLayout:
+class _RowLayout:
+    """What the per-model-index layouts share: ``layout`` (``(path, local
+    shape, offset)`` in flat order), ``tp`` rows and ``split_row``."""
+
+    def unravel_local(self, flat_local) -> dict:
+        """[n_local] flat vector (numpy or torch) -> this row's local params
+        tree (views where the input allows)."""
+        tree: dict = {}
+        for path, shape, offset in self.layout:
+            _set(tree, path, flat_local[offset:offset + _numel(shape)].reshape(shape))
+        return tree
+
+    def stack_flat(self, params: dict, pad_to: Optional[int] = None) -> np.ndarray:
+        """[tp, n_local (padded to ``pad_to``)] host array of every row's
+        flat vector, in numpy: no device sees a row."""
+        host = _tree_of([(path, np.asarray(leaf)) for path, leaf in leaf_paths(params)])
+        out = np.stack([host_ravel(self.split_row(host, m)) for m in range(self.tp)])
+        if pad_to is not None and pad_to > out.shape[1]:
+            out = np.pad(out, ((0, 0), (0, pad_to - out.shape[1])))
+        return out
+
+
+class TpLayout(_RowLayout):
     """Per-tp-shard flat packing of a model's parameter tree.
 
     ``params``: the dense tree (nested dicts) of arrays or :class:`Leaf`
@@ -145,9 +179,17 @@ class TpLayout:
         self.n_local = offset
         self.n_repl = sum(_numel(shape) for path, shape, _ in self.layout
                           if _get(specs, path) is None)
+        # one model axis: the whole prefix is replicated on all of it
+        self.n_repl_both = self.n_repl
 
     def spec(self, path: str) -> Optional[int]:
         return _get(self.specs, path)
+
+    def slice_leaf(self, path: str, leaf, index: int):
+        """Shard ``index``'s part of the dense leaf at ``path`` (the leaf
+        itself where it is replicated)."""
+        spec = self.spec(path)
+        return leaf if spec is None else slice_dim(leaf, spec, self.tp, index)
 
     # -- tree <-> (replicated, shard) pair ------------------------------------
 
@@ -164,24 +206,9 @@ class TpLayout:
                 _set(shard, path, slice_dim(leaf, spec, self.tp, index))
         return repl, shard
 
+    split_row = split_local
+
     # -- flat packing ------------------------------------------------------------
-
-    def unravel_local(self, flat_local) -> dict:
-        """[n_local] flat vector (numpy or torch) -> this shard's local
-        params tree (views where the input allows)."""
-        tree: dict = {}
-        for path, shape, offset in self.layout:
-            _set(tree, path, flat_local[offset:offset + _numel(shape)].reshape(shape))
-        return tree
-
-    def stack_flat(self, params: dict, pad_to: Optional[int] = None) -> np.ndarray:
-        """[tp, n_local (padded to ``pad_to``)] host array of every shard's
-        flat vector, in numpy: no device sees a row."""
-        host = _tree_of([(path, np.asarray(leaf)) for path, leaf in leaf_paths(params)])
-        out = np.stack([host_ravel(self.split_local(host, i)) for i in range(self.tp)])
-        if pad_to is not None and pad_to > out.shape[1]:
-            out = np.pad(out, ((0, 0), (0, pad_to - out.shape[1])))
-        return out
 
     def gather_params(self, stacked) -> dict:
         """Inverse of :meth:`stack_flat`: [tp, >= n_local] shard rows -> the
@@ -193,6 +220,88 @@ class TpLayout:
             spec = _get(self.specs, path)
             leaves = [np.asarray(_get(s, path)) for s in shards]
             _set(dense, path, leaves[0] if spec is None else np.concatenate(leaves, axis=spec))
+        return dense
+
+
+class ComposedLayout(_RowLayout):
+    """Per-(stage, tp shard) flat packing of a model's parameter tree over
+    two model axes, JAX's ``ComposedLayout``: ``outer`` pipeline stages
+    (``outer_specs``, the pp table's split dims) of ``inner`` tensor shards
+    (``inner_specs``, the tp table's). The row of stage ``o`` and shard
+    ``i`` is ``o * inner + i`` (JAX's ``P(('pp', 'tp'))`` dim-0 order),
+    ``tp`` the product (ZeRO-1's name for the model group's size). The
+    surface is :class:`TpLayout`'s."""
+
+    def __init__(self, params: dict, outer_specs: dict, outer: int, inner_specs: dict,
+                 inner: int):
+        self.outer, self.inner = int(outer), int(inner)
+        self.tp = self.outer * self.inner
+        self.outer_specs, self.inner_specs = outer_specs, inner_specs
+        self.paths = [path for path, _ in leaf_paths(params)]
+        for path, leaf in leaf_paths(params):
+            o, i = _get(outer_specs, path), _get(inner_specs, path)
+            shape = list(leaf.shape)
+            if o is not None:
+                if shape[o] % self.outer:
+                    raise ValueError(f"pp={self.outer} does not divide dim {o} of {path} "
+                                     f"with shape {tuple(shape)}")
+                shape[o] //= self.outer
+            if i is not None and shape[i] % self.inner:
+                raise ValueError(
+                    f"tp={self.inner} does not divide dim {i} of the stage's slice of {path}, "
+                    f"shape {tuple(shape)}: pad the vocab to a multiple of pp x tp "
+                    "(parallel/tp.pad_vocab with pp * tp)")
+        shapes = _tree_of([(path, Leaf(leaf.shape)) for path, leaf in leaf_paths(params)])
+        self.layout = []  # (path, local shape, offset) in segment order
+        offset, ends = 0, []
+        for seg in self.split_local(shapes, 0, 0):
+            for path, leaf in leaf_paths(seg):
+                self.layout.append((path, leaf.shape, offset))
+                offset += _numel(leaf.shape)
+            ends.append(offset)
+        self.n_repl_both, self.n_repl, self.n_local = ends
+
+    def spec(self, path: str) -> tuple:
+        """``(outer dim, inner dim)`` of the leaf at ``path`` (None: not split)."""
+        return _get(self.outer_specs, path), _get(self.inner_specs, path)
+
+    def slice_leaf(self, path: str, leaf, index: int):
+        """Row ``index``'s (``o * inner + i``) part of the dense leaf at ``path``."""
+        o, i = self.spec(path)
+        oidx, iidx = divmod(index, self.inner)
+        if o is not None:
+            leaf = slice_dim(leaf, o, self.outer, oidx)
+        return leaf if i is None else slice_dim(leaf, i, self.inner, iidx)
+
+    def split_local(self, params: dict, oidx: int, iidx: int) -> tuple:
+        """``(both, outer_only, inner)`` subtrees of stage ``oidx``'s shard
+        ``iidx``: the leaves replicated on both axes, the stage slices of
+        the tp-replicated leaves, the (stage then) shard slices of the
+        tp-split leaves."""
+        segs = ({}, {}, {})
+        for path, leaf in leaf_paths(params):
+            o, i = self.spec(path)
+            seg = 0 if o is None and i is None else 1 if i is None else 2
+            _set(segs[seg], path, self.slice_leaf(path, leaf, oidx * self.inner + iidx))
+        return segs
+
+    def split_row(self, params: dict, index: int) -> tuple:
+        return self.split_local(params, *divmod(index, self.inner))
+
+    def gather_params(self, stacked) -> dict:
+        """Inverse of :meth:`stack_flat`: [pp * tp, >= n_local] rows -> the
+        dense params tree (numpy): each leaf's inner slices joined, then
+        its stages. Host numpy only."""
+        shards = [self.unravel_local(np.asarray(row[: self.n_local])) for row in stacked]
+        dense: dict = {}
+        for path in self.paths:
+            o, i = self.spec(path)
+            stages = []
+            for oidx in range(self.outer):
+                parts = [np.asarray(_get(shards[oidx * self.inner + k], path))
+                         for k in range(self.inner)]
+                stages.append(parts[0] if i is None else np.concatenate(parts, axis=i))
+            _set(dense, path, stages[0] if o is None else np.concatenate(stages, axis=o))
         return dense
 
 

@@ -21,7 +21,13 @@ division, and the guard's sums of squares count that prefix once (its
 squares divided by tp before the all-reduce over every rank). Under
 pipeline parallelism the same terms run over the pipeline group
 (``parallel/pp.py``): ``tp`` is then pp and the prefix the stage's
-replicated leaves.
+replicated leaves. Under tp x pp (``parallel/tp.ComposedLayout``; JAX
+``zero1.py:205-240, 266-295``) ``tp`` is pp x tp and the prefix has two
+segments: ``[0:n_repl_both)``, replicated on both axes, is summed over
+the combined (pp, tp) group and counted once in the guard's sums (its
+squares divided by pp x tp), ``[n_repl_both:n_repl)``, each stage's own
+tp-replicated leaves, is summed over the stage's tensor group only and
+its squares divided by tp.
 """
 
 from __future__ import annotations
@@ -114,6 +120,9 @@ def zero1_update_shard(
     n_repl: int = 0,
     tensor_group=None,
     health_group=None,
+    n_repl_both: int = 0,
+    inner: int = 1,
+    inner_group=None,
 ):
     """One sharded AdamW step: reduce-scatter (sum) over ``group`` ->
     average by the grad count -> AdamW on this rank's float32 shard ->
@@ -147,9 +156,12 @@ def zero1_update_shard(
     followed by the caller's select). A captured DDP step carries one
     buffer set so (``compile/graphs.py``).
 
-    ``tp``, ``n_repl``, ``tensor_group`` (the comm twin of the tensor
+    ``tp``, ``n_repl``, ``tensor_group`` (the comm twin of the model
     group) and ``health_group`` (every rank; default ``group``): the
-    tensor-parallel terms (module doc)."""
+    tensor-parallel terms (module doc); ``n_repl_both`` (the prefix's
+    first positions, replicated on every model axis: all ``n_repl`` of
+    them but under tp x pp), ``inner`` and ``inner_group`` (the comm twin
+    of the tensor group): the second prefix segment of tp x pp."""
     if group is None and geom.world_size != 1:
         raise ValueError(f"a world of {geom.world_size} ranks needs a process group")
     import torch.distributed as dist
@@ -174,14 +186,20 @@ def zero1_update_shard(
                          f"{in_group}: the group's ranks are not in dp x sp order")
     pad_mask = geom.shard_pad_mask(shard_index, device)
     divisor = grad_divisor.float() * tp if tp > 1 else grad_divisor.float()
-    # the replicated prefix's positions in this shard: its first k
-    k = min(max(n_repl - shard_index * S, 0), S) if tp > 1 else 0
-    synced = None
+    # the replicated prefix's positions in this shard: its first k, of
+    # which the first kb are replicated on every model axis
+    first = shard_index * S
+    k = min(max(n_repl - first, 0), S) if tp > 1 else 0
+    kb = min(max(n_repl_both - first, 0), k)
+    synced = repl_weight = None
     if k:
         synced = flat_grads[:k].float() / divisor
-        if tensor_group is not None:
-            dist.all_reduce(synced, group=tensor_group)
-    inv_tp = torch.full((), 1.0 / tp, dtype=torch.float32, device=device) if k else None
+        for seg, g in ((synced[:kb], tensor_group), (synced[kb:], inner_group)):
+            if seg.numel() and g is not None:
+                dist.all_reduce(seg, group=g)
+        # each prefix position's share in the guard's sums: one over its copies
+        repl_weight = torch.cat([torch.full((kb,), 1.0 / tp, device=device),
+                                 torch.full((k - kb,), 1.0 / inner, device=device)])
     into_flat, into_opt = into[:2] if into is not None else (None, None)
     if group is not None:  # the shard is written in place of the all-gather's slice
         gathered = into_flat if into_flat is not None else empty(geom.padded_size, out_dtype)
@@ -221,8 +239,9 @@ def zero1_update_shard(
         g2, p2 = g.square(), prm.square()
         if lo < k:  # the replicated prefix sits on every tp shard: count it once
             r = min(k, lo + g2.numel()) - lo
-            g2 = torch.cat([g2[:r] * inv_tp, g2[r:]])
-            p2 = torch.cat([p2[:r] * inv_tp, p2[r:]])
+            w = repl_weight[lo:lo + r]
+            g2 = torch.cat([g2[:r] * w, g2[r:]])
+            p2 = torch.cat([p2[:r] * w, p2[r:]])
         return sums[0] + g2.sum(), sums[1] + p2.sum()
 
     hgroup = health_group if health_group is not None else group

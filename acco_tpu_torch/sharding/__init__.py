@@ -3,7 +3,7 @@
 Counterpart of ``acco_tpu/sharding/``: the matching engine
 (:mod:`~acco_tpu_torch.sharding.rules`), the tensor- and
 pipeline-parallel parameter tables (:mod:`~acco_tpu_torch.sharding.tables`)
-and the pipeline's pairing checks (:mod:`~acco_tpu_torch.sharding.layout`).
+and the mesh/model pairing checks (:mod:`~acco_tpu_torch.sharding.layout`).
 It imports nothing of ``parallel/`` or ``models/``.
 """
 
@@ -17,8 +17,8 @@ from acco_tpu_torch.sharding.rules import (
     map_tree,
     split_dims,
 )
-from acco_tpu_torch.sharding.layout import check_pipeline
-from acco_tpu_torch.sharding.tables import model_split_specs, param_table
+from acco_tpu_torch.sharding.layout import check_pairing, check_pipeline
+from acco_tpu_torch.sharding.tables import composed_split_specs, model_split_specs, param_table
 
 __all__ = [
     "P",
@@ -31,5 +31,7 @@ __all__ = [
     "split_dims",
     "param_table",
     "model_split_specs",
+    "composed_split_specs",
     "check_pipeline",
+    "check_pairing",
 ]

@@ -1,43 +1,65 @@
-"""The pipeline's pairing checks: the pp validation of JAX's ``shard_layout``.
+"""The mesh/model pairing checks: JAX's ``shard_layout`` validation.
 
-Counterpart of the pipeline half of ``acco_tpu/sharding/layout.py``
-(``shard_layout``, lines 17-91): ``pp`` must divide ``num_layers`` into
-contiguous equal stages, and a staged model holds no tensor or sequence
-group. Pipeline parallelism composed with tensor or context parallelism
-(JAX's ``ComposedLayout`` and pp x sp) is not ported yet: ROADMAP.md
-queue 1, item 9.4. The mesh (``parallel/mesh.check_mesh``) and the
-models (``models/flat.FlatParamModel``) both ask here. JAX's train, eval
-and serve state tables are not ported: no module of the port reads them
+Counterpart of ``acco_tpu/sharding/layout.py`` (``shard_layout``, lines
+17-91): ``pp`` must divide ``num_layers`` into contiguous equal stages
+(:func:`check_pipeline`, which the models ask at construction), and a
+train step's groups must pair with the model it drives
+(:func:`check_pairing`): a ring model on the step's sequence group under
+context parallelism, a model built on the groups' tensor group under
+tensor parallelism (tp x pp included: the stages' layer all-reduces run
+on it, JAX's review note at ``tests/test_pipeline_parallel.py:396-400``),
+a stage on the groups' pipeline group under pipeline parallelism, and
+the vocab split over the groups' model group (the combined (pp, tp)
+group when both model axes are on). The duck-typed checks import
+nothing of ``parallel/`` or ``models/``. JAX's train, eval and serve
+state tables are not ported: no module of the port reads them
 (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
-COMPOSITION_ITEM = "ROADMAP.md queue 1, item 9.4"
+from typing import Optional
 
 
-def check_pipeline(pp: int, *, num_layers=None, tp: int = 1, sp: int = 1,
-                   tensor_group=None, sequence_group=None) -> int:
+def check_pipeline(pp: int, *, num_layers: Optional[int] = None) -> Optional[int]:
     """The layers each stage holds (``num_layers // pp``; None without
-    ``num_layers``). Raises NotImplementedError, naming item 9.4, for a
-    pipeline together with tensor parallelism (``tp`` > 1 or a
-    ``tensor_group``) or context parallelism (``sp`` > 1 or a
-    ``sequence_group``), and ValueError where ``pp`` does not divide
-    ``num_layers``."""
+    ``num_layers``). Raises ValueError where ``pp`` is below 1 or does not
+    divide ``num_layers``."""
     pp = int(pp)
     if pp < 1:
         raise ValueError(f"pipeline size must be >= 1, got {pp}")
-    with_tp = tp > 1 or tensor_group is not None
-    with_sp = sp > 1 or sequence_group is not None
-    if with_tp or with_sp:
-        what = " and ".join(name for name, on in (("tensor parallelism (tp)", with_tp),
-                                                  ("context parallelism (sp)", with_sp)) if on)
-        raise NotImplementedError(
-            f"pipeline parallelism (pp) composed with {what} is not ported yet: "
-            f"{COMPOSITION_ITEM}")
     if num_layers is None:
         return None
     if num_layers % pp:
         raise ValueError(f"pipeline size {pp} must divide num_layers={num_layers} "
                          "(contiguous equal stages)")
     return num_layers // pp
+
+
+def _group_of(tg):
+    return None if tg is None else tg.group
+
+
+def check_pairing(model, groups, sequence_group) -> None:
+    """Raises ValueError where a train step's ``groups`` (a
+    ``parallel.mesh.RankGroups``, or None) and ``sequence_group`` do not
+    pair with ``model``: every axis the groups run must be the model's,
+    on the same process group, and no other."""
+    if sequence_group is not None and getattr(model, "sequence_group", None) is not sequence_group:
+        raise ValueError("context parallelism needs a ring-attention model built on the "
+                         "same sequence group")
+    pairs = (
+        ("tensor", getattr(model, "tensor_group", None),
+         None if groups is None else groups.tensor_group()),
+        ("pipeline", getattr(model, "pipeline_group", None),
+         None if groups is None else groups.pipeline_group()),
+        ("model (vocab)", getattr(model, "model_group", None),
+         None if groups is None else groups.model_group()),
+    )
+    for name, mine, theirs in pairs:
+        if (mine is None) != (theirs is None) or _group_of(mine) is not _group_of(theirs):
+            raise ValueError(
+                f"the model's {name} group is not the groups' {name} group: tensor or "
+                "pipeline parallelism needs a model built on the step's tensor, pipeline and "
+                "model groups (tp x pp: all three; the model group the combined (pp, tp) "
+                "one), and a model built on such groups needs those groups")

@@ -3,9 +3,11 @@
 Counterpart of the tp and pp rules of ``acco_tpu/sharding/tables.py``,
 rule for rule: ``model_split_specs`` gives ``parallel/tp.TpLayout`` the
 split dim of every leaf (the models' ``tp_param_specs`` and
-``pp_param_specs``). The train, eval and serve state tables come with
-the composition and serving-sharding items and the static gates
-(ROADMAP.md queue 1, items 9.4, 9.5 and 12).
+``pp_param_specs``), and ``composed_split_specs`` the outer (pp) and
+inner (tp) trees of ``parallel/tp.ComposedLayout`` (JAX:
+``tables.py:257``). The train, eval and serve state tables come with
+the serving-sharding item and the static gates (ROADMAP.md queue 1,
+items 9.5 and 12).
 """
 
 from __future__ import annotations
@@ -101,3 +103,12 @@ def model_split_specs(family: str, shapes: Any, axis: Optional[str] = None) -> A
     kind = "pp" if axis == PIPELINE_AXIS else "tp"
     tied = "lm_head" not in shapes
     return split_dims(param_table(family, kind, tied=tied, axis=axis), shapes, axis)
+
+
+def composed_split_specs(family: str, shapes: Any) -> tuple:
+    """``(outer, inner)`` split-dim trees of a tp x pp model for
+    ``ComposedLayout``: the pp table's (the stages) and the tp table's
+    (the tensor shards of a stage), JAX's ``(model.pp_param_specs(),
+    model.tp_param_specs())``."""
+    return (model_split_specs(family, shapes, PIPELINE_AXIS),
+            model_split_specs(family, shapes, TENSOR_AXIS))

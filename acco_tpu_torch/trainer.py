@@ -23,7 +23,7 @@ At ``delta_step_for_log=1`` every round is read back, and a round's
 current stream waiting on the comm stream); the rounds themselves are
 the same bits at any cadence.
 
-Ranks: the ``mesh`` of ``parallel/mesh.py``, ``{dp: N, sp: M}``. Each
+Ranks: the ``mesh`` of ``parallel/mesh.py``, ``{dp: N, sp: M}`` and the model axes. Each
 rank reads the rows of its dp index (the raw texts sharded by dp index
 before packing, as JAX's trainer shards them) in batches of
 ``batch_size`` rows, and, under context parallelism (sp > 1, or a mesh
@@ -49,7 +49,12 @@ the rounds and the eval run the GPipe loop (``parallel/pp.py``; the eval
 splits each batch into the largest count of microbatches at most pp that
 divides it), the rank files carry the pp index, and ``params.npz`` is
 gathered over the stages. It needs ``const_len_batch`` and warns when
-``n_grad_accumulation`` < pp (the bubble dominates).
+``n_grad_accumulation`` < pp (the bubble dominates). The axes compose
+(JAX: trainer.py:644, :1727-1771), in ``mesh_shape``'s key order: under
+tp x pp each rank is a stage's tp shard (``parallel/tp.ComposedLayout``;
+its rank file carries both indices), under pp x sp or tp x sp each rank
+keeps its sequence chunk and the ring runs on its layers' heads, and
+the four axes at once combine the three.
 
 The run's persistence and records, as JAX's trainer keeps them, under
 ``run_dir``:
@@ -230,20 +235,21 @@ class Trainer:
             self.step = AccoTrainStep(model, schedule, mode=self.method, **common)
         g = self.step.groups
         self.mesh_shape = {"dp": 1 if g is None else g.dp, "sp": 1 if g is None else g.sp}
-        if g is not None and g.tensor is not None:
-            self.mesh_shape[g.model_axis] = g.tp
+        if g is not None:
+            self.mesh_shape.update(g.model_sizes())
         self.pipelined = self.step.pipelined
-        if self.pipelined and self.n_acc < g.tp:
+        if self.pipelined and self.n_acc < self.step.pp:
             self.log.warning("n_grad_accumulation (%d) < pp (%d): the pipeline bubble "
                              "dominates; use n_acc >= pp microbatches per round", self.n_acc,
-                             g.tp)
+                             self.step.pp)
         self.world = self.step.group("world")  # dp x sp (None: one rank)
         self.world_size = 1 if g is None else g.world_size
         # every rank (dp x sp x tp): the decisions all ranks take together
         self.all_ranks = self.step.group("all")
         self.n_ranks = 1 if g is None else g.n_ranks
-        # this rank's file in a checkpoint: its tp (or pp) index, then its ZeRO-1 shard
-        self.file_rank = (0 if g is None else g.tp_index) * self.world_size + \
+        # this rank's file in a checkpoint: its model index (tp, pp, or pp x tp), then
+        # its ZeRO-1 shard
+        self.file_rank = (0 if g is None else g.model_index) * self.world_size + \
             self.step.shard_index
         self.pad_token_id = int(getattr(tokenizer, "pad_token_id", 0) or 0)
         self.eos_token_id = int(tokenizer.eos_token_id)
@@ -1070,7 +1076,7 @@ class Trainer:
                 shift, count = True, (blk.labels[:, 1:] != IGNORE_INDEX).sum()
             count = count.float()
             kw = dict(label_smoothing=self.label_smoothing, real_vocab=real_vocab_of(model),
-                      shift=shift, vocab_group=getattr(model, "tensor_group", None))
+                      shift=shift, vocab_group=getattr(model, "model_group", None))
             if fused == "chunk":
                 nll_sum = model_ce(model, blk.input_ids, am, blk.labels, fused=fused,
                                    **kw) * count
@@ -1087,12 +1093,14 @@ class Trainer:
     def _pp_eval_sums(self, flat_params: torch.Tensor, blk) -> torch.Tensor:
         """One eval batch through the pipeline (JAX: trainer.py:1751-1800),
         as ``parallel/pp.eval_block`` splits it: ``[nll sum, target
-        count]`` summed over dp (every stage holds the same sum)."""
+        count]`` summed over dp x sp (every stage holds the same sums; under
+        sp each rank its chunk's, the labels shifted globally)."""
         from acco_tpu_torch.parallel.pp import eval_block
 
-        block = eval_block(blk.input_ids, blk.attention_mask, blk.labels, self.step.tp)
+        block, count = eval_block(blk.input_ids, blk.attention_mask, blk.labels, self.step.pp,
+                                  self.sequence_group)
         with torch.no_grad():
-            nll_sum, count = self.step.value_and_grad(flat_params, block)
+            nll_sum, _ = self.step.value_and_grad(flat_params, block)
             sums = torch.stack([nll_sum.float(), count])
             if self.world is not None:
                 import torch.distributed as dist
@@ -1190,16 +1198,16 @@ class Trainer:
         return path
 
     def _tp_meta(self) -> dict:
-        """The rank file's tp index under tensor parallelism (its pp index
-        under pipeline parallelism)."""
+        """The rank file's tp index under tensor parallelism, its pp index
+        under pipeline parallelism, both under tp x pp."""
         g = self.step.groups
-        return ({} if g is None or g.tensor is None
-                else {f"{g.model_axis}_index": g.tp_index})
+        return {} if g is None else g.model_indices()
 
     def _tp_rows(self, state):
-        """Under tensor (or pipeline) parallelism, every tp shard's (or
-        stage's) flat parameters as float32 host rows on rank 0 (None
-        elsewhere), sent over rank 0's model group one row at a time: no
+        """Under tensor or pipeline parallelism (or both), every model
+        index's flat parameters (a tp shard's, a stage's, a stage's tp
+        shard's) as float32 host rows on rank 0 (None elsewhere), in model
+        index order, sent over rank 0's model group one row at a time: no
         card holds more than its own row. The other model groups take no
         part."""
         g = self.step.groups
@@ -1207,18 +1215,20 @@ class Trainer:
             return None
         n = self.model.n_params
         mine = state.flat_params[:n].contiguous()
-        if g.tp == 1:
-            return [mine.float().cpu().numpy()]
+        # copies: a float32 CPU state's .float().cpu() is the live tensor,
+        # and buf is received into again
+        if g.n_model == 1:
+            return [mine.to("cpu", torch.float32, copy=True).numpy()]
         import torch.distributed as dist
 
-        if g.tp_index != 0:
+        if g.model_index != 0:
             dist.send(mine, dst=dist.get_global_rank(g.tensor, 0), group=g.tensor)
             return None
-        rows = [mine.float().cpu().numpy()]
+        rows = [mine.to("cpu", torch.float32, copy=True).numpy()]
         buf = torch.empty_like(mine)
-        for t in range(1, g.tp):
+        for t in range(1, g.n_model):
             dist.recv(buf, src=dist.get_global_rank(g.tensor, t), group=g.tensor)
-            rows.append(buf.float().cpu().numpy())
+            rows.append(buf.to("cpu", torch.float32, copy=True).numpy())
         return rows
 
     def _write_results(self, final_loss, total_time: float, extra: dict) -> None:

@@ -386,11 +386,12 @@ def restore_checkpoint(path: str, template: Any, *, rank: int = 0,
     with ``in_place``, into its tensors), and ``meta.json`` with the
     rank's own entries over it.
     ``mesh`` (``{'dp': N, 'sp': M}``, with ``'tp'`` under tensor
-    parallelism, ``'pp'`` under pipeline parallelism) must equal the mesh
-    that saved the checkpoint, as JAX restores onto a mesh of the same
-    shape only; a JAX step dir (an Orbax ``state/`` tree, no
-    ``rank_*.pt``) raises. Under tp (pp), ``rank`` is the rank's file
-    index, ``tp_index * dp * sp + shard`` (``pp_index * dp + shard``)."""
+    parallelism, ``'pp'`` under pipeline parallelism, both under tp x pp)
+    must equal the mesh that saved the checkpoint, as JAX restores onto a
+    mesh of the same shape only; a JAX step dir (an Orbax ``state/`` tree,
+    no ``rank_*.pt``) raises. Under a model axis, ``rank`` is the rank's
+    file index, ``model_index * dp * sp + shard`` (the model index the tp
+    index, the pp index, or ``pp_index * tp + tp_index``)."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)

@@ -18,11 +18,11 @@ and prints no result line):
 3. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bf16 unless named, and each attention backward
    kernel (K1, K2, K4, K5) against a second run of itself, which must
-   give the same bits. 'auto' at head_dim 128, L 1024 must resolve to K1. K1 at
+   give the same bits. 'auto' at head_dim 128, L 512 must resolve to K1. K1 at
    the Llama flagship shape (B 8, H = Hkv 12, L 1024, D 64, window 0, no
    pad), at a small GQA shape with window 256 and a key pad mask, at
-   GPT-Neo's global shape (scale 1.0), at Llama-3-8B's width (B 1, H 32,
-   Hkv 8, L 1024, D 128), with left padding (rows with no allowed key;
+   GPT-Neo's global shape (scale 1.0), at Llama-3-8B's width as phase
+   15's stage runs it (B 4, H 32, Hkv 8, L 512, D 128), with left padding (rows with no allowed key;
    also with a window 16 wide and a run of pads, at L 320, a half tile),
    at L 320 with GQA and D 64, and in float32 at D 128; K2 at GPT-Neo's
    local shape (W 256, scale 1.0), a small odd window (W 129), the widest
@@ -35,7 +35,8 @@ and prints no result line):
    step at a rounding edge; dp, dH and dW run twice must give the same
    bits) at Llama-125M's head (8184 rows, D 768, V 50257), a small
    unaligned shape (64 rows, D 128, V 277, real vocab 256, ignored rows,
-   smoothing 0.1) and Llama-3-8B's head (1024 rows, D 4096, V 128256),
+   smoothing 0.1) and Llama-3-8B's head at phase 15's stage (2048 rows,
+   the last of each 512 ignored, D 4096, V 128256),
    the two heads also with the softmax term alone in dlogits, and its
    backward in 3 chunks of rows (dW summed in float32) at the
    Llama-125M head against the one-chunk dH and the plain chunked dW;
@@ -60,7 +61,8 @@ and prints no result line):
    sum of V on a row with no key, Lq and Lk swapped) bars against planted
    faults, each in a patched copy of the kernel's source, which they
    must fail (each built and checked in its own process from the end of
-   phase 2 on, beside the parity checks);
+   phase 2 on, beside the parity checks and phase 6, which runs before
+   phase 4);
 4. timing: CUDA events over many launches after a warm-up, for each
    kernel, its plain version and, where one PyTorch call computes the
    same function, that call (F.scaled_dot_product_attention); K2 also
@@ -69,7 +71,7 @@ and prints no result line):
    long-context paths' head (8192 rows, D 4096, V 128256; before the
    paths, its 4.2 GB of float32 logits freed after) beside the port's
    materialized head and CE, which no single
-   PyTorch call replaces; K1 also at Llama-3-8B's width (D 128, L 1024)
+   PyTorch call replaces; K1 also at Llama-3-8B's width (D 128, B 4 x L 512)
    beside SDPA; K5 at the flagship shape beside K1 and at the
    long-context shape; K4 at (a), (b) and (c), beside SDPA on the same
    attended pairs (the same work, not the same function: SDPA returns
@@ -113,7 +115,8 @@ and prints no result line):
    ~10 ms ``torch.cuda._sleep`` planted at the head of either branch,
    while with the end-of-round wait (or the start-of-round wait) removed
    and the sleep on the side it guards they must differ;
-7. profile: each path again with ``train.profile_steps`` over its
+7. profile: each main and ring path again (the dp paths, the Llama-125M
+   path's model and data, not since PR 18) with ``train.profile_steps`` over its
    steady rounds (the captures come before them), for the device time
    per kernel, K1's to K5's device time per microbatch, the device's
    idle share (the union of every stream's activity against phase 5's
@@ -141,7 +144,7 @@ and prints no result line):
    through K1 against the plain attention; it prints the checkpoint's
    bytes, the save and restore ms, the eval's ms a batch and the
    perplexity beside nvidia-smi's line; then the logging cadence: the
-   Llama-125M and Llama-125M-fusedce paths again, 20 rounds read back
+   Llama-125M path and its fused-CE cell again, 20 rounds read back
    once every 10 grads (``train.delta_step_for_log=10``, the default),
    their mean round ms between the two boundaries beside phase 5's
    synced median. Phases 5-7 run with ``train.save=false``, their run
@@ -153,8 +156,9 @@ and prints no result line):
 9. the input pipeline, remat and finetuning: (a) the cadence runs of
    phase 8 (d) again with ``train.prefetch=false``: their round losses
    and final params bit-equal to the prefetched runs', the mean round ms
-   of rounds 11-20, the idle share from a profiled rerun and the
-   consumer's wait for its block, each prefetched and not; then the copy
+   of rounds 11-20, the idle share from a profiled rerun (Llama-125M's)
+   and the consumer's wait for its block, each prefetched and not; then
+   the copy
    stream's ordering: a block whose copy sleeps ~0.4 s on the copy stream
    read right after the consumer takes it must equal the host block, and
    with the wait on the copy's event removed (a planted fault) the read
@@ -213,7 +217,8 @@ and prints no result line):
    phase,
    each of which must differ from the eager run; (c) per cell, captured
    against eager: median round ms, idle share and device ms a
-   microbatch (phase 7's profile and an eager one), kernel launch calls,
+   microbatch (phase 7's profile and, for Llama-125M and the long cell, an
+   eager one), kernel launch calls,
    graph launches and kernels a round, peak allocated (captured within
    5% of eager) and reserved, allocator retries (none on the long
    cells), capture ms and ``train_warmup_join_ms``; Llama-125M and its
@@ -222,8 +227,9 @@ and prints no result line):
    directory and false from the build cache (each program captured after
    its first round): the seconds from the trainer's constructor to its
    first round;
-   (d) ``nan_grads@3``, the ``corrupt_params`` rollback and a SIGTERM
-   stop resumed, captured, bit-equal to their eager oracles;
+   (d) ``nan_grads@3``, the ``corrupt_params`` rollback (their captured
+   runs phase 10 (c)'s, since PR 18) and a SIGTERM stop resumed,
+   captured, bit-equal to their eager oracles;
 12. serving, in the order (b), (c), (d), (a) (``acco_tpu_torch/serve/``;
    no hand kernel: the serving path's products and attention are plain
    PyTorch, as the JAX package computes them outside any Pallas kernel):
@@ -254,7 +260,10 @@ and prints no result line):
    (``ops/fused_ce.py`` ``vocab_parallel_fused_ce_loss``) at GPT-Neo-
    125M's head (8192 rows, D 768, vocab 50257 padded to 50304, random
    padding rows, smoothing 0.1, ignored rows) and Llama-3-8B's (8192
-   rows, D 4096, V 128256), tp 2 and tp 4 emulated in one process: each
+   rows, D 4096, V 128256), tp 2 and tp 4, and Llama-3-8B's at phase
+   15's stage (2048 rows) over 1 shard (as the stage's one-rank (pp, tp)
+   group runs it) and 16 (the preset's pp x tp: 8016 columns a shard),
+   emulated in one process: each
    shard through the wrapper's own per-shard step (``vp_shard_ce`` at
    its rank: K3 on its slice with its clipped ``v_real`` and its targets
    localised with the -1 sentinel), the slices combined by the wrapper's
@@ -285,11 +294,31 @@ and prints no result line):
    (K1, K2, K3 through the wrapper), beside the same cell dense; (b)
    ``llama3-8B-L8192-pp``: phase 5's long-context cell's model and data
    through the pipeline (K5, the untied head through the wrapper),
-   against phase 5's dense cell. Each pp cell also eager: the captured
-   rounds bit-equal to eager; bars: the seed loss within 1e-5 (relative)
-   of the dense cell, every later round within 1e-3; round ms captured
-   and eager, peak allocated and reserved, each kernel's launches a
-   microbatch.
+   against phase 5's dense cell (captured only since PR 18: phase 15 holds
+   the pp code captured against eager); bars: the seed loss within 1e-5
+   (relative) of the dense cell, every later round within 1e-3; round ms,
+   peak allocated and reserved, each kernel's launches a microbatch;
+15. the compositions (``parallel/mesh.RankGroups.around``: one one-rank
+   NCCL group per axis, the comm twins, the world and the combined (pp,
+   tp) group made around them, handed to ``build_trainer`` together; the
+   groups destroyed after each cell): (a) ``llama3-8B-v5e32-stage``:
+   Llama-3-8B at full width (untied, D 128, 32 heads, 8 KV heads, vocab
+   128256) cut to 2 of the 4 layers one stage of
+   ``config/train/acco-llama3-v5e32.yaml`` ({dp: 2, pp: 8, tp: 2}) holds,
+   that preset's seq 512, batch 4, n_acc 8, ``remat=dots``,
+   ``fused_loss`` auto (K1 at Llama-3-8B's width, K3), dense and then
+   through pp and tp (``-pptp``: ``ComposedLayout``, the wrapper over the
+   combined group, the tick's recompute): the seed loss bit-equal, the
+   rounds within 1e-4 relative; (b) ``llama3-8B-L8192-ring-4axis``: phase
+   5's long ring cell through dp, pp, tp and sp, and (c)
+   ``gptneo-ring-tpsp`` and ``gptneo-ring-ppsp``: phase 5's GPT-Neo ring
+   cell through (tp, sp) and (pp, sp), each bit-equal to its phase-5 cell
+   (losses, and the final state with its flat vectors read in the dense
+   order); every composed cell captured, then eager: bit-equal; round ms
+   both ways, peak allocated and reserved, each kernel's launches a
+   microbatch, the NCCL communicators' count and the card memory outside
+   the allocator's reserve before the groups, after their first run and
+   after they are destroyed.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -299,6 +328,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -321,9 +351,11 @@ PEAK_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(B=8, H=12, Hkv=12, L=1024, D=64, window=0, pad=False)
 SMALL = dict(B=2, H=4, Hkv=2, L=512, D=64, window=256, pad=True)
-# K1 at Llama-3-8B's width (head_dim 128, GQA 32 / 8) at L 1024, where
-# 'auto' resolves to K1 on the card as JAX's resolver does on the TPU
-K1_LLAMA3 = dict(B=1, H=32, Hkv=8, L=1024, D=128, window=0, pad=False)
+# K1 at Llama-3-8B's width (head_dim 128, GQA 32 / 8) at the shape phase
+# 15's stage of config/train/acco-llama3-v5e32.yaml gives it (batch 4 x
+# seq 512), where 'auto' resolves to K1 on the card as JAX's resolver
+# does on the TPU
+K1_LLAMA3 = dict(B=4, H=32, Hkv=8, L=512, D=128, window=0, pad=False)
 # K1 where rows have no allowed key: left padding (rows 0 .. L/8 - 1 of
 # batch 0), and with a window 16 wide a run of 32 pads (17 more such rows);
 # L 320 is a multiple of 64 but not of 128 (a half tile of rows and keys)
@@ -332,7 +364,7 @@ K1_SHAPES = (
     ("flagship", FLAGSHIP),
     ("small gqa+window+pad", SMALL),
     ("gpt-neo global, scale 1.0", None),  # NEO_GLOBAL, below
-    ("llama-3-8B width, D 128, L 1024", K1_LLAMA3),
+    ("llama-3-8B width, D 128, the v5e32 stage's B 4 x L 512", K1_LLAMA3),
     ("left padding: rows with no allowed key, D 64", dict(B=2, H=4, Hkv=2, L=512, D=64, window=0,
                                                         pad="left")),
     ("rows with no allowed key, window 16, L 320, D 128", K1_NO_KEY),
@@ -378,13 +410,16 @@ VOCAB = 50257
 # and, d_lse differing from row to row, a block that reads another row
 # tile's stats gets another result.
 CE_LLAMA = dict(N=BATCH * (SEQ - 1), D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0)
-CE_LLAMA3 = dict(N=1024, D=4096, V=128256, v_real=128256, smoothing=0.0, ignore=0.0)
+# Llama-3-8B's head at phase 15's stage: batch 4 x seq 512 rows, the last
+# of each sequence ignored (the pipeline's pre-shifted labels)
+CE_LLAMA3 = dict(N=2048, D=4096, V=128256, v_real=128256, smoothing=0.0, ignore=0.0, seq=512)
 CE_SHAPES = (
     ("llama-125M head", CE_LLAMA),
     ("llama-125M head, softmax term alone", {**CE_LLAMA, "softmax_only": True}),
     ("small unaligned", dict(N=2 * 32, D=128, V=277, v_real=256, smoothing=0.1, ignore=0.25)),
-    ("llama-3-8B head", CE_LLAMA3),
-    ("llama-3-8B head, softmax term alone", {**CE_LLAMA3, "softmax_only": True}),
+    ("llama-3-8B head, the v5e32 stage's 2048 rows", CE_LLAMA3),
+    ("llama-3-8B head, the v5e32 stage's 2048 rows, softmax term alone",
+     {**CE_LLAMA3, "softmax_only": True}),
 )
 CE_MAIN = dict(N=BATCH * SEQ, D=D_MODEL, V=VOCAB, v_real=VOCAB, smoothing=0.0, ignore=0.0,
                seq=SEQ)
@@ -517,7 +552,8 @@ def run_flags(cadence: int = 1) -> list[str]:
 
 
 def main_args(path: str, cadence: int = 1) -> list[str]:
-    spec = MAIN_PATHS.get(path) or DP_PATHS.get(path) or REMAT_PATHS.get(path) or PP_PATHS[path]
+    spec = (MAIN_PATHS.get(path) or DP_PATHS.get(path) or REMAT_PATHS.get(path)
+            or PP_PATHS.get(path) or COMPOSED_PATHS[path])
     extra = [f"model.config_path={llama3_config()}"] if spec.get("llama3") else []
     if spec.get("neo27"):
         extra = [f"model.config_path={neo27_stage_config()}"]
@@ -878,7 +914,7 @@ class PlantedFaults:
             with open(os.path.join(csrc, source), "w") as f:
                 f.write(src.replace(old, new))
             os.makedirs(os.path.join(root, "build"))
-            nvcc = []
+            nvcc, build_s = [], 0.0
             for name in FAULT_LIBRARIES[kernel]:
                 out = os.path.join(root, "build", f"{name}-{library_key(name, csrc)}.so")
                 built = cuda_build.BUILD_DIR / f"{name}-{library_key(name)}.so"
@@ -887,7 +923,11 @@ class PlantedFaults:
                 else:
                     nvcc.append([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", out,
                                  os.path.join(csrc, f"{name}.cu")])
-            jobs.append((fault, root, kernel, nvcc))
+                    build_s += cuda_build.BUILD_INFO.get(name, {}).get("seconds", 0.0)
+            jobs.append((build_s, (fault, root, kernel, nvcc)))
+        # the longest builds first (phase 2's nvcc seconds): the pool's tail
+        # is then the short ones
+        jobs = [job for _, job in sorted(jobs, key=lambda j: -j[0])]
         self.thread = threading.Thread(target=self._run, args=(jobs,), daemon=True)
         self.thread.start()
 
@@ -916,7 +956,8 @@ class PlantedFaults:
         t0 = time.perf_counter()
         self.thread.join()
         log(f"  the {len(PLANTED_FAULTS)} planted faults built and checked in {self.seconds:.1f} s, "
-            f"beside the parity checks (waited {time.perf_counter() - t0:.1f} s for them)")
+            f"beside the parity checks and phase 6 (waited {time.perf_counter() - t0:.1f} s "
+            "for them)")
         for fault in PLANTED_FAULTS:
             if fault not in self.results:
                 raise AssertionError(f"planted fault {fault!r}: its build or check did not run")
@@ -1119,11 +1160,16 @@ def head_parity() -> None:
         raise AssertionError(f"lm_logits returned {got.dtype}")
 
 
+SLOW_CALL_MS = 100.0
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 5) -> float:
     """ms per call: the median over ``windows`` windows of the mean of
     ``iters`` calls between two CUDA events, after warm-up. One window of
     a 0.1 ms kernel lasts 2 ms, and a single slow window read up to 2x a
-    kernel's time in the main path's profile."""
+    kernel's time in the main path's profile. A call of ``SLOW_CALL_MS``
+    or more (a plain version at a long shape) is timed over one window:
+    its windows' spread is a small share of it."""
     import torch
 
     for _ in range(warmup):
@@ -1139,6 +1185,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / iters)
+        if means[0] >= SLOW_CALL_MS:  # a plain version at a long shape: one window
+            break
     return statistics.median(means)
 
 
@@ -2178,22 +2226,26 @@ def ring_trainer(path: str, sg, extra=(), eager: bool = False):
     """The trainer of a ring path: its base path's configuration, the model
     on the ring, and ``sg`` (a one-rank sequence group) handed in."""
     from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
-    return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra], sequence_group=sg,
-                         eager=eager)
+    return build_trainer([*main_args(RING_PATHS[path]["base"]), *extra],
+                         groups=RankGroups.around(sg), eager=eager)
 
 
 def dp_trainer(path: str, group, extra=(), eager: bool = False):
     """The trainer of a dp path: its configuration and ``group`` (a
     one-rank process group) handed in as the data-parallel group."""
     from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
-    return build_trainer([*main_args(path), *extra], data_group=group, eager=eager)
+    return build_trainer([*main_args(path), *extra], groups=RankGroups.around(data_group=group),
+                         eager=eager)
 
 
 def path_spec(path: str) -> dict:
     return (MAIN_PATHS.get(path) or RING_PATHS.get(path) or DP_PATHS.get(path)
-            or TP_PATHS.get(path) or PP_PATHS.get(path) or REMAT_PATHS[path])
+            or TP_PATHS.get(path) or PP_PATHS.get(path) or COMPOSED_PATHS.get(path)
+            or REMAT_PATHS[path])
 
 
 def path_microbatches(path: str) -> int:
@@ -2206,10 +2258,14 @@ def path_microbatches(path: str) -> int:
 
 def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
     """The trainer of any path (``sg``: a ring path's sequence group;
-    ``group``: a dp path's data group, a tp path's tensor group;
-    ``eager``: its rounds as eager calls, not the captured programs)."""
+    ``group``: a dp path's data group, a tp path's tensor group, a
+    composed path's ``RankGroups.around`` pair; ``eager``: its rounds as
+    eager calls, not the captured programs)."""
     from acco_tpu_torch.__main__ import build_trainer
 
+    if path in COMPOSED_PATHS and "axes" in COMPOSED_PATHS[path]:
+        return build_trainer([*main_args(COMPOSED_PATHS[path]["args_of"]), *extra],
+                             groups=group, eager=eager)
     if path in RING_PATHS:
         return ring_trainer(path, sg, extra, eager)
     if path in DP_PATHS:
@@ -2221,17 +2277,65 @@ def path_trainer(path: str, sg=None, group=None, extra=(), eager: bool = False):
     return build_trainer([*main_args(path), *extra], eager=eager)
 
 
-def state_fingerprint(state) -> list:
+def dense_order(trainer):
+    """The permutation that reads the flat vectors of a model laid out by
+    its model axes at size 1 (``TpLayout``, ``ComposedLayout``: the
+    replicated segments first) in the dense model's order, with the
+    padding after; None where the two orders agree (Llama's replicated
+    leaves sort first anyway, GPT-Neo's do not)."""
+    import torch
+
+    model = trainer.model
+    if model.tp_layout is None:
+        return None
+    if model.model_group.size != 1:
+        raise ValueError("the dense order of a flat vector of one model index of several")
+    local = {path: offset for path, _, offset in model.tp_layout.layout}
+    if all(local[path] == offset for path, _, offset in model.dense_layout):
+        return None
+    device = trainer.device
+    idx = [torch.arange(local[path], local[path] + math.prod(shape), device=device)
+           for path, shape, _ in model.dense_layout]
+    n = sum(t.numel() for t in idx)
+    return torch.cat([*idx, torch.arange(n, trainer.step.geom.padded_size, device=device)])
+
+
+def release_groups(trainer, sg=None, group=None) -> None:
+    """Destroy the process groups ``build_trainer`` made around the groups
+    handed in (``sg``, a SequenceGroup; ``group``, a process group): their
+    comm twins. Each holds an NCCL communicator (~320 MiB of the card's
+    memory outside the allocator on the H100, phase 15 found), and
+    nothing else frees them before the script's end."""
+    import torch.distributed as dist
+
+    groups = getattr(trainer.mesh, "groups", None)
+    if groups is None:
+        return
+    keep = {id(g) for g in (None if sg is None else sg.group, group, dist.group.WORLD)}
+    made = {}
+    for field in dataclasses.fields(groups):
+        g = getattr(groups, field.name)
+        if field.type == "object" and g is not None and id(g) not in keep:
+            made[id(g)] = g
+    for g in made.values():
+        dist.destroy_process_group(g)
+
+
+def state_fingerprint(state, order=None) -> list:
     """Per state leaf, two int64 sums over its bits (the bits as
     integers, plainly and weighted by a hash of the position), chunk by
     chunk on the card: equal fingerprints are equal states bar a
-    collision, and a 27 GB state costs no copy."""
+    collision, and a 27 GB state costs no copy. ``order``
+    (:func:`dense_order`): the flat leaves (the parameters, the pending
+    gradients and, at one shard, the optimizer's) read in that order."""
     import torch
 
     from acco_tpu_torch.compile.graphs import flatten
 
     out = []
     for leaf in flatten(state):
+        if order is not None and leaf.dim() == 1 and leaf.numel() == order.numel():
+            leaf = leaf.index_select(0, order)
         bits = leaf.detach().contiguous().reshape(-1).view(
             {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[leaf.element_size()])
         plain = mixed = 0
@@ -2254,8 +2358,8 @@ def main_path(path: str, sg=None, group=None, eager: bool = False
     materialized head's calls) set to 0 just before the run and read just
     after; returns the counts, the median round ms, the peak memory and
     the summary, to which it adds the final state's fingerprint
-    (``fingerprint``), the peak reserved bytes and the allocator's
-    retries."""
+    (``fingerprint``, its flat leaves in the dense model's order), the
+    peak reserved bytes and the allocator's retries."""
     import torch
 
     spec = path_spec(path)
@@ -2271,7 +2375,10 @@ def main_path(path: str, sg=None, group=None, eager: bool = False
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
-    summary.update(fingerprint=state_fingerprint(trainer.final_state), peak_bytes=peak,
+    if path not in COMPOSED_PATHS:  # phase 15 destroys its groups itself
+        release_groups(trainer, sg, group)
+    summary.update(fingerprint=state_fingerprint(trainer.final_state, dense_order(trainer)),
+                   peak_bytes=peak,
                    reserved_bytes=torch.cuda.max_memory_reserved(), retries=retries)
     del trainer
     want_as = "eager" if eager else "captured"
@@ -2374,6 +2481,7 @@ def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENT
     import torch
 
     from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
@@ -2382,8 +2490,9 @@ def small_input_agreement(args: list[str], kernels: tuple[str, ...], runs=ATTENT
         trainer = build_trainer([
             *args, "train.nb_steps_tot=4", "train.use_mixed_precision=false", *extra,
             *run_flags(),
-        ], sequence_group=group)
+        ], groups=None if group is None else RankGroups.around(group))
         summary = trainer.train()
+        release_groups(trainer, group)
         out.append((summary, trainer.final_state, launch_counts()))
     (s_k, st_k, n_k), (s_p, st_p, n_p) = out
     silent = n_p.keys() if plain_silent is None else plain_silent
@@ -2614,11 +2723,12 @@ def neo_ring_step_agreement(sg) -> None:
     from acco_tpu_torch.__main__ import build_trainer
     from acco_tpu_torch.data.loader import infinite_batches, stack_microbatches
     from acco_tpu_torch.parallel.common import block_from_numpy, prep_cp_leaves
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
     out = []
     for group in (sg, None):
         trainer = build_trainer([*main_args("gptneo"), "train.fused_loss=pallas"],
-                                sequence_group=group)
+                                groups=None if group is None else RankGroups.around(group))
         device = trainer.device
         flat = trainer.step.init_state(trainer.model.init_flat(
             torch.Generator(device=device).manual_seed(trainer.seed))).flat_params
@@ -2631,6 +2741,7 @@ def neo_ring_step_agreement(sg) -> None:
         torch.cuda.synchronize()
         out.append((float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
                     launch_counts()))
+        release_groups(trainer, group)
         del trainer, flat, grads
         free_device_cache()
     (loss_r, g_r, n_r), (loss_d, g_d, n_d) = out
@@ -2672,6 +2783,7 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group
                            eager=eager)
     method = trainer.method
     summary = trainer.train()
+    release_groups(trainer, sg, group)
     del trainer
     st = summary["profile"]
     if st.get("device") != "cuda" or st["rounds"] != rounds:
@@ -2728,6 +2840,7 @@ def stream_variant_ms(model: str, sg=None, group=None) -> float:
     trainer.step.comm_stream = None
     summary = trainer.train()
     torch.cuda.synchronize()
+    release_groups(trainer, sg, group)
     return statistics.median(r["ms"] for r in summary["round_log"])
 
 
@@ -2770,9 +2883,12 @@ EVAL_RTOL = PPL_RTOL = 2e-3
 PPL_SAMPLES, PPL_LEN = 64, 256
 # (d) the logging cadence: 20 rounds read back every 10 grads; the mean
 # round ms between the boundaries at 10 and 20 grads (rounds 11-20, the
-# host free to run ahead of the card in between)
+# host free to run ahead of the card in between). Both cells' runs are
+# held bit-equal (phase 9 (a), phase 11 (c)); Llama-125M's alone profiled
+# (the fused-CE cell's profiles cut for time since PR 18)
 CADENCE, CADENCE_ROUNDS = 10, 20
 CADENCE_PATHS = ("llama-125M", "llama-125M-fusedce")
+PROFILED_CADENCE = "llama-125M"
 
 
 def resume_args(run_dir: str, nb: int, *extra: str) -> list[str]:
@@ -3024,7 +3140,7 @@ def resume_phase(smi: str, round_ms: dict) -> tuple[dict, dict]:
 
 
 # Phase 9: the input pipeline off the round, remat, finetuning from a
-# local HF checkpoint. (a) Llama-125M and its fusedce cell for 20 rounds at
+# local HF checkpoint. (a) Llama-125M for 20 rounds at
 # delta_step_for_log=10 with the prefetch off, against phase 8 (d)'s runs
 # with it on (the default): bit-equal losses and final params, the mean
 # round ms of rounds 11-20, the idle share from a profiled rerun and the
@@ -3479,7 +3595,7 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
     launches = {}
     native.reset_call_counts()
     log(f" (a) the prefetch: {CADENCE_ROUNDS} rounds at delta_step_for_log={CADENCE}, prefetch "
-        f"on (phase 8 (d)'s runs) and off")
+        f"on (phase 8 (d)'s runs) and off; {PROFILED_CADENCE}'s profiled")
     for path in CADENCE_PATHS:
         # on (phase 8 (d)), then off (the turns off, on, off cut for time)
         runs = {"on": [cadence[path]], "off": []}
@@ -3494,15 +3610,16 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
                                      "the first prefetched one")
         mean = {k: [r[0] for r in runs[k]] for k in runs}
         wait = {k: [r[1]["block_wait_ms"] for r in runs[k]] for k in runs}
-        idle = {"on": profile_cadence(path, statistics.fmean(mean["on"])),
-                "off": profile_cadence(path, statistics.fmean(mean["off"]),
-                                       "train.prefetch=false")}
+        idle = dict.fromkeys(runs, "not profiled")
+        if path == PROFILED_CADENCE:
+            for k, extra in (("on", ()), ("off", ("train.prefetch=false",))):
+                idle[k] = f"{profile_cadence(path, statistics.fmean(mean[k]), *extra):.3f}"
         for k in ("on", "off"):
             log(f"  {path} on {smi}, prefetch {k}: mean round ms (rounds {CADENCE + 1}-"
                 f"{CADENCE_ROUNDS}) {['%.3f' % m for m in mean[k]]}, mean "
                 f"{statistics.fmean(mean[k]):.3f}; median block wait "
-                f"{['%.3f' % w for w in wait[k]]} ms; idle share (profiled rerun) {idle[k]:.3f}")
-        log(f"  {path}: losses and final params of the four runs bit-equal; phase 5's synced "
+                f"{['%.3f' % w for w in wait[k]]} ms; idle share (profiled rerun) {idle[k]}")
+        log(f"  {path}: losses and final params of the runs bit-equal; phase 5's synced "
             f"median (prefetch on) {round_ms[path]:.3f}")
         del runs, flat_ref
     cadence.clear()
@@ -3554,6 +3671,16 @@ def phase_9(smi: str, cadence: dict, round_ms: dict, peaks: dict) -> dict:
 P10_PATH = "llama-125M"
 P10_ROUNDS = 20
 P10_META_VOLATILE = ("saved_at_unix", "elapsed_s", "id_run")
+
+
+# the drills phase 10 (c) runs captured and phase 11 (d) again eager: their
+# overrides and grads
+DRILLS = {
+    "nan_grads@3": (["+train.delta_step_for_log=2", "train.fault_injection=nan_grads@3"], 8),
+    "rollback": (["+train.delta_step_for_log=4", "train.rollback_after_skipped=2",
+                  "train.save=true", "train.checkpoint_every_s=0", "train.ckpt_keep_last=0",
+                  "train.fault_injection=[{kind: corrupt_params, round: 5, n: 64}]"], 12),
+}
 
 
 def p10_args(run: str, nb: int = P10_ROUNDS, *extra: str) -> list[str]:
@@ -3703,7 +3830,7 @@ def runtime_sync_counts(out: dict):
                         if e.get("cat") == "cuda_runtime" and e.get("name") == name)
 
 
-def phase_10(smi: str, profiles: dict) -> dict:
+def phase_10(smi: str, profiles: dict, drills: dict) -> dict:
     """A run that survives (Llama-125M, full width): (a) the overlapped
     save against the synchronous one and no save, their checkpoints and a
     resume from the async one, and the racing snapshot (a planted fault);
@@ -3713,7 +3840,9 @@ def phase_10(smi: str, profiles: dict) -> dict:
     planted fault); (d) telemetry on and off under torch.profiler: the
     synchronizing runtime calls a round, the trace and the attribution;
     (e) profile_steps=4 on Llama-125M and llama3-8B-L8192 beside phase 7.
-    Returns the launches by run."""
+    Returns the launches by run; ``drills`` gets the summaries of the
+    ACCO ``nan_grads@3`` and the rollback drills, with their final
+    states' fingerprints (phase 11 (d)'s captured runs)."""
     import torch
 
     from acco_tpu_torch.data.loader import ShardedBatchIterator
@@ -3799,8 +3928,11 @@ def phase_10(smi: str, profiles: dict) -> dict:
 
     log(" (c) drills")
     for method in ("acco", "dpu", "ddp"):
-        s = p10_run(f"nan-{method}", launches, f"train={method}", "+train.delta_step_for_log=2",
-                    "train.fault_injection=nan_grads@3", nb=8)[1]
+        t, s = p10_run(f"nan-{method}", launches, f"train={method}",
+                       *DRILLS["nan_grads@3"][0], nb=DRILLS["nan_grads@3"][1])
+        if method == "acco":
+            drills["nan_grads@3"] = dict(s, fingerprint=state_fingerprint(t.final_state))
+        del t
         log(f"  nan_grads@3, {method}: skipped {s['skipped_rounds']}, {s['count_grad_tot']} "
             f"grads, final loss {s['final_loss']:.6f}")
         if not (s["skipped_rounds"] == 1 and s["count_grad_tot"] >= 8
@@ -3808,8 +3940,8 @@ def phase_10(smi: str, profiles: dict) -> dict:
             raise AssertionError(f"nan_grads@3 on {method}: {s['skipped_rounds']} skipped, "
                                  f"{s['count_grad_tot']} grads, loss {s['final_loss']}")
     drill = ["+train.delta_step_for_log=4", "train.rollback_after_skipped=2"]
-    rb, srb = p10_run("rollback", launches, *drill, *save,
-                      "train.fault_injection=[{kind: corrupt_params, round: 5, n: 64}]", nb=12)
+    rb, srb = p10_run("rollback", launches, *DRILLS["rollback"][0], nb=DRILLS["rollback"][1])
+    drills["rollback"] = dict(srb, fingerprint=state_fingerprint(rb.final_state))
     if srb["rollbacks"] != 1 or srb["count_grad_tot"] < 12:
         raise AssertionError(f"corrupt_params: {srb['rollbacks']} rollbacks, "
                              f"{srb['count_grad_tot']} grads")
@@ -3908,6 +4040,11 @@ BIT_EQUAL_PATHS = ("llama-125M", "gptneo", "llama-125M-fusedce", "llama-125M-dp-
 GRAPH_FAULT_PATH = "llama-125M"
 LONG_PATHS = ("llama3-8B-L8192", "llama3-8B-L8192-ring")
 ONE_STREAM_PATHS = ("llama-125M",)
+# the cells profiled: phase 7 (captured) every main and ring cell (the dp
+# cells are the Llama-125M cell's model and data), phase 11 (eager) the
+# flagship and the long cell (the other cells' eager profiles cut for time)
+PROFILED_PATHS = (*MAIN_PATHS, *RING_PATHS)
+EAGER_PROFILED_PATHS = ("llama-125M", "llama3-8B-L8192")
 PEAK_RISE = 0.05  # captured peak allocated within 5% of eager's
 
 
@@ -4004,7 +4141,7 @@ def fresh_build_start(warmup: bool, empty: bool = True) -> tuple:
 
 
 def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, profiles: dict,
-             cadence: dict) -> dict:
+             cadence: dict, drills: dict) -> dict:
     """The rounds captured and replayed against eager rounds: (a) each
     phase-5 cell again with its rounds as eager calls, bit-equal
     (losses, LRs, flags, the final state) and with the same launch counts;
@@ -4044,7 +4181,8 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
             log(f"    largest relative loss difference {worst:.3e} (bar {RING_LOSS_RTOL:g})")
             if worst > RING_LOSS_RTOL:
                 raise AssertionError(f"{path}: captured losses off eager's by {worst:.3e}")
-        prof = profile_main_path(path, med, sg=sg, group=sg.group, eager=True)
+        prof = (profile_main_path(path, med, sg=sg, group=sg.group, eager=True)
+                if path in EAGER_PROFILED_PATHS else None)
         eager[path] = (med, s, prof)
 
     log(f" (b) planted faults in the captured rounds of {GRAPH_FAULT_PATH}, against its eager run")
@@ -4069,20 +4207,26 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
         if not diffs:
             raise AssertionError(f"the captured-rounds check missed the planted fault {kind!r}")
 
-    log(f" (c) captured against eager, by cell, on {smi}")
+    log(f" (c) captured against eager, by cell, on {smi} (profiled: phase 7's cells captured, "
+        f"{', '.join(EAGER_PROFILED_PATHS)} eager)")
+
+    def both(prof_c, prof_e, key: str, fmt: str) -> str:
+        return " / ".join("not profiled" if p is None else format(p[key], fmt)
+                          for p in (prof_c, prof_e))
+
     for path in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
         cap, (med_e, s_e, prof_e) = summaries[path], eager[path]
-        prof_c = profiles[path]
+        prof_c = profiles.get(path)
         report = cap["compile_report"]
         capture_ms = sum(r["capture_ms"] or 0.0 for r in report["programs"].values())
         rise = cap["peak_bytes"] / s_e["peak_bytes"] - 1
         log(f"  {path}: median round ms {round_ms[path]:.2f} / {med_e:.2f}; idle share "
-            f"{prof_c['idle_share']:.3f} / {prof_e['idle_share']:.3f}; device ms a microbatch "
-            f"{prof_c['union_ms_per_microbatch']:.2f} / {prof_e['union_ms_per_microbatch']:.2f}; "
-            f"a round: kernel launch calls {prof_c['kernel_launch_calls']:.1f} / "
-            f"{prof_e['kernel_launch_calls']:.1f}, graph launches {prof_c['graph_launches']:.1f} / "
-            f"{prof_e['graph_launches']:.1f}, kernels {prof_c['kernels']:.1f} / "
-            f"{prof_e['kernels']:.1f}; peak allocated {cap['peak_bytes'] / 2**30:.2f} / "
+            f"{both(prof_c, prof_e, 'idle_share', '.3f')}; device ms a microbatch "
+            f"{both(prof_c, prof_e, 'union_ms_per_microbatch', '.2f')}; "
+            f"a round: kernel launch calls {both(prof_c, prof_e, 'kernel_launch_calls', '.1f')}, "
+            f"graph launches {both(prof_c, prof_e, 'graph_launches', '.1f')}, kernels "
+            f"{both(prof_c, prof_e, 'kernels', '.1f')}; peak allocated "
+            f"{cap['peak_bytes'] / 2**30:.2f} / "
             f"{s_e['peak_bytes'] / 2**30:.2f} GiB ({100 * rise:+.2f}%), reserved "
             f"{cap['reserved_bytes'] / 2**30:.2f} / {s_e['reserved_bytes'] / 2**30:.2f} GiB, "
             f"allocator retries {cap['retries']} / {s_e['retries']}; captures "
@@ -4114,22 +4258,16 @@ def phase_11(smi: str, sg, round_ms: dict, summaries: dict, launches: dict, prof
             f"{report['warmup_join_ms']:.1f}; programs captured "
             f"{sum(1 for r in report['programs'].values() if r['capture_ms'])}")
 
-    log(" (d) a drill, a rollback and a SIGTERM resume, captured, against eager oracles")
-    for label, extra, nb in (
-            ("nan_grads@3", ["+train.delta_step_for_log=2", "train.fault_injection=nan_grads@3"], 8),
-            ("rollback", ["+train.delta_step_for_log=4", "train.rollback_after_skipped=2",
-                          "train.save=true", "train.checkpoint_every_s=0",
-                          "train.ckpt_keep_last=0",
-                          "train.fault_injection=[{kind: corrupt_params, round: 5, n: 64}]"], 12)):
-        runs = {}
-        for how in ("captured", "eager"):
-            free_device_cache()
-            trainer = build_trainer(p10_args(f"p11-{label}-{how}", nb, *extra),
-                                    eager=how == "eager")
-            s = trainer.train()
-            s["fingerprint"] = state_fingerprint(trainer.final_state)
-            runs[how] = s
-            del trainer
+    log(" (d) a drill, a rollback and a SIGTERM resume, captured (the drills: phase 10 (c)'s "
+        "runs), against eager oracles")
+    for label, (extra, nb) in DRILLS.items():
+        runs = {"captured": drills[label]}
+        free_device_cache()
+        trainer = build_trainer(p10_args(f"p11-{label}-eager", nb, *extra), eager=True)
+        s = trainer.train()
+        s["fingerprint"] = state_fingerprint(trainer.final_state)
+        runs["eager"] = s
+        del trainer
         diffs = captured_vs_eager(label, runs["captured"], runs["eager"])
         log(f"  {label}: skipped {runs['captured']['skipped_rounds']} / "
             f"{runs['eager']['skipped_rounds']}, rollbacks {runs['captured']['rollbacks']} / "
@@ -4708,8 +4846,12 @@ VP_HEADS = {
     "gptneo-125M": dict(N=8192, D=768, V=50257, smoothing=0.1, ignore=0.02),
     # Llama-3-8B's head at the long path's 8192 rows (tp divides 128256)
     "llama3-8B": dict(N=8192, D=4096, V=128256, smoothing=0.0, ignore=0.0),
+    # Llama-3-8B's head at phase 15's stage (batch 4 x seq 512 rows): one
+    # shard, as the stage's one-rank (pp, tp) group runs it, and the
+    # preset's pp x tp = 16 (8016 columns a shard, not a multiple of 128)
+    "llama3-8B-stage": dict(N=2048, D=4096, V=128256, smoothing=0.0, ignore=0.0, tps=(1, 16)),
 }
-VP_TPS = (2, 4)
+VP_TPS = (2, 4)  # the shard counts of a head that names none
 VP_FAULT_HEAD, VP_FAULT_TP = "gptneo-125M", 2
 VP_FAULTS = {
     "v_real": "the last shard's v_real not clipped (the padding in its LSE)",
@@ -4766,6 +4908,8 @@ PP_PATHS = {
                         "flash_fwd": 2 * LLAMA3_LAYERS, "ce_fwd": 2, "vp_ce": 2}),
 }
 PP_CELLS = ("gptneo-2.7B-stage-pp", "llama3-8B-L8192-pp")
+# since phase 15, which holds the pp code captured against eager on three
+# cells, phase 14's cells run captured only
 PP_SEED_RTOL, PP_ROUND_RTOL = 1e-5, 1e-3
 
 
@@ -4994,7 +5138,7 @@ def vp_phase(group) -> tuple[dict, float]:
     torch.backends.cuda.matmul.allow_tf32 = False
     times, worst = {}, 0.0
     for seed, (name, head) in enumerate(VP_HEADS.items(), start=130):
-        for tp in VP_TPS:
+        for tp in head.get("tps", VP_TPS):
             free_device_cache()
             h, w, targets = vp_inputs(head, tp, seed)
             log(f" {name} head {head}, tp {tp}: vocab {head['V']} padded to {w.shape[0]}")
@@ -5028,9 +5172,10 @@ def tp_trainer(path: str, group, extra=(), eager: bool = False):
     """The trainer of a tp path: its base path's configuration and
     ``group`` (a one-rank process group) handed in as the tensor group."""
     from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
     return build_trainer([*main_args(TP_PATHS[path]["base"]), *TP_PATHS[path]["extra"],
-                          *extra], tensor_group=group, eager=eager)
+                          *extra], groups=RankGroups.around(tensor_group=group), eager=eager)
 
 
 def phase_13(smi: str, sg, summaries: dict, round_ms: dict, peaks: dict) -> tuple:
@@ -5040,7 +5185,7 @@ def phase_13(smi: str, sg, summaries: dict, round_ms: dict, peaks: dict) -> tupl
     wrapper's kernel-line entry."""
     import torch
 
-    log(" (a) K3's vocab-parallel wrapper, tp 2 and 4 emulated in one process")
+    log(" (a) K3's vocab-parallel wrapper, 1 to 16 shards emulated in one process")
     times, worst = vp_phase(sg.group)
     launches = {}
     for path, spec in TP_PATHS.items():
@@ -5087,16 +5232,18 @@ def pp_trainer(path: str, group, extra=(), eager: bool = False):
     """The trainer of a pp path: its dense cell's configuration and
     ``group`` (a one-rank process group) handed in as the pipeline group."""
     from acco_tpu_torch.__main__ import build_trainer
+    from acco_tpu_torch.parallel.mesh import RankGroups
 
-    return build_trainer([*main_args(PP_PATHS[path]["base"]), *extra], pipeline_group=group,
-                         eager=eager)
+    return build_trainer([*main_args(PP_PATHS[path]["base"]), *extra],
+                         groups=RankGroups.around(pipeline_group=group), eager=eager)
 
 
 def phase_14(smi: str, group, summaries: dict, round_ms: dict, peaks: dict) -> dict:
     """Pipeline parallelism at pp 1 through the one-rank NCCL ``group``:
     (a) GPT-Neo-2.7B's stage dense, then through the pipeline; (b) the
     long-context Llama-3-8B cell through the pipeline against phase 5's
-    dense cell (``summaries``). Each pp cell captured, then eager: bit-equal.
+    dense cell (``summaries``), captured (phase 15 holds the pp code
+    captured against eager).
     Returns the launches of the cells it ran."""
     import torch
 
@@ -5114,12 +5261,6 @@ def phase_14(smi: str, group, summaries: dict, round_ms: dict, peaks: dict) -> d
         log(f"== 14 pp cell {path}: {' '.join(main_args(base))}, a one-rank NCCL pipeline "
             "group handed in")
         launches[path], med, peak, cap = main_path(path, group=group)
-        log(f"  {path} again, eager")
-        _, med_eager, peak_eager, eager = main_path(path, group=group, eager=True)
-        diffs = captured_vs_eager(path, cap, eager)
-        if diffs:
-            raise AssertionError(f"{path}: captured rounds differ from eager: {diffs}")
-        del eager
         ref = summaries[base]
         got = [cap["seed_loss"]] + [r["loss"] for r in cap["round_log"]]
         want = [ref["seed_loss"]] + [r["loss"] for r in ref["round_log"]]
@@ -5131,10 +5272,9 @@ def phase_14(smi: str, group, summaries: dict, round_ms: dict, peaks: dict) -> d
         log(f"  against the dense cell {base}: losses {'bit-equal' if got == want else 'differ'}"
             f" (seed {rel[0]:.3e}, largest round {max(rel[1:]):.3e} relative), final state "
             f"{'bit-equal' if cap['fingerprint'] == ref['fingerprint'] else 'differs'}"
-            f"{' (pp 1 is bit-equal to dense)' if bit_equal else ''}; captured rounds "
-            f"bit-equal to eager; round ms captured {med:.2f}, eager {med_eager:.2f}, dense "
-            f"{round_ms[base]:.2f}; peak allocated {peak / 2**30:.2f} GiB (eager "
-            f"{peak_eager / 2**30:.2f}, dense {peaks[base] / 2**30:.2f}), reserved "
+            f"{' (pp 1 is bit-equal to dense)' if bit_equal else ''}; round ms captured "
+            f"{med:.2f}, dense {round_ms[base]:.2f}; peak allocated {peak / 2**30:.2f} GiB "
+            f"(dense {peaks[base] / 2**30:.2f}), reserved "
             f"{cap['reserved_bytes'] / 2**30:.2f} GiB; launches a microbatch {per_mb} (on {smi})")
         if rel[0] > PP_SEED_RTOL or max(rel[1:]) > PP_ROUND_RTOL:
             raise AssertionError(f"{path}: losses off {base}'s: seed {rel[0]:.3e} (bar "
@@ -5143,6 +5283,218 @@ def phase_14(smi: str, group, summaries: dict, round_ms: dict, peaks: dict) -> d
         del cap
     torch.cuda.empty_cache()
     return launches
+
+
+# Phase 15: the compositions (tp x pp, pp x sp, tp x sp and the four axes)
+# at every axis's size 1, through one-rank NCCL groups, one per axis,
+# handed to build_trainer together: the combined (pp, tp) vocab group,
+# ZeRO-1's two-segment prefix, the ring inside the pipeline's ticks and
+# on a tensor shard's heads. (a) Llama-3-8B (config/model/llama-3-8B.json,
+# full width, untied) cut to 2 of the 4 layers one stage of
+# config/train/acco-llama3-v5e32.yaml ({dp: 2, pp: 8, tp: 2}) holds, at
+# that preset's seq 512, batch 4, n_acc 8, remat 'dots' and fused_loss
+# auto (K3; its wrapper under pp x tp): dense, then through pp and tp;
+# under the tick's recompute K1's forward and K3's run twice a microbatch
+# ('dots' saves K1's O and LSE within a tick's backward). (b) phase 5's
+# long-context ring cell through dp, pp, tp and sp at once; (c) phase 5's
+# GPT-Neo ring cell through (tp, sp) and (pp, sp).
+_V5E32 = dict(model="llama-125M", llama3=True, extra=["train.remat=dots"], batch=4, seq=512,
+              n_acc=8, d_model=4096, embed_params=128256 * 4096, windows=[0] * LLAMA3_LAYERS,
+              head_logits=0, fused_loss="pallas", attention="fused")
+
+
+def _v5e32_launches(forwards: int, ce_forwards: int, vp: int) -> dict:
+    return {"attn_fwd": forwards * LLAMA3_LAYERS,
+            **dict.fromkeys(_K1[1:], LLAMA3_LAYERS), "ce_fwd": ce_forwards,
+            **dict.fromkeys(_K3[1:], 1), "vp_ce": vp, **dict.fromkeys(_K2 + _K4 + _K5, 0)}
+
+
+def _recomputed(spec: dict, forwards: tuple, vp: int) -> dict:
+    """A ring cell's launches under the pipeline's tick recompute: the
+    forward kernels ``forwards`` twice, the wrapper ``vp`` times."""
+    per = dict(spec["per_microbatch"], vp_ce=vp)
+    return {k: (2 * n if k in forwards else n) for k, n in per.items()}
+
+
+_BLK_FWD = ("blk_fwd_diag", "blk_fwd_full", "blk_fwd_pos", "ce_fwd")
+COMPOSED_PATHS = {
+    "llama3-8B-v5e32-stage": dict(_V5E32, per_microbatch=_v5e32_launches(1, 1, 0)),
+    "llama3-8B-v5e32-stage-pptp": dict(
+        _V5E32, args_of="llama3-8B-v5e32-stage", vs="llama3-8B-v5e32-stage", axes=("pp", "tp"),
+        per_microbatch=_v5e32_launches(2, 2, 2)),
+    "llama3-8B-L8192-ring-4axis": dict(
+        RING_PATHS["llama3-8B-L8192-ring"], args_of="llama3-8B-L8192",
+        vs="llama3-8B-L8192-ring", axes=("dp", "pp", "tp", "sp"),
+        per_microbatch=_recomputed(RING_PATHS["llama3-8B-L8192-ring"], _BLK_FWD, 2)),
+    "gptneo-ring-tpsp": dict(
+        RING_PATHS["gptneo-ring"], args_of="gptneo", vs="gptneo-ring", axes=("tp", "sp"),
+        per_microbatch=dict(RING_PATHS["gptneo-ring"]["per_microbatch"], vp_ce=1)),
+    "gptneo-ring-ppsp": dict(
+        RING_PATHS["gptneo-ring"], args_of="gptneo", vs="gptneo-ring", axes=("pp", "sp"),
+        per_microbatch=_recomputed(RING_PATHS["gptneo-ring"], _BLK_FWD, 2),
+        pos_windows={w: 2 * n for w, n in RING_PATHS["gptneo-ring"]["pos_windows"].items()}),
+}
+COMPOSED_CELLS = ("llama3-8B-v5e32-stage-pptp", "llama3-8B-L8192-ring-4axis", "gptneo-ring-tpsp",
+                  "gptneo-ring-ppsp")
+# (a) against its dense cell: the seed loss bit-equal (one tick's
+# gradients, the wrapper exact at one shard), the rounds within the bf16
+# tick sums' difference (autograd sums a bf16 leaf's gradient over the 8
+# ticks in bf16, the dense path in float32); (b), (c): bit-equal
+V5E32_ROUND_RTOL = 1e-4
+
+
+def device_used_bytes() -> int:
+    """The card's memory in use by this process and the driver: total
+    minus free (the caching allocator's reserve, the CUDA context and
+    NCCL's buffers)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def composed_groups(axes: tuple) -> tuple:
+    """One one-rank NCCL group per axis of ``axes`` (on the one-rank
+    default group), and the ``RankGroups`` around them (their comm twins,
+    the world and the combined model group made there); returns
+    ``((RankGroups, sequence group or None), the sequence group, the
+    distinct groups)``."""
+    import torch.distributed as dist
+
+    from acco_tpu_torch.ops.ring_attention import SequenceGroup
+    from acco_tpu_torch.parallel.mesh import RankGroups
+
+    made = {axis: dist.new_group([0]) for axis in axes}
+    sg = SequenceGroup.of(made["sp"]) if "sp" in made else None
+    groups, _ = pair = RankGroups.around(sg, made.get("dp"), made.get("tp"), made.get("pp"))
+    fields = [getattr(groups, f) for f in ("data", "world", "comm_data", "comm_world", "tensor",
+                                           "comm_tensor", "all", "comm_all", "inner",
+                                           "comm_inner", "pipe")]
+    distinct = {id(g): g for g in [*fields, *made.values()] if g is not None}
+    return pair, sg, list(distinct.values())
+
+
+def phase_15(smi: str, summaries: dict, round_ms: dict, peaks: dict) -> dict:
+    """The compositions at every axis's size 1 (the module's doc, 15): (a)
+    the 8B preset's stage dense and through pp and tp, (b) the long ring
+    cell through the four axes, (c) the GPT-Neo ring cell through (tp, sp)
+    and (pp, sp). Each composed cell captured, then eager: bit-equal; (a)
+    against its dense cell, (b) and (c) against phase 5's cells
+    (``summaries``). Returns the launches of the cells it ran."""
+    import torch
+    import torch.distributed as dist
+
+    launches = {}
+    dense = "llama3-8B-v5e32-stage"
+    log(f" (a) the cut: Llama-3-8B (config/model/llama-3-8B.json: hidden 4096, 32 heads, 8 KV "
+        f"heads, D 128, vocab 128256, untied) at {LLAMA3_LAYERS} of the 4 layers one stage of "
+        "config/train/acco-llama3-v5e32.yaml ({dp: 2, pp: 8, tp: 2}) holds, seq 512, batch 4, "
+        "n_acc 8, remat 'dots', fused_loss auto, ACCO, the seed round + "
+        f"{MAIN_ROUNDS} rounds")
+    log(f"== 15 dense cell {dense}: {' '.join(main_args(dense))}")
+    launches[dense], round_ms[dense], peaks[dense], summaries[dense] = main_path(dense)
+    for path in COMPOSED_CELLS:
+        spec = COMPOSED_PATHS[path]
+        log(f"== 15 composed cell {path}: {' '.join(main_args(spec['args_of']))}, one-rank NCCL "
+            f"groups for {', '.join(spec['axes'])} handed in")
+        free_device_cache()
+        used0, reserved0 = device_used_bytes(), torch.cuda.memory_reserved()
+        groups, sg, comms = composed_groups(spec["axes"])
+        launches[path], med, peak, cap = main_path(path, sg=sg, group=groups)
+        free_device_cache()
+        used1, reserved1 = device_used_bytes(), torch.cuda.memory_reserved()
+        log(f"  {len(comms)} NCCL communicators (groups: {len(spec['axes'])} handed in, "
+            f"{len(comms) - len(spec['axes'])} made around them); outside the allocator's reserve "
+            f"{(used0 - reserved0) / 2**20:.1f} MiB before the groups, "
+            f"{(used1 - reserved1) / 2**20:.1f} MiB after their first run (reserved "
+            f"{reserved0 / 2**20:.1f} / {reserved1 / 2**20:.1f} MiB)")
+        log(f"  {path} again, eager")
+        _, med_eager, peak_eager, eager = main_path(path, sg=sg, group=groups, eager=True)
+        diffs = captured_vs_eager(path, cap, eager)
+        if diffs:
+            raise AssertionError(f"{path}: captured rounds differ from eager: {diffs}")
+        del eager
+        for group in comms:  # their NCCL communicators' buffers freed
+            dist.destroy_process_group(group)
+        free_device_cache()
+        used2 = device_used_bytes() - torch.cuda.memory_reserved()
+        log(f"  the {len(comms)} groups destroyed: {used2 / 2**20:.1f} MiB outside the "
+            "allocator's reserve")
+        ref = summaries[spec["vs"]]
+        got = [cap["seed_loss"]] + [r["loss"] for r in cap["round_log"]]
+        want = [ref["seed_loss"]] + [r["loss"] for r in ref["round_log"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        state_equal = cap["fingerprint"] == ref["fingerprint"]
+        leaves = [i for i, (a, b) in enumerate(zip(cap["fingerprint"], ref["fingerprint"]))
+                  if a != b]
+        n_mb = path_microbatches(path)
+        per_mb = {k: launches[path][k] / n_mb for k in (*_K1, *_K2, *_K3, *_K4, *_K5, "vp_ce")
+                  if launches[path][k]}
+        log(f"  against {spec['vs']}: losses {'bit-equal' if got == want else 'differ'} (seed "
+            f"{rel[0]:.3e}, largest round {max(rel[1:]):.3e} relative), final state "
+            f"{'bit-equal' if state_equal else f'differs (leaves {leaves})'}; captured rounds "
+            f"bit-equal to eager; "
+            f"round ms captured {med:.2f}, eager {med_eager:.2f}, {spec['vs']} "
+            f"{round_ms[spec['vs']]:.2f}; peak allocated {peak / 2**30:.2f} GiB (eager "
+            f"{peak_eager / 2**30:.2f}, {spec['vs']} {peaks[spec['vs']] / 2**30:.2f}), reserved "
+            f"{cap['reserved_bytes'] / 2**30:.2f} GiB; launches a microbatch {per_mb} (on {smi})")
+        if path == "llama3-8B-v5e32-stage-pptp":
+            if got[0] != want[0] or max(rel[1:]) > V5E32_ROUND_RTOL:
+                raise AssertionError(f"{path}: seed loss {got[0]!r} against {want[0]!r} (must be "
+                                     f"bit-equal), rounds {max(rel[1:]):.3e} (bar "
+                                     f"{V5E32_ROUND_RTOL})")
+        elif got != want or not state_equal:
+            raise AssertionError(f"{path}: not bit-equal to {spec['vs']}")
+        del cap
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_6() -> None:
+    """Small input: the kernel paths against the plain paths in float32,
+    and the comm stream's ordering (correctness only: it runs beside the
+    planted faults' builds and checks, in a one-rank group of its own)."""
+    with one_rank_group() as sg:
+        log(" the comm stream (tiny128, float32, L 128): ordering")
+        stream_ordering()
+        log(" tiny128 (K1), L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq"),
+        )
+        log(" gpt-neo-125M (K1 and K2), L 512")
+        small_input_agreement(
+            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+             "train.batch_size=2"],
+            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
+             "banded_bwd_dkdv"),
+        )
+        log(" tiny128, fused_loss=pallas (K3) vs the materialized CE, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            _K3_F32, runs=CE_RUNS, plain_silent=_K3,
+        )
+        log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
+        small_input_agreement(
+            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
+             "train.batch_size=2"],
+            ("attn_fwd", "banded_fwd", *_K3_F32), runs=CE_RUNS, plain_silent=_K3,
+        )
+        log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            _K5, runs=FLASH_RUNS,
+        )
+        log(" tiny128 on the one-rank ring (K4) vs the plain attention, L 128")
+        small_input_agreement(
+            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
+             "train.batch_size=4"],
+            ("blk_fwd_diag", "blk_fwd_full", "blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"),
+            runs=RING_RUNS, sg=sg,
+        )
 
 
 def build_all() -> None:
@@ -5218,6 +5570,7 @@ def main() -> int:
     log("== 2 build")
     build_all()
     # the planted faults, built and checked beside phase 3's parity checks
+    # and phase 6
     faults = PlantedFaults()
 
     log("== 3 parity (bf16 unless named, kernel vs plain on the same inputs)")
@@ -5227,7 +5580,8 @@ def main() -> int:
     impl = resolve_attention_impl("auto", K1_LLAMA3["L"], K1_LLAMA3["D"], "cuda")
     log(f" 'auto' at Llama-3-8B's head_dim 128, L {K1_LLAMA3['L']}, on the card: {impl!r}")
     if impl != "fused":  # JAX's resolver picks its fused kernel there on the TPU
-        raise AssertionError(f"'auto' resolved to {impl!r} at head_dim 128, L 1024, not 'fused'")
+        raise AssertionError(f"'auto' resolved to {impl!r} at head_dim 128, L "
+                             f"{K1_LLAMA3['L']}, not 'fused'")
     for seed, (label, shape) in enumerate(K1_SHAPES):
         log(f" K1 {label}: {shape}")
         for kname, e in parity(shape, seed).items():
@@ -5255,6 +5609,9 @@ def main() -> int:
         log(f" K4 {label}: {shape}")
         for kname, e in block_parity(shape, seed, variants).items():
             errs[kname] = max(errs.get(kname, 0.0), e)
+    log("== 6 small input: the kernel path agrees with the plain path (float32), beside the "
+        "planted faults")
+    phase_6()
     log(" K3's bars (softmax-alone Llama-125M head; the chunked backward), K5's (small GQA "
         "shape with pads), K1's (rows with no allowed key, L 320), K2's (odd windows) and K4's "
         "(bf16 ties, small GQA hops, Lq != Lk) against planted faults")
@@ -5340,50 +5697,9 @@ def main() -> int:
                 path, group=sg.group)
             dp_losses_vs(path, summaries[path], summaries["llama-125M"])
         log(f"  peak memory by path: { {p: f'{b / 2**30:.2f} GiB' for p, b in peaks.items()} }")
-        log("== 6 small input: the kernel path agrees with the plain path (float32)")
-        log(" the comm stream (tiny128, float32, L 128): ordering")
-        stream_ordering()
-        log(" tiny128 (K1), L 128")
-        small_input_agreement(
-            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-             "train.batch_size=4"],
-            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq"),
-        )
-        log(" gpt-neo-125M (K1 and K2), L 512")
-        small_input_agreement(
-            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
-             "train.batch_size=2"],
-            ("attn_fwd", "attn_bwd_dkdv", "attn_bwd_dq", "banded_fwd", "banded_bwd_dq",
-             "banded_bwd_dkdv"),
-        )
-        log(" tiny128, fused_loss=pallas (K3) vs the materialized CE, L 128")
-        small_input_agreement(
-            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-             "train.batch_size=4"],
-            _K3_F32, runs=CE_RUNS, plain_silent=_K3,
-        )
-        log(" gpt-neo-125M, fused_loss=pallas (K1, K2 and K3) vs the materialized CE, L 512")
-        small_input_agreement(
-            ["train=acco", "model=gptneo", "data=synthetic", "train.max_length=512",
-             "train.batch_size=2"],
-            ("attn_fwd", "banded_fwd", *_K3_F32), runs=CE_RUNS, plain_silent=_K3,
-        )
-        log(" tiny128, use_pallas_attention=true (K5) vs the plain attention, L 128")
-        small_input_agreement(
-            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-             "train.batch_size=4"],
-            _K5, runs=FLASH_RUNS,
-        )
-        log(" tiny128 on the one-rank ring (K4) vs the plain attention, L 128")
-        small_input_agreement(
-            ["train=acco", "model=tiny128", "data=synthetic", "train.max_length=128",
-             "train.batch_size=4"],
-            ("blk_fwd_diag", "blk_fwd_full", "blk_bwd_rowc", "blk_bwd_dkdv", "blk_bwd_dq"),
-            runs=RING_RUNS, sg=sg,
-        )
         log("== 7 where the device time goes (profiled reruns of the main paths)")
         profiles = {}
-        for model in (*MAIN_PATHS, *RING_PATHS, *DP_PATHS):
+        for model in PROFILED_PATHS:
             profiles[model] = profile_main_path(model, round_ms[model], sg=sg, group=sg.group)
             # the comm branch on the current stream: the flagship only (the
             # other cells' reruns cut for time)
@@ -5406,11 +5722,12 @@ def main() -> int:
         launches.update(phase_9(smi, cadence, round_ms, peaks))
 
         log("== 10 a run that survives: the overlapped save, SIGTERM, drills, telemetry")
-        launches.update(phase_10(smi, profiles))
+        drills = {}
+        launches.update(phase_10(smi, profiles, drills))
 
         log("== 11 the rounds captured as CUDA graphs and replayed, against eager rounds")
         launches.update(phase_11(smi, sg, round_ms, summaries, launches, profiles,
-                                 cadence_losses))
+                                 cadence_losses, drills))
 
         log("== 12 serving: the Llama-3-8B replica, parity, planted faults, HTTP")
         phase_12(smi)
@@ -5423,6 +5740,12 @@ def main() -> int:
         pp_launches = phase_14(smi, sg.group, summaries, round_ms, peaks)
         launches.update(pp_launches)
         vp_entry["launches_by_path"].update({p: n["vp_ce"] for p, n in pp_launches.items()})
+
+        log("== 15 the compositions: the 8B preset's stage through pp x tp, the long ring cell "
+            "through the four axes, GPT-Neo's ring through tp x sp and pp x sp")
+        composed = phase_15(smi, summaries, round_ms, peaks)
+        launches.update(composed)
+        vp_entry["launches_by_path"].update({p: n["vp_ce"] for p, n in composed.items()})
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

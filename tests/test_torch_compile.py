@@ -197,7 +197,7 @@ def test_buffer_sets_on_a_one_rank_group(method, tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
                             world_size=1)
     try:
-        groups = RankGroups.around(data_group=dist.group.WORLD)
+        groups, _ = RankGroups.around(data_group=dist.group.WORLD)
         flat = LlamaModel(LlamaConfig(**ARCH), dtype=torch.float32).init_flat(
             torch.Generator().manual_seed(0))
 

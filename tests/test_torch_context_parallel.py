@@ -344,24 +344,18 @@ def test_one_process_makes_no_process_group(monkeypatch):
      ({"pp": 2, "sp": 2}, "item 9")],
 )
 def test_meshes_other_than_sp_raise_by_item(mesh_shape, item):
-    """sp composed with tp or with pp raises by its item (9.4; tp and pp
-    alone run since they were ported, tests/test_torch_tensor_parallel.py
-    and tests/test_torch_pipeline_parallel.py). The dp meshes (item None)
-    run since data parallelism was ported: they pass the check, and at
-    one process they ask for their ranks (tests/test_torch_data_parallel.py
-    runs them)."""
-    if item is None:
-        sizes = check_mesh(mesh_shape)
-        assert (sizes["dp"], sizes["sp"]) == (mesh_shape["dp"], mesh_shape.get("sp", 1))
-        from acco_tpu_torch.parallel.mesh import init_distributed
+    """sp composed with tp or with pp, which once raised by their item
+    (``item``: 9, the compositions, ported in 9.4), now passes the check
+    as the dp meshes (item None) do, and at one process every such mesh
+    asks for its ranks (tests/test_torch_compositions.py runs them)."""
+    from acco_tpu_torch.parallel.mesh import init_distributed
 
-        n = sizes["dp"] * sizes["sp"]
-        with pytest.raises(ValueError, match=f"needs {n} processes"):
-            init_distributed(mesh_shape, "cpu")
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            check_mesh(mesh_shape)
-    assert check_mesh({"dp": 1, "sp": 4})["sp"] == 4
+    sizes = check_mesh(mesh_shape)
+    assert (sizes["dp"], sizes["sp"]) == (mesh_shape.get("dp", 1), mesh_shape.get("sp", 1))
+    assert (sizes["tp"], sizes["pp"]) == (mesh_shape.get("tp", 1), mesh_shape.get("pp", 1))
+    n = sizes["dp"] * sizes["sp"] * sizes["tp"] * sizes["pp"]
+    with pytest.raises(ValueError, match=f"needs {n} processes"):
+        init_distributed(mesh_shape, "cpu")
 
 
 def test_ring_needs_a_sequence_group_and_no_pad_mask():

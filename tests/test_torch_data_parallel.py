@@ -328,7 +328,7 @@ def test_microbatch_mask_column_and_errors(tmp_path):
 LAYOUT_WORKER = """
 import json
 from acco_tpu_torch.parallel.mesh import RankGroups
-groups, sg = RankGroups.build(2, 2, RANK)
+groups, sg = RankGroups.build({"dp": 2, "sp": 2}, RANK)
 ranks = dist.get_process_group_ranks
 json.dump({"dp_index": groups.dp_index, "sp_index": groups.sp_index,
            "shard": groups.shard_index, "data": ranks(groups.data),

@@ -149,7 +149,7 @@ from acco_tpu_torch.trainer import Trainer
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
 flat = torch.from_numpy(np.load(os.path.join(WORKDIR, "flat.npy")))
 for dp, sp in spec["meshes"]:  # one world, a mesh of groups each
-    groups, sg = RankGroups.build(dp, sp, RANK)
+    groups, sg = RankGroups.build({"dp": dp, "sp": sp}, RANK)
     mesh = Mesh(dp=dp, sp=sp, rank=RANK, device=torch.device("cpu"), sequence_group=sg,
                 groups=groups)
     kw = dict(attention="ring", sequence_group=sg, zigzag=True) if sg else {}

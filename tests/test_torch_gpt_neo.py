@@ -201,13 +201,14 @@ def test_unported_options_raise():
     # context parallelism is ported (a sequence group); the ring needs one
     with pytest.raises(ValueError, match="requires a sequence group"):
         GPTNeoModel(cfg, attention="ring")
-    # tensor parallelism is ported (a tensor group); with the ring (tp x sp)
-    # it raises by its item, and a pad below the vocab is refused
+    # tensor parallelism is ported (a tensor group); with the ring (tp x sp,
+    # item 9.4) the ring runs the shard's heads, and a pad below the vocab
+    # is refused
     from acco_tpu_torch.models.layers import TensorGroup
 
-    with pytest.raises(NotImplementedError, match="item 9.4"):
-        GPTNeoModel(cfg, attention="ring", sequence_group=object(),
-                    tensor_group=TensorGroup(None, 2, 0))
+    ring = GPTNeoModel(cfg, attention="ring", sequence_group=object(),
+                       tensor_group=TensorGroup(None, 2, 0))
+    assert ring.n_heads == cfg.num_heads // 2 and ring.sequence_group is not None
     with pytest.raises(ValueError, match="vocab_pad_to"):
         GPTNeoModel(cfg, vocab_pad_to=cfg.vocab_size - 1)
     assert GPTNeoModel(cfg, vocab_pad_to=256).wte.shape[0] == 256

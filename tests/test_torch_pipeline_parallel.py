@@ -23,7 +23,8 @@
   is the dense unpadded model's layout, and a resume from its checkpoint
   is bit-exact.
 - The refusals: pp not dividing ``num_layers``, ``const_len_batch``
-  false, pp with tp or sp (ROADMAP item 9.4).
+  false; pp with tp or sp builds (ROADMAP item 9.4 ported them:
+  tests/test_torch_compositions.py).
 
 No JAX pp scan runs in this process: the reference is JAX's dp path.
 """
@@ -358,14 +359,14 @@ from acco_tpu_torch.parallel.mesh import RankGroups
 from acco_tpu_torch.parallel.pp import eval_block, make_pp_loss_fn
 
 cfg = dict(np.load(os.path.join(WORKDIR, "in.npz")))
-g = RankGroups.build_tp(1, WS, RANK, axis="pp")
+g, _ = RankGroups.build({{"pp": WS}}, RANK)
 arch = {ARCH!r}
 arch["attention_layers"] = tuple(arch["attention_layers"])
 model = GPTNeoModel(GPTNeoConfig(**arch), dtype=torch.float32,
                     pipeline_group=g.pipeline_group(), vocab_pad_to={pad})
 loss_fn = make_pp_loss_fn(model)
 ids, labels = torch.tensor(cfg["ids"]), torch.tensor(cfg["labels"])
-block = eval_block(ids, torch.ones_like(ids), labels, WS)
+block, _ = eval_block(ids, torch.ones_like(ids), labels, WS)
 with torch.no_grad():
     nll, count = loss_fn(torch.tensor(cfg["rows"][RANK]), block)
 np.savez(os.path.join(WORKDIR, f"eval{{RANK}}.npz"), nll=nll.numpy(), count=count.numpy(),
@@ -408,13 +409,17 @@ def test_pp_eval_matches_dense(tmp_path):
 # -- the entry point under torchrun ---------------------------------------------------
 
 
+def _cli_args(*overrides, nb):
+    return ["--device", "cpu", "data=synthetic", "data.synthetic_num_docs=64",
+            "train.max_length=64", "train.batch_size=2", "train.n_grad_accumulation=2",
+            f"train.nb_steps_tot={nb}", "train.mesh_shape={dp: 2, pp: 2}", "train.save=true",
+            *overrides]
+
+
 def _torchrun(tmp, *overrides, nb):
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "4",
-         "-m", "acco_tpu_torch", "--device", "cpu", "data=synthetic",
-         "data.synthetic_num_docs=64", "train.max_length=64",
-         "train.batch_size=2", "train.n_grad_accumulation=2", f"train.nb_steps_tot={nb}",
-         "train.mesh_shape={dp: 2, pp: 2}", "train.save=true", *overrides],
+         "-m", "acco_tpu_torch", *_cli_args(*overrides, nb=nb)],
         cwd=REPO, capture_output=True, text=True, timeout=240,
         env={**os.environ, "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp)},
     )
@@ -431,8 +436,9 @@ def test_torchrun_cli_runs_pp_on_cpu(model, method, tmp_path):
     through the pipeline included) and a final save whose ``params.npz``
     is the dense, unpadded model (JAX's layout: the plain config's leaf
     shapes, equal to the rank files' stages gathered and unpadded). For
-    ACCO, a run resumed from the periodic save at 8 grads ends on the
-    same ``params.npz``, bit for bit, and the same losses."""
+    ACCO, the entry point's trainer resumed on the same mesh from the
+    periodic save at 8 grads ends on the same ``params.npz``, bit for
+    bit, and the same losses."""
     from acco_tpu_torch.models.registry import build_model
     from acco_tpu_torch.parallel.tp import host_ravel
 
@@ -460,8 +466,10 @@ def test_torchrun_cli_runs_pp_on_cpu(model, method, tmp_path):
         jax.tree.map(np.shape, gathered)
     if method != "acco":
         return
-    resumed = _torchrun(tmp_path / "c", *args, f"hydra.run.dir={tmp_path / 'c'}",
-                        f"train.resume_from={steps / 'step_8'}", nb=16)
+    (tmp_path / "c").mkdir()  # the entry point's trainer on forked ranks, as torchrun starts it
+    resumed = torch_ranks.start_cli(_cli_args(*args, f"hydra.run.dir={tmp_path / 'c'}",
+                                              f"train.resume_from={steps / 'step_8'}", nb=16),
+                                    4, tmp_path / "c")()
     assert resumed["seed_loss"] is None and resumed["count_grad_tot"] == 16
     losses = [r["loss"] for r in summary["round_log"]]
     assert len(resumed["round_log"]) == 2  # the rounds after the save at 8 grads
@@ -474,31 +482,36 @@ def test_torchrun_cli_runs_pp_on_cpu(model, method, tmp_path):
 
 
 def test_pp_refusals():
-    """pp not dividing ``num_layers``, ``const_len_batch`` false, pp with
-    tp or sp (ROADMAP item 9.4), a staged model's dense forward and its
-    serving (item 9.5)."""
+    """pp not dividing ``num_layers``, ``const_len_batch`` false, a
+    staged model's dense forward and its serving (item 9.5). pp with tp or
+    sp, once refused (item 9.4), passes the mesh check, and its models
+    build: a tp x pp stage needs the combined (pp, tp) vocab group, a
+    pp x sp stage runs the ring."""
     from acco_tpu_torch.ops.schedules import get_schedule
     from acco_tpu_torch.parallel.ddp import DDPTrainStep
     from acco_tpu_torch.parallel.mesh import RankGroups
 
     assert check_mesh({"dp": 2, "pp": 2})["pp"] == 2
     for shape in ({"pp": 2, "tp": 2}, {"dp": 2, "pp": 2, "sp": 2}, {"tp": 2, "pp": 4}):
-        with pytest.raises(NotImplementedError, match="item 9.4"):
-            check_mesh(shape)
+        assert check_mesh(shape)["pp"] == shape["pp"]
     with pytest.raises(ValueError, match="must divide num_layers=4"):
         _stage("llama", 3, 0, pad_to=66)
     with pytest.raises(ValueError, match="must divide num_layers=4"):
         check_pipeline(8, num_layers=4)
-    with pytest.raises(NotImplementedError, match="item 9.4"):
+    with pytest.raises(ValueError, match="combined"):
         LlamaModel(LlamaConfig(**ARCH), tensor_group=TensorGroup(None, 2, 0),
                    pipeline_group=TensorGroup(None, 2, 0), vocab_pad_to=PAD_TO)
-    with pytest.raises(NotImplementedError, match="item 9.4"):
-        GPTNeoModel(GPTNeoConfig(**dict(NEO_ARCH, attention_layers=tuple(
-            NEO_ARCH["attention_layers"]))), attention="ring", sequence_group=object(),
-            pipeline_group=TensorGroup(None, 2, 0), vocab_pad_to=PAD_TO)
+    both = LlamaModel(LlamaConfig(**ARCH), tensor_group=TensorGroup(None, 2, 1),
+                      pipeline_group=TensorGroup(None, 2, 1),
+                      model_group=TensorGroup(None, 4, 3), vocab_pad_to=PAD_TO)
+    assert (len(both.layers), both.n_heads, both.wte.shape[0]) == (2, 2, PAD_TO // 4)
+    ring = GPTNeoModel(GPTNeoConfig(**dict(NEO_ARCH, attention_layers=tuple(
+        NEO_ARCH["attention_layers"]))), attention="ring", sequence_group=object(),
+        pipeline_group=TensorGroup(None, 2, 0), vocab_pad_to=PAD_TO)
+    assert len(ring.layers) == 2 and ring.sequence_group is not None
     group = object()  # a stand-in: the refusal comes before any collective
     stage = _port_model("gpt_neo", pg=TensorGroup(group, 2, 1))
-    groups = RankGroups(dp=1, sp=1, dp_index=0, sp_index=0, tp=2, tp_index=1, tensor=group,
+    groups = RankGroups(dp=1, sp=1, dp_index=0, sp_index=0, n_model=2, model_index=1, tensor=group,
                         model_axis="pp")
     with pytest.raises(ValueError, match="const_len_batch"):
         DDPTrainStep(stage, get_schedule(*SCHED), groups=groups, const_len_batch=False, **OPT)

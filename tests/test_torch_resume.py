@@ -189,7 +189,7 @@ from acco_tpu_torch.parallel.mesh import Mesh, RankGroups
 from acco_tpu_torch.trainer import Trainer
 
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
-groups, _ = RankGroups.build(2, 1, RANK)
+groups, _ = RankGroups.build({"dp": 2}, RANK)
 mesh = Mesh(dp=2, sp=1, rank=RANK, device=torch.device("cpu"), groups=groups)
 
 def run(nb, name, **over):

@@ -187,7 +187,7 @@ from acco_tpu_torch.resilience.faults import ShutdownAfterRounds
 from acco_tpu_torch.trainer import Trainer
 
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
-groups, _ = RankGroups.build(2, 1, RANK)
+groups, _ = RankGroups.build({"dp": 2}, RANK)
 mesh = Mesh(dp=2, sp=1, rank=RANK, device=torch.device("cpu"), groups=groups)
 model = LlamaModel(LlamaConfig(**spec["arch"]), dtype=torch.float32)
 handler = ShutdownAfterRounds(spec["stop_at"]) if RANK == 1 else None

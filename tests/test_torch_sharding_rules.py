@@ -129,9 +129,12 @@ def test_split_dims_equal_jax(family, tied):
 
 def test_family_attribute_and_unknown_tables():
     """The models name their family; an unknown family or kind raises;
-    the pp table is JAX's, and a pipeline composed with tensor or context
-    parallelism raises naming the ROADMAP item that ports it (9.4)."""
-    from acco_tpu_torch.sharding import check_pipeline
+    the pp table is JAX's; a pipeline composes with tensor and context
+    parallelism (item 9.4): ``check_pipeline`` asks only that pp divide
+    the layers, ``check_pairing`` that the step's groups be the model's,
+    and ``composed_split_specs`` gives the pp and tp tables' trees."""
+    from acco_tpu_torch.parallel.mesh import RankGroups
+    from acco_tpu_torch.sharding import check_pairing, check_pipeline, composed_split_specs
 
     assert (_port("llama").family, _port("gpt_neo").family) == ("llama", "gpt_neo")
     with pytest.raises(ShardingRuleError):
@@ -144,9 +147,22 @@ def test_family_attribute_and_unknown_tables():
             [(r.pattern, tuple(r.spec)) for r in theirs.rules]
         assert model_split_specs(family, _port(family).dense_shapes(), "pp") == \
             jax_sharding.model_split_specs(_jax(family), "pp")
-    for kw in ({"tp": 2}, {"sp": 2}, {"tensor_group": object()}, {"sequence_group": object()}):
-        with pytest.raises(NotImplementedError, match="item 9.4"):
-            check_pipeline(2, num_layers=2, **kw)
+    assert check_pipeline(2, num_layers=2) == 1
+    with pytest.raises(ValueError, match="must divide"):
+        check_pipeline(2, num_layers=3)
+    for family in ("llama", "gpt_neo"):
+        shapes = _port(family).dense_shapes()
+        assert composed_split_specs(family, shapes) == (
+            jax_sharding.model_split_specs(_jax(family), "pp"),
+            jax_sharding.model_split_specs(_jax(family), "tp"))
+    model = _port("llama")
+    check_pairing(model, None, None)
+    for kw in ({"tensor": object()}, {"tensor": object(), "model_axis": "pp"}):
+        groups = RankGroups(dp=1, sp=1, dp_index=0, sp_index=0, n_model=2, **kw)
+        with pytest.raises(ValueError, match="group is not the groups'"):
+            check_pairing(model, groups, None)
+    with pytest.raises(ValueError, match="ring-attention model"):
+        check_pairing(model, None, object())
 
 
 def test_hf_import_is_covered_by_the_same_tables(tmp_path):

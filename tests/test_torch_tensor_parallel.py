@@ -175,16 +175,18 @@ def test_tp_init_is_the_dense_init(family, tied):
 
 
 def test_meshes_raise_by_item():
-    """tp and pp run; tp together with sp, and pp together with tp or sp,
-    raise naming their item (9.4); serving under tp names 9.5."""
+    """tp, pp and their compositions with each other and with sp pass the
+    mesh check (item 9.4 ported them; the groups, rank for rank against
+    JAX's mesh: tests/test_torch_compositions.py); a tp model on the ring
+    (tp x sp) holds its shard's heads; serving under tp still names 9.5."""
     assert check_mesh({"dp": 2, "tp": 2})["tp"] == 2
     assert check_mesh({"dp": 2, "pp": 2})["pp"] == 2
     for shape in ({"sp": 2, "tp": 2}, {"pp": 2, "tp": 2}, {"pp": 2, "sp": 2}):
-        with pytest.raises(NotImplementedError, match="item 9.4"):
-            check_mesh(shape)
-    with pytest.raises(NotImplementedError, match="item 9.4"):
-        LlamaModel(_port_config("llama"), attention="ring", sequence_group=object(),
-                   tensor_group=TensorGroup(None, 2, 0))
+        sizes = check_mesh(shape)
+        assert all(sizes[a] == n for a, n in shape.items())
+    ring = LlamaModel(_port_config("llama"), attention="ring", sequence_group=object(),
+                      tensor_group=TensorGroup(None, 2, 0), vocab_pad_to=PAD_TO)
+    assert (ring.n_heads, ring.n_kv_heads) == (2, 2) and ring.sequence_group is not None
     model = _local_model("llama", 2, 0)
     with pytest.raises(NotImplementedError, match="item 9.5"):
         model.prefill(torch.zeros((1, 4), dtype=torch.long))
@@ -200,28 +202,79 @@ from acco_tpu_torch.ops.losses import vocab_parallel_causal_lm_loss
 
 cfg = dict(np.load(os.path.join(WORKDIR, "in.npz")))
 tg = TensorGroup.of()
-vl = cfg["w"].shape[1] // WS
-h = torch.tensor(cfg["h"], requires_grad=True)
-w = torch.tensor(cfg["w"][:, RANK * vl:(RANK + 1) * vl].copy(), requires_grad=True)
-labels = torch.tensor(cfg["labels"]).long()
-kw = dict(label_smoothing=float(cfg["smoothing"]), real_vocab=int(cfg["real"]))
 out = {}
-for name, fn in (("ce", lambda: vocab_parallel_causal_lm_loss(h @ w, labels, tg, **kw)),
-                 ("fused", lambda: vocab_parallel_fused_ce_loss(h, w, labels, tg, **kw))):
-    if name == "fused" and not int(cfg["fused"]):
-        continue
-    loss = fn()
-    dh, dw = torch.autograd.grad(loss, [h, w])
-    out.update({name: loss.detach().numpy(), name + "_dh": dh.numpy(), name + "_dw": dw.numpy()})
+for form in cfg["forms"]:  # every (head, smoothing) form on these ranks, one after another
+    get = lambda key: cfg[f"{form}/{key}"]
+    vl = get("w").shape[1] // WS
+    h = torch.tensor(get("h"), requires_grad=True)
+    w = torch.tensor(get("w")[:, RANK * vl:(RANK + 1) * vl].copy(), requires_grad=True)
+    labels = torch.tensor(get("labels")).long()
+    kw = dict(label_smoothing=float(get("smoothing")), real_vocab=int(get("real")))
+    for name, fn in (("ce", lambda: vocab_parallel_causal_lm_loss(h @ w, labels, tg, **kw)),
+                     ("fused", lambda: vocab_parallel_fused_ce_loss(h, w, labels, tg, **kw))):
+        if name == "fused" and not int(get("fused")):
+            continue
+        loss = fn()
+        dh, dw = torch.autograd.grad(loss, [h, w])
+        out.update({f"{form}/{name}": loss.detach().numpy(), f"{form}/{name}_dh": dh.numpy(),
+                    f"{form}/{name}_dw": dw.numpy()})
 np.savez(os.path.join(WORKDIR, f"loss{RANK}.npz"), **out)
 """
+
+VP_HEADS = {"v63": (63, 64, 32), "v511": (511, 512, 128)}  # vocab, padded, hidden
+VP_SMOOTHING = (0.0, 0.1)
+
+
+def _vp_inputs(tp, vocab, padded, hidden):
+    """One head's inputs at ``tp`` (seeded by tp, as one case's were):
+    hidden states, a padded head with random padding columns, labels
+    over the real vocab with two ignored."""
+    rng = np.random.default_rng(tp)
+    h = rng.normal(size=(2, SEQ, hidden)).astype(np.float32)
+    w = (rng.normal(size=(hidden, padded)) * 0.3).astype(np.float32)
+    labels = rng.integers(0, vocab, (2, SEQ)).astype(np.int32)
+    labels[0, 3] = labels[1, 9] = -100
+    return h, w, labels
+
+
+def _write_forms(path, tp, forms):
+    """``in.npz`` for :data:`LOSS_WORKER`: ``forms`` maps a form's name to
+    ``(head name, smoothing)``."""
+    arrays = {"forms": np.array(list(forms))}
+    for form, (head, smoothing) in forms.items():
+        vocab, padded, hidden = VP_HEADS[head]
+        h, w, labels = _vp_inputs(tp, vocab, padded, hidden)
+        arrays.update({f"{form}/h": h, f"{form}/w": w, f"{form}/labels": labels,
+                       f"{form}/smoothing": smoothing, f"{form}/real": vocab,
+                       f"{form}/fused": int(padded // tp >= 128)})
+    np.savez(path, **arrays)
+
+
+@pytest.fixture(scope="module")
+def vp_ranks(tmp_path_factory):
+    """``get(tp)``: every (head, smoothing) form's outputs on ``tp`` gloo
+    ranks, one rank set a tp size for all its forms (started once a test
+    process, at its first use)."""
+    done = {}
+
+    def get(tp):
+        if tp not in done:
+            work = tmp_path_factory.mktemp(f"vp{tp}")
+            forms = {f"{head}-{smoothing}": (head, smoothing)
+                     for head in VP_HEADS for smoothing in VP_SMOOTHING}
+            _write_forms(work / "in.npz", tp, forms)
+            run_ranks(LOSS_WORKER, tp, work)
+            done[tp] = [dict(np.load(work / f"loss{r}.npz")) for r in range(tp)]
+        return done[tp]
+
+    return get
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("vocab, padded, hidden", [(63, 64, 32), (511, 512, 128)],
                          ids=["v63", "v511"])
-def test_vocab_parallel_losses_match_jax(vocab, padded, hidden, tp, smoothing, tmp_path):
+def test_vocab_parallel_losses_match_jax(vocab, padded, hidden, tp, smoothing, vp_ranks):
     """On ``tp`` gloo ranks, each holding its slice of a padded head with
     random padding columns: ``vocab_parallel_causal_lm_loss`` on the local
     logits and the plain path of ``vocab_parallel_fused_ce_loss`` (where
@@ -234,21 +287,16 @@ def test_vocab_parallel_losses_match_jax(vocab, padded, hidden, tp, smoothing, t
     port's per-rank gradients carry the factor tp that JAX's gradients
     carry inside a ``shard_map(check_vma=False)`` body (what the rounds
     below hold), so they are held against tp times the true gradient
-    that ``jax.grad`` gives outside it. JAX's fused wrapper itself needs
-    the Pallas interpreter: the slow test below."""
+    that ``jax.grad`` gives outside it. One rank set a tp size computes
+    every form (the ``vp_ranks`` fixture); JAX's two functions run under
+    ``jax.jit``, one compile each. JAX's fused wrapper itself needs the
+    Pallas interpreter: the slow test below."""
     from jax import shard_map
 
     from acco_tpu.ops.losses import causal_lm_loss as jax_causal_lm_loss
 
-    rng = np.random.default_rng(tp)
-    h = rng.normal(size=(2, SEQ, hidden)).astype(np.float32)
-    w = (rng.normal(size=(hidden, padded)) * 0.3).astype(np.float32)
-    labels = rng.integers(0, vocab, (2, SEQ)).astype(np.int32)
-    labels[0, 3] = labels[1, 9] = -100
+    h, w, labels = _vp_inputs(tp, vocab, padded, hidden)
     fused = padded // tp >= 128
-    np.savez(tmp_path / "in.npz", h=h, w=w, labels=labels, smoothing=smoothing, real=vocab,
-             fused=int(fused))
-    ranks = torch_ranks.Ranks(LOSS_WORKER, tp, tmp_path)
     mesh = make_mesh({"tp": tp}, devices=jax.devices()[:tp])
 
     def sharded(h_, w_):
@@ -257,20 +305,22 @@ def test_vocab_parallel_losses_match_jax(vocab, padded, hidden, tp, smoothing, t
             mesh=mesh, in_specs=(JP(), JP(None, "tp"), JP()), out_specs=JP(), check_vma=False)
         return fn(h_, w_, jnp.asarray(labels))
 
-    loss_j, dw_j = jax.value_and_grad(sharded, argnums=1)(jnp.asarray(h), jnp.asarray(w))
-    dh_dense = jax.grad(lambda hh: jax_causal_lm_loss(
-        hh @ jnp.asarray(w), jnp.asarray(labels), smoothing, real_vocab=vocab))(jnp.asarray(h))
-    ranks.join()
-    outs = [dict(np.load(tmp_path / f"loss{r}.npz")) for r in range(tp)]
+    loss_j, dw_j = jax.jit(jax.value_and_grad(sharded, argnums=1))(jnp.asarray(h),
+                                                                   jnp.asarray(w))
+    dh_dense = jax.jit(jax.grad(lambda hh: jax_causal_lm_loss(
+        hh @ jnp.asarray(w), jnp.asarray(labels), smoothing, real_vocab=vocab)))(jnp.asarray(h))
+    outs = vp_ranks(tp)
     vl = padded // tp
+    key = f"{'v63' if vocab == 63 else 'v511'}-{smoothing}"
     for form in ("ce", "fused") if fused else ("ce",):
+        name = f"{key}/{form}"
         for r, got in enumerate(outs):
-            np.testing.assert_allclose(got[form], float(loss_j), rtol=1e-5, atol=1e-6,
+            np.testing.assert_allclose(got[name], float(loss_j), rtol=1e-5, atol=1e-6,
                                        err_msg=f"{form} loss, rank {r}")
-            np.testing.assert_allclose(got[form + "_dw"],
+            np.testing.assert_allclose(got[name + "_dw"],
                                        tp * np.asarray(dw_j)[:, r * vl:(r + 1) * vl],
                                        rtol=1e-4, atol=1e-6, err_msg=f"{form} dW, rank {r}")
-        np.testing.assert_allclose(sum(o[form + "_dh"] for o in outs), tp * np.asarray(dh_dense),
+        np.testing.assert_allclose(sum(o[name + "_dh"] for o in outs), tp * np.asarray(dh_dense),
                                    rtol=1e-4, atol=1e-6, err_msg=f"{form} summed dH")
 
 
@@ -282,14 +332,9 @@ def test_vocab_parallel_fused_matches_jax_interpreted(tmp_path):
     0.1: the loss."""
     from jax import shard_map
 
-    tp, vocab, padded, smoothing = 2, 511, 512, 0.1
-    rng = np.random.default_rng(7)
-    h = rng.normal(size=(2, SEQ, 128)).astype(np.float32)
-    w = (rng.normal(size=(128, padded)) * 0.3).astype(np.float32)
-    labels = rng.integers(0, vocab, (2, SEQ)).astype(np.int32)
-    labels[1, 2] = -100
-    np.savez(tmp_path / "in.npz", h=h, w=w, labels=labels, smoothing=smoothing, real=vocab,
-             fused=1)
+    tp, vocab, smoothing = 2, 511, 0.1
+    _write_forms(tmp_path / "in.npz", tp, {"f": ("v511", smoothing)})
+    h, w, labels = _vp_inputs(tp, *VP_HEADS["v511"])
     ranks = torch_ranks.Ranks(LOSS_WORKER, tp, tmp_path)
     mesh = make_mesh({"tp": tp}, devices=jax.devices()[:tp])
     fn = shard_map(
@@ -300,7 +345,7 @@ def test_vocab_parallel_fused_matches_jax_interpreted(tmp_path):
     ranks.join()
     for r in range(tp):
         got = np.load(tmp_path / f"loss{r}.npz")
-        np.testing.assert_allclose(got["fused"], float(loss_f), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["f/fused"], float(loss_f), rtol=1e-5, atol=1e-6)
 
 
 # -- rounds on gloo ranks against JAX's tp run ---------------------------------
@@ -393,9 +438,9 @@ from acco_tpu_torch.parallel.mesh import RankGroups
 ranks = dist.get_process_group_ranks
 out = {}
 for dp_major in (True, False):
-    g = RankGroups.build_tp(2, 2, RANK, dp_major=dp_major)
+    g, _ = RankGroups.build({"dp": 2, "tp": 2} if dp_major else {"tp": 2, "dp": 2}, RANK)
     out[str(dp_major)] = {
-        "dp_index": g.dp_index, "tp_index": g.tp_index, "shard": g.shard_index,
+        "dp_index": g.dp_index, "tp_index": g.model_index, "shard": g.shard_index,
         "data": ranks(g.data), "comm_data": ranks(g.comm_data), "tensor": ranks(g.tensor),
         "comm_tensor": ranks(g.comm_tensor), "all": ranks(g.all),
         "distinct": g.tensor is not g.comm_tensor and g.data is not g.comm_data,

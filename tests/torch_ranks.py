@@ -165,9 +165,11 @@ def run_ranks(script: str, ws: int, workdir, timeout: float = 120.0) -> None:
 # it saw. ``spec.json``: family ('llama' | 'gpt_neo'), arch, dp, sp,
 # zigzag, method ('acco' | 'dpu' | 'ddp'), sched, opt, rounds, batch (the
 # rank's batch), lr_grad_accounting, and optionally tp (a {dp, tp} world,
-# dp outer) or pp (a {dp, pp} world, dp outer) with vocab_pad_to, and
-# fused_loss. ``flat.npy``: the initial [n_params] dense parameters (under
-# tp or pp each rank keeps its shard's or stage's local vector).
+# dp outer) or pp (a {dp, pp} world, dp outer) with vocab_pad_to,
+# fused_loss, and mesh (the {axis: size} mesh in its key order, which
+# replaces dp, sp, tp and pp's). ``flat.npy``: the initial [n_params]
+# dense parameters (under tp or pp, or both, each rank keeps its model
+# index's local vector).
 # ``blocks.npz``: global blocks ``{i}/{input_ids, ...}`` of
 # [n_acc, dp * batch, seq] and ``{i}/valid`` [n_acc, dp]. The rank takes
 # its dp index's rows and valid column, then (sp > 1) its sequence chunk.
@@ -185,15 +187,14 @@ from acco_tpu_torch.parallel.ddp import DDPTrainStep
 from acco_tpu_torch.parallel.mesh import RankGroups
 
 spec = json.load(open(os.path.join(WORKDIR, "spec.json")))
-tp, pp = spec.get("tp", 1), spec.get("pp", 1)
-if tp > 1 or pp > 1:
-    axis = "tp" if tp > 1 else "pp"
-    groups, sg = RankGroups.build_tp(spec["dp"], tp * pp, RANK, axis=axis), None
-    kw = {("tensor_group" if axis == "tp" else "pipeline_group"): groups.model_group(),
-          "vocab_pad_to": spec.get("vocab_pad_to")}
-else:
-    groups, sg = RankGroups.build(spec["dp"], spec["sp"], RANK)
-    kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
+mesh = spec.get("mesh") or {"dp": spec["dp"], "sp": spec["sp"], "tp": spec.get("tp", 1),
+                            "pp": spec.get("pp", 1)}
+groups, sg = RankGroups.build(mesh, RANK)
+kw = dict(attention="ring", sequence_group=sg, zigzag=spec["zigzag"]) if sg else {}
+tg, pg = groups.tensor_group(), groups.pipeline_group()
+if tg is not None or pg is not None:
+    kw.update(tensor_group=tg, pipeline_group=pg, vocab_pad_to=spec.get("vocab_pad_to"),
+              model_group=groups.model_group() if tg is not None and pg is not None else None)
 if spec["family"] == "llama":
     model = LlamaModel(LlamaConfig(**spec["arch"]), dtype=torch.float32, **kw)
 else:
@@ -207,10 +208,10 @@ if spec["method"] == "ddp":
 else:
     step = AccoTrainStep(model, get_schedule(*spec["sched"]), mode=spec["method"], **common)
 flat0 = np.load(os.path.join(WORKDIR, "flat.npy"))
-if tp > 1 or pp > 1:
+if groups.tensor is not None:
     from acco_tpu_torch.models.convert import params_to_jax
     dense = params_to_jax(torch.tensor(flat0), model.config, vocab=model.padded_vocab)
-    flat0 = model.tp_layout.stack_flat(dense)[groups.tp_index]
+    flat0 = model.tp_layout.stack_flat(dense)[groups.model_index]
 state = step.init_state(torch.tensor(flat0))
 data = np.load(os.path.join(WORKDIR, "blocks.npz"))
 rows = slice(groups.dp_index * spec["batch"], (groups.dp_index + 1) * spec["batch"])
@@ -256,9 +257,9 @@ np.savez(os.path.join(WORKDIR, f"out{RANK}.npz"), **{k: np.array(v) for k, v in 
 
 
 def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0):
-    """:data:`TRAIN_WORKER` started on ``spec['dp'] * spec['sp']`` (x tp x pp) ranks;
-    the returned function waits for them and returns each rank's saved
-    arrays."""
+    """:data:`TRAIN_WORKER` started on the mesh's ranks (``spec['dp'] *
+    spec['sp']`` x tp x pp); the returned function waits for them and
+    returns each rank's saved arrays."""
     import json
 
     import numpy as np
@@ -268,7 +269,9 @@ def start_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120
              **{f"{i}/{k}": v for i, b in enumerate(blocks) for k, v in b.items()})
     with open(os.path.join(str(workdir), "spec.json"), "w") as f:
         json.dump(spec, f)
-    ws = spec["dp"] * spec["sp"] * spec.get("tp", 1) * spec.get("pp", 1)
+    ws = 1
+    for size in (spec.get("mesh") or {k: spec.get(k, 1) for k in ("dp", "sp", "tp", "pp")}).values():
+        ws *= size
     ranks = Ranks(TRAIN_WORKER, ws, workdir, timeout=timeout)
 
     def join() -> list:
@@ -282,3 +285,36 @@ def run_training(spec: dict, flat, blocks: list, workdir, timeout: float = 120.0
     """:data:`TRAIN_WORKER` on ``spec['dp'] * spec['sp']`` ranks; returns
     each rank's saved arrays."""
     return start_training(spec, flat, blocks, workdir, timeout)()
+
+
+# The entry point's trainer (``python -m acco_tpu_torch``'s) on forked
+# ranks, with the variables torchrun sets: ``argv.json`` holds the command
+# line's arguments; rank 0 writes the summary to ``summary.json``.
+CLI_WORKER = """
+import json
+os.environ.update(RANK=str(RANK), WORLD_SIZE=str(WS), LOCAL_RANK=str(RANK))
+from acco_tpu_torch.__main__ import build_trainer
+summary = build_trainer(json.load(open(os.path.join(WORKDIR, "argv.json")))).train()
+if RANK == 0:
+    json.dump(summary, open(os.path.join(WORKDIR, "summary.json"), "w"))
+"""
+
+
+def start_cli(argv: list, ws: int, workdir, timeout: float = 120.0):
+    """:data:`CLI_WORKER` started on ``ws`` ranks (their default group the
+    entry point's: it initialises none of its own) with the command line
+    ``argv``; the returned function waits for them and returns rank 0's
+    summary. A run resumed this way skips a second launcher's start."""
+    import json
+
+    with open(os.path.join(str(workdir), "argv.json"), "w") as f:
+        json.dump([str(a) for a in argv], f)
+    ranks = Ranks(CLI_WORKER, ws, workdir, timeout=timeout)
+
+    def join() -> dict:
+        ranks.join()
+        with open(os.path.join(str(workdir), "summary.json")) as f:
+            return json.load(f)
+
+    return join
+
