@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List
 
 import torch
 

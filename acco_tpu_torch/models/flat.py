@@ -280,19 +280,19 @@ def unpad_vocab_tree(params: dict, vocab: int, padded: int) -> dict:
 
 
 def check_serve(model) -> None:
-    """The serving surface runs one replica of the dense model, whole."""
-    if model.sequence_group is not None:
+    """The serving surface runs one replica of the dense model, whole, as
+    JAX's does (``acco_tpu/models/llama.py:360-365``: its models refuse a
+    sequence or tensor axis; JAX has no pipeline-staged model)."""
+    if model.sequence_group is not None or model.tensor_group is not None:
         raise ValueError(
             "the serving decode path is single-replica: build the model "
-            "without a sequence group"
+            "without a sequence group or a tensor group"
         )
-    if model.tensor_group is not None:
-        raise NotImplementedError(
-            "serving a tensor-parallel model (tp decode) is not ported yet: ROADMAP.md "
-            "queue 1, item 9.5")
     if model.pipeline_group is not None:
-        raise NotImplementedError(
-            "serving a pipeline-staged model is not ported yet: ROADMAP.md queue 1, item 9.5")
+        raise ValueError(
+            f"the serving decode path is single-replica: this model is pipeline stage "
+            f"{model.pipeline_group.rank} of {model.pipeline_group.size} and holds only "
+            "its layers; build the model without a pipeline group")
 
 
 def check_whole(model) -> None:

@@ -39,8 +39,8 @@ and one all-reduce after ``wo`` and one after ``w_down``
 padding, ``parallel/tp.pad_vocab``); the padded rows are never looked
 up and never enter the loss (``real_vocab``), and :meth:`unpad_vocab`
 strips them for export. With a ``sequence_group`` too (tp x sp; JAX
-llama.py:253-338) the ring runs this shard's heads; serving under tp is
-not ported yet (ROADMAP.md queue 1, item 9.5).
+llama.py:253-338) the ring runs this shard's heads. Serving is
+single-replica, as JAX's: a tensor or sequence group raises.
 
 Pipeline parallelism (a ``pipeline_group``, JAX's ``pipeline_axis``;
 llama.py:456-575): the model is one stage, ``num_layers / pp``
@@ -50,7 +50,7 @@ it through :meth:`LlamaModel.pp_embed` (the vocab-parallel lookup over
 the pipeline group), :meth:`LlamaModel.stage_blocks` (this stage's
 layers, the same math as the span of :meth:`LlamaModel.hidden`) and
 :meth:`LlamaModel.finalize` (the final norm); ``hidden`` and ``apply``
-refuse a stage, and serving one is item 9.5. A stage takes a tensor
+refuse a stage, and so does serving. A stage takes a tensor
 group (tp x pp, with the combined ``model_group``: the stage's layers
 run their all-reduces and the lookup and the loss run over the combined
 group) and a sequence group (pp x sp: the ring inside the stage).

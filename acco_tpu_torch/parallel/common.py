@@ -329,6 +329,32 @@ class FlatTrainStep:
                 model, label_smoothing, const_len_batch, fused_loss, sequence_group
             )
 
+    @property
+    def shard_axes(self):
+        """The data axes ZeRO-1 shards over: 'dp', or ('dp', 'sp') under
+        context parallelism (JAX: ``sharding/layout.py`` ``shard_layout``)."""
+        return "dp" if self.sequence_group is None else ("dp", "sp")
+
+    @property
+    def model_axis(self):
+        """JAX's model axis: None, 'tp', 'pp' or ('pp', 'tp')."""
+        g = self.groups
+        if g is None or g.tensor is None:
+            return None
+        return ("pp", "tp") if g.composed else g.model_axis
+
+    def rule_table(self):
+        """The train-state rule table of this step (``sharding/tables.py``;
+        the static gates audit the state against it)."""
+        from acco_tpu_torch.sharding.tables import train_state_table
+
+        return train_state_table(self.mode, self.shard_axes, self.model_axis)
+
+    def eval_rule_table(self):
+        from acco_tpu_torch.sharding.tables import eval_state_table
+
+        return eval_state_table(self.shard_axes, self.model_axis)
+
     def group(self, name: str):
         """One of ``groups``' process groups (None: one rank)."""
         return None if self.groups is None else getattr(self.groups, name)

@@ -47,6 +47,8 @@ class StepMetrics(NamedTuple):
 class DDPTrainStep(FlatTrainStep):
     """DDP steps for one model, on one rank or on the ranks of ``groups``."""
 
+    mode = "ddp"
+
     branch_probe = None  # see parallel/acco.py: DDP has the compute branch alone
 
     def init_state(self, flat_params: torch.Tensor) -> DDPState:

@@ -109,7 +109,8 @@ def compute(
             logits = model.apply(ids, am)
             nll, mask = _per_token_ce(logits[:, :-1], labels[:, 1:], 0.0)
             per_sample = (nll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
-            ppls.extend(torch.exp(per_sample).cpu().tolist())
+            ppls.append(torch.exp(per_sample))  # read back once, after the batches
+    ppls = torch.cat(ppls).cpu().tolist() if ppls else []
     return {"perplexities": ppls, "mean_perplexity": float(np.mean(ppls))}
 
 

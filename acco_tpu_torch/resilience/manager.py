@@ -23,7 +23,12 @@ NCCL, and the loop's thread uses the same communicators. Rank 0's commit
 waits for the other ranks' files instead
 (:func:`~acco_tpu_torch.utils.checkpoint.wait_for_rank_files`).
 
-Saves are serialized: the next ``save()`` first drains the last one.
+Saves are serialized: the next ``save()`` first drains the last one. A
+save into a step dir that holds a checkpoint overwrites it, as JAX's
+``force=True`` does: each save carries a generation, ``run_token`` and
+the manager's count of saves, the same on every rank, and rank 0's
+commit takes the old commit back before any rank writes
+(``utils/checkpoint.py`` ``commit``).
 Failure semantics as JAX's: an error in the commit is recorded and
 re-raised on the loop at the next ``save()``, ``wait()`` or ``close()``
 (``close()`` logs it when the loop is already unwinding another error),
@@ -58,7 +63,9 @@ class CheckpointManager:
     Every rank calls :meth:`save` and runs its own commit; only rank 0
     writes ``meta.json``, GCs and applies the retention (a shared
     filesystem, like the trainer's other rank-0 gates). ``world_size``
-    is the number of rank files rank 0's commit waits for.
+    is the number of rank files rank 0's commit waits for. Over several
+    ranks, ``run_token`` must be the same on every rank and differ from
+    that of any earlier manager that saved into ``ckpt_dir``.
     """
 
     def __init__(
@@ -73,6 +80,7 @@ class CheckpointManager:
         log: Optional[logging.Logger] = None,
         gc_on_init: bool = True,
         tracer=None,
+        run_token: str = "run",
     ) -> None:
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.async_save = bool(async_save)
@@ -90,6 +98,11 @@ class CheckpointManager:
         # host buffers (the first save), the snapshot's bytes; the commit ms
         self.snapshot_log: list = []
         self.commit_log: list = []
+        # a save's generation: the token every rank's manager shares (the
+        # trainer's agreed run id) and the count of saves, which advances
+        # on every rank alike
+        self.run_token = str(run_token)
+        self.saves = 0
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         if gc_on_init:
@@ -139,6 +152,8 @@ class CheckpointManager:
         host tensors (``field path -> tensor``), never on the live state.
         """
         self.wait()
+        self.saves += 1
+        generation = f"{self.run_token}:{self.saves}"
         path = os.path.join(self.ckpt_dir, f"step_{int(step)}")
         os.makedirs(os.path.join(path, "state"), exist_ok=True)
         meta = dict(meta)
@@ -154,7 +169,7 @@ class CheckpointManager:
         if self.tracer is not None:
             self.tracer.complete_event("ckpt/snapshot", snap_ms, cat="ckpt",
                                        args={"path": path})
-        args = (path, snap, meta, extra_files, rank_meta)
+        args = (path, snap, meta, extra_files, rank_meta, generation)
         if not self.async_save:
             self._commit(*args)
             err, self._error = self._error, None
@@ -167,7 +182,7 @@ class CheckpointManager:
         return path
 
     def _commit(self, path: str, snap: ckpt.Snapshot, meta: dict, extra_files,
-                rank_meta) -> None:
+                rank_meta, generation: str) -> None:
         t_commit = time.perf_counter()
         try:
             extra = None
@@ -175,7 +190,7 @@ class CheckpointManager:
                 def extra(p: str) -> None:
                     extra_files(p, snap.host)
             ckpt.commit(path, snap, meta, rank=self.rank, world_size=self.world_size,
-                        extra_files=extra, rank_meta=rank_meta)
+                        extra_files=extra, rank_meta=rank_meta, generation=generation)
             if self.rank == 0:
                 ckpt.apply_retention(self.ckpt_dir, self.keep_last, self.keep_every_s,
                                      self.log)

@@ -30,8 +30,10 @@ that the engine allocates: :meth:`ServeEngine.set_params` copies a flat
 vector (``ravel_pytree`` order) into that storage, and the pools are
 written in place, so a captured graph stays valid across both.
 
-Not ported here: ``rule_table``/``abstract_state`` (the sharding rules
-and the aval sizing, ROADMAP.md queue 1, items 9 and 12).
+:meth:`ServeEngine.abstract_state` is the serve state as meta tensors
+(the parameter tree and both pools, no allocation) and
+:meth:`ServeEngine.rule_table` its rule table: the static gates
+(``analysis/``) walk them and the memory sieve prices them.
 """
 
 from __future__ import annotations
@@ -271,6 +273,33 @@ class ServeEngine:
                 f"bucket {self.buckets[-1]}"
             )
         return self.buckets[i]
+
+    # -- the abstract state (the static gates and the memory sieve) -----------
+
+    def abstract_params(self) -> dict:
+        """The parameter tree (JAX's init tree, ``jax.eval_shape(model.init,
+        key)``: ``wte``, ``layers/wq``, ...) nested by the model's layout, as
+        tensors on the meta device in the model's dtype: no storage."""
+        tree: dict = {}
+        for path, shape, _ in self.model.layout:
+            *outer, leaf = path.split("/")
+            node = tree
+            for key in outer:
+                node = node.setdefault(key, {})
+            node[leaf] = torch.empty(shape, dtype=self.model.dtype, device="meta")
+        return tree
+
+    def rule_table(self):
+        """The serve state's rule table (params and KV pools)."""
+        from acco_tpu_torch.sharding.tables import model_family, serve_state_table
+
+        return serve_state_table(model_family(self.model))
+
+    def abstract_state(self) -> dict:
+        """``{"params", "k_pages", "v_pages"}`` as meta tensors, keyed as the
+        rule table and the gates walk them."""
+        kp, vp = self.spec.abstract()
+        return {"params": self.abstract_params(), "k_pages": kp, "v_pages": vp}
 
     # -- device state ---------------------------------------------------------
 

@@ -23,8 +23,10 @@ storage.
 window on local layers: long-context decode on those layers costs
 O(window), not O(context).
 
-Not ported here: ``CacheSpec.pool_specs``/``abstract`` (the sharding
-rule table and the aval sizing, ROADMAP.md queue 1, items 9 and 12).
+:meth:`CacheSpec.pool_specs` reads the pools' placement from the serve
+rule table (``sharding/tables.py``) and :meth:`CacheSpec.abstract` gives
+the pools as meta tensors, no allocation: the memory sieve
+(``analysis/memory.py``) prices them and the static gates walk them.
 """
 
 from __future__ import annotations
@@ -80,6 +82,20 @@ class CacheSpec:
     @property
     def total_bytes(self) -> int:
         return self.num_pages * self.page_bytes
+
+    def pool_specs(self) -> tuple:
+        """``(k_spec, v_spec)`` of the pools, read from the serve rule
+        table (``sharding/tables.py`` ``serve_state_table``)."""
+        from acco_tpu_torch.sharding.tables import serve_state_table
+
+        table = serve_state_table()
+        return table.match("k_pages"), table.match("v_pages")
+
+    def abstract(self) -> tuple:
+        """The (K, V) pools as tensors on the meta device: shapes and
+        dtype, no storage."""
+        return tuple(torch.empty(self.page_shape, dtype=self.torch_dtype, device="meta")
+                     for _ in range(2))
 
     def alloc(self, device="cpu") -> tuple:
         """Two distinct zeroed pools (K, V): zeros, so that a masked read

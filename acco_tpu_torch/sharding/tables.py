@@ -1,23 +1,118 @@
-"""The per-model-family tensor- and pipeline-parallel parameter tables.
+"""The rule tables: the train, eval and serve state tables and the
+per-model-family tensor- and pipeline-parallel parameter tables.
 
-Counterpart of the tp and pp rules of ``acco_tpu/sharding/tables.py``,
-rule for rule: ``model_split_specs`` gives ``parallel/tp.TpLayout`` the
-split dim of every leaf (the models' ``tp_param_specs`` and
-``pp_param_specs``), and ``composed_split_specs`` the outer (pp) and
-inner (tp) trees of ``parallel/tp.ComposedLayout`` (JAX:
-``tables.py:257``). The train, eval and serve state tables come with
-the serving-sharding item and the static gates (ROADMAP.md queue 1,
-items 9.5 and 12).
+Counterpart of ``acco_tpu/sharding/tables.py``, rule for rule. The state
+tables (JAX: ``tables.py:34-139``) place every leaf of a train state
+(``AccoState`` for acco and dpu, ``DDPState`` for ddp; the paths as
+``utils/checkpoint.py`` ``state_leaves`` names them: ``zero1/opt/mu``,
+``pending_grads``, ``health/pending_ok``, ...), of the eval program's
+``{"flat_params"}`` and of the serve state (``params``, ``k_pages``,
+``v_pages``). The flat ZeRO-1 vectors shard over the data axes (``dp``
+or ``(dp, sp)``), with the model axis (``tp``, ``pp`` or ``(pp, tp)``)
+first under a model axis; the flat params replicate over the data axes.
+The port places nothing by these specs (each rank holds its own view):
+the static gates (``analysis/rules.py``) audit the trees against them
+and the memory sieve (``analysis/memory.py``) prices each leaf by them.
+
+``model_split_specs`` gives ``parallel/tp.TpLayout`` the split dim of
+every leaf (the models' ``tp_param_specs`` and ``pp_param_specs``), and
+``composed_split_specs`` the outer (pp) and inner (tp) trees of
+``parallel/tp.ComposedLayout`` (JAX: ``tables.py:257``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 from acco_tpu_torch.sharding.rules import P, Rule, RuleTable, ShardingRuleError, split_dims
 
+DATA_AXIS = "dp"
+SEQ_AXIS = "sp"
 TENSOR_AXIS = "tp"
 PIPELINE_AXIS = "pp"
+
+Axes = Union[str, tuple]
+
+
+def _flat_specs(shard_axes: Axes, model_axis: Optional[Axes]) -> tuple:
+    """(sharded, replicated-within-data) specs of the flat ZeRO-1 vectors:
+    one leading dim over ``model axes + shard axes`` (resp. the model
+    axes alone for the flat params)."""
+    axes = (shard_axes,) if isinstance(shard_axes, str) else tuple(shard_axes)
+    if model_axis:
+        t = (model_axis,) if isinstance(model_axis, str) else tuple(model_axis)
+        return P(t + axes), P(t)
+    return P(shard_axes), P()
+
+
+def flat_state_specs(shard_axes: Axes, tensor_axis: Optional[Axes] = None) -> tuple:
+    """(shard, flat) specs straight from the table arithmetic."""
+    return _flat_specs(shard_axes, tensor_axis)
+
+
+def train_state_table(mode: str, shard_axes: Axes, model_axis: Optional[Axes] = None) -> RuleTable:
+    """Rule table of a train state (``AccoState`` for acco and dpu,
+    ``DDPState`` for ddp), for every mesh: the specs follow the step's
+    ``shard_axes`` and ``model_axis``."""
+    shard, flat = _flat_specs(shard_axes, model_axis)
+    common = [
+        Rule(r"^flat_params$", flat,
+             "flat param vector: replicated within data axes, split over model axes"),
+        Rule(r"^zero1/opt/(params|mu|nu)$", shard,
+             "ZeRO-1 optimizer state: each data shard owns 1/num_shards"),
+        Rule(r"^zero1/opt/count$", P(), "scalar step counter"),
+        Rule(r"^zero1/(sched_grads|grads_committed)$", P(), "scalar schedule/commit counters"),
+        Rule(r"^health/(skipped_rounds|consec_skipped|pending_ok)$", P(),
+             "watchdog scalars, replicated"),
+    ]
+    if mode in ("acco", "dpu"):
+        rules = common + [
+            Rule(r"^pending_grads$", shard,
+                 "delayed gradient buffer, sharded like the optimizer state"),
+            Rule(r"^pending_count$", P(DATA_AXIS), "per-data-replica contribution counter"),
+            Rule(r"^round_idx$", P(), "scalar round counter"),
+        ]
+    elif mode == "ddp":
+        rules = common
+    else:
+        raise ShardingRuleError(f"unknown train mode {mode!r}")
+    return RuleTable(name=f"train:{mode}", rules=tuple(rules))
+
+
+def eval_state_table(shard_axes: Axes, model_axis: Optional[Axes] = None) -> RuleTable:
+    """The eval program sees only ``{"flat_params": ...}``."""
+    _, flat = _flat_specs(shard_axes, model_axis)
+    return RuleTable(name="eval",
+                     rules=(Rule(r"^flat_params$", flat, "eval reads the flat params"),))
+
+
+def serve_state_table(family: str = "any") -> RuleTable:
+    """Serving is single-replica, as JAX's: params and KV pools replicated
+    (a fleet scales by replicas, each sized by ``analysis/memory.py``)."""
+    return RuleTable(
+        name=f"serve:{family}",
+        rules=(
+            Rule(r"^(k_pages|v_pages)$", P(), "paged KV pools, single replica"),
+            Rule(r"^params(/|$)", P(), "serve params, single replica"),
+        ),
+    )
+
+
+def model_family(model: Any) -> str:
+    """'llama' or 'gpt_neo': the model's ``family``, else its class name
+    (JAX: ``tables.py:235``)."""
+    family = getattr(model, "family", None)
+    if family in ("llama", "gpt_neo"):
+        return family
+    name = type(model).__name__.lower()
+    if "llama" in name:
+        return "llama"
+    if "neo" in name or "gpt" in name:
+        return "gpt_neo"
+    raise ShardingRuleError(
+        f"cannot infer model family from {type(model).__name__!r}; "
+        "add it to acco_tpu_torch.sharding.tables.model_family"
+    )
 
 # The tp rules say which dim of each weight carries the tensor axis
 # (Megatron column/row split).

@@ -104,7 +104,7 @@ def probe_streams(streams: Dict[str, Any]) -> list:
             continue
         with torch.profiler.record_function(PROBE + role), torch.cuda.stream(stream):
             torch.cuda._sleep(1000)
-        stream.synchronize()
+        stream.synchronize()  # lint: host-sync-ok: each probe ends before the next starts
         roles.append(role)
     return roles
 
@@ -189,6 +189,68 @@ def graph_sides(events: list) -> Dict[int, str]:
     return sides
 
 
+class DeviceSides(list):
+    """``[(index, stream, interval, side), ...]`` of a trace's device
+    events (see :func:`event_sides`), with ``merged`` (stream -> its
+    intervals' union), ``busy`` (stream -> busy ms), ``stream_side``
+    (stream -> its side) and ``graph_streams`` (the streams a graph's
+    replay ran on)."""
+
+    merged: dict
+    busy: dict
+    stream_side: dict
+    graph_streams: set
+
+
+def event_sides(events: list) -> DeviceSides:
+    """Each device event's side, as :func:`read_trace` counts it: a stream
+    is 'compute' (probed as such; the busiest stream when no probe is
+    found), 'comm' (probed as such, a stream that ran an ``nccl`` kernel,
+    or an unprobed stream that ran a kernel) or 'copy' (copies only); an
+    event a graph's probe names takes its segment's side
+    (:func:`graph_sides`) instead of its stream's."""
+    by_stream: Dict[Any, list] = {}
+    nccl = set()
+    device = []  # (index, stream, interval) of each device event
+    for i, e in enumerate(events):
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        stream = _args(e).get("stream", e.get("tid"))
+        beg = float(e["ts"])
+        iv = (beg, beg + float(e.get("dur", 0)))
+        by_stream.setdefault(stream, []).append(iv)
+        device.append((i, stream, iv))
+        if e.get("cat") == "kernel" and "nccl" in str(e.get("name", "")).lower():
+            nccl.add(stream)
+    out = DeviceSides()
+    out.merged = {k: _union(v) for k, v in by_stream.items()}
+    out.busy = {k: _measure(v) / 1e3 for k, v in out.merged.items()}
+    out.stream_side, out.graph_streams = {}, set()
+    if not by_stream:
+        return out
+    roles = stream_roles(events)
+    graph = graph_sides(events)
+    compute = [k for k, r in roles.items() if r == "compute" and k in out.merged]
+    if not compute:
+        compute = [max(out.busy, key=out.busy.get)]
+    kernels = {_args(e).get("stream", e.get("tid")) for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"
+               and "spin_kernel" not in str(e.get("name", ""))}
+    side = out.stream_side
+    for k in out.merged:
+        if k in compute:
+            side[k] = "compute"
+        elif roles.get(k) == "comm" or k in nccl:
+            side[k] = "comm"
+        elif k not in roles and k in kernels:
+            side[k] = "comm"  # another stream that computes: the comm side
+        else:
+            side[k] = "copy"  # the copy stream(s): copies only
+    out.graph_streams = {stream for i, stream, _ in device if i in graph}
+    out.extend((i, k, iv, graph.get(i, side[k])) for i, k, iv in device)
+    return out
+
+
 def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -> dict:
     """The device's activity in a Chrome trace's ``events`` by side, per
     round (``rounds`` rounds in the window): ``compute_ms`` (the stream
@@ -203,47 +265,13 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
     the window's ``wall_ms``, ``idle_share``. ``streams_ms``: each
     stream's busy ms a round with its role. A trace with no device
     activity gives ``{"device": "cpu"}``."""
-    by_stream: Dict[Any, list] = {}
-    nccl = set()
-    device = []  # (index, stream, interval) of each device event
-    for i, e in enumerate(events):
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
-            continue
-        stream = _args(e).get("stream", e.get("tid"))
-        beg = float(e["ts"])
-        iv = (beg, beg + float(e.get("dur", 0)))
-        by_stream.setdefault(stream, []).append(iv)
-        device.append((i, stream, iv))
-        if e.get("cat") == "kernel" and "nccl" in str(e.get("name", "")).lower():
-            nccl.add(stream)
-    if not by_stream:
+    sides = event_sides(events)
+    if not sides:
         return {"device": "cpu", "rounds": rounds}
-    merged = {k: _union(v) for k, v in by_stream.items()}
-    busy = {k: _measure(v) / 1e3 for k, v in merged.items()}
-    roles = stream_roles(events)
-    graph = graph_sides(events)
-    compute = [k for k, r in roles.items() if r == "compute" and k in merged]
-    if not compute:
-        compute = [max(busy, key=busy.get)]
-    kernels = {_args(e).get("stream", e.get("tid")) for e in events
-               if e.get("ph") == "X" and e.get("cat") == "kernel"
-               and "spin_kernel" not in str(e.get("name", ""))}
-    side = {}
-    for k in merged:
-        if k in compute:
-            side[k] = "compute"
-        elif roles.get(k) == "comm" or k in nccl:
-            side[k] = "comm"
-        elif k not in roles and k in kernels:
-            side[k] = "comm"  # another stream that computes: the comm side
-        else:
-            side[k] = "copy"  # the copy stream(s): copies only
-    replayed = {stream for i, stream, _ in device if i in graph}
+    merged, busy, graph_streams = sides.merged, sides.busy, sides.graph_streams
 
     def union_of(which: str) -> list:
-        # an event a graph's probe names takes its segment's side, any other
-        # its stream's
-        return _union([iv for i, k, iv in device if graph.get(i, side[k]) == which])
+        return _union([iv for _, _, iv, s in sides if s == which])
 
     comp, comm, copy = union_of("compute"), union_of("comm"), union_of("copy")
     everything = _union([iv for v in merged.values() for iv in v])
@@ -265,8 +293,9 @@ def read_trace(events: list, wall_ms: Optional[float] = None, rounds: int = 1) -
         "measured_overlap_pct": 100.0 * under_ms / comm_ms if comm_ms > 0 else None,
         "copy_ms": _measure(copy) / 1e3 / n,
         "union_ms": union_ms / n,
-        "streams_ms": {f"{'graph' if k in replayed else side[k]}:{k}": busy[k] / n
-                       for k in sorted(busy, key=lambda k: -busy[k])},
+        "streams_ms": {
+            f"{'graph' if k in graph_streams else sides.stream_side[k]}:{k}": busy[k] / n
+            for k in sorted(busy, key=lambda k: -busy[k])},
         "kernels": n_kernels / n,
         "kernel_launch_calls": sum("LaunchKernel" in c for c in calls) / n,
         "graph_launches": sum("GraphLaunch" in c for c in calls) / n,

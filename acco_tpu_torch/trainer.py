@@ -295,7 +295,8 @@ class Trainer:
         self.rollback_after_skipped = max(1, int(args.get("rollback_after_skipped", 8)))
         self.rollback_max = int(args.get("rollback_max", 2))
         self.delta_step_for_log = int(args.get("delta_step_for_log", 10))
-        self.id_run = logs.create_id_run()
+        # rank 0's: the checkpoint manager's run token, the same on every rank
+        self.id_run = self._agreed(logs.create_id_run)
         run_name = str(args.get("run_name", self.method))
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints", run_name)
         self.tensorboard_dir = os.path.join(self.run_dir, "tensorboard", run_name, self.id_run)
@@ -319,7 +320,7 @@ class Trainer:
             self.ckpt_dir, async_save=bool(args.get("ckpt_async", True)),
             keep_last=self.keep_last, keep_every_s=self.keep_every_s,
             rank=self.file_rank, world_size=self.n_ranks, log=self.log, gc_on_init=False,
-            tracer=self.tracer,
+            tracer=self.tracer, run_token=self.id_run,
         )
         # an injected handler (tests, drills); else a SIGTERM/SIGINT latch
         # installed for the duration of train() (JAX: trainer.py:524-535)
@@ -469,7 +470,7 @@ class Trainer:
         meta = {"count_grad_tot": 0, "rounds_done": 0, "elapsed_s": 0.0}
         if self.resume_from:
             self.ckpt_manager.wait()
-            path = self._agreed_path(lambda: ckpt.resolve_resume(str(self.resume_from),
+            path = self._agreed(lambda: ckpt.resolve_resume(str(self.resume_from),
                                                                  self.log))
             t0 = time.perf_counter()
             state, meta = ckpt.restore_checkpoint(path, state, rank=self.file_rank,
@@ -930,10 +931,11 @@ class Trainer:
         committed, consec, grad_norm, skipped = values[3 * n:]
         return committed, int(consec), grad_norm, int(skipped)
 
-    def _agreed_path(self, choose) -> str:
-        """``choose()``'s checkpoint path on rank 0, broadcast to every
-        rank, so that no two ranks restore different steps (one rank alone:
-        its own choice). An error on rank 0 is raised on every rank."""
+    def _agreed(self, choose) -> str:
+        """``choose()``'s value on rank 0 (a checkpoint path, the run id),
+        broadcast to every rank, so that no two ranks restore different
+        steps (one rank alone: its own choice). An error on rank 0 is raised
+        on every rank."""
         if self.all_ranks is None or self.n_ranks == 1:
             return choose()
         import torch.distributed as dist
@@ -984,7 +986,7 @@ class Trainer:
                 )
             return path
 
-        path = self._agreed_path(newest)
+        path = self._agreed(newest)
         state, meta = ckpt.restore_checkpoint(path, state, rank=self.file_rank,
                                               mesh=self.mesh_shape, in_place=True)
         self.loader.set_state(fence)
@@ -1228,7 +1230,7 @@ class Trainer:
         buf = torch.empty_like(mine)
         for t in range(1, g.n_model):
             dist.recv(buf, src=dist.get_global_rank(g.tensor, t), group=g.tensor)
-            rows.append(buf.to("cpu", torch.float32, copy=True).numpy())
+            rows.append(buf.to("cpu", torch.float32, copy=True).numpy())  # lint: host-sync-ok: the export, once a save
         return rows
 
     def _write_results(self, final_loss, total_time: float, extra: dict) -> None:

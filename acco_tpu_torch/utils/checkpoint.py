@@ -25,6 +25,18 @@ and a torn write is detectable without loading anything
 (:func:`validate_checkpoint`). :func:`latest_checkpoint` walks the step
 dirs newest first and returns the newest that validates.
 
+A save into a step dir that already holds a checkpoint overwrites it, as
+JAX's Orbax ``save(..., force=True)`` does (a round that commits nothing
+leaves the grad count, and so the step, where it was). Each save has a
+generation, a name every rank's call agrees on, written into each rank
+file. Rank 0's commit first takes the old commit back
+(:func:`take_back`: ``meta.json`` first), then, over several ranks,
+writes a marker naming the generation; the other ranks write their
+files only once the marker names theirs (:func:`wait_for_marker`), and
+rank 0's gate waits for files of this generation, so no file of an
+earlier save can satisfy it and the manifest never names another rank's
+``.tmp``.
+
 A save is split at its seam, as JAX's ``resilience/manager.py`` splits
 it: :func:`snapshot` copies the state into host buffers (pinned, and
 reused from one save to the next, on a card) on a copy stream of its
@@ -55,20 +67,22 @@ import torch
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _RANK_RE = re.compile(r"^rank_(\d+)\.pt$")
 MANIFEST_KEY = "state_manifest"
+# rank 0's marker of a commit in progress: the generation it is committing
+MARKER = "committing"
 
 _module_log = logging.getLogger(__name__)
 
 
 def state_manifest(path: str) -> dict:
     """Relative path -> byte size for every file under a ``step_*`` dir
-    (``meta.json`` and its tmp excluded: the manifest is computed at
-    commit time, before meta.json exists)."""
+    (``meta.json``, its tmp and the commit marker excluded: the manifest
+    is computed at commit time, before meta.json exists)."""
     manifest = {}
     for root, _, files in os.walk(path):
         for name in files:
             full = os.path.join(root, name)
             rel = os.path.relpath(full, path)
-            if rel in ("meta.json", "meta.json.tmp"):
+            if rel in ("meta.json", "meta.json.tmp", MARKER, MARKER + ".tmp"):
                 continue
             manifest[rel] = os.path.getsize(full)
     return manifest
@@ -223,19 +237,41 @@ def snapshot(state, buffers: Optional[SnapshotBuffers] = None, *, copy_stream=No
 GATE_TIMEOUT_S = 600.0
 
 
+def rank_file_generation(path: str) -> Optional[str]:
+    """The generation a rank file was saved with (None: a file of an
+    earlier layout); its tensors are mapped, not read."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True).get("generation")
+
+
 def wait_for_rank_files(path: str, world_size: int, timeout: float = GATE_TIMEOUT_S,
-                        poll_s: float = 0.05) -> None:
+                        poll_s: float = 0.05, generation: Optional[str] = None) -> None:
     """Block until ``rank_0.pt`` .. ``rank_<world_size - 1>.pt`` all exist
     under ``path/state`` (each appears by an atomic rename, so existing
-    means complete); raise TimeoutError naming the missing ranks after
-    ``timeout`` seconds. The commit's gate before ``meta.json``: files,
-    not a collective, so a commit thread never touches the process
-    group the loop's thread is using."""
+    means complete) and, given a ``generation``, were saved with it (a
+    file left by an earlier save of the dir does not count); raise
+    TimeoutError naming the missing ranks after ``timeout`` seconds. The
+    commit's gate before ``meta.json``: files, not a collective, so a
+    commit thread never touches the process group the loop's thread is
+    using."""
     state_dir = os.path.join(path, "state")
     deadline = time.monotonic() + timeout
+    seen: dict = {}  # rank -> the (inode, mtime) of its file read at this generation
+
+    def ready(r: int) -> bool:
+        f = os.path.join(state_dir, f"rank_{r}.pt")
+        try:
+            st = os.stat(f)
+        except FileNotFoundError:
+            return False
+        if generation is None or seen.get(r) == (st.st_ino, st.st_mtime_ns):
+            return True
+        if rank_file_generation(f) != generation:
+            return False
+        seen[r] = (st.st_ino, st.st_mtime_ns)
+        return True
+
     while True:
-        missing = [r for r in range(world_size)
-                   if not os.path.exists(os.path.join(state_dir, f"rank_{r}.pt"))]
+        missing = [r for r in range(world_size) if not ready(r)]
         if not missing:
             return
         if time.monotonic() > deadline:
@@ -246,26 +282,84 @@ def wait_for_rank_files(path: str, world_size: int, timeout: float = GATE_TIMEOU
         time.sleep(poll_s)
 
 
+def take_back(path: str) -> None:
+    """Undo the commit of ``path`` before a new save writes into it:
+    ``meta.json`` (from then on the dir is uncommitted, and a crash
+    leaves it to the startup GC) and the last save's ``params.npz``.
+    Rank 0's commit calls it; the rank files are replaced by the new
+    save's, and its gate tells them apart by their generation."""
+    for name in ("meta.json", "meta.json.tmp", "params.npz"):
+        full = os.path.join(path, name)
+        if os.path.exists(full):
+            os.remove(full)
+
+
+def _write_marker(path: str, generation: str) -> None:
+    tmp = os.path.join(path, MARKER + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(generation)
+    os.replace(tmp, os.path.join(path, MARKER))
+
+
+def wait_for_marker(path: str, generation: str, timeout: float = GATE_TIMEOUT_S,
+                    poll_s: float = 0.05) -> None:
+    """Block until rank 0's commit marker under ``path`` names
+    ``generation``: rank 0 has taken the old commit back, so this rank's
+    file is the only one rank 0's gate can see. TimeoutError after
+    ``timeout`` seconds (rank 0 never started this save)."""
+    marker = os.path.join(path, MARKER)
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(marker) as f:
+                if f.read() == generation:
+                    return
+        except FileNotFoundError:
+            pass
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"checkpoint {path}: rank 0 did not start save {generation!r} within "
+                f"{timeout:.0f} s; this rank's state not written"
+            )
+        time.sleep(poll_s)
+
+
 def commit(path: str, snap: Snapshot, meta: dict, *, rank: int = 0, world_size: int = 1,
-           extra_files=None, rank_meta: Optional[dict] = None) -> str:
+           extra_files=None, rank_meta: Optional[dict] = None,
+           generation: Optional[str] = None) -> str:
     """Write a snapshot as this rank's part of ``path`` (a ``step_*``
-    dir): its rank file (``torch.save`` to a tmp, then an atomic rename),
-    then, on rank 0, ``extra_files(path)`` (built from the snapshot, e.g.
-    the ``params.npz`` export), the file gate over every rank's file and
+    dir). Rank 0 first takes back an earlier commit of ``path``
+    (:func:`take_back`) and, over several ranks, marks the dir with
+    ``generation`` (a name of this save that every rank's call agrees
+    on); another rank waits for that mark. Then each rank writes its
+    rank file (``torch.save`` to a tmp, then an atomic rename) and, on
+    rank 0, ``extra_files(path)`` (built from the snapshot, e.g. the
+    ``params.npz`` export), the file gate over every rank's file and
     ``meta.json`` last. Waits for the snapshot's copies first. Runs on
     any thread; issues no collective."""
+    if world_size > 1 and generation is None:
+        raise ValueError("a commit over several ranks needs the save's generation")
     snap.wait()
     state_dir = os.path.join(path, "state")
     os.makedirs(state_dir, exist_ok=True)
+    if rank == 0:
+        take_back(path)
+        if world_size > 1:
+            _write_marker(path, generation)
+    else:
+        wait_for_marker(path, generation)
     final = os.path.join(state_dir, f"rank_{rank}.pt")
     tmp = final + ".tmp"
-    torch.save({"rank": rank, "state": snap.host, "meta": dict(rank_meta or {})}, tmp)
+    torch.save({"rank": rank, "state": snap.host, "meta": dict(rank_meta or {}),
+                "generation": generation}, tmp)
     os.replace(tmp, final)
     if rank == 0:
         if extra_files is not None:
             extra_files(path)
-        wait_for_rank_files(path, world_size)
+        wait_for_rank_files(path, world_size, generation=generation)
         finalize_meta(path, meta)
+        if world_size > 1:
+            os.remove(os.path.join(path, MARKER))
     return path
 
 
@@ -279,14 +373,16 @@ def save_checkpoint(
     world_size: int = 1,
     extra_files=None,
     rank_meta: Optional[dict] = None,
+    generation: Optional[str] = None,
 ) -> str:
     """A synchronous save: :func:`snapshot` then :func:`commit` of this
     rank's ``state`` (and ``rank_meta``) under ``ckpt_dir/step_<step>``;
     rank 0 commits ``meta`` once all ``world_size`` rank files exist.
-    Every rank must call this; returns the step dir."""
+    Every rank must call this (with one ``generation`` over several
+    ranks); returns the step dir."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
     return commit(path, snapshot(state), meta, rank=rank, world_size=world_size,
-                  extra_files=extra_files, rank_meta=rank_meta)
+                  extra_files=extra_files, rank_meta=rank_meta, generation=generation)
 
 
 def checkpoint_candidates(ckpt_dir: str) -> Iterator[str]:

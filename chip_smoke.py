@@ -318,7 +318,22 @@ and prints no result line):
    both ways, peak allocated and reserved, each kernel's launches a
    microbatch, the NCCL communicators' count and the card memory outside
    the allocator's reserve before the groups, after their first run and
-   after they are destroyed.
+   after they are destroyed;
+16. the static gates (``acco_tpu_torch/analysis/``): (a) the rules and
+   dtype gates over the final state of every cell above and of phase
+   12's serve replica, and the in-place watch (each state leaf in the
+   buffer sets) over every captured round and the replica's captured
+   decode steps; (b) the census and the overlap verdict on phase 7's
+   profiled Llama-125M trace; (c) the program registry on the card
+   (tiny ACCO, DPU, DDP, eval, serve prefill and decode, captured; the
+   train steps on the one-rank NCCL group): rules, dtypes, the census
+   read from a profiled round's ``record_param_comms`` against the call
+   sites, the in-place check across replays with ``memory_allocated()``
+   flat, the overlap verdict on four profiled captured Llama-125M ACCO
+   rounds; (d) the
+   memory sieve's state bytes against the rise of
+   ``memory_allocated()`` across ``init_state`` for Llama-125M and the
+   long cell.
 
 The last lines are the kernels JSON line, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``.
@@ -1122,7 +1137,7 @@ def neo_d128_dispatch() -> None:
         model.load_flat(flat)
         reset_launch_counts()
         loss, grads = make_flat_loss_fn(model, const_len=True)(flat, batch)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         out[attention] = (float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
                           launch_counts())
     (loss_f, g_f, n_f), (loss_x, g_x, _) = out["fused"], out["xla"]
@@ -1183,7 +1198,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 5) -> float:
         for _ in range(iters):
             fn()
         end.record()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         means.append(start.elapsed_time(end) / iters)
         if means[0] >= SLOW_CALL_MS:  # a plain version at a long shape: one window
             break
@@ -1207,7 +1222,7 @@ def device_ms(fn, iters: int = 10, attempts: int = 3) -> float:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         total = sum(e.self_device_time_total for e in rows)
         if total > 0:
@@ -1680,7 +1695,7 @@ def block_parity(shape: dict, seed: int, variants) -> dict:
         log(f"  {variant}")
         o, m, l, cnt = bl.blk_fwd(q, k, v, mode, qp, kp, window, scale)
         o_r, m_r, l_r, cnt_r = block_plain(bl.block_fwd_reference, q, k, v, **kw)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         if not torch.equal(cnt, cnt_r):
             raise AssertionError(f"cnt: {int((cnt != cnt_r).sum())} rows count other ties")
         # o is unnormalised: compared as o / l_ref, the normalised output's scale
@@ -1694,7 +1709,7 @@ def block_parity(shape: dict, seed: int, variants) -> dict:
         del o_r, l_r, cnt_r
         do_t = do.to(q.dtype).contiguous()  # as the autograd backward passes it
         c = bl.blk_bwd_rowc(o, do_t, dm, dl, l, cnt)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         e = check("blk_c", c, bl.block_rowc_reference(o, do_t, dm, dl, l, cnt), tol("blk_c"))
         errs["blk_bwd_rowc"] = max(errs.get("blk_bwd_rowc", 0.0), e)
         args = (q, k, v, mode, qp, kp, window, scale, do_t, m, dl, c)
@@ -1703,7 +1718,7 @@ def block_parity(shape: dict, seed: int, variants) -> dict:
         check_rerun("blk_bwd_dkdv", (dk, dv), bl.blk_bwd_dkdv(*args))
         check_rerun("blk_bwd_dq", (dq,), (bl.blk_bwd_dq(*args),))
         grads = block_plain(bl.block_bwd_reference, q, k, v, m_r, do, dm, dl, **kw)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         if f32:  # no rounding on either side: the float32 bar alone
             e = {n: check(n, g, r, F32_TOL) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                                                  grads)}
@@ -1996,11 +2011,11 @@ def ce_timing(shape: dict, batch: int, seq: int) -> tuple[dict, dict, dict]:
         with torch.no_grad():
             fwd_ms = time_ms(lambda: fn(False), iters=5, windows=3)
         step_ms = time_ms(lambda: fn(True), iters=5, windows=3)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         fn(True)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         peak = torch.cuda.max_memory_allocated() - base
         whole[name] = {"forward_ms": fwd_ms, "backward_ms": step_ms - fwd_ms,
                        "step_ms": step_ms, "peak_bytes": peak}
@@ -2368,12 +2383,16 @@ def main_path(path: str, sg=None, group=None, eager: bool = False
     free_device_cache()  # the earlier paths' cached blocks: no fragments carried over
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    with HeadLogitsCalls() as head, BlockWindows() as windows:
+    from acco_tpu_torch.analysis.donation import watch_round_programs
+
+    with HeadLogitsCalls() as head, BlockWindows() as windows, \
+            watch_round_programs() as watched:
         trainer = path_trainer(path, sg, group, eager=eager)
         reset_launch_counts()
         summary = trainer.train()
         launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    train_state_gates(path + ("-eager" if eager else ""), trainer, None if eager else watched)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     if path not in COMPOSED_PATHS:  # phase 15 destroys its groups itself
         release_groups(trainer, sg, group)
@@ -2738,7 +2757,7 @@ def neo_ring_step_agreement(sg) -> None:
         loss, grads = trainer.step.value_and_grad(flat, {
             "input_ids": block.input_ids[0], "attention_mask": block.attention_mask[0],
             "labels": block.labels[0]})
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         out.append((float(loss), torch.cat([g.float().reshape(-1) for g in grads]),
                     launch_counts()))
         release_groups(trainer, group)
@@ -2788,6 +2807,7 @@ def profile_main_path(model: str, round_ms: float, top: int = 12, sg=None, group
     st = summary["profile"]
     if st.get("device") != "cuda" or st["rounds"] != rounds:
         raise AssertionError(f"{model}: the profile holds no device activity: {st}")
+    PROFILE_TRACES[model, eager] = st["trace"]
     events = load_events(st["trace"])
     kernels: dict = {}
     for e in events:
@@ -3287,7 +3307,7 @@ def remat_agreement() -> None:
             loss, grads = trainer.step.value_and_grad(flat, {
                 "input_ids": block.input_ids[0], "attention_mask": block.attention_mask[0],
                 "labels": block.labels[0]})
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
             out[mode] = (loss, torch.cat([g.reshape(-1) for g in grads]),
                          launch_counts()["attn_fwd"])
         loss0, g0, n0 = out["false"]
@@ -3403,7 +3423,7 @@ def write_hf_checkpoint(path: str, config, flat) -> None:
         json.dump(hf, f)
     header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
     for name, arr in tensors.items():
-        blob = (torch.from_numpy(np.ascontiguousarray(arr)).bfloat16().view(torch.uint8)
+        blob = (torch.from_numpy(np.ascontiguousarray(arr)).bfloat16().view(torch.uint8)  # lint: host-sync-ok: a CPU tensor's bytes for the file
                 .numpy().tobytes())
         header[name] = {"dtype": "BF16", "shape": list(arr.shape),
                         "data_offsets": [offset, offset + len(blob)]}
@@ -3498,7 +3518,7 @@ def finetune_phase(tmp: str) -> dict:
         with PadMaskedK1() as masked:
             reset_launch_counts()
             summary = trainer.train()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
             counts = launch_counts()
         rounds = summary["round_log"]
         mbs = 2 * (1 + len(rounds))
@@ -3567,7 +3587,7 @@ def finetune_phase(tmp: str) -> dict:
             logits = model.apply(ids)
             losses[name] = float(torch.nn.functional.cross_entropy(
                 logits[:, :-1].reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1)))
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
             ms = (time.perf_counter() - t0) * 1e3
             counts = {k: v for k, v in launch_counts().items() if v}
             log(f"  {name}: loss {losses[name]:.6f} in {ms:.1f} ms, launches {counts}, "
@@ -4012,7 +4032,7 @@ def phase_10(smi: str, profiles: dict, drills: dict) -> dict:
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         reset_launch_counts()
         summary = trainer.train()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: host-sync-ok: the device drained before the clock reads
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
         launches[f"p10-profile-{path}"] = launch_counts()
         prof = summary["profile"]
@@ -4367,6 +4387,10 @@ def serve_replica(smi: str) -> dict:
     report = engine.start_warmup()
     engine.set_params(model.init_flat(torch.Generator(device=SERVE_DEVICE).manual_seed(0)))
     _serve_sync()
+    from acco_tpu_torch.analysis.programs import serve_state
+
+    serve_buffers = {t.data_ptr() for t in serve_state(engine)["params"]} | {
+        t.data_ptr() for t in engine.pools}
     log(f"  built, captured and initialised in {time.perf_counter() - t0:.1f} s; decode step "
         f"warm-up {report.get('warmup_ms')} ms, capture {report.get('capture_ms')} ms, "
         f"memory after capture (allocated, reserved GiB) {report.get('memory_gib')}")
@@ -4377,7 +4401,7 @@ def serve_replica(smi: str) -> dict:
     table = np.zeros((engine.max_slots, engine.max_pages_per_seq), np.int32)
     prefill_ms, first = {}, []
     for slot, n in enumerate(SERVE_PROMPTS):
-        ids = rng.integers(0, c.vocab_size, n).tolist()
+        ids = rng.integers(0, c.vocab_size, n).tolist()  # lint: host-sync-ok: host numpy ints
         pages = alloc.alloc(spec.pages_for(min(n + total + 1, engine.max_context)))
         table[slot, : len(pages)] = pages
         own = pages[: spec.pages_for(n)]
@@ -4405,7 +4429,7 @@ def serve_replica(smi: str) -> dict:
             _serve_sync()
             times.append((time.perf_counter() - t) * 1e3)
             outs.append(logits.clone())
-            toks = logits.argmax(-1).cpu().numpy()
+            toks = logits.argmax(-1).cpu().numpy()  # lint: host-sync-ok: a deliberate read-back the check compares
         return outs, times
 
     eager_out, eager_ms = decode_run(True)
@@ -4491,6 +4515,7 @@ def serve_replica(smi: str) -> dict:
     log(f"  peak allocated {peak:,} bytes ({peak / 2**30:.2f} GiB), reserved {reserved:,} "
         f"({reserved / 2**30:.2f} GiB); pool {spec.total_bytes:,}, params "
         f"{model.n_params * 2:,} bytes  [{smi}]")
+    serve_state_gates("serve-llama3-8b", engine, serve_buffers)
     del engine, model, k_pages, v_pages
     free_device_cache()
     return out
@@ -5450,6 +5475,175 @@ def phase_15(smi: str, summaries: dict, round_ms: dict, peaks: dict) -> dict:
     return launches
 
 
+# -- phase 16: the static gates on the card ----------------------------------------
+
+# each cell's verdicts (rules, dtypes, the in-place watch of its captured
+# rounds), recorded by main_path and the serve replica as they run
+STATE_GATES: dict = {}
+# (cell, eager) -> the Chrome trace of its profiled rounds (phases 7, 11)
+PROFILE_TRACES: dict = {}
+SIEVE_PATHS = {"llama-125M": "llama-125M", "llama3-8B-L8192": "llama3"}
+# the sieve's state bytes against the rise of memory_allocated() across
+# init_state: the allocator rounds each tensor up to 512 bytes (the
+# scalars: 4 bytes priced, 512 held), so the rise may exceed the sieve by
+# a few KiB and must not fall short of it
+SIEVE_SLACK_BYTES = 1 << 20
+
+
+def train_state_gates(label: str, trainer, watched) -> None:
+    """The rules and dtype verdicts over a cell's final state (its step's
+    rule table, the dtype policy of its param dtype) and, for a captured
+    run, what ``watch_round_programs`` saw of its rounds."""
+    from acco_tpu_torch.analysis.dtypes import check_dtype_policy, train_state_rules
+    from acco_tpu_torch.analysis.rules import check_rule_coverage
+
+    state = trainer.final_state
+    STATE_GATES[label] = {
+        "rules": check_rule_coverage(state, trainer.step.rule_table()),
+        "dtypes": check_dtype_policy(state, train_state_rules(trainer.model.dtype)),
+        "watch": None if watched is None else dict(watched)}
+
+
+def serve_state_gates(label: str, engine, buffers: set) -> None:
+    """The serve replica's state (its parameters and pools) through the
+    rules and dtype gates, and in place: every leaf still in the buffers
+    it held before its captured decode steps."""
+    from acco_tpu_torch.analysis.dtypes import check_dtype_policy, serve_state_rules
+    from acco_tpu_torch.analysis.programs import serve_state
+    from acco_tpu_torch.analysis.rules import check_rule_coverage
+    from acco_tpu_torch.sharding.rules import leaf_paths
+
+    state = serve_state(engine)
+    moved = [p for p, leaf in leaf_paths(state) if leaf.data_ptr() not in buffers]
+    STATE_GATES[label] = {
+        "rules": check_rule_coverage(state, engine.rule_table()),
+        "dtypes": check_dtype_policy(state, serve_state_rules(engine.model.dtype,
+                                                              engine.spec.torch_dtype)),
+        "watch": {"rounds": engine.counters["decode_steps"], "replays": None,
+                  "leaves": len(leaf_paths(state)), "moved": moved}}
+
+
+def sieve_vs_measured(path: str, model_name: str) -> tuple:
+    """(the sieve's state bytes, the rise of ``memory_allocated()`` across
+    the state's construction) for a cell's model at dp 1: the train step
+    built around the model on the card, a float32 flat vector made, the
+    ``AccoState`` made from it and the vector dropped (a leaf may keep
+    its storage)."""
+    import torch
+
+    from acco_tpu_torch.analysis.memory import abstract_train_state, price_tree
+    from acco_tpu_torch.configuration import load_yaml
+    from acco_tpu_torch.models.registry import build_model
+    from acco_tpu_torch.ops.schedules import get_schedule
+    from acco_tpu_torch.parallel.acco import AccoTrainStep
+    from acco_tpu_torch.sharding.tables import train_state_table
+
+    cfg = load_yaml(os.path.join(REPO, "config", "model", model_name + ".yaml"))
+    if path_spec(path).get("llama3"):
+        cfg["config_path"] = llama3_config()
+    free_device_cache()
+    model = build_model(cfg, repo_root=REPO, dtype=torch.bfloat16, device="cuda")
+    step = AccoTrainStep(model, get_schedule("cosine", 6e-4, 10, 100), mode="acco",
+                         const_len_batch=True, weight_decay=0.1, beta1=0.9, beta2=0.95)
+    predicted = sum(price_tree(abstract_train_state("acco", model.n_params),
+                               train_state_table("acco", "dp"), {"dp": 1}).values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    flat = torch.zeros(model.n_params, dtype=torch.float32, device="cuda")
+    state = step.init_state(flat)
+    del flat
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    del state, step, model
+    free_device_cache()
+    return predicted, rise
+
+
+def phase_16(smi: str, sg) -> None:
+    """The static gates (``acco_tpu_torch/analysis/``) on the card: (a)
+    rules and dtypes over the final state of every cell phases 5, 9, 11,
+    13-15 ran and of phase 12's serve replica, and the in-place watch of
+    every captured round (each state leaf in the two buffer sets) and of
+    the replica's captured decode steps; (b) the census and the overlap
+    verdict on phase 7's profiled Llama-125M rounds, read from their
+    trace; (c) the program registry on the card (``analysis/programs.py``:
+    tiny ACCO, DPU, DDP, eval, serve prefill and decode, captured), its
+    train steps on the one-rank NCCL group: rules, dtypes, the census
+    read from a profiled eager round's trace against the call sites,
+    the in-place check across replays with ``memory_allocated()`` flat,
+    and the overlap verdict on four profiled captured ACCO rounds of
+    Llama-125M; (d) the memory
+    sieve's state bytes against the rise of ``memory_allocated()`` across
+    the state's construction, Llama-125M and the long cell."""
+    import torch
+    import torch.distributed as dist
+
+    from acco_tpu_torch.analysis.__main__ import overlap_gate, program_gates
+    from acco_tpu_torch.analysis.census import check_census
+    from acco_tpu_torch.analysis.overlap import check_overlap
+    from acco_tpu_torch.analysis.programs import build_all_tiny
+    from acco_tpu_torch.analysis.trace import collectives_from_trace, nccl_kernels
+    from acco_tpu_torch.telemetry.profile import load_events
+
+    t0 = time.perf_counter()
+    failed = []
+    log(f" (a) rules, dtypes and the in-place watch over {len(STATE_GATES)} cells' states")
+    for label, g in STATE_GATES.items():
+        w = g["watch"]
+        seen = ("" if w is None else f"; in place over {w['rounds']} rounds"
+                + ("" if w["replays"] is None else f" ({w['replays']} replays)")
+                + (f", MOVED {w['moved'][:3]}" if w["moved"] else ""))
+        ok = g["rules"].ok and g["dtypes"].ok and (w is None or not w["moved"])
+        log(f"  {label}: rules {g['rules'].summary()}; dtypes {g['dtypes'].summary()}{seen}")
+        if not ok:
+            failed.append(label)
+        if w is not None and w["replays"] is not None and not label.endswith("-eager") \
+                and not w["replays"]:
+            failed.append(f"{label}: no replay watched")
+    log(" (b) census and overlap on phase 7's profiled Llama-125M rounds (captured replays; "
+        "the cell runs on no process group)")
+    events = load_events(PROFILE_TRACES["llama-125M", False])
+    calls = collectives_from_trace(events)
+    census = check_census(calls, 0.0)
+    overlap = check_overlap(events)
+    log(f"  census: {census.summary()}; record_param_comms events {len(calls)}, NCCL kernels "
+        f"seen {nccl_kernels(events)} -> {'ok' if census.ok else 'FAIL'}")
+    log(f"  overlap: {overlap.summary()}")
+    if not census.ok or not overlap.ok:
+        failed.append("phase 7 trace")
+    log(" (c) the program registry on the card, its train steps on the one-rank NCCL group")
+    t1 = time.perf_counter()
+    programs = build_all_tiny("cuda", sg.group)
+    gates = program_gates(programs) + [overlap_gate(torch.device("cuda", 0))]
+    groups = programs[0].meta["groups"]
+    made = {id(g): g for g in (groups.comm_data, groups.comm_world) if g is not None
+            and g is not sg.group and g is not dist.group.WORLD}
+    del programs, groups
+    gc.collect()  # the programs' graphs (a cycle through their bodies) before their group
+    for g in made.values():
+        dist.destroy_process_group(g)
+    free_device_cache()
+    for g in gates:
+        for line in g.lines():
+            log("  " + line)
+        if not g.ok:
+            failed.append(g.name)
+    log(f"  the registry's gates in {time.perf_counter() - t1:.1f} s")
+    log(f" (d) the memory sieve's state bytes against the rise of memory_allocated() across "
+        f"init_state (bar: the rise within [sieve, sieve + {SIEVE_SLACK_BYTES} B]), on {smi}")
+    for path, model_name in SIEVE_PATHS.items():
+        predicted, rise = sieve_vs_measured(path, model_name)
+        ok = predicted <= rise <= predicted + SIEVE_SLACK_BYTES
+        log(f"  {path}: sieve {predicted:.0f} B ({predicted / 2**30:.3f} GiB), measured rise "
+            f"{rise} B ({rise / 2**30:.3f} GiB), difference {rise - predicted:+.0f} B -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"sieve {path}")
+    log(f"  phase 16 in {time.perf_counter() - t0:.1f} s on {smi}")
+    if failed:
+        raise AssertionError(f"phase 16: gates failed: {failed}")
+
+
 def phase_6() -> None:
     """Small input: the kernel paths against the plain paths in float32,
     and the comm stream's ordering (correctness only: it runs beside the
@@ -5746,6 +5940,10 @@ def main() -> int:
         composed = phase_15(smi, summaries, round_ms, peaks)
         launches.update(composed)
         vp_entry["launches_by_path"].update({p: n["vp_ce"] for p, n in composed.items()})
+
+        log("== 16 the static gates: rules, dtypes, in-place over every cell; census and "
+            "overlap on phase 7's trace; the program registry; the memory sieve")
+        phase_16(smi, sg)
 
         # launches: each kernel's count on its own slice's main path (K1: the
         # Llama path, K2: the GPT-Neo path, K3: the fused-CE path, K5: the

@@ -84,8 +84,12 @@ def _jax(qkv, cot, variant):
             window=window,
         )
 
-    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in qkv))
-    grads = vjp(tuple(jnp.asarray(c) for c in cot))
+    @jax.jit
+    def run(qkv, cot):
+        out, vjp = jax.vjp(f, *qkv)
+        return out, vjp(cot)
+
+    out, grads = run(tuple(jnp.asarray(x) for x in qkv), tuple(jnp.asarray(c) for c in cot))
     return [np.asarray(x) for x in out], [np.asarray(g) for g in grads]
 
 

@@ -523,3 +523,32 @@ def test_torchrun_cli_runs_tp_pp_on_cpu(tmp_path):
     n = len(resumed["round_log"])  # the rounds after the last save at 4 committed grads
     assert 0 < n < len(losses) and [r["loss"] for r in resumed["round_log"]] == losses[-n:]
     np.testing.assert_array_equal(_params_npz(tmp_path / "c" / "run"), flat)
+
+
+def test_resaved_step_dir_resumes_on_four_ranks(tmp_path):
+    """A step dir saved twice in a row (a read-back every 2 grads at dp 1
+    and n_acc 2: a boundary on a speculative ACCO round commits nothing,
+    so ``step_4`` is saved again) on 4 gloo ranks at {dp: 1, pp: 2, tp:
+    2}: the dir holds the second save, and the entry point's trainer
+    resumed from it ends on the unbroken run's losses at the dp bars and
+    on its ``params.npz``."""
+    args = [a for a in CLI_ARGS if not a.startswith("+train.delta_step_for_log")]
+    args += ["+train.delta_step_for_log=2", CLI_MESH]
+    work = tmp_path / "a"
+    work.mkdir()
+    unbroken = torch_ranks.start_cli([*args, f"hydra.run.dir={work / 'run'}"], 4, work,
+                                     timeout=RANKS_TIMEOUT)()
+    saves = open(work / "rank0.log").read().count("step_4 (")
+    assert saves == 2, saves
+    step4 = work / "run" / "checkpoints" / "acco" / "step_4"
+    (tmp_path / "b").mkdir()
+    resumed = torch_ranks.start_cli([*args, f"hydra.run.dir={tmp_path / 'b' / 'run'}",
+                                     f"train.resume_from={step4}"], 4, tmp_path / "b",
+                                    timeout=RANKS_TIMEOUT)()
+    losses = [r["loss"] for r in unbroken["round_log"]]
+    n = len(resumed["round_log"])
+    assert resumed["count_grad_tot"] == 8 and 0 < n < len(losses)
+    np.testing.assert_allclose([r["loss"] for r in resumed["round_log"]], losses[-n:],
+                               **LOSS_TOL)
+    np.testing.assert_allclose(_params_npz(tmp_path / "b" / "run"), _params_npz(work / "run"),
+                               **PARAM_TOL)

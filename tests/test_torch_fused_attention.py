@@ -75,8 +75,12 @@ def test_plain_matches_jax_kernel(case):
             window=c["window"], scale=c["scale"], interpret=True,
         )
 
-    out_j, vjp = jax.vjp(jax_fn, q, k, v)
-    grads_j = vjp(jnp.asarray(cot))
+    @jax.jit
+    def run(q, k, v, cot):
+        out, vjp = jax.vjp(jax_fn, q, k, v)
+        return out, vjp(cot)
+
+    out_j, grads_j = run(q, k, v, jnp.asarray(cot))
 
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     out_t = port.fused_dot_product_attention(
@@ -87,7 +91,7 @@ def test_plain_matches_jax_kernel(case):
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), **FWD_TOL)
     for name, gj, t in zip("qkv", grads_j, (tq, tk, tv)):
         np.testing.assert_allclose(
-            t.grad.numpy(), np.asarray(gj), err_msg=f"d{name}", **GRAD_TOL
+            t.grad.numpy(), np.asarray(gj), err_msg=f"d{name}", **GRAD_TOL  # lint: host-sync-ok: a CPU tensor read in an assertion loop
         )
 
 
@@ -106,7 +110,7 @@ def test_explicit_backward_matches_autograd():
     dk, dv = port.attn_bwd_dkdv_reference(*args, None, dout, lse.detach(), delta, window, scale)
     dq = port.attn_bwd_dq_reference(*args, None, dout, lse.detach(), delta, window, scale)
     for got, t in zip((dq, dk, dv), (tq, tk, tv)):
-        np.testing.assert_allclose(got.numpy(), t.grad.numpy(), **GRAD_TOL)
+        np.testing.assert_allclose(got.numpy(), t.grad.numpy(), **GRAD_TOL)  # lint: host-sync-ok: a CPU tensor read in an assertion loop
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])

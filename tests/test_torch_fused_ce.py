@@ -102,9 +102,9 @@ def test_gradients_match_jax(smoothing, real):
     if real:
         labels = np.clip(labels, 0, real - 1)
     kw = dict(label_smoothing=smoothing, real_vocab=real)
-    gh_j, gw_j = jax.grad(
+    gh_j, gw_j = jax.jit(jax.grad(
         lambda h, w_: _jax_loss(h, w_, labels, **kw), argnums=(0, 1)
-    )(jnp.asarray(hidden), jnp.asarray(w))
+    ))(jnp.asarray(hidden), jnp.asarray(w))
     h_t = torch.tensor(hidden, requires_grad=True)
     w_t = torch.tensor(w, requires_grad=True)
     loss = port.fused_ce_loss(h_t, w_t, torch.tensor(labels, dtype=torch.long), **kw)
@@ -141,23 +141,28 @@ def test_row_triple_and_its_vjp_match_jax(dtype):
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
 
     hj, wj = jnp.asarray(h, jdt), jnp.asarray(w, jdt)
-    out_j, vjp = jax.vjp(
-        lambda a, b: jax_fused_ce._lm_head_ce(a, b, jnp.asarray(tgt), v_real, 16, 128, True),
-        hj, wj,
-    )
-    dh_j, dw_j = vjp(tuple(jnp.asarray(c) for c in cot))
+
+    @jax.jit
+    def run(a, b, cot):
+        out, vjp = jax.vjp(
+            lambda a, b: jax_fused_ce._lm_head_ce(a, b, jnp.asarray(tgt), v_real, 16, 128, True),
+            a, b,
+        )
+        return out, vjp(cot)
+
+    out_j, (dh_j, dw_j) = run(hj, wj, tuple(jnp.asarray(c) for c in cot))
 
     h_t = torch.tensor(np.asarray(hj.astype(jnp.float32))).to(tdt).requires_grad_(True)
     w_t = torch.tensor(np.asarray(wj.astype(jnp.float32)).T.copy()).to(tdt).requires_grad_(True)
     out_t = port.LmHeadCE.apply(h_t, w_t, torch.tensor(tgt), v_real)
     tl_t = out_t[1].detach()
     for got, want in zip(out_t, out_j):
-        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)  # lint: host-sync-ok: a CPU tensor read in an assertion loop
     assert float(tl_t[3]) == 0.0 and float(tl_t[5]) == np.float32(port.NEG)
     dh_t, dw_t = torch.autograd.grad(out_t, (h_t, w_t), [torch.tensor(c) for c in cot])
     for got, want in ((dh_t, dh_j), (dw_t.t(), dw_j)):
         want = np.asarray(want.astype(jnp.float32))
-        got = got.float().numpy()
+        got = got.float().numpy()  # lint: host-sync-ok: a CPU tensor read in an assertion loop
         if dtype == "float32":
             np.testing.assert_allclose(got, want, **GRAD_TOL)
         else:
@@ -434,9 +439,9 @@ def _chunked_grads(B_, L_, cap_bytes):
     labels = rng.integers(0, V, (B_, L_)).astype(np.int32)
     labels[0, 3:7] = IGNORE_INDEX
     kw = dict(label_smoothing=0.1)
-    l_j, (gh_j, gw_j) = jax.value_and_grad(
+    l_j, (gh_j, gw_j) = jax.jit(jax.value_and_grad(
         lambda h, w_: _jax_loss(h, w_, labels, **kw), argnums=(0, 1)
-    )(jnp.asarray(hidden), jnp.asarray(w))
+    ))(jnp.asarray(hidden), jnp.asarray(w))
     h_t = torch.tensor(hidden, requires_grad=True)
     w_t = torch.tensor(w, requires_grad=True)
     loss = port.fused_ce_loss(h_t, w_t, torch.tensor(labels, dtype=torch.long),

@@ -144,7 +144,7 @@ def test_safetensors_reader_equals_the_library(tmp_path):
     got = hf_loader.read_safetensors(path)
     assert got.keys() == tensors.keys()
     for name, t in tensors.items():
-        np.testing.assert_array_equal(got[name], t.float().numpy())
+        np.testing.assert_array_equal(got[name], t.float().numpy())  # lint: host-sync-ok: a CPU tensor read in an assertion loop
         if t.dtype != torch.bfloat16:  # numpy has no bfloat16 of its own
             ref = safetensors_numpy.load_file(path)[name]
             np.testing.assert_array_equal(got[name], ref.astype(np.float32))

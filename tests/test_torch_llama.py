@@ -80,7 +80,7 @@ def test_params_round_trip_exactly(jax_setup):
 def test_logits_match_jax(jax_setup, monkeypatch):
     model_j, params, ids = jax_setup
     monkeypatch.setenv("ACCO_FUSED_ATTN_INTERPRET", "1")
-    logits_j = np.asarray(model_j.apply(params, jnp.asarray(ids)))
+    logits_j = np.asarray(jax.jit(model_j.apply)(params, jnp.asarray(ids)))
     model_t, _ = _port_model(params, LlamaConfig.from_json(TINY128))
     with torch.no_grad():
         logits_t = model_t.apply(torch.tensor(ids, dtype=torch.long))
@@ -94,7 +94,7 @@ def test_flat_gradients_match_jax(jax_setup, monkeypatch):
     def loss_j(p):
         return jax_causal_lm_loss(model_j.apply(p, jnp.asarray(ids)), jnp.asarray(ids))
 
-    value_j, grads_j = jax.value_and_grad(loss_j)(params)
+    value_j, grads_j = jax.jit(jax.value_and_grad(loss_j))(params)
     flat_grad_j, _ = ravel_pytree(grads_j)
 
     cfg = LlamaConfig.from_json(TINY128)
@@ -185,7 +185,8 @@ def test_untied_gqa_weights_cross_exactly(tmp_path):
     model_t.load_flat(flat)
     with torch.no_grad():
         logits_t = model_t.apply(torch.tensor(ids, dtype=torch.long)).numpy()
-    np.testing.assert_allclose(logits_t, np.asarray(model_j.apply(params, jnp.asarray(ids))), **TOL)
+    np.testing.assert_allclose(logits_t, np.asarray(jax.jit(model_j.apply)(params, jnp.asarray(ids))),
+                               **TOL)
 
 
 def test_reads_llama3_8b_config():

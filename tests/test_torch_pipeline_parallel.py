@@ -483,7 +483,7 @@ def test_torchrun_cli_runs_pp_on_cpu(model, method, tmp_path):
 
 def test_pp_refusals():
     """pp not dividing ``num_layers``, ``const_len_batch`` false, a
-    staged model's dense forward and its serving (item 9.5). pp with tp or
+    staged model's dense forward and its serving (single-replica, as JAX's). pp with tp or
     sp, once refused (item 9.4), passes the mesh check, and its models
     build: a tp x pp stage needs the combined (pp, tp) vocab group, a
     pp x sp stage runs the ring."""
@@ -518,6 +518,6 @@ def test_pp_refusals():
     ids = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match="pipeline stage 1 of 2"):
         stage.hidden(ids)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
+    with pytest.raises(ValueError, match="single-replica: this model is pipeline stage 1 of 2"):
         stage.prefill(ids)
 

@@ -129,7 +129,7 @@ def test_modes_match_jax_wrap_remat(family, remat):
         tgt = jnp.asarray(ids[:, 1:])
         return -jnp.take_along_axis(logp, tgt[..., None], axis=-1).mean()
 
-    jl, jg = jax.value_and_grad(jloss)(params)
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(params)
     cfg = LlamaConfig(**LLAMA) if family == "llama" else GPTNeoConfig(**NEO)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     flat = params_from_jax(to_np(params), cfg)

@@ -303,3 +303,60 @@ def test_async_commit_gates_on_rank_files(tmp_path):
     for r in range(2):
         calls = json.load(open(tmp_path / f"out{r}.json"))["calls"]
         assert calls and all(thread == "MainThread" for _, thread in calls), calls
+
+
+RESAVE_WORKER = """
+import json, time
+from typing import NamedTuple
+from acco_tpu_torch.resilience.manager import CheckpointManager
+from acco_tpu_torch.utils import checkpoint as ckpt
+
+class State(NamedTuple):
+    w: torch.Tensor
+
+# the test's delay: rank 2 holds its second save's tmp file on disk for 2 s
+# before the rename, rank 0 starts its second write 0.5 s late, so rank 0's
+# gate and manifest run while rank 2's tmp exists
+writes = []
+original_save = torch.save
+def slow_save(obj, f, *a, **k):
+    writes.append(f)
+    if RANK == 0 and len(writes) == 2:
+        time.sleep(0.5)
+    original_save(obj, f, *a, **k)
+    if RANK == 2 and len(writes) == 2:
+        time.sleep(2.0)
+torch.save = slow_save
+
+root = os.path.join(WORKDIR, "ckpt")
+mgr = CheckpointManager(root, async_save=True, rank=RANK, world_size=WS, gc_on_init=False)
+for value in (1.0, 2.0):  # step_4 twice: a boundary whose round committed nothing
+    dist.barrier()
+    mgr.save(4, State(torch.full((256,), value + RANK)), {"count_grad_tot": 4})
+    mgr.wait()
+dist.barrier()
+path = os.path.join(root, "step_4")
+out = {"valid": ckpt.validate_checkpoint(path), "latest": ckpt.latest_checkpoint(root)}
+if out["valid"] is None:
+    state, _ = ckpt.restore_checkpoint(path, State(torch.zeros(256)), rank=RANK)
+    out["restored"] = state.w.tolist()
+    out["manifest"] = sorted(json.load(open(os.path.join(path, "meta.json")))["state_manifest"])
+json.dump(out, open(os.path.join(WORKDIR, f"out{RANK}.json"), "w"))
+"""
+
+
+def test_resave_of_a_step_dir_overwrites_it(tmp_path):
+    """Two saves of ``step_4`` in a row on 4 gloo ranks, rank 2's second
+    write held back: rank 0's commit takes the first commit back and its
+    gate waits for the second save's files, so the dir validates, its
+    manifest names the four rank files only, and every rank restores the
+    second save bit for bit, as JAX's ``force=True`` overwrite does (the
+    old gate took rank 2's first file, committing a manifest with its
+    ``.tmp``)."""
+    run_ranks(RESAVE_WORKER, 4, tmp_path, timeout=120)
+    for r in range(4):
+        out = json.load(open(tmp_path / f"out{r}.json"))
+        assert out["valid"] is None, out["valid"]
+        assert out["latest"] == str(tmp_path / "ckpt" / "step_4")
+        assert out["manifest"] == [f"state/rank_{i}.pt" for i in range(4)]
+        assert out["restored"] == [2.0 + r] * 256

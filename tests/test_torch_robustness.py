@@ -66,7 +66,7 @@ def _leaves(state):
         if isinstance(value, tuple):
             out.update({f"{name}/{k}": v for k, v in _leaves(value).items()})
         else:
-            out[name] = value.numpy()
+            out[name] = value.numpy()  # lint: host-sync-ok: a CPU tensor read in an assertion loop
     return out
 
 

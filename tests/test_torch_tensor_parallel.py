@@ -178,7 +178,8 @@ def test_meshes_raise_by_item():
     """tp, pp and their compositions with each other and with sp pass the
     mesh check (item 9.4 ported them; the groups, rank for rank against
     JAX's mesh: tests/test_torch_compositions.py); a tp model on the ring
-    (tp x sp) holds its shard's heads; serving under tp still names 9.5."""
+    (tp x sp) holds its shard's heads; serving under tp raises JAX's
+    single-replica ValueError."""
     assert check_mesh({"dp": 2, "tp": 2})["tp"] == 2
     assert check_mesh({"dp": 2, "pp": 2})["pp"] == 2
     for shape in ({"sp": 2, "tp": 2}, {"pp": 2, "tp": 2}, {"pp": 2, "sp": 2}):
@@ -188,7 +189,7 @@ def test_meshes_raise_by_item():
                       tensor_group=TensorGroup(None, 2, 0), vocab_pad_to=PAD_TO)
     assert (ring.n_heads, ring.n_kv_heads) == (2, 2) and ring.sequence_group is not None
     model = _local_model("llama", 2, 0)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
+    with pytest.raises(ValueError, match="the serving decode path is single-replica"):
         model.prefill(torch.zeros((1, 4), dtype=torch.long))
 
 
